@@ -1,9 +1,10 @@
 """Build the hand-written CUDA tile kernels at first use.
 
-``nvcc`` compiles ``ops/csrc/*.cu`` into a shared library with a plain C
-interface under ``distributed_sddmm_tpu_torch/_build/``, named by a hash
-of the sources and flags, and ``ctypes`` loads it. Nothing is built at
-import time; a missing ``nvcc`` or a failed build raises.
+``nvcc`` compiles each ``ops/csrc/*.cu`` to an object, one process per
+source, all started together, and links them into one shared library with
+a plain C interface under ``distributed_sddmm_tpu_torch/_build/``, named
+by a hash of the sources and flags; ``ctypes`` loads it. Nothing is built
+at import time; a missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -14,23 +15,27 @@ import os
 import pathlib
 import shutil
 import subprocess
+import tempfile
 import time
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "ops" / "csrc"
 BUILD_DIR = _PKG / "_build"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+#: Flags of each source's compile; the link adds ``-shared``.
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: argtypes of every C entry point in ``tile_kernels.cu``.
+#: argtypes of every C entry point in ``ops/csrc/``.
 SIGNATURES = {
     "sddmm_tile": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "spmm_tile": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fused_tile": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "attn_stats_tile": [_P, _P, _P, _P, _P, _I, _P],
+    "attn_norm_tile": [_P, _P, _P, _P, _P, _P, _I, _P],
 }
 
 
@@ -61,6 +66,19 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"tile_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once; raise on the first that fails. Returns
+    their output, concatenated."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {p.returncode}): "
+                               f"{' '.join(cmd)}\n{log}")
+    return "".join(logs)
+
+
 def build() -> dict:
     """Compile the kernels unless a library for these sources exists.
     Returns ``{"path", "seconds", "cached", "log"}``; ``log`` is nvcc's
@@ -69,18 +87,17 @@ def build() -> dict:
     if out.is_file():
         return {"path": str(out), "seconds": 0.0, "cached": True, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return {"path": str(out), "seconds": seconds, "cached": False,
-            "log": proc.stdout + proc.stderr}
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [pathlib.Path(tmpdir) / f"{src.stem}.o" for src in _sources()]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                        for src, obj in zip(_sources(), objs)])
+        tmp = pathlib.Path(tmpdir) / out.name
+        log += _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, out)
+    return {"path": str(out), "seconds": time.perf_counter() - t0,
+            "cached": False, "log": log}
 
 
 _LIB = None

@@ -134,6 +134,23 @@ class DistributedSparse(abc.ABC):
         mid = self.sddmm_b(A, B, s_vals)
         return self.spmm_b(A, B, mid), mid
 
+    def fused_attention(self, A, B, s_vals, mode: MatMode = MatMode.A):
+        """Block-sparse attention: SDDMM, row-wise masked softmax, SpMM;
+        returns ``(new_dense, attention_weights)``.
+
+        Not supported in the base: a row's denominator must see every
+        logit of the row before any SpMM contribution flows, which the
+        1.5D dense-shift layout satisfies between its two ring passes;
+        the sparse-shift and Cannon layouts move values and structure
+        with the ring, so the denominator cannot ride the traveling
+        accumulator."""
+        raise NotImplementedError(
+            f"fused attention is not implemented for "
+            f"{self.algorithm_name or type(self).__name__}: the softmax "
+            "row denominator cannot ride this strategy's traveling "
+            "accumulator (use the 1.5D dense-shift strategies)"
+        )
+
     def initial_shift(self, A, B, mode: KernelMode):
         """Pre-skew dense operands where the strategy needs it (identity)."""
         return A, B

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from distributed_sddmm_tpu_torch.ops.kernels import ATTN_NEG
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 
 # Nonzeros per einsum chunk in ``sddmm``.
@@ -47,6 +48,37 @@ def fused_spmm_a(S: HostCOO, A: np.ndarray, B: np.ndarray) -> np.ndarray:
 def fused_spmm_b(S: HostCOO, A: np.ndarray, B: np.ndarray) -> np.ndarray:
     """SDDMM then SpMM-B: ``(S_vals * (A B^T)|_S)^T @ A``."""
     return spmm_b(S.with_values(sddmm(S, A, B)), A)
+
+
+def masked_softmax(S: HostCOO, logits: np.ndarray) -> np.ndarray:
+    """Row-wise masked softmax over sparse logit values, in float64.
+
+    Entries with ``S.vals == 0`` are masked out (the ``gate != 0``
+    indicator of the device passes); a row with no unmasked entry gets
+    exactly-zero weights, never NaN. The max subtraction is the device
+    passes' stable form."""
+    z = np.asarray(logits, dtype=np.float64)
+    gate = S.vals != 0
+    m = np.full(S.M, ATTN_NEG)
+    np.maximum.at(m, S.rows[gate], z[gate])
+    e = np.zeros_like(z)
+    e[gate] = np.exp(z[gate] - m[S.rows[gate]])
+    d = np.zeros(S.M)
+    np.add.at(d, S.rows, e)
+    out = np.zeros_like(z)
+    ok = gate & (d[S.rows] > 0)
+    out[ok] = e[ok] / d[S.rows[ok]]
+    return out
+
+
+def fused_attention_a(S: HostCOO, A: np.ndarray, B: np.ndarray
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """Block-sparse attention in float64: SDDMM logits, row-wise masked
+    softmax, SpMM. Returns ``(out [M, R], probs [nnz])``, probs in S's
+    nonzero order. B mode is this on ``S.transpose()`` with A and B
+    swapped."""
+    probs = masked_softmax(S, sddmm(S, A, B))
+    return spmm_a(S.with_values(probs), B), probs
 
 
 def dummy_dense(n_rows: int, R: int, dtype=np.float64) -> np.ndarray:

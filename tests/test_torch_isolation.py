@@ -78,9 +78,9 @@ def test_ast_scan_finds_no_forbidden_import():
     assert {k: v for k, v in offenders.items() if v} == {}
     # And every import the port makes is one the card's machine has.
     allowed = {"torch", "numpy", "scipy", "distributed_sddmm_tpu_torch",
-               "__future__", "abc", "ctypes", "dataclasses", "enum", "hashlib",
-               "json", "os", "pathlib", "shutil", "subprocess", "sys", "time",
-               "typing"}
+               "__future__", "abc", "argparse", "ctypes", "dataclasses", "enum",
+               "functools", "hashlib", "json", "os", "pathlib", "shutil",
+               "subprocess", "sys", "tempfile", "time", "typing"}
     used = set().union(*(_imported_roots(f) for f in files))
     assert used <= allowed, used - allowed
 

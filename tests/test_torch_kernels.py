@@ -205,7 +205,8 @@ def test_wrappers_run_plain_on_cpu_without_counting():
     torch.testing.assert_close(k.spmm_tile(t, sv, bt), spmm_tile_plain(t, sv, bt),
                                rtol=0, atol=0)
     assert cuda_kernels.launch_counts() == {
-        "sddmm_tile": 0, "spmm_tile": 0, "fused_tile": 0}
+        "sddmm_tile": 0, "spmm_tile": 0, "fused_tile": 0, "attn_stats_tile": 0,
+        "attn_norm_tile": 0}
 
 
 def test_non_cpu_tensor_raises_instead_of_falling_back():
@@ -235,7 +236,9 @@ def test_build_key_tracks_sources_and_flags():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("tile_kernels-") and path.suffix == ".so"
-    assert [s.name for s in _build._sources()] == ["tile_kernels.cu"]
+    assert [s.name for s in _build._sources()] == ["attn_kernels.cu",
+                                                   "tile_kernels.cu"]
+    assert set(_build.SIGNATURES) == set(cuda_kernels.LAUNCHES)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
