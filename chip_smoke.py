@@ -52,10 +52,27 @@ last line is printed):
    in phase 6); 64 sampled rows on the normal data against float64 on the
    host; peak device memory; then the attention kernels against their
    plain versions at this tile (kernels_full).
-8. cli -- ``bench.cli.main(["er", "16", "32", "15d_fusion2", "128", "1",
-   "--app", "attention", ...])`` on the card; the record it appends.
-9. kernels line -- ``{"kernels": [...]}``.
-10. last line -- ``{"ok": true, "device": {...}}``.
+8. banked   -- the banked codegen kernels (``BankedCudaKernel``, one launch
+   per nnz/row band, heavy rows split into segments). Graph500 R-mat
+   (initiator 0.57/0.19/0.19/0.05, edge_factor 32, R=128) at log_m=16: the
+   verify protocol with the selected variant, fusion 2 and 1, f32 and bf16
+   (same tolerances as phase 4), launches as the band structure predicts
+   and no generic launch; banked == generic bit for bit on operands in
+   {-1, 0, 1}; each new kernel against its plain version (phase 3's
+   tolerances, pads exactly 0, two launches equal). At log_m=20: ms per
+   fused pair, generic and banked in turns, sampled rows (the heaviest
+   among them) against float64, the kernels against their plain versions
+   again, and a sweep of the segment length. Bigbird ``w=8,g=2,r=2`` at
+   2**16 tokens: phase 6's checks through the banked kernel, the new
+   attention-stats kernels against their plain versions (a fully masked
+   heavy row gives (ATTN_NEG, 0)), ms per call generic and banked in
+   turns, the banked call's breakdown. The uniform R-mat of phase 5: one
+   band after the degeneration guard, ms per pair generic and banked.
+9. cli -- ``bench.cli.main(["er", "16", "32", "15d_fusion2", "128", "1",
+   "--app", "attention", ...])`` on the card, then one ``--kernel-variant``
+   run; the records they append.
+10. kernels line -- ``{"kernels": [...]}``.
+11. last line -- ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -69,12 +86,17 @@ import numpy as np
 import torch
 
 from distributed_sddmm_tpu_torch import masks
+from distributed_sddmm_tpu_torch.autotune.fingerprint import Problem
 from distributed_sddmm_tpu_torch.bench import cli, harness
 from distributed_sddmm_tpu_torch.bench.harness import make_algorithm
+from distributed_sddmm_tpu_torch.codegen import (
+    BankedCudaKernel, build_banded, select_variant,
+)
 from distributed_sddmm_tpu_torch.common import MatMode
 from distributed_sddmm_tpu_torch.ops import _build, cuda_kernels
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
 from distributed_sddmm_tpu_torch.ops.kernels import ATTN_NEG
+from distributed_sddmm_tpu_torch.parallel.sharding import BankedTileView
 from distributed_sddmm_tpu_torch.utils import oracle, verify
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 
@@ -94,15 +116,44 @@ F32_FLOP_PER_S = 67e12
 
 SOURCE = "distributed_sddmm_tpu_torch/ops/csrc/tile_kernels.cu"
 ATTN_SOURCE = "distributed_sddmm_tpu_torch/ops/csrc/attn_kernels.cu"
+BANKED_SOURCE = "distributed_sddmm_tpu_torch/ops/csrc/banked_kernels.cu"
+BANKED_PY = "distributed_sddmm_tpu/codegen/kernel.py"
 REPLACES = {
     "sddmm_tile": "distributed_sddmm_tpu/ops/pallas_kernels.py:327",
     "spmm_tile": "distributed_sddmm_tpu/ops/pallas_kernels.py:341",
     "fused_tile": "distributed_sddmm_tpu/ops/pallas_kernels.py:305",
     "attn_stats_tile": "distributed_sddmm_tpu/ops/pallas_kernels.py:419",
     "attn_norm_tile": "distributed_sddmm_tpu/ops/pallas_kernels.py:465",
+    # The banked launches of BankedPallasKernel: sddmm_tile_t l.117,
+    # spmm_tile_t l.131 (its band partials add at l.135), fused_tile_t
+    # l.145, attn_stats_tile_t l.171 (merged at l.178).
+    "sddmm_rows": f"{BANKED_PY}:117", "sddmm_split": f"{BANKED_PY}:117",
+    "spmm_rows": f"{BANKED_PY}:131", "spmm_split": f"{BANKED_PY}:131",
+    "split_reduce": f"{BANKED_PY}:135",
+    "fused_rows": f"{BANKED_PY}:145", "fused_split": f"{BANKED_PY}:145",
+    "attn_stats_rows": f"{BANKED_PY}:171", "attn_stats_split": f"{BANKED_PY}:171",
+    "attn_stats_merge": f"{BANKED_PY}:178",
 }
+SOURCES = {op: SOURCE for op in ("sddmm_tile", "spmm_tile", "fused_tile", "sddmm_rows",
+                                 "spmm_rows", "fused_rows")}
+SOURCES.update({op: ATTN_SOURCE for op in ("attn_stats_tile", "attn_norm_tile",
+                                          "attn_stats_rows")})
+SOURCES.update({op: BANKED_SOURCE for op in ("sddmm_split", "spmm_split", "fused_split",
+                                            "split_reduce", "attn_stats_split",
+                                            "attn_stats_merge")})
 OPS = ("sddmm_tile", "spmm_tile", "fused_tile")
 ATTN_OPS = ("attn_stats_tile", "attn_norm_tile")
+#: Kernels that run in float32 whatever the precision mode.
+F32_ONLY = ATTN_OPS + ("attn_stats_rows", "attn_stats_split", "attn_stats_merge",
+                       "split_reduce")
+
+# Banked launches (phase banked). The Graph500 initiator fills all three
+# bands; the uniform one collapses to one (PERF.md section 4).
+GRAPH500 = {"a": 0.57, "b": 0.19, "c": 0.19, "d": 0.05}
+BANKED = {"log_ms": (16, 20), "edge_factor": 32, "R": 128,
+          "bigbird": "bigbird:w=8,g=2,r=2", "log_n": 16}
+BANKED_PAIRS = 10
+SPLITS = (32, 64, 128, 256, 512)
 
 # Attention: the headline size, with both masks of the README, and the
 # full cell (the README's headline mask at 2**20 tokens). The attention
@@ -115,8 +166,8 @@ ATTN_STATS_RTOL, ATTN_P_ATOL = 1e-5, 1e-6
 ATTN_WARMUP, ATTN_TRIALS, ATTN_CALL_REPS = 2, 10, 3
 DEAD_ROW = 3
 #: Kernel launches of one fused attention call at p = 1.
-ATTN_CALL = {"sddmm_tile": 1, "spmm_tile": 1, "fused_tile": 0,
-             "attn_stats_tile": 1, "attn_norm_tile": 1}
+ATTN_CALL = {**dict.fromkeys(cuda_kernels.LAUNCHES, 0), "sddmm_tile": 1,
+             "spmm_tile": 1, "attn_stats_tile": 1, "attn_norm_tile": 1}
 PLAIN = {
     "sddmm_tile": cuda_kernels.sddmm_tile_plain,
     "spmm_tile": cuda_kernels.spmm_tile_plain,
@@ -209,8 +260,9 @@ def attn_bound(op: str, nnz: int, n_rows: int) -> dict:
 
 
 def launch_key(op: str, prec: str) -> tuple:
-    """Launch-count key: the attention kernels are float32 in both modes."""
-    return (op, "f32" if op in ATTN_OPS else prec)
+    """Launch-count key: the attention kernels and the split's reduce are
+    float32 in both modes."""
+    return (op, "f32" if op in F32_ONLY else prec)
 
 
 def add_launches(launches: dict, counts: dict, prec: str) -> None:
@@ -312,29 +364,15 @@ def compare_kernels(alg, dev, label: str, entries: dict, reps_plain: int) -> Non
             again = as_tuple(call(k, op, tile, sv, at, bt))
             want = as_tuple(call_plain(op, tile, sv, at, bt))
             torch.cuda.synchronize()
-            errs = [rel_err(g, w) for g, w in zip(got, want)]
-            abs_err = max(e[0] for e in errs)
-            rel = max(e[1] for e in errs)
-            require(rel <= KERNEL_TOL[prec],
-                    f"{op}/{prec} at {label}: error {rel:.3e} > {KERNEL_TOL[prec]}")
-            require(all(torch.equal(g, a) for g, a in zip(got, again)),
-                    f"{op}/{prec} at {label}: two launches differ")
             if op != "spmm_tile":
                 require(bool(torch.all(got[-1][pads] == 0)),
                         f"{op}/{prec} at {label}: nonzero mid at a pad slot")
-            ms = time_ms(lambda: call(k, op, tile, sv, at, bt), KERNEL_REPS)
-            plain_ms = time_ms(lambda: call_plain(op, tile, sv, at, bt), reps_plain)
-            b = bound(op, nnz, alg.M_pad, alg.N_pad, alg.R, at.element_size())
-            row = {"max_abs_err": abs_err, "max_rel_err": rel,
-                   "tol": KERNEL_TOL[prec], "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-                   "bound_gather_ms": b["gather_ms"], "library_ms": lib[op],
-                   "nnz": nnz}
-            if op in lib_err:
-                row["library_error"] = lib_err[op]
-            entries.setdefault((op, prec), {})[label] = row
-            emit({"phase": f"kernels_{label}", "kernel": op, "precision": prec,
-                  **row})
+            record_kernel(entries, op, prec, label,
+                          lambda: call(k, op, tile, sv, at, bt),
+                          lambda: call_plain(op, tile, sv, at, bt), got, again, want,
+                          KERNEL_TOL[prec],
+                          bound(op, nnz, alg.M_pad, alg.N_pad, alg.R, at.element_size()),
+                          lib[op], lib_err.get(op), reps_plain, nnz)
 
 
 def run_counted(fn):
@@ -371,11 +409,14 @@ def phase_verify(S, dev, launches: dict) -> None:
             add_launches(launches, counts, prec)
 
 
-def sampled_reference(S: HostCOO, alg, out, mid, dev, rng) -> float:
-    """Relative error of 64 sampled output rows and their ``mid`` values
-    against float64 on the host (A = the dummy fill, B = 0.01)."""
+def sampled_reference(S: HostCOO, alg, out, mid, dev, rng, heaviest: int = 0) -> float:
+    """Relative error of 64 sampled output rows (and the ``heaviest`` rows
+    by degree) and their ``mid`` values against float64 on the host (A =
+    the dummy fill, B = 0.01)."""
     csr = S.to_scipy()
-    rows = rng.choice(np.flatnonzero(np.diff(csr.indptr)), 64, replace=False)
+    deg = np.diff(csr.indptr)
+    rows = rng.choice(np.flatnonzero(deg), 64, replace=False)
+    rows = np.union1d(rows, np.argsort(deg)[len(deg) - heaviest:])
     R = alg.R
     out_h = out[torch.as_tensor(rows, device=dev)].double().cpu().numpy()
     mid_h = alg.gather_s_values(mid)
@@ -399,8 +440,11 @@ def phase_full(dev, launches: dict, entries: dict) -> dict:
     gen_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    # Built with its selected variant's bands, which the generic kernel
+    # ignores: phase banked times the banked kernel on these tiles.
+    variant = select_variant(Problem.from_coo(S, FULL["R"]))
     alg = make_algorithm("15d_fusion2", S, FULL["R"],
-                         kernel=CudaTileKernel("f32", device=dev), device=dev)
+                         kernel=BankedCudaKernel(variant, "f32", device=dev), device=dev)
     A = alg.dummy_initialize(MatMode.A)
     B = alg.like_b_matrix(0.01)
     s_vals = alg.like_s_values(1.0)
@@ -443,7 +487,7 @@ def phase_full(dev, launches: dict, entries: dict) -> dict:
     compare_kernels(alg, dev, "full", entries, PLAIN_REPS)
     result["peak_mem_with_comparisons_bytes"] = torch.cuda.max_memory_allocated()
     emit({"phase": "full", **result})
-    return result
+    return S, alg
 
 
 # ---------------------------------------------------------------- attention
@@ -690,6 +734,635 @@ def phase_attention_full(dev, launches: dict, entries: dict,
     return result
 
 
+# ---------------------------------------------------------------- banked
+
+
+def band_launches(bands, *ops) -> dict:
+    """Launches of one banked call of each tile op in ``ops`` over
+    ``bands``: a row-list band launches ``<op>_rows``; the heavy band
+    ``<op>_split`` and, where an output row sums its segments,
+    ``split_reduce`` (``attn_stats``: split and merge); ``attn_norm`` is one
+    generic launch over the tile. Every counter is present."""
+    counts = dict.fromkeys(cuda_kernels.LAUNCHES, 0)
+    for op in ops:
+        if op == "attn_norm":
+            counts["attn_norm_tile"] += 1
+            continue
+        for b in bands:
+            if not b.heavy:
+                counts[f"{op}_rows"] += 1
+            elif op == "attn_stats":
+                counts["attn_stats_split"] += 1
+                counts["attn_stats_merge"] += 1
+            else:
+                counts[f"{op}_split"] += 1
+                counts["split_reduce"] += op != "sddmm"
+    return counts
+
+
+def added(*counts) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def scaled(counts: dict, n: int) -> dict:
+    return {k: v * n for k, v in counts.items()}
+
+
+def band_info(tiles) -> list:
+    """Rows, nonzeros, segments and heaviest row of each band of tile 0."""
+    deg = np.diff(tiles.row_ptr[0, 0].cpu().numpy())
+    return [{"npr_max": b.spec.npr_max, "heavy": b.heavy, "rows": b.n_rows,
+             "nnz": b.n_slots, "segments": b.n_seg,
+             "max_row": int(deg[b.rows.cpu().numpy()].max(initial=0))}
+            for b in tiles.tile(0, 0).bands]
+
+
+def graph500(log_m: int) -> HostCOO:
+    """R-mat with the Graph500 initiator: skewed rows and columns."""
+    return HostCOO.rmat(log_m, BANKED["edge_factor"], np.random.default_rng(0),
+                        **GRAPH500)
+
+
+def banked_verify(S, variant, dev, launches: dict) -> dict:
+    """The verify protocol through ``BankedCudaKernel``, fusion 2 and 1,
+    f32 and bf16; launch counts as the band structure predicts, and no
+    generic launch."""
+    R = BANKED["R"]
+    want = verify.oracle_fingerprints(S, R)
+    algs = {}
+    for fusion in (2, 1):
+        alg = make_algorithm(f"15d_fusion{fusion}", S, R,
+                             kernel=BankedCudaKernel(variant, "f32", device=dev),
+                             device=dev)
+        s_b, st_b = alg.S_tiles.tile(0, 0).bands, alg.ST_tiles.tile(0, 0).bands
+        pair = ("fused",) if fusion == 2 else ("sddmm", "spmm")
+        expect = added(band_launches(s_b, "sddmm", "spmm", *pair),
+                       band_launches(st_b, "spmm"))
+        for prec in PRECISIONS:
+            alg.kernel = BankedCudaKernel(variant, prec, device=dev)
+            got, counts = run_counted(lambda: verify.fingerprint_algorithm(alg, S))
+            rel = {op: abs(got[op] / want[op] - 1) for op in want}
+            emit({"phase": "banked_verify", "algorithm": f"15d_fusion{fusion}",
+                  "precision": prec, "variant": variant.variant_id,
+                  "rtol": VERIFY_RTOL[prec], "rel_err": rel, "launches": counts,
+                  "bands_S": band_info(alg.S_tiles), "bands_ST": band_info(alg.ST_tiles)})
+            require(all(r <= VERIFY_RTOL[prec] for r in rel.values()),
+                    f"banked verify 15d_fusion{fusion}/{prec}: {rel}")
+            require(counts == expect,
+                    f"banked verify 15d_fusion{fusion}/{prec}: launches {counts} != {expect}")
+            add_launches(launches, counts, prec)
+        algs[fusion] = alg
+    return algs[2]
+
+
+def banked_equals_generic(alg, variant, dev) -> None:
+    """Banked and generic agree bit for bit on operands in {-1, 0, 1}, where
+    every sum is an integer below 2**24 (rows of up to 10**4 nonzeros, R =
+    128), so the split's other summation order cannot show."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def ints(*shape):
+        return torch.randint(-1, 2, shape, generator=gen, device=dev).float()
+
+    A, B = ints(alg.M_pad, alg.R), ints(alg.N_pad, alg.R)
+    sv = (alg.S_tiles.mask * ints(*alg.S_tiles.shape)).contiguous()
+    st = (alg.ST_tiles.mask * ints(*alg.ST_tiles.shape)).contiguous()
+
+    def ops():
+        return [alg.sddmm_a(A, B, sv), alg.sddmm_b(A, B, st), alg.spmm_a(A, B, sv),
+                alg.spmm_b(A, B, st), *alg.fused_spmm(A, B, sv, MatMode.A),
+                *alg.fused_spmm(A, B, st, MatMode.B)]
+
+    alg.kernel = CudaTileKernel("f32", device=dev)
+    want = ops()
+    alg.kernel = BankedCudaKernel(variant, "f32", device=dev)
+    got = ops()
+    names = ["sddmmA", "sddmmB", "spmmA", "spmmB", "fusedA", "fusedA_mid", "fusedB",
+             "fusedB_mid"]
+    equal = {n: torch.equal(g, w) for n, g, w in zip(names, got, want)}
+    emit({"phase": "banked_integer", "variant": variant.variant_id, "equal": equal,
+          "max_abs_out": float(got[4].abs().max())})
+    require(all(equal.values()), f"banked != generic on integer data: {equal}")
+
+
+def band_csr(tile, sv, bands, n_cols: int):
+    """The tile restricted to the rows of ``bands`` as a PyTorch CSR matrix
+    of as many rows, columns sorted (cuSPARSE's input); built outside any
+    timed region."""
+    rows = torch.cat([b.rows for b in bands]).long()
+    slots, owner = cuda_kernels._ranges(tile.row_ptr[rows], tile.row_ptr[rows + 1])
+    order = torch.argsort(owner * n_cols + tile.cols[slots].long())
+    counts = torch.bincount(owner, minlength=rows.numel())
+    crow = torch.zeros(rows.numel() + 1, dtype=torch.int64, device=sv.device)
+    crow[1:] = torch.cumsum(counts, 0)
+    return torch.sparse_csr_tensor(crow, tile.cols[slots][order].long(),
+                                   sv[slots][order], size=(rows.numel(), n_cols),
+                                   check_invariants=False)
+
+
+def band_coo(tile, z, bands, n_cols: int):
+    """The band rows' logits as a coalesced COO matrix (for
+    ``torch.sparse.softmax``)."""
+    rows = torch.cat([b.rows for b in bands]).long()
+    slots, owner = cuda_kernels._ranges(tile.row_ptr[rows], tile.row_ptr[rows + 1])
+    idx = torch.stack([owner, tile.cols[slots].long()])
+    return torch.sparse_coo_tensor(idx, z[slots], (rows.numel(), n_cols),
+                                   check_invariants=False).coalesce()
+
+
+def lib_or_reason(fn):
+    """``(ms, None)``, or ``(None, reason)`` where PyTorch refuses the call."""
+    try:
+        return fn(), None
+    except RuntimeError as e:
+        return None, str(e).strip().splitlines()[0]
+
+
+def banked_bound(name: str, nnz: int, n_rows: int, n_seg: int, N: int, R: int,
+                 esize: int) -> dict:
+    """Least time of one banked kernel over its bands: each input read
+    once, each output written once, over HBM bandwidth, or its flops over
+    the f32 rate. Row-list kernels move what ``bound`` counts for their
+    rows; a split pass 1 also writes its workspace (n_seg * R f32) and
+    reads its segment table; pass 2 reads the workspace and writes the
+    heavy rows; the attention stats read 8 B a slot."""
+    if name.endswith("_rows") and not name.startswith("attn"):
+        return bound(name.replace("_rows", "_tile"), nnz, n_rows, N, R, esize)
+    if name == "attn_stats_rows":
+        b = attn_bound("attn_stats_tile", nnz, n_rows)
+        return {**b, "gather_ms": b["bound_ms"]}
+    op = name.split("_")[0]
+    index = nnz * 8 + n_seg * 12
+    if name.endswith("_split") and op in ("sddmm", "spmm", "fused"):
+        moved = (index + N * R * esize
+                 + (n_rows * R * esize + nnz * 4 if op != "spmm" else 0)
+                 + (n_seg * R * 4 if op != "sddmm" else 0))
+        flops = {"sddmm": 2 * nnz * R + nnz, "spmm": 2 * nnz * R,
+                 "fused": 4 * nnz * R + nnz}[op]
+    elif name == "split_reduce":
+        moved, flops = n_seg * R * 4 + n_rows * (8 + R * 4), n_seg * R
+    elif name == "attn_stats_split":
+        moved, flops = 8 * nnz + 16 * n_seg, 4 * nnz
+    else:  # attn_stats_merge
+        moved, flops = 8 * n_seg + 16 * n_rows, 4 * n_seg
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    gathered = 0 if name.startswith("attn") or name == "split_reduce" else nnz * R * esize
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "gather_ms": max((moved + gathered) / HBM_BYTES_PER_S * 1e3, t_ops)}
+
+
+def record_kernel(entries, name, prec, label, kern, plain, got, again, want, tol,
+                  b, lib, lib_err, reps_plain, nnz, **extra) -> None:
+    """Hold one kernel's outputs against its plain version's (max abs
+    difference over the max abs plain value within ``tol``), two launches
+    bit-equal; time both; file the row under ``entries``."""
+    errs = [rel_err(g, w) for g, w in zip(got, want)]
+    abs_err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+    require(rel <= tol, f"{name}/{prec} at {label}: error {rel:.3e} > {tol}")
+    require(all(torch.equal(g, a) for g, a in zip(got, again)),
+            f"{name}/{prec} at {label}: two launches differ")
+    row = {"max_abs_err": abs_err, "max_rel_err": rel, "tol": tol,
+           "ms": time_ms(kern, KERNEL_REPS), "plain_ms": time_ms(plain, reps_plain),
+           "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+           "bound_gather_ms": b["gather_ms"], "library_ms": lib, "nnz": nnz, **extra}
+    if lib_err:
+        row["library_error"] = lib_err
+    entries.setdefault((name, prec), {})[label] = row
+    emit({"phase": f"kernels_{label}", "kernel": name, "precision": prec, **row})
+
+
+def compare_banked_kernels(alg, variant, dev, label: str, entries: dict,
+                           reps_plain: int) -> None:
+    """Each new tile kernel against its plain version on standard-normal
+    operands at ``alg``'s banded S tile, only on what it writes: the
+    row-list kernels (all row-list bands, as one call launches them), the
+    split's pass 1 (mid at the heavy slots, the workspace) and pass 2 (the
+    heavy output rows, from one workspace). Pads must come out 0. Launches
+    here are not the main path's."""
+    tiles = alg.S_tiles
+    tile = tiles.tile(0, 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    A = torch.randn(alg.M_pad, alg.R, generator=gen, device=dev)
+    B = torch.randn(alg.N_pad, alg.R, generator=gen, device=dev)
+    sv = (tiles.mask * torch.randn(tiles.shape, generator=gen, device=dev))[0, 0]
+    pads = tiles.mask[0, 0] == 0
+    lists = [b for b in tile.bands if not b.heavy]
+    heavy = [b for b in tile.bands if b.heavy]
+    require(bool(lists) and len(heavy) == 1, f"banked {label}: bands {band_info(tiles)}")
+    hb = heavy[0]
+    list_rows = torch.cat([b.rows for b in lists]).long()
+    list_slots = torch.cat([cuda_kernels._row_ranges(tile, b)[0] for b in lists])
+    heavy_slots = cuda_kernels._row_ranges(tile, hb)[0]
+    nnz_list, nnz_heavy = sum(b.n_slots for b in lists), hb.n_slots
+    R = alg.R
+    for prec in PRECISIONS:
+        k = BankedCudaKernel(variant, prec, device=dev)
+        at, bt = k.prep(A), k.prep(B)
+        esize = at.element_size()
+        # Pads: the whole banked op zeroes them in its first launch.
+        for op in ("sddmm_tile", "fused_tile"):
+            mid = as_tuple(call(k, op, tile, sv, at, bt))[-1]
+            require(bool(torch.all(mid[pads] == 0)),
+                    f"banked {op}/{prec} at {label}: nonzero mid at a pad slot")
+        lib_sv = sv if prec == "f32" else sv.bfloat16()
+        csr_l = band_csr(tile, lib_sv, lists, alg.N_pad)
+        csr_h = band_csr(tile, lib_sv, heavy, alg.N_pad)
+        Bt = k.prep(B.t().contiguous())
+        at_l, at_h = at[list_rows], at[hb.rows.long()]
+        libs = {
+            "sddmm_rows": lambda: time_ms(lambda: torch.sparse.sampled_addmm(
+                csr_l, at_l, Bt, beta=0.0), KERNEL_REPS),
+            "sddmm_split": lambda: time_ms(lambda: torch.sparse.sampled_addmm(
+                csr_h, at_h, Bt, beta=0.0), KERNEL_REPS),
+            "spmm_rows": lambda: time_ms(lambda: torch.sparse.mm(csr_l, bt), KERNEL_REPS),
+            "spmm_split": lambda: time_ms(lambda: torch.sparse.mm(csr_h, bt), KERNEL_REPS),
+        }
+
+        def rows_run(op, plain):
+            fn = getattr(cuda_kernels, f"{op}_rows" + ("_plain" if plain else ""))
+            out = torch.full((tile.n_rows, R), float("nan"), device=dev)
+            mid = torch.full((tile.cap,), float("nan"), device=dev)
+            for i, b in enumerate(lists):
+                if op == "spmm":
+                    fn(tile, b, sv, bt, out)
+                elif op == "sddmm":
+                    fn(tile, b, sv, at, bt, mid, i == 0)
+                else:
+                    fn(tile, b, sv, at, bt, out, mid, i == 0)
+            return {"sddmm": (mid[list_slots],), "spmm": (out[list_rows],),
+                    "fused": (out[list_rows], mid[list_slots])}[op]
+
+        def split_run(op, plain):
+            fn = getattr(cuda_kernels, f"{op}_split" + ("_plain" if plain else ""))
+            mid = torch.full((tile.cap,), float("nan"), device=dev)
+            if op == "spmm":
+                return (fn(tile, hb, sv, bt),)
+            if op == "sddmm":
+                fn(tile, hb, sv, at, bt, mid, False)
+                return (mid[heavy_slots],)
+            return (fn(tile, hb, sv, at, bt, mid, False), mid[heavy_slots])
+
+        out_t = torch.empty(tile.n_rows, R, device=dev)
+        mid_t = torch.empty(tile.cap, device=dev)
+        timed = {
+            "sddmm_rows": lambda: [cuda_kernels.sddmm_rows(tile, b, sv, at, bt, mid_t, i == 0)
+                                   for i, b in enumerate(lists)],
+            "spmm_rows": lambda: [cuda_kernels.spmm_rows(tile, b, sv, bt, out_t)
+                                  for b in lists],
+            "fused_rows": lambda: [cuda_kernels.fused_rows(tile, b, sv, at, bt, out_t, mid_t,
+                                                           i == 0)
+                                   for i, b in enumerate(lists)],
+            "sddmm_split": lambda: cuda_kernels.sddmm_split(tile, hb, sv, at, bt, mid_t, False),
+            "spmm_split": lambda: cuda_kernels.spmm_split(tile, hb, sv, bt),
+            "fused_split": lambda: cuda_kernels.fused_split(tile, hb, sv, at, bt, mid_t, False),
+        }
+        for op in ("sddmm", "spmm", "fused"):
+            for kind, run, nnz, n_rows in (("rows", rows_run, nnz_list, len(list_rows)),
+                                           ("split", split_run, nnz_heavy, hb.n_rows)):
+                name = f"{op}_{kind}"
+                got, again = run(op, False), run(op, False)
+                want = run(op, True)
+                torch.cuda.synchronize()
+                lib, lib_err = (lib_or_reason(libs[name]) if name in libs
+                                else (None, "no single PyTorch call: SDDMM and SpMM fused"))
+                record_kernel(entries, name, prec, label, timed[name],
+                              lambda: run(op, True), got, again, want, KERNEL_TOL[prec],
+                              banked_bound(name, nnz, n_rows, hb.n_seg, alg.N_pad, R, esize),
+                              lib, lib_err, reps_plain, nnz,
+                              bands=len(lists) if kind == "rows" else 1,
+                              segments=hb.n_seg if kind == "split" else 0)
+        del csr_l, csr_h, at_l, at_h
+    # Pass 2 on one workspace (float32 in both precision modes).
+    work = cuda_kernels.spmm_split_plain(tile, hb, sv, B)
+    hrows = hb.rows.long()
+
+    def reduce_run(plain):
+        out = torch.full((tile.n_rows, R), float("nan"), device=dev)
+        (cuda_kernels.split_reduce_plain if plain else cuda_kernels.split_reduce)(hb, work, out)
+        return (out[hrows],)
+
+    lengths = torch.diff(hb.seg_ptr.long())
+    lib, lib_err = lib_or_reason(lambda: time_ms(
+        lambda: torch.segment_reduce(work, "sum", lengths=lengths, axis=0), KERNEL_REPS))
+    record_kernel(entries, "split_reduce", "f32", label,
+                  lambda: cuda_kernels.split_reduce(hb, work, out_t),
+                  lambda: reduce_run(True), reduce_run(False), reduce_run(False),
+                  reduce_run(True), KERNEL_TOL["f32"],
+                  banked_bound("split_reduce", nnz_heavy, hb.n_rows, hb.n_seg, alg.N_pad,
+                               R, 4),
+                  lib, lib_err, reps_plain, nnz_heavy, segments=hb.n_seg,
+                  library_covers="torch.segment_reduce: the segment sums, unscattered")
+
+
+def compare_banked_attn_kernels(alg, dev, label: str, entries: dict) -> None:
+    """The banked attention stats kernels against their plain versions at
+    ``alg``'s banded S tile: standard-normal logits, 10% of the gates
+    zeroed, row DEAD_ROW and heavy row 0 fully masked. m and d within
+    1e-5 relative, the fully masked rows (ATTN_NEG, 0), two launches
+    equal. Launches here are not the main path's."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tile, gate, z = attention_inputs(alg, dev, gen)
+    lists = [b for b in tile.bands if not b.heavy]
+    hb = [b for b in tile.bands if b.heavy][0]
+    require(0 in hb.rows.tolist(), f"banked attention: row 0 not heavy ({band_info(alg.S_tiles)})")
+    lo, hi = (int(x) for x in tile.row_ptr[0:2])
+    gate[lo:hi] = 0
+    list_rows = torch.cat([b.rows for b in lists]).long()
+    hrows = hb.rows.long()
+    nnz_list = sum(b.n_slots for b in lists)
+
+    def rows_run(plain):
+        fn = cuda_kernels.attn_stats_rows_plain if plain else cuda_kernels.attn_stats_rows
+        m = torch.full((tile.n_rows,), float("nan"), device=dev)
+        d = torch.full_like(m, float("nan"))
+        for b in lists:
+            fn(tile, b, gate, z, m, d)
+        return m[list_rows], d[list_rows]
+
+    def split_run(plain):
+        fn = cuda_kernels.attn_stats_split_plain if plain else cuda_kernels.attn_stats_split
+        return fn(tile, hb, gate, z)
+
+    wm, wd = split_run(True)
+
+    def merge_run(plain):
+        fn = cuda_kernels.attn_stats_merge_plain if plain else cuda_kernels.attn_stats_merge
+        m = torch.full((tile.n_rows,), float("nan"), device=dev)
+        d = torch.full_like(m, float("nan"))
+        fn(hb, wm, wd, m, d)
+        return m[hrows], d[hrows]
+
+    m_t = torch.empty(tile.n_rows, device=dev)
+    d_t = torch.empty_like(m_t)
+    coo_l, coo_h = band_coo(tile, z, lists, alg.N_pad), band_coo(tile, z, [hb], alg.N_pad)
+    lib_l = time_ms(lambda: torch.sparse.softmax(coo_l, 1), KERNEL_REPS)
+    lib_h = time_ms(lambda: torch.sparse.softmax(coo_h, 1), KERNEL_REPS)
+    del coo_l, coo_h
+    covers = "torch.sparse.softmax of the same rows: stats and weights"
+    runs = {
+        "attn_stats_rows": (rows_run, lambda: [cuda_kernels.attn_stats_rows(tile, b, gate, z,
+                                                                            m_t, d_t)
+                                               for b in lists],
+                            nnz_list, len(list_rows), lib_l, None),
+        "attn_stats_split": (split_run, lambda: cuda_kernels.attn_stats_split(tile, hb, gate, z),
+                             hb.n_slots, hb.n_rows, lib_h, None),
+        "attn_stats_merge": (merge_run, lambda: cuda_kernels.attn_stats_merge(hb, wm, wd,
+                                                                              m_t, d_t),
+                             hb.n_slots, hb.n_rows, None,
+                             "no single PyTorch call merges online-softmax pairs"),
+    }
+    for name, (run, kern, nnz, n_rows, lib, lib_err) in runs.items():
+        got, again, want = run(False), run(False), run(True)
+        torch.cuda.synchronize()
+        m, d = got
+        wm_, wd_ = want
+        rel = max(float(((m - wm_).abs() / wm_.abs().clamp_min(1e-30)).max()),
+                  float(((d - wd_).abs() / wd_.abs().clamp_min(1e-30)).max()))
+        require(rel <= ATTN_STATS_RTOL, f"{name} at {label}: error {rel:.3e}")
+        extra = {"library_covers": covers} if lib is not None else {}
+        record_kernel(entries, name, "f32", label, kern, lambda: run(True), got, again,
+                      want, ATTN_STATS_RTOL,
+                      banked_bound(name, nnz, n_rows, hb.n_seg, alg.N_pad, alg.R, 4),
+                      lib, lib_err, KERNEL_REPS, nnz, segments=hb.n_seg,
+                      max_stats_rel_err=rel, **extra)
+    m, d = merge_run(False)
+    i0 = hb.rows.tolist().index(0)
+    require(bool(m[i0] == ATTN_NEG) and float(d[i0]) == 0.0,
+            f"banked attention at {label}: the fully masked heavy row has stats")
+
+
+def banked_breakdown(alg, A, B, reps: int, mode: MatMode) -> dict:
+    """Device ms of each launch kind of one banked fused attention call,
+    timed alone on the inputs the call gives it (CUDA events), and their
+    sum. Not counted as main path launches."""
+    use_st = mode == MatMode.B
+    tiles = alg.ST_tiles if use_st else alg.S_tiles
+    stat, mov = (B, A) if use_st else (A, B)
+    tile, k = tiles.tile(0, 0), alg.kernel
+    sv = tiles.like_values(1.0)[0, 0]
+    at, bt = k.prep(stat), k.prep(mov)
+    lists = [b for b in tile.bands if not b.heavy]
+    heavy = [b for b in tile.bands if b.heavy]
+    z = k.sddmm_tile(tile, sv, at, bt)
+    m, d = k.attn_stats_tile(tile, sv, z)
+    p = k.attn_norm_tile(tile, sv, z, m, d)
+    mid = torch.empty(tile.cap, device=sv.device)
+    out = torch.empty(tile.n_rows, bt.shape[1], device=sv.device)
+    mt, dt = torch.empty_like(m), torch.empty_like(d)
+    ck = cuda_kernels
+    parts = {
+        "prep_ms": lambda: (k.prep(stat), k.prep(mov)),
+        "sddmm_rows_ms": lambda: [ck.sddmm_rows(tile, b, sv, at, bt, mid, i == 0)
+                                  for i, b in enumerate(lists)],
+        "attn_stats_rows_ms": lambda: [ck.attn_stats_rows(tile, b, sv, z, mt, dt)
+                                       for b in lists],
+        "attn_norm_tile_ms": lambda: k.attn_norm_tile(tile, sv, z, m, d),
+        "spmm_rows_ms": lambda: [ck.spmm_rows(tile, b, p, bt, out) for b in lists],
+    }
+    for hb in heavy:
+        work = ck.spmm_split(tile, hb, p, bt)
+        wm, wd = ck.attn_stats_split(tile, hb, sv, z)
+        parts.update({
+            "sddmm_split_ms": lambda: ck.sddmm_split(tile, hb, sv, at, bt, mid, False),
+            "attn_stats_split_ms": lambda: ck.attn_stats_split(tile, hb, sv, z),
+            "attn_stats_merge_ms": lambda: ck.attn_stats_merge(hb, wm, wd, mt, dt),
+            "spmm_split_ms": lambda: ck.spmm_split(tile, hb, p, bt),
+            "split_reduce_ms": lambda: ck.split_reduce(hb, work, out),
+        })
+    res = {name: time_ms(fn, reps) for name, fn in parts.items()}
+    res["sum_ms"] = sum(res.values())
+    return res
+
+
+def banked_attention(dev, launches: dict, entries: dict,
+                     log_n: int = BANKED["log_n"], R: int = BANKED["R"],
+                     spec: str = BANKED["bigbird"]) -> tuple:
+    """Bigbird at the attention headline through ``BankedCudaKernel``: A
+    and B modes, f32 and bf16, the oracle tolerances of phase 6, fused ==
+    unfused, launches as the bands predict, ms per call against the
+    generic kernel in turns (generic, banked, banked, generic) and the
+    banked call's breakdown."""
+    n = 1 << log_n
+    X = (np.random.default_rng(0).standard_normal((n, R)) / np.sqrt(R)).astype(np.float32)
+    S = masks.from_spec(spec, n)
+    want = {MatMode.A: oracle.fused_attention_a(S, X, X),
+            MatMode.B: oracle.fused_attention_a(S.transpose(), X, X)}
+    variant = select_variant(Problem.from_coo(S, R))
+    alg = make_algorithm("15d_fusion2", S, R,
+                         kernel=BankedCudaKernel(variant, "f32", device=dev),
+                         device=dev, attention=True)
+    compare_banked_attn_kernels(alg, dev, "headline", entries)
+    A, B = alg.put_a(X), alg.put_b(X)
+    vals = {MatMode.A: alg.like_s_values(1.0), MatMode.B: alg.like_st_values(1.0)}
+    bands = {MatMode.A: alg.S_tiles.tile(0, 0).bands, MatMode.B: alg.ST_tiles.tile(0, 0).bands}
+    result = {"mask": spec, "n": n, "R": R, "nnz": S.nnz, "variant": variant.variant_id,
+              "bands_S": band_info(alg.S_tiles), "bands_ST": band_info(alg.ST_tiles)}
+    for prec in PRECISIONS:
+        kernels = {"generic": CudaTileKernel(prec, device=dev),
+                   "banked": BankedCudaKernel(variant, prec, device=dev)}
+        for mode in (MatMode.A, MatMode.B):
+            tag = f"{prec}/{mode.name}"
+            alg.kernel = kernels["banked"]
+            (out, probs), counts = run_counted(
+                lambda: alg.fused_attention(A, B, vals[mode], mode))
+            expect = band_launches(bands[mode], "sddmm", "attn_stats", "attn_norm", "spmm")
+            require(counts == expect, f"banked attention {tag}: launches {counts} != {expect}")
+            add_launches(launches, counts, prec)
+            out_u, probs_u = alg.attention_unfused(A, B, vals[mode], mode)
+            require(torch.equal(out, out_u) and torch.equal(probs, probs_u),
+                    f"banked attention {tag}: fused != unfused")
+            require(bool(torch.isfinite(out).all()), f"banked attention {tag}: not finite")
+            if mode == MatMode.A:
+                got_out, got_p = alg.host_a(out), alg.gather_s_values(probs)
+            else:
+                got_out, got_p = alg.host_b(out), alg.gather_st_values(probs)
+            out_err = rel_to(got_out, want[mode][0])
+            p_err = float(np.abs(got_p - want[mode][1]).max())
+            require(out_err <= ATTN_OUT_RTOL[prec] and p_err <= ATTN_PROBS_ATOL[prec],
+                    f"banked attention {tag}: out {out_err:.3e}, probs {p_err:.3e}")
+            ms = {"generic": [], "banked": []}
+            for which in ("generic", "banked", "banked", "generic"):
+                alg.kernel = kernels[which]
+                ms[which].append(time_ms(lambda: alg.fused_attention(A, B, vals[mode], mode),
+                                         ATTN_CALL_REPS))
+            alg.kernel = kernels["banked"]
+            result[tag] = {"out_rel_err": out_err, "probs_abs_err": p_err,
+                           "ms_per_call": ms, "launches": counts,
+                           "breakdown": banked_breakdown(alg, A, B, ATTN_CALL_REPS, mode)}
+            emit({"phase": "banked_attention", "mode_precision": tag, **result[tag]})
+    return result, alg
+
+
+def banked_pairs(S, alg, variant, dev, launches: dict, label: str) -> dict:
+    """Fused pairs at log_m = 20 (A = the dummy fill, B = 0.01), generic and
+    banked in turns (generic, banked, banked, generic), f32 and bf16:
+    ms per pair by the host clock around synchronised pairs, banked
+    launches as the bands predict, sampled rows (the 8 heaviest among
+    them) against float64."""
+    bands = alg.S_tiles.tile(0, 0).bands
+    A = alg.dummy_initialize(MatMode.A)
+    B = alg.like_b_matrix(0.01)
+    s_vals = alg.like_s_values(1.0)
+    rng = np.random.default_rng(2)
+    res = {"nnz": S.nnz, "variant": variant.variant_id, "bands": band_info(alg.S_tiles)}
+    warm = 2
+    for prec in PRECISIONS:
+        kernels = {"generic": CudaTileKernel(prec, device=dev),
+                   "banked": BankedCudaKernel(variant, prec, device=dev)}
+        ms, err = {"generic": [], "banked": []}, None
+        for which in ("generic", "banked", "banked", "generic"):
+            alg.kernel = kernels[which]
+
+            def drive():
+                for _ in range(warm):
+                    alg.fused_spmm(A, B, s_vals, MatMode.A)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(BANKED_PAIRS):
+                    r = alg.fused_spmm(A, B, s_vals, MatMode.A)
+                torch.cuda.synchronize()
+                return r, time.perf_counter() - t
+
+            ((out, mid), elapsed), counts = run_counted(drive)
+            expect = (scaled(band_launches(bands, "fused"), warm + BANKED_PAIRS)
+                      if which == "banked" else
+                      {**dict.fromkeys(counts, 0), "fused_tile": warm + BANKED_PAIRS})
+            require(counts == expect, f"{label}/{prec}/{which}: launches {counts}")
+            add_launches(launches, counts, prec)
+            ms[which].append(elapsed / BANKED_PAIRS * 1e3)
+            if which == "banked" and err is None:
+                require(bool(torch.isfinite(out).all()) and bool(torch.isfinite(mid).all()),
+                        f"{label}/{prec}: output not finite")
+                err = sampled_reference(S, alg, out, mid, dev, rng, heaviest=8)
+                require(err <= VERIFY_RTOL[prec], f"{label}/{prec}: sampled rows off by {err:.3e}")
+        res[prec] = {"ms_per_pair": ms, "pairs": BANKED_PAIRS,
+                     "banked_launches_per_pair": band_launches(bands, "fused"),
+                     "sampled_rel_err": err}
+    alg.kernel = CudaTileKernel("f32", device=dev)
+    emit({"phase": "banked_pairs", "cell": label, **res})
+    return res
+
+
+def split_sweep(alg, variant, dev, label: str, attention: bool) -> dict:
+    """ms of one banked call at other segment lengths, tile rebanded on the
+    host: the fused tile kernel (R-mat) or SDDMM + stats + SpMM (attention),
+    f32. Evidence for ``codegen.banded.SPLIT``."""
+    tiles = alg.S_tiles
+    tile = tiles.tile(0, 0)
+    k = BankedCudaKernel(variant, "f32", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    A = torch.randn(alg.M_pad, alg.R, generator=gen, device=dev)
+    B = torch.randn(alg.N_pad, alg.R, generator=gen, device=dev)
+    sv = tiles.like_values(1.0)[0, 0]
+    res = {}
+    for split in SPLITS:
+        ban = build_banded(tiles.row_ptr.reshape(-1, tiles.tile_rows + 1), variant, split)
+        t = BankedTileView(tile.row_ptr, tile.rows, tile.cols, tile.n_rows, tile.n_cols,
+                           bands=tuple(b.to(dev) for b in ban.tiles[0]))
+
+        def call_once():
+            if not attention:
+                return k.fused_tile(t, sv, A, B)
+            z = k.sddmm_tile(t, sv, A, B)
+            m, d = k.attn_stats_tile(t, sv, z)
+            return k.spmm_tile(t, k.attn_norm_tile(t, sv, z, m, d), B)
+
+        res[str(split)] = time_ms(call_once, ATTN_CALL_REPS)
+    emit({"phase": "banked_split_sweep", "cell": label, "ms": res})
+    return res
+
+
+def phase_banked(dev, launches: dict, entries: dict, uniform) -> dict:
+    """The banked launches: Graph500 R-mat at log_m 16 (verify, integer
+    bit-equality, kernels against plain) and 20 (pairs, kernels against
+    plain), bigbird attention at 2**16, and the uniform R-mat of phase
+    full (one band after the guard)."""
+    t0 = time.perf_counter()
+    R = BANKED["R"]
+    result = {}
+    lo, hi = BANKED["log_ms"]
+    S = graph500(lo)
+    variant = select_variant(Problem.from_coo(S, R))
+    result["graph500_16"] = {"nnz": S.nnz, "variant": variant.variant_id,
+                             "host_seconds": time.perf_counter() - t0}
+    alg = banked_verify(S, variant, dev, launches)
+    banked_equals_generic(alg, variant, dev)
+    compare_banked_kernels(alg, variant, dev, "headline", entries, KERNEL_REPS)
+    del alg
+    t1 = time.perf_counter()
+    S = graph500(hi)
+    variant = select_variant(Problem.from_coo(S, R))
+    alg = make_algorithm("15d_fusion2", S, R,
+                         kernel=BankedCudaKernel(variant, "f32", device=dev), device=dev)
+    torch.cuda.synchronize()
+    result["graph500_20"] = {"host_seconds": time.perf_counter() - t1,
+                             **banked_pairs(S, alg, variant, dev, launches, "graph500_20")}
+    compare_banked_kernels(alg, variant, dev, "full", entries, PLAIN_REPS)
+    result["graph500_20"]["split_ms"] = split_sweep(alg, variant, dev, "graph500_20", False)
+    del alg, S
+    result["bigbird"], alg_bb = banked_attention(dev, launches, entries)
+    result["bigbird"]["split_ms"] = split_sweep(
+        alg_bb, alg_bb.kernel.variant, dev, "bigbird", True)
+    del alg_bb
+    S_u, alg_u = uniform
+    v_u = select_variant(Problem.from_coo(S_u, R))
+    require(len(alg_u.S_tiles.tile(0, 0).bands) == 1,
+            f"uniform R-mat: {band_info(alg_u.S_tiles)} is not one band")
+    result["uniform_20"] = banked_pairs(S_u, alg_u, v_u, dev, launches, "uniform_20")
+    result["seconds"] = time.perf_counter() - t0
+    emit({"phase": "banked", "seconds": result["seconds"],
+          "graph500_16": result["graph500_16"],
+          "graph500_20_ms_per_pair": {p: result["graph500_20"][p]["ms_per_pair"]
+                                      for p in PRECISIONS},
+          "uniform_20_ms_per_pair": {p: result["uniform_20"][p]["ms_per_pair"]
+                                     for p in PRECISIONS},
+          "bigbird_ms_per_call": {t: result["bigbird"][t]["ms_per_call"]
+                                  for t in result["bigbird"] if "/" in t}})
+    return result
+
+
 def phase_cli(dev, launches: dict, log_m: int = 16, edge_factor: int = 32,
               R: int = 128, trials: int = 2) -> dict:
     """The ``er`` command in-process on the card (its default kernel,
@@ -714,6 +1387,29 @@ def phase_cli(dev, launches: dict, log_m: int = 16, edge_factor: int = 32,
     info = {k: rec[k] for k in ("app", "mask", "device", "kernel", "elapsed",
                                 "overall_throughput", "attention_hbm")}
     emit({"phase": "cli", "argv": argv, "launches": counts, **info})
+
+    # The banked kernel of the matrix's selected variant (vanilla app); the
+    # CLI's R-mat row counts predict its launches.
+    S = HostCOO.rmat(log_m, edge_factor, np.random.default_rng(0))
+    vid = select_variant(Problem.from_coo(S, R)).variant_id
+    row_ptr = np.concatenate([[0], np.cumsum(np.bincount(S.rows, minlength=S.M))])
+    bands = build_banded(row_ptr[None], select_variant(Problem.from_coo(S, R))).tiles[0]
+    argv = ["er", str(log_m), str(edge_factor), "15d_fusion2", str(R), "1",
+            "--kernel-variant", vid, "--trials", str(trials), "-o", str(path)]
+    rc, counts = run_counted(lambda: cli.main(argv))
+    rec = json.loads(path.read_text().splitlines()[-1])
+    path.unlink()
+    require(rc == 0 and rec["kernel_variant"] == vid and rec["app"] == "vanilla"
+            and rec["kernel"] == f"cuda-bf16:{vid}",
+            f"cli --kernel-variant: rc {rc}, record {rec['kernel']}/{rec['kernel_variant']}")
+    expect = scaled(band_launches(bands, "fused"), calls)
+    require(counts == expect, f"cli --kernel-variant: launches {counts} != {expect}")
+    add_launches(launches, counts, "bf16")
+    emit({"phase": "cli", "argv": argv, "launches": counts,
+          "bands": [{"rows": b.n_rows, "nnz": b.n_slots} for b in bands],
+          "max_row": int(np.diff(row_ptr).max()),
+          **{k: rec[k] for k in ("kernel", "kernel_variant", "elapsed",
+                                 "overall_throughput")}})
     return info
 
 
@@ -730,28 +1426,31 @@ def main() -> int:
     del alg16
     launches: dict = {}
     phase_verify(S16, dev, launches)
-    phase_full(dev, launches, entries)
+    uniform = phase_full(dev, launches, entries)
     phase_attention_verify(dev, launches, entries)
     phase_attention_full(dev, launches, entries)
+    phase_banked(dev, launches, entries, uniform)
+    del uniform
     phase_cli(dev, launches)
 
     kernels = []
     for (op, prec), shapes in entries.items():
         n = launches.get((op, prec), 0)
         require(n > 0, f"{op}/{prec} never launched on the main path")
-        full, head = shapes["full"], shapes["headline"]
+        main_ = shapes.get("full") or shapes["headline"]
+        head = shapes.get("headline", main_)
         kernels.append({
-            "name": f"{op}[{prec}]", "route": "cuda",
-            "source": ATTN_SOURCE if op in ATTN_OPS else SOURCE,
+            "name": f"{op}[{prec}]", "route": "cuda", "source": SOURCES[op],
             "replaces": REPLACES[op], "launches": n,
-            "max_abs_err": max(full["max_abs_err"], head["max_abs_err"]),
-            "max_rel_err": max(full["max_rel_err"], head["max_rel_err"]),
-            "tol": full["tol"],
-            "ms": full["ms"], "plain_ms": full["plain_ms"],
-            "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
-            "bound_gather_ms": full["bound_gather_ms"],
-            "library_ms": full["library_ms"],
-            **{k: full[k] for k in ("library_error", "library_covers") if k in full},
+            "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
+            "max_rel_err": max(r["max_rel_err"] for r in shapes.values()),
+            "tol": main_["tol"],
+            "ms": main_["ms"], "plain_ms": main_["plain_ms"],
+            "bound_ms": main_["bound_ms"], "bound_by": main_["bound_by"],
+            "bound_gather_ms": main_["bound_gather_ms"],
+            "library_ms": main_["library_ms"],
+            **{k: main_[k] for k in ("library_error", "library_covers") if k in main_},
+            "at": "full" if "full" in shapes else "headline",
             "headline": {k: head[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "bound_gather_ms",
                 "library_ms", "max_abs_err")},

@@ -4,7 +4,10 @@
 One subcommand so far, ``er``: an R-mat matrix of ``2**log_m`` rows and
 ``edge_factor`` edges a row, one algorithm, one R, one c. With
 ``--app attention`` the matrix is replaced by the ``--mask`` pattern over
-as many tokens, and the run times fused block-sparse attention. Each run
+as many tokens, and the run times fused block-sparse attention. With
+``--kernel-variant VID`` the local kernel is the banked CUDA kernel of that
+codegen variant (``codegen/``), which refuses ``--kernel torch`` as the
+JAX CLI refuses a kernel other than pallas. Each run
 prints one JSON summary line and appends its full record to ``-o``. Flags
 whose machinery is not ported (tracing, faults, wire precision, overlap)
 are not defined, so argparse refuses them.
@@ -21,6 +24,7 @@ from distributed_sddmm_tpu_torch import masks
 from distributed_sddmm_tpu_torch.bench.harness import (
     APPS, APPS_NOT_PORTED, benchmark_algorithm,
 )
+from distributed_sddmm_tpu_torch.codegen import make_banked_kernel
 from distributed_sddmm_tpu_torch.device import resolve_device
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
 from distributed_sddmm_tpu_torch.ops.kernels import TorchKernel
@@ -29,9 +33,15 @@ from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 KERNELS = ("cuda-f32", "cuda-bf16", "torch")
 
 
-def _kernel(name: str | None, device):
+def _kernel(name: str | None, device, variant: str | None = None):
     """The local kernel named by ``--kernel``; None is the strategy's own
-    default (cuda-bf16 on a card, cuda-f32 on the CPU)."""
+    default (cuda-bf16 on a card, cuda-f32 on the CPU). A ``variant`` id
+    gives the banked kernel of that variant in the named precision."""
+    if variant:
+        if name == "torch":
+            raise SystemExit("--kernel-variant requires a cuda kernel")
+        precision = None if name is None else name.removeprefix("cuda-")
+        return make_banked_kernel(variant, precision=precision, device=device)
     if name is None:
         return CudaTileKernel(device=device)
     if name == "torch":
@@ -62,6 +72,9 @@ def build_parser() -> argparse.ArgumentParser:
     er.add_argument("--kernel", default=None, choices=KERNELS,
                     help="local kernel (default: cuda-bf16 on cuda, "
                     "cuda-f32 on cpu)")
+    er.add_argument("--kernel-variant", default=None, metavar="VID",
+                    help="codegen variant id (v1.rb<thr>.<rs|rm|rl>): run the "
+                    "banked CUDA kernel, one launch per row band")
     er.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     er.add_argument("-o", "--output-file", default=None,
                     help="append JSON records here")
@@ -82,7 +95,7 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     S = HostCOO.rmat(args.log_m, args.edge_factor, np.random.default_rng(0))
     S = _maybe_mask(S, args)
-    kernel = _kernel(args.kernel, device)
+    kernel = _kernel(args.kernel, device, args.kernel_variant)
     for fused in [True, False] if args.fused == "both" else [args.fused == "yes"]:
         rec = benchmark_algorithm(
             S, args.alg, args.output_file, fused=fused, R=args.R, c=args.c,

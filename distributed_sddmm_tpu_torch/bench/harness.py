@@ -18,7 +18,9 @@ from typing import Optional
 
 from distributed_sddmm_tpu_torch.common import MatMode
 from distributed_sddmm_tpu_torch.device import device_label, synchronize
-from distributed_sddmm_tpu_torch.parallel.base import DistributedSparse
+from distributed_sddmm_tpu_torch.parallel.base import (
+    DistributedSparse, realized_kernel_variant,
+)
 from distributed_sddmm_tpu_torch.parallel.dense_shift_15d import DenseShift15D
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 
@@ -178,6 +180,7 @@ def benchmark_algorithm(
         "elapsed": elapsed,
         "overall_throughput": throughput,
         "kernel": getattr(alg.kernel, "name", type(alg.kernel).__name__),
+        "kernel_variant": realized_kernel_variant(alg),
         "device": device_label(alg.device),
         "alg_info": alg.json_algorithm_info(),
         "perf_stats": alg.json_perf_statistics(),

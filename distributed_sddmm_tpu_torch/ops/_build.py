@@ -31,11 +31,21 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: argtypes of every C entry point in ``ops/csrc/``.
 SIGNATURES = {
-    "sddmm_tile": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "spmm_tile": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "fused_tile": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "attn_stats_tile": [_P, _P, _P, _P, _P, _I, _P],
+    # tile_kernels.cu (row_ids null: every tile row; else a band's rows)
+    "sddmm_tile": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "spmm_tile": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fused_tile": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # attn_kernels.cu
+    "attn_stats_tile": [_P, _P, _P, _P, _P, _P, _I, _P],
     "attn_norm_tile": [_P, _P, _P, _P, _P, _P, _I, _P],
+    # banked_kernels.cu
+    "sddmm_split": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "spmm_split": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fused_split": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                    _I, _P],
+    "split_reduce": [_P, _P, _P, _P, _I, _I, _P],
+    "attn_stats_split": [_P, _P, _P, _P, _P, _P, _I, _P],
+    "attn_stats_merge": [_P, _P, _P, _P, _P, _P, _I, _P],
 }
 
 
@@ -59,8 +69,10 @@ def _sources() -> list[pathlib.Path]:
 
 
 def library_path() -> pathlib.Path:
+    """Named by a hash of the flags, the sources and the shared headers
+    (``*.cuh``), so an edit to either cannot load a stale library."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"tile_kernels-{h.hexdigest()[:16]}.so"

@@ -23,6 +23,18 @@ from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
 from distributed_sddmm_tpu_torch.parallel.sharding import TileSet
 
 
+def realized_kernel_variant(alg):
+    """The codegen variant a run really executed, as records report it:
+    the strategy's :attr:`DistributedSparse.kernel_variant_realized` (None
+    means generic); only an object without that property falls back to
+    its kernel's ``variant_id``."""
+    missing = object()
+    realized = getattr(alg, "kernel_variant_realized", missing)
+    if realized is not missing:
+        return realized
+    return getattr(getattr(alg, "kernel", None), "variant_id", None)
+
+
 class DistributedSparse(abc.ABC):
     """Base class of the distributed strategies."""
 
@@ -162,6 +174,14 @@ class DistributedSparse(abc.ABC):
     def fingerprint(x) -> float:
         x64 = np.asarray(x, dtype=np.float64)
         return float(np.sum(x64 * x64))
+
+    @property
+    def kernel_variant_realized(self):
+        """The variant id that shaped this strategy's tile sets (None:
+        generic, including tile sets built without a variant). Either tile
+        set carrying it labels the run."""
+        return (getattr(self.S_tiles, "blk_variant", None)
+                or getattr(self.ST_tiles, "blk_variant", None))
 
     # ------------------------------- counters ------------------------------ #
 

@@ -52,15 +52,18 @@ class DenseShift15D(DistributedSparse):
         self.localBrows = divide_round_up(S.N, p)
         self.M_pad = self.localArows * p
         self.N_pad = self.localBrows * p
+        # A codegen kernel's variant bands both tile sets, each by its own
+        # row degrees (S^T's rows are S's columns).
+        variant = getattr(self.kernel, "variant", None)
         self.S_tiles = build_tiles(
             S, ShardedBlockCyclicColumn(self.M_pad, self.N_pad, p, c),
             tile_rows=self.localArows * c, tile_cols=self.localBrows,
-            device=self.device,
+            device=self.device, variant=variant,
         )
         self.ST_tiles = build_tiles(
             S.transpose(), ShardedBlockCyclicColumn(self.N_pad, self.M_pad, p, c),
             tile_rows=self.localBrows * c, tile_cols=self.localArows,
-            device=self.device,
+            device=self.device, variant=variant,
         )
 
     # ------------------------------ ring pieces ---------------------------- #

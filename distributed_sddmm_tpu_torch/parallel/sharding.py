@@ -9,6 +9,10 @@ pads sit at the tail. A per-tile ``row_ptr`` gives each row's slot range,
 so the CUDA tile kernels walk rows without any permutation on the device.
 Pads are inert by the zero-value contract: ``row = col = 0`` and value 0,
 so a pad adds nothing to SpMM and its SDDMM output is 0.
+
+A codegen variant (``codegen/variants.py``) that bands adds each tile's
+row bands (``codegen/banded.py``) beside the CSR, which it leaves as it
+is; ``TileSet.tile`` then returns a :class:`BankedTileView`.
 """
 
 from __future__ import annotations
@@ -36,6 +40,15 @@ class TileView:
         return self.rows.shape[0]
 
 
+@dataclasses.dataclass(frozen=True)
+class BankedTileView(TileView):
+    """A :class:`TileView` with its row bands
+    (:class:`~distributed_sddmm_tpu_torch.codegen.banded.RowBand`, in band
+    order), as the banked kernel takes it."""
+
+    bands: tuple = ()
+
+
 @dataclasses.dataclass
 class TileSet:
     """Padded struct-of-arrays tiles of every device, ``(n_dev, T, max_nnz)``
@@ -51,6 +64,13 @@ class TileSet:
     nnz: int
     grid: tuple
     nnz_per_tile: np.ndarray  # (n_dev, T)
+    #: The variant id that shaped the tiles: a banked variant's, or a
+    #: non-banked variant's (the generic CSR, recorded); None without one.
+    blk_variant: str | None = None
+    #: Host banding (``codegen/banded.Banding``) of a banked variant.
+    banding: object = None
+    #: Each tile's row bands on the device, ``bands[dev][s]``.
+    bands: tuple | None = None
 
     @property
     def shape(self) -> tuple:
@@ -69,8 +89,11 @@ class TileSet:
         return self.nnz_per_tile.sum(axis=1).reshape(self.grid)
 
     def tile(self, dev: int, s: int) -> TileView:
-        return TileView(self.row_ptr[dev, s], self.rows[dev, s],
-                        self.cols[dev, s], self.tile_rows, self.tile_cols)
+        args = (self.row_ptr[dev, s], self.rows[dev, s], self.cols[dev, s],
+                self.tile_rows, self.tile_cols)
+        if self.bands is None:
+            return TileView(*args)
+        return BankedTileView(*args, bands=self.bands[dev][s])
 
     def like_values(self, value: float) -> torch.Tensor:
         """``value`` at every real nonzero, 0 at pads."""
@@ -99,9 +122,15 @@ def build_tiles(
     tile_cols: int,
     device: torch.device,
     min_pad: int = 1,
+    variant=None,
 ) -> TileSet:
     """Bucket ``S``'s nonzeros by (device, tile), sort each bucket by
-    tile-local row and pad every bucket to the largest one's size."""
+    tile-local row and pad every bucket to the largest one's size.
+
+    ``variant`` (a ``codegen.KernelVariant``): a banked one adds each
+    tile's row bands; a non-banked one keeps the generic CSR. Either way
+    the tile set records its id (``blk_variant``), as the JAX build does
+    (``parallel/sharding.py:585-596``)."""
     nr, nc = layout.grid
     T = layout.n_tiles
     res = layout(S.rows, S.cols)
@@ -145,6 +174,15 @@ def build_tiles(
     def put(x):
         return torch.from_numpy(x).to(device)
 
+    banding = bands = None
+    if variant is not None and variant.banked:
+        # Imported here: codegen's kernel module imports this one.
+        from distributed_sddmm_tpu_torch.codegen.banded import build_banded
+
+        banding = build_banded(row_ptr, variant)
+        on_dev = [tuple(b.to(device) for b in t) for t in banding.tiles]
+        bands = tuple(tuple(on_dev[d * T: (d + 1) * T]) for d in range(n_dev))
+
     return TileSet(
         rows=put(rows_flat.reshape(shape)),
         cols=put(cols_flat.reshape(shape)),
@@ -156,4 +194,7 @@ def build_tiles(
         nnz=S.nnz,
         grid=(nr, nc),
         nnz_per_tile=counts.reshape(n_dev, T),
+        blk_variant=None if variant is None else variant.variant_id,
+        banding=banding,
+        bands=bands,
     )

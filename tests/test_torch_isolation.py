@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from distributed_sddmm_tpu_torch.bench import harness
+from distributed_sddmm_tpu_torch.codegen import BankedCudaKernel
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
 from distributed_sddmm_tpu_torch.parallel.dense_shift_15d import DenseShift15D
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
@@ -79,7 +80,7 @@ def test_ast_scan_finds_no_forbidden_import():
     # And every import the port makes is one the card's machine has.
     allowed = {"torch", "numpy", "scipy", "distributed_sddmm_tpu_torch",
                "__future__", "abc", "argparse", "ctypes", "dataclasses", "enum",
-               "functools", "hashlib", "json", "os", "pathlib", "shutil",
+               "functools", "hashlib", "json", "os", "pathlib", "re", "shutil",
                "subprocess", "sys", "tempfile", "time", "typing"}
     used = set().union(*(_imported_roots(f) for f in files))
     assert used <= allowed, used - allowed
@@ -93,6 +94,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: DenseShift15D(S, R=4),
         lambda: harness.make_algorithm("15d_fusion2", S, 4),
         lambda: CudaTileKernel(),
+        lambda: BankedCudaKernel("v1.rb4.rs"),
         lambda: state_from_reference(S.rows, S.cols, S.vals, 2, 2, np.zeros((2, 4)),
                                      np.zeros((2, 4)), S.vals),
     ):

@@ -204,9 +204,9 @@ def test_wrappers_run_plain_on_cpu_without_counting():
     torch.testing.assert_close(mid, k.sddmm_tile(t, sv, at, bt), rtol=0, atol=0)
     torch.testing.assert_close(k.spmm_tile(t, sv, bt), spmm_tile_plain(t, sv, bt),
                                rtol=0, atol=0)
-    assert cuda_kernels.launch_counts() == {
-        "sddmm_tile": 0, "spmm_tile": 0, "fused_tile": 0, "attn_stats_tile": 0,
-        "attn_norm_tile": 0}
+    assert cuda_kernels.launch_counts() == dict.fromkeys(cuda_kernels.LAUNCHES, 0)
+    assert {"sddmm_tile", "spmm_tile", "fused_tile", "attn_stats_tile",
+            "attn_norm_tile"} <= set(cuda_kernels.LAUNCHES)
 
 
 def test_non_cpu_tensor_raises_instead_of_falling_back():
@@ -232,14 +232,25 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         _build.find_nvcc()
 
 
-def test_build_key_tracks_sources_and_flags():
+def test_build_key_tracks_sources_and_flags(monkeypatch, tmp_path):
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("tile_kernels-") and path.suffix == ".so"
     assert [s.name for s in _build._sources()] == ["attn_kernels.cu",
+                                                   "banked_kernels.cu",
                                                    "tile_kernels.cu"]
-    assert set(_build.SIGNATURES) == set(cuda_kernels.LAUNCHES)
+    # Every C entry point has a counted wrapper (the row-list launches
+    # share the tile kernels' entry points under counters of their own).
+    assert set(_build.SIGNATURES) <= set(cuda_kernels.LAUNCHES)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    # An edit to the shared header names another library.
+    for src in _build.CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert _build.library_path() == path
+    with open(tmp_path / "tile_common.cuh", "a") as f:
+        f.write("\n")
+    assert _build.library_path() != path
 
 
 def test_precision_default_and_validation():
