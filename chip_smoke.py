@@ -10,7 +10,16 @@ last line is printed):
 
 1. device   -- CUDA must be present; the card's name and power limit.
 2. build    -- ``nvcc`` builds every ``ops/csrc/*.cu`` (sm_90a), one
-   process per source, all started together.
+   process per source, all started together; ptxas must report no spill
+   in any instantiation of the SDDMM / fused walk (``dot_walk_kernel``).
+2b. edges   -- the SDDMM and fused walks on a small tile whose rows hold
+   0, 1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65, 100 and
+   4099 slots (around every batch and index-chunk size of the walk), plus
+   pads, at R = 32, 64, 100, 128, 256, 512 and 520, f32 and bf16, for the
+   three item kinds: whole tile rows, every row as one band's row list,
+   and the segments (at most 33 slots) of the rows above 16 slots. Each
+   against its plain version (phase 3's tolerances), ``mid == 0`` exactly
+   at the pads, two launches bit-equal.
 3. kernels  -- at the headline tile (R-mat log_m=16, edge_factor=32, R=128,
    the ``DenseShift15D`` S tile), each kernel against its plain version on
    standard-normal operands, in f32 and bf16. Error is the max abs
@@ -51,7 +60,9 @@ last line is printed):
    the counted bytes; each kernel of one call timed alone (breakdown, as
    in phase 6); 64 sampled rows on the normal data against float64 on the
    host; peak device memory; then the attention kernels against their
-   plain versions at this tile (kernels_full).
+   plain versions at this tile (kernels_full), and the SDDMM, SpMM and
+   fused kernels too, with their bounds and library calls
+   (kernels_window64).
 8. banked   -- the banked codegen kernels (``BankedCudaKernel``, one launch
    per nnz/row band, heavy rows split into segments). Graph500 R-mat
    (initiator 0.57/0.19/0.19/0.05, edge_factor 32, R=128) at log_m=16: the
@@ -90,13 +101,13 @@ from distributed_sddmm_tpu_torch.autotune.fingerprint import Problem
 from distributed_sddmm_tpu_torch.bench import cli, harness
 from distributed_sddmm_tpu_torch.bench.harness import make_algorithm
 from distributed_sddmm_tpu_torch.codegen import (
-    BankedCudaKernel, build_banded, select_variant,
+    BankedCudaKernel, banded, build_banded, select_variant,
 )
 from distributed_sddmm_tpu_torch.common import MatMode
 from distributed_sddmm_tpu_torch.ops import _build, cuda_kernels
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
 from distributed_sddmm_tpu_torch.ops.kernels import ATTN_NEG
-from distributed_sddmm_tpu_torch.parallel.sharding import BankedTileView
+from distributed_sddmm_tpu_torch.parallel.sharding import BankedTileView, TileView
 from distributed_sddmm_tpu_torch.utils import oracle, verify
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 
@@ -146,6 +157,17 @@ ATTN_OPS = ("attn_stats_tile", "attn_norm_tile")
 #: Kernels that run in float32 whatever the precision mode.
 F32_ONLY = ATTN_OPS + ("attn_stats_rows", "attn_stats_split", "attn_stats_merge",
                        "split_reduce")
+
+# Edge checks of the SDDMM and fused walks (phase edges): row lengths
+# around each batch (2, 4 or 8 slots) and index chunk (4 to 32 slots) of
+# the walk and twice them, empty rows, a row of several thousand slots,
+# pads; every lane layout of the walk (R/16 lanes an item, the scalar path
+# at R = 100 in bf16, two slabs at 520).
+EDGE = {"lens": (0, 1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65, 0, 4099,
+                 100),
+        "Rs": (32, 64, 100, 128, 256, 512, 520), "pads": 13, "n_cols": 4096,
+        "heavy_above": 16, "split": 33}
+WALK_KERNELS = ("dot_walk_kernel", "dot_slabs")
 
 # Banked launches (phase banked). The Graph500 initiator fills all three
 # bands; the uniform one collapses to one (PERF.md section 4).
@@ -325,9 +347,105 @@ def phase_build() -> None:
     # ptxas's report of every instantiation: registers, spills.
     ptxas = [line.split(":", 1)[-1].strip() for line in info["log"].splitlines()
              if "Used" in line or "spill" in line]
+    walks = {name: r for name, r in _build.ptxas_report(info["log"]).items()
+             if any(k in name for k in WALK_KERNELS)}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": info["seconds"], "cached": info["cached"],
-          "ptxas": ptxas})
+          "ptxas": ptxas, "dot_walk": walks})
+    require(any("dot_walk_kernel" in name for name in walks),
+            "ptxas reported no instantiation of the dot walk")
+    spilled = {name: r for name, r in walks.items()
+               if r.get("spill_stores", 0) or r.get("spill_loads", 0)}
+    require(not spilled, f"ptxas spills in the dot walk: {spilled}")
+
+
+def edge_tile(dev):
+    """The edge tile: rows of EDGE["lens"] slots on random columns, then
+    the pads; a band listing every row, and the heavy band of the rows
+    above EDGE["heavy_above"] slots cut into segments of EDGE["split"]."""
+    lens = np.asarray(EDGE["lens"])
+    n_rows = lens.size
+    row_ptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    nnz = int(row_ptr[-1])
+    cap = nnz + EDGE["pads"]
+    rows = np.zeros(cap, np.int32)
+    rows[:nnz] = np.repeat(np.arange(n_rows), lens)
+    cols = np.zeros(cap, np.int32)
+    cols[:nnz] = np.random.default_rng(7).integers(0, EDGE["n_cols"], nnz)
+
+    def put(x):
+        return torch.from_numpy(x).to(dev)
+
+    tile = TileView(put(row_ptr), put(rows), put(cols), n_rows, EDGE["n_cols"])
+    every = banded.RowBand(None, np.arange(n_rows, dtype=np.int32), nnz).to(dev)
+    heavy = np.flatnonzero(lens > EDGE["heavy_above"]).astype(np.int32)
+    seg_ptr, owner, beg, end = banded._segments(row_ptr[heavy], row_ptr[heavy + 1],
+                                                EDGE["split"])
+    hb = banded.RowBand(None, heavy, int(lens[heavy].sum()),
+                        seg_ptr=seg_ptr.astype(np.int32), seg_row=heavy[owner],
+                        seg_beg=beg.astype(np.int32), seg_end=end.astype(np.int32))
+    return tile, every, hb.to(dev), nnz
+
+
+def phase_edges(dev) -> dict:
+    """The SDDMM and fused walks at the edges (EDGE): whole tile rows, one
+    band's row list and heavy segments, each against its plain version on
+    standard-normal operands (phase 3's tolerances), ``mid == 0`` exactly
+    at the pads, two launches bit-equal. Launches here are not the main
+    path's and are not counted."""
+    tile, every, hb, nnz = edge_tile(dev)
+    pads = torch.arange(tile.cap, device=dev) >= nnz
+    heavy_slots = cuda_kernels._seg_ranges(hb)[0]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ck = cuda_kernels
+
+    def nan(*shape):
+        return torch.full(shape, float("nan"), device=dev)
+
+    def runs(plain: bool, sv, at, bt):
+        """Every (op, kind) once: the outputs each writes, and its mid."""
+        sfx = "_plain" if plain else ""
+        res = {}
+        for op in ("sddmm", "fused"):
+            got = getattr(ck, f"{op}_tile{sfx}")(tile, sv, at, bt)
+            res[(op, "tile")] = as_tuple(got), as_tuple(got)[-1]
+            mid, out = nan(tile.cap), nan(tile.n_rows, bt.shape[1])
+            if op == "sddmm":
+                getattr(ck, f"sddmm_rows{sfx}")(tile, every, sv, at, bt, mid, True)
+                res[(op, "rows")] = (mid,), mid
+            else:
+                getattr(ck, f"fused_rows{sfx}")(tile, every, sv, at, bt, out, mid, True)
+                res[(op, "rows")] = (out, mid), mid
+            mid = nan(tile.cap)
+            work = getattr(ck, f"{op}_split{sfx}")(tile, hb, sv, at, bt, mid, True)
+            res[(op, "split")] = ((mid[heavy_slots],) if op == "sddmm"
+                                  else (work, mid[heavy_slots])), mid
+        return res
+
+    worst = {}
+    for R in EDGE["Rs"]:
+        A = torch.randn(tile.n_rows, R, generator=gen, device=dev)
+        B = torch.randn(tile.n_cols, R, generator=gen, device=dev)
+        sv = torch.randn(tile.cap, generator=gen, device=dev) * ~pads
+        for prec in PRECISIONS:
+            k = CudaTileKernel(prec, device=dev)
+            at, bt = k.prep(A), k.prep(B)
+            got, again, want = runs(False, sv, at, bt), runs(False, sv, at, bt), \
+                runs(True, sv, at, bt)
+            torch.cuda.synchronize()
+            for key, (outs, mid) in got.items():
+                tag = f"edges {key[0]}/{key[1]}/{prec} at R={R}"
+                rel = max(rel_err(g, w)[1] for g, w in zip(outs, want[key][0]))
+                require(rel <= KERNEL_TOL[prec], f"{tag}: error {rel:.3e} > {KERNEL_TOL[prec]}")
+                require(bool(torch.all(mid[pads] == 0)), f"{tag}: nonzero mid at a pad slot")
+                require(all(torch.equal(g, a) for g, a in zip(outs, again[key][0])),
+                        f"{tag}: two launches differ")
+                name = f"{key[0]}_{key[1]}/{prec}"
+                worst[name] = max(worst.get(name, 0.0), rel)
+    res = {"rows": int(tile.n_rows), "nnz": nnz, "pads": EDGE["pads"], "Rs": EDGE["Rs"],
+           "segments": hb.n_seg, "max_rel_err": worst}
+    emit({"phase": "edges", **res})
+    return res
 
 
 def compare_kernels(alg, dev, label: str, entries: dict, reps_plain: int) -> None:
@@ -729,6 +847,7 @@ def phase_attention_full(dev, launches: dict, entries: dict,
         result[prec] = res
     result["peak_mem_main_path_bytes"] = torch.cuda.max_memory_allocated()
     compare_attn_kernels(alg, dev, "full", entries, reps_plain)
+    compare_kernels(alg, dev, "window64", entries, reps_plain)
     result["peak_mem_with_comparisons_bytes"] = torch.cuda.max_memory_allocated()
     emit({"phase": "attention_full", **result})
     return result
@@ -1417,6 +1536,7 @@ def main() -> int:
     info = phase_device()
     dev = torch.device("cuda")
     phase_build()
+    phase_edges(dev)
     S16 = HostCOO.rmat(HEADLINE["log_m"], HEADLINE["edge_factor"],
                        np.random.default_rng(0))
     alg16 = make_algorithm("15d_fusion2", S16, HEADLINE["R"],

@@ -1,0 +1,276 @@
+"""Time the SDDMM, fused and SpMM tile kernels of several source trees on
+the same inputs, on one card, in turns.
+
+    python3 -m distributed_sddmm_tpu_torch.bench.kernel_ab LABEL=TREE ... [-o FILE]
+
+A TREE is a directory that holds ``distributed_sddmm_tpu_torch/ops/`` (its
+``_build.py`` and ``csrc/``): this checkout (``new=.``), or an older
+commit's kernels unpacked under a gitignored directory::
+
+    mkdir -p .chip_archive/parent
+    git archive <commit> distributed_sddmm_tpu_torch/ops | tar -x -C .chip_archive/parent
+
+Each tree's kernels build into that tree's own ``_build/`` and load with
+ctypes; every tree is called through the same C entry points (the C ABI
+of ``_build.SIGNATURES``) on the tiles and operands this checkout builds,
+R=128 unless named, standard-normal operands, f32 and bf16:
+
+* ``headline`` and ``full``: the uniform R-mat at log_m=16 and 20
+  (edge_factor 32), the ``DenseShift15D`` S tile: ``sddmm_tile``,
+  ``fused_tile``, ``spmm_tile``; at log_m=16 also R = 32, 64, 256, 512;
+* ``window64``: the ``window:64`` attention tile at 2**20 tokens:
+  ``sddmm_tile``, ``spmm_tile``;
+* ``graph500_16`` and ``graph500_20``: the Graph500 R-mat banded by its
+  selected variant: the row-list bands (``sddmm_rows``, ``fused_rows``, a
+  launch per band as the banked op makes them) and the heavy band's pass 1
+  (``sddmm_split``, ``fused_split``).
+
+Each case runs the trees in the order given, then in reverse (A B B A),
+each reading CUDA events around ``REPS`` calls after a warmup call. It
+prints one JSON line per case: each tree's two readings (ms per call) and
+the largest difference of its outputs from the first tree's, over their
+largest magnitude. The first line names the card and its power limit; the
+second gives each tree's build time and the ptxas report (registers,
+spills) of its walk kernels. With ``-o`` the lines are also appended to
+FILE.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import importlib.util
+import json
+import pathlib
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from distributed_sddmm_tpu_torch import masks
+from distributed_sddmm_tpu_torch.autotune.fingerprint import Problem
+from distributed_sddmm_tpu_torch.bench.harness import make_algorithm
+from distributed_sddmm_tpu_torch.codegen import BankedCudaKernel, select_variant
+from distributed_sddmm_tpu_torch.ops import _build
+from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
+from distributed_sddmm_tpu_torch.utils.coo import HostCOO
+
+REPS = 20
+#: (case, log_m) of the uniform R-mat tiles, the attention tile's (log2
+#: tokens, mask) and the Graph500 R-mat sizes.
+RMAT = (("headline", 16), ("full", 20))
+WINDOW = (20, "window:64")
+GRAPH500_LOG_MS = (16, 20)
+R_MAIN = 128
+R_SWEEP = (32, 64, 256, 512)
+GRAPH500 = {"a": 0.57, "b": 0.19, "c": 0.19, "d": 0.05}
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def load_tree(root: str) -> dict:
+    """Build and load one tree's kernel library."""
+    path = pathlib.Path(root).resolve() / "distributed_sddmm_tpu_torch" / "ops" / "_build.py"
+    spec = importlib.util.spec_from_file_location(f"_tree_build_{abs(hash(str(path)))}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    info = mod.build()
+    lib = ctypes.CDLL(info["path"])
+    for name, argtypes in mod.SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.tile_error_string.argtypes = [ctypes.c_int]
+    lib.tile_error_string.restype = ctypes.c_char_p
+    walks = {k: v for k, v in _build.ptxas_report(info["log"]).items() if "walk_kernel" in k}
+    return {"lib": lib, "build_seconds": info["seconds"], "cached": info["cached"],
+            "walk_ptxas": walks}
+
+
+def _call(lib, name: str, *args) -> None:
+    rc = getattr(lib, name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} ({lib.tile_error_string(rc).decode()})")
+
+
+def _p(t):
+    return None if t is None else t.data_ptr()
+
+
+def _alloc(shape, zero: bool, dev):
+    return (torch.zeros if zero else torch.empty)(shape, dtype=torch.float32, device=dev)
+
+
+def run_op(lib, op: str, tile, bands, sv, at, bt, zero: bool):
+    """One call of ``op`` as the port's wrapper (or the banked op, for a
+    band kind) makes it; returns the outputs it writes. ``zero``: outputs
+    start at 0, so the unwritten parts compare equal."""
+    dev = sv.device
+    R, bf16 = bt.shape[1], int(bt.dtype == torch.bfloat16)
+    vec = int(R % 4 == 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    n, cap = tile.n_rows, tile.cap
+    common = (_p(tile.cols), _p(sv))
+    if op == "sddmm_tile":
+        mid = _alloc(cap, zero, dev)
+        _call(lib, op, _p(tile.row_ptr), None, *common, _p(at), _p(bt), _p(mid), n, n, cap,
+              1, R, bf16, vec, stream)
+        return (mid,)
+    if op == "spmm_tile":
+        out = _alloc((n, R), zero, dev)
+        _call(lib, op, _p(tile.row_ptr), None, *common, _p(bt), _p(out), n, R, bf16, vec,
+              stream)
+        return (out,)
+    if op == "fused_tile":
+        mid, out = _alloc(cap, zero, dev), _alloc((n, R), zero, dev)
+        _call(lib, op, _p(tile.row_ptr), None, *common, _p(at), _p(bt), _p(out), _p(mid),
+              n, n, cap, 1, R, bf16, vec, stream)
+        return out, mid
+    lists = [b for b in bands if not b.heavy]
+    heavy = [b for b in bands if b.heavy]
+    mid = _alloc(cap, zero, dev)
+    if op in ("sddmm_rows", "fused_rows"):
+        out = _alloc((n, R), zero, dev) if op == "fused_rows" else None
+        for i, b in enumerate(lists):
+            if op == "sddmm_rows":
+                _call(lib, "sddmm_tile", _p(tile.row_ptr), _p(b.rows), *common, _p(at),
+                      _p(bt), _p(mid), b.n_rows, n, cap, int(i == 0), R, bf16, vec, stream)
+            else:
+                _call(lib, "fused_tile", _p(tile.row_ptr), _p(b.rows), *common, _p(at),
+                      _p(bt), _p(out), _p(mid), b.n_rows, n, cap, int(i == 0), R, bf16,
+                      vec, stream)
+        return (mid,) if op == "sddmm_rows" else (out, mid)
+    hb = heavy[0]
+    seg = (_p(hb.seg_row), _p(hb.seg_beg), _p(hb.seg_end))
+    if op == "sddmm_split":
+        _call(lib, op, _p(tile.row_ptr), *seg, *common, _p(at), _p(bt), _p(mid), hb.n_seg,
+              n, cap, 0, R, bf16, vec, stream)
+        return (mid,)
+    work = _alloc((hb.n_seg, R), zero, dev)
+    _call(lib, op, _p(tile.row_ptr), *seg, *common, _p(at), _p(bt), _p(work), _p(mid),
+          hb.n_seg, n, cap, 0, R, bf16, vec, stream)
+    return work, mid
+
+
+def time_ms(fn, reps: int = REPS) -> float:
+    """Device ms per call: CUDA events around ``reps`` calls after a warmup."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def rel_diff(got, want) -> float:
+    return max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+               for g, w in zip(got, want))
+
+
+def compare(trees: dict, case: str, op: str, tile, bands, sv, A, B, emit) -> None:
+    """Every tree on one case, in turns; one JSON line per precision."""
+    nnz = int(tile.row_ptr[-1])
+    for prec, dtype in DTYPES.items():
+        at, bt = A.to(dtype).contiguous(), B.to(dtype).contiguous()
+        first = None
+        diffs = {}
+        for label, t in trees.items():
+            got = run_op(t["lib"], op, tile, bands, sv, at, bt, zero=True)
+            torch.cuda.synchronize()
+            first = got if first is None else first
+            diffs[label] = rel_diff(got, first)
+            del got
+        ms = {label: [] for label in trees}
+        for label in [*trees, *reversed(trees)]:
+            lib = trees[label]["lib"]
+            ms[label].append(time_ms(lambda: run_op(lib, op, tile, bands, sv, at, bt,
+                                                    zero=False)))
+        emit({"case": case, "op": op, "precision": prec, "R": B.shape[1], "nnz": nnz,
+              "ms": ms, "rel_diff_vs_first": diffs})
+
+
+def operands(alg, R: int, dev, seed: int):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tiles = alg.S_tiles
+    A = torch.randn(alg.M_pad, R, generator=gen, device=dev)
+    B = torch.randn(alg.N_pad, R, generator=gen, device=dev)
+    sv = (tiles.mask * torch.randn(tiles.shape, generator=gen, device=dev))[0, 0].contiguous()
+    return sv, A, B
+
+
+def run_cases(trees: dict, dev, emit) -> None:
+    """Every case of the module docstring, each tree in turns."""
+    for case, log_m in RMAT:
+        S = HostCOO.rmat(log_m, 32, np.random.default_rng(0))
+        alg = make_algorithm("15d_fusion2", S, R_MAIN,
+                             kernel=CudaTileKernel("f32", device=dev), device=dev)
+        tile = alg.S_tiles.tile(0, 0)
+        for R in (R_MAIN, *R_SWEEP) if case == "headline" else (R_MAIN,):
+            sv, A, B = operands(alg, R, dev, seed=0)
+            for op in ("sddmm_tile", "fused_tile", "spmm_tile"):
+                compare(trees, case, op, tile, (), sv, A, B, emit)
+        del alg, tile, sv, A, B, S
+    S = masks.from_spec(WINDOW[1], 1 << WINDOW[0])
+    alg = make_algorithm("15d_fusion2", S, R_MAIN, kernel=CudaTileKernel("f32", device=dev),
+                         device=dev, attention=True)
+    tile = alg.S_tiles.tile(0, 0)
+    sv, A, B = operands(alg, R_MAIN, dev, seed=0)
+    for op in ("sddmm_tile", "spmm_tile"):
+        compare(trees, "window64", op, tile, (), sv, A, B, emit)
+    del alg, tile, sv, A, B, S
+    for log_m in GRAPH500_LOG_MS:
+        S = HostCOO.rmat(log_m, 32, np.random.default_rng(0), **GRAPH500)
+        variant = select_variant(Problem.from_coo(S, R_MAIN))
+        alg = make_algorithm("15d_fusion2", S, R_MAIN,
+                             kernel=BankedCudaKernel(variant, "f32", device=dev), device=dev)
+        tile = alg.S_tiles.tile(0, 0)
+        sv, A, B = operands(alg, R_MAIN, dev, seed=0)
+        for op in ("sddmm_rows", "fused_rows", "sddmm_split", "fused_split"):
+            compare(trees, f"graph500_{log_m}", op, tile, tile.bands, sv, A, B, emit)
+        del alg, tile, sv, A, B, S
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trees", nargs="+", help="LABEL=DIR, e.g. new=. parent=.chip_archive/parent")
+    ap.add_argument("-o", "--output", help="append the JSON lines to this file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: no CUDA card")
+    dev = torch.device("cuda")
+    out_file = open(args.output, "a") if args.output else None
+
+    def emit(obj):
+        line = json.dumps(obj)
+        print(line, flush=True)
+        if out_file:
+            out_file.write(line + "\n")
+            out_file.flush()
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip().splitlines()[0]
+    emit({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+    trees = {}
+    for spec in args.trees:
+        label, _, root = spec.partition("=")
+        trees[label] = load_tree(root)
+    emit({"builds": {label: {k: v for k, v in t.items() if k != "lib"}
+                     for label, t in trees.items()}})
+
+    t0 = time.perf_counter()
+    run_cases(trees, dev, emit)
+    emit({"done": True, "seconds": time.perf_counter() - t0})
+    if out_file:
+        out_file.close()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

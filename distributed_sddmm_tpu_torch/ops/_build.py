@@ -13,6 +13,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -94,10 +95,13 @@ def _run_all(cmds: list[list[str]]) -> str:
 def build() -> dict:
     """Compile the kernels unless a library for these sources exists.
     Returns ``{"path", "seconds", "cached", "log"}``; ``log`` is nvcc's
-    ptxas report (registers, spills) of a fresh build."""
+    ptxas report (registers, spills) of the build, kept beside the library
+    so that a cached build returns it too."""
     out = library_path()
-    if out.is_file():
-        return {"path": str(out), "seconds": 0.0, "cached": True, "log": ""}
+    log_path = out.with_suffix(".log")
+    if out.is_file() and log_path.is_file():
+        return {"path": str(out), "seconds": 0.0, "cached": True,
+                "log": log_path.read_text()}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     t0 = time.perf_counter()
@@ -107,9 +111,36 @@ def build() -> dict:
                         for src, obj in zip(_sources(), objs)])
         tmp = pathlib.Path(tmpdir) / out.name
         log += _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]])
+        (pathlib.Path(tmpdir) / log_path.name).write_text(log)
+        os.replace(pathlib.Path(tmpdir) / log_path.name, log_path)
         os.replace(tmp, out)
     return {"path": str(out), "seconds": time.perf_counter() - t0,
             "cached": False, "log": log}
+
+
+def ptxas_report(log: str) -> dict:
+    """Per function of ``log`` (``nvcc -Xptxas -v``), by mangled name:
+    ``{"registers", "stack", "spill_stores", "spill_loads"}`` (the keys
+    ptxas printed for it)."""
+    report: dict = {}
+    name = None
+    for line in log.splitlines():
+        m = (re.search(r"Compiling entry function '([^']+)'", line)
+             or re.search(r"Function properties for (\S+)", line))
+        if m:
+            name = m.group(1)
+            report.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name is not None:
+            report[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            report[name]["registers"] = int(m.group(1))
+    return report
 
 
 _LIB = None

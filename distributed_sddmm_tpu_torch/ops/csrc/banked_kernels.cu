@@ -12,11 +12,12 @@
 // thousands of slots alone while the rest of the card idles. Here each
 // heavy row is cut into segments of at most `split` slots
 // (codegen/banded.py) and:
-//   split pass 1 (sddmm_split / spmm_split / fused_split): one warp per
-//     segment, the same walk as the generic kernel (tile_common.cuh): A of
-//     the segment's row loaded once, mid[k] written for its slots (SDDMM,
-//     fused), its f32 partial output row written to row s of a workspace
-//     [n_seg, R] (SpMM, fused). SDDMM needs this pass only: mid is per slot.
+//   split pass 1 (sddmm_split / spmm_split / fused_split): one warp
+//     (SpMM) or lane group (SDDMM, fused) per segment, the same walks as
+//     the generic kernel (tile_common.cuh): A of the segment's row loaded
+//     once, mid[k] written for its slots (SDDMM, fused), its f32 partial
+//     output row written to row s of a workspace [n_seg, R] (SpMM, fused).
+//     SDDMM needs this pass only: mid is per slot.
 //   split pass 2 (split_reduce): per heavy row, its segments' partial rows
 //     summed in segment order, the output row written once.
 //   attn_stats_split: per segment, the warp's masked (max, sum-of-exp)

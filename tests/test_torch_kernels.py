@@ -13,8 +13,13 @@ nonzero order. Tolerances:
   value (bf16 keeps 8 significant bits of each operand and contribution).
 
 The CUDA kernels themselves run only on the card; ``chip_smoke.py`` holds
-them against these plain versions there.
+them against these plain versions there. What is checked here without
+``nvcc`` is the C ABI the ctypes binding assumes: every ``extern "C"``
+definition in ``ops/csrc/*.cu`` against ``_build.SIGNATURES``.
 """
+
+import ctypes
+import re
 
 import numpy as np
 import pytest
@@ -251,6 +256,61 @@ def test_build_key_tracks_sources_and_flags(monkeypatch, tmp_path):
     with open(tmp_path / "tile_common.cuh", "a") as f:
         f.write("\n")
     assert _build.library_path() != path
+
+
+_EXTERN_C = re.compile(r'extern "C"\s+[\w\s\*]*?\b(\w+)\s*\(([^)]*)\)\s*\{')
+
+
+def _extern_c_definitions() -> list:
+    """``(name, [parameter, ...])`` of every ``extern "C"`` definition in
+    ``ops/csrc/*.cu``, in file order."""
+    defs = []
+    for src in _build._sources():
+        for m in _EXTERN_C.finditer(src.read_text()):
+            params = [p.strip() for p in m.group(2).split(",") if p.strip()]
+            defs.append((m.group(1), params))
+    return defs
+
+
+def _ctype(param: str):
+    """The ctypes type a C parameter binds with: a pointer (the stream
+    too) as ``c_void_p``, an ``int`` as ``c_int``."""
+    if "*" in param:
+        return ctypes.c_void_p
+    assert param.split()[0] == "int", param
+    return ctypes.c_int
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES) + ["tile_error_string"])
+def test_c_entry_point_matches_its_ctypes_binding(name):
+    """The C ABI the ctypes binding assumes: each entry point is defined
+    once, with as many parameters as ``_build.SIGNATURES`` lists, pointers
+    and ints in the same places (``tile_error_string`` is bound apart, in
+    ``_build.load``, as ``[c_int]``)."""
+    defs = [params for n, params in _extern_c_definitions() if n == name]
+    assert len(defs) == 1, f"{name} is defined {len(defs)} times in ops/csrc"
+    want = _build.SIGNATURES.get(name, [ctypes.c_int])
+    assert [_ctype(p) for p in defs[0]] == want
+
+
+def test_every_c_entry_point_is_bound():
+    names = [n for n, _ in _extern_c_definitions()]
+    assert sorted(names) == sorted([*_build.SIGNATURES, "tile_error_string"])
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    log = (
+        "ptxas info    : Compiling entry function '_Z4walkv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z4walkv\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 72 registers, used 0 barriers, 436 bytes cmem[0]\n"
+        "ptxas info    : Function properties for _Z4slabv\n"
+        "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads\n"
+    )
+    assert _build.ptxas_report(log) == {
+        "_Z4walkv": {"stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 72},
+        "_Z4slabv": {"stack": 8, "spill_stores": 4, "spill_loads": 12},
+    }
 
 
 def test_precision_default_and_validation():
