@@ -11,15 +11,20 @@ last line is printed):
 1. device   -- CUDA must be present; the card's name and power limit.
 2. build    -- ``nvcc`` builds every ``ops/csrc/*.cu`` (sm_90a), one
    process per source, all started together; ptxas must report no spill
-   in any instantiation of the SDDMM / fused walk (``dot_walk_kernel``).
-2b. edges   -- the SDDMM and fused walks on a small tile whose rows hold
-   0, 1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65, 100 and
-   4099 slots (around every batch and index-chunk size of the walk), plus
-   pads, at R = 32, 64, 100, 128, 256, 512 and 520, f32 and bf16, for the
-   three item kinds: whole tile rows, every row as one band's row list,
-   and the segments (at most 33 slots) of the rows above 16 slots. Each
-   against its plain version (phase 3's tolerances), ``mid == 0`` exactly
-   at the pads, two launches bit-equal.
+   in any instantiation of the walks of ``ops/csrc/tile_common.cuh``
+   (``WALK_KERNELS``: the SDDMM / SpMM / fused walk and the stats walk).
+2b. edges   -- the SDDMM, SpMM and fused walks on a small tile whose rows
+   hold 0, 1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65, 100,
+   129 and 4099 slots (around every batch and index-chunk size of the
+   walk), plus pads, at R = 16, 32, 64, 100, 128, 256, 512 and 520, f32 and
+   bf16, for the three item kinds: whole tile rows, every row as one
+   band's row list, and the segments (at most 33 slots) of the rows above
+   16 slots. Each against its plain version (phase 3's tolerances),
+   ``mid == 0`` exactly at the pads, two launches bit-equal. Then the
+   attention stats walk on the same tile, its three item kinds, with
+   aligned and unaligned gate and logits, a fully masked row and a row of
+   one live slot: ``m`` equal to the plain version's, ``d`` within
+   ``ATTN_STATS_RTOL``, two launches bit-equal.
 3. kernels  -- at the headline tile (R-mat log_m=16, edge_factor=32, R=128,
    the ``DenseShift15D`` S tile), each kernel against its plain version on
    standard-normal operands, in f32 and bf16. Error is the max abs
@@ -158,16 +163,24 @@ ATTN_OPS = ("attn_stats_tile", "attn_norm_tile")
 F32_ONLY = ATTN_OPS + ("attn_stats_rows", "attn_stats_split", "attn_stats_merge",
                        "split_reduce")
 
-# Edge checks of the SDDMM and fused walks (phase edges): row lengths
-# around each batch (2, 4 or 8 slots) and index chunk (4 to 32 slots) of
-# the walk and twice them, empty rows, a row of several thousand slots,
-# pads; every lane layout of the walk (R/16 lanes an item, the scalar path
-# at R = 100 in bf16, two slabs at 520).
+# Edge checks of the walks (phase edges): row lengths around each batch
+# (2 to 16 slots) and index chunk (4 to 32 slots) of the tile walk and
+# twice them, empty rows, a `window:64` row (129), a row of several
+# thousand slots, pads; every lane layout of the walk (R/16 lanes an item
+# for a dot, R/4 in f32 and R/8 in bf16 for the SpMM, from 4 lanes at R =
+# 16 up to the warp, the scalar path at R = 100 in bf16, two slabs at
+# 520). The stats walk:
+# a fully masked row (EDGE_DEAD, also a heavy row's segments) and a row
+# with one live slot (EDGE_ONE).
 EDGE = {"lens": (0, 1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65, 0, 4099,
-                 100),
-        "Rs": (32, 64, 100, 128, 256, 512, 520), "pads": 13, "n_cols": 4096,
+                 100, 129),
+        "Rs": (16, 32, 64, 100, 128, 256, 512, 520), "pads": 13, "n_cols": 4096,
         "heavy_above": 16, "split": 33}
-WALK_KERNELS = ("dot_walk_kernel", "dot_slabs")
+EDGE_DEAD, EDGE_ONE = 16, 12
+#: The ``__global__`` walks of ``ops/csrc/tile_common.cuh`` (and the dot
+#: walk's out-of-line helper), whose every instantiation phase build
+#: holds to no spill.
+WALK_KERNELS = ("dot_walk_kernel", "stats_walk_kernel", "dot_slabs")
 
 # Banked launches (phase banked). The Graph500 initiator fills all three
 # bands; the uniform one collapses to one (PERF.md section 4).
@@ -351,12 +364,13 @@ def phase_build() -> None:
              if any(k in name for k in WALK_KERNELS)}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": info["seconds"], "cached": info["cached"],
-          "ptxas": ptxas, "dot_walk": walks})
-    require(any("dot_walk_kernel" in name for name in walks),
-            "ptxas reported no instantiation of the dot walk")
+          "ptxas": ptxas, "walks": walks})
+    for kernel in WALK_KERNELS[:2]:
+        require(any(kernel in name for name in walks),
+                f"ptxas reported no instantiation of {kernel}")
     spilled = {name: r for name, r in walks.items()
                if r.get("spill_stores", 0) or r.get("spill_loads", 0)}
-    require(not spilled, f"ptxas spills in the dot walk: {spilled}")
+    require(not spilled, f"ptxas spills in a walk: {spilled}")
 
 
 def edge_tile(dev):
@@ -387,11 +401,66 @@ def edge_tile(dev):
     return tile, every, hb.to(dev), nnz
 
 
+def edge_stats(dev, tile, every, hb) -> dict:
+    """The stats walk at the edges: whole tile rows, one band's row list
+    and heavy segments, each against its plain version on standard-normal
+    logits with 10% of the gates zeroed, row EDGE_DEAD fully masked and
+    row EDGE_ONE with one live slot; gate and logits 16-byte aligned, then
+    4 bytes off (the scalar loads). ``m`` exactly the plain version's,
+    ``d`` within ATTN_STATS_RTOL, two launches bit-equal."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    ck = cuda_kernels
+    nnz = int(tile.row_ptr[-1])
+    real = (torch.arange(tile.cap, device=dev) < nnz).float()
+    z = torch.randn(tile.cap, generator=gen, device=dev) * real
+    gate = real * (torch.rand(tile.cap, generator=gen, device=dev) >= 0.1)
+    lo, hi = (int(x) for x in tile.row_ptr[EDGE_DEAD: EDGE_DEAD + 2])
+    gate[lo:hi] = 0
+    lo, hi = (int(x) for x in tile.row_ptr[EDGE_ONE: EDGE_ONE + 2])
+    gate[lo:hi] = 0
+    gate[lo + (hi - lo) // 2] = 1
+
+    def off(t):
+        """``t`` again, 4 bytes past a 16-byte boundary."""
+        buf = torch.empty(t.numel() + 1, device=dev)
+        buf[1:] = t
+        return buf[1:]
+
+    def runs(plain: bool, g, lz):
+        sfx = "_plain" if plain else ""
+        m, d = (torch.full((tile.n_rows,), float("nan"), device=dev) for _ in range(2))
+        getattr(ck, f"attn_stats_rows{sfx}")(tile, every, g, lz, m, d)
+        return {"tile": getattr(ck, f"attn_stats_tile{sfx}")(tile, g, lz),
+                "rows": (m, d),
+                "split": getattr(ck, f"attn_stats_split{sfx}")(tile, hb, g, lz)}
+
+    worst = {}
+    for align, g, lz in (("aligned", gate, z), ("unaligned", off(gate), off(z))):
+        require((g.data_ptr() % 16 == 0) == (align == "aligned"), f"edges stats: {align}")
+        got, again, want = runs(False, g, lz), runs(False, g, lz), runs(True, g, lz)
+        torch.cuda.synchronize()
+        for kind, (m, d) in got.items():
+            tag = f"edges attn_stats/{kind}/{align}"
+            wm, wd = want[kind]
+            rel = float(((d - wd).abs() / wd.abs().clamp_min(1e-30)).max())
+            require(torch.equal(m, wm), f"{tag}: m differs from the plain version")
+            require(rel <= ATTN_STATS_RTOL, f"{tag}: d error {rel:.3e} > {ATTN_STATS_RTOL}")
+            require(torch.equal(m, again[kind][0]) and torch.equal(d, again[kind][1]),
+                    f"{tag}: two launches differ")
+            if kind != "split":
+                require(bool(m[EDGE_DEAD] == ATTN_NEG) and float(d[EDGE_DEAD]) == 0.0,
+                        f"{tag}: the fully masked row has stats")
+                require(float(d[EDGE_ONE]) == 1.0, f"{tag}: one live slot gives d != 1")
+            worst[f"attn_stats_{kind}"] = max(worst.get(f"attn_stats_{kind}", 0.0), rel)
+    return worst
+
+
 def phase_edges(dev) -> dict:
-    """The SDDMM and fused walks at the edges (EDGE): whole tile rows, one
-    band's row list and heavy segments, each against its plain version on
-    standard-normal operands (phase 3's tolerances), ``mid == 0`` exactly
-    at the pads, two launches bit-equal. Launches here are not the main
+    """The tile walk at the edges (EDGE): SDDMM, SpMM and fused over whole
+    tile rows, one band's row list and heavy segments, each against its
+    plain version on standard-normal operands (phase 3's tolerances),
+    ``mid == 0`` exactly at the pads, two launches bit-equal; then the
+    stats walk (:func:`edge_stats`). Launches here are not the main
     path's and are not counted."""
     tile, every, hb, nnz = edge_tile(dev)
     pads = torch.arange(tile.cap, device=dev) >= nnz
@@ -403,7 +472,8 @@ def phase_edges(dev) -> dict:
         return torch.full(shape, float("nan"), device=dev)
 
     def runs(plain: bool, sv, at, bt):
-        """Every (op, kind) once: the outputs each writes, and its mid."""
+        """Every (op, kind) once: the outputs each writes, and its mid
+        (None for the SpMM)."""
         sfx = "_plain" if plain else ""
         res = {}
         for op in ("sddmm", "fused"):
@@ -420,6 +490,11 @@ def phase_edges(dev) -> dict:
             work = getattr(ck, f"{op}_split{sfx}")(tile, hb, sv, at, bt, mid, True)
             res[(op, "split")] = ((mid[heavy_slots],) if op == "sddmm"
                                   else (work, mid[heavy_slots])), mid
+        out = nan(tile.n_rows, bt.shape[1])
+        getattr(ck, f"spmm_rows{sfx}")(tile, every, sv, bt, out)
+        res[("spmm", "tile")] = (getattr(ck, f"spmm_tile{sfx}")(tile, sv, bt),), None
+        res[("spmm", "rows")] = (out,), None
+        res[("spmm", "split")] = (getattr(ck, f"spmm_split{sfx}")(tile, hb, sv, bt),), None
         return res
 
     worst = {}
@@ -437,11 +512,13 @@ def phase_edges(dev) -> dict:
                 tag = f"edges {key[0]}/{key[1]}/{prec} at R={R}"
                 rel = max(rel_err(g, w)[1] for g, w in zip(outs, want[key][0]))
                 require(rel <= KERNEL_TOL[prec], f"{tag}: error {rel:.3e} > {KERNEL_TOL[prec]}")
-                require(bool(torch.all(mid[pads] == 0)), f"{tag}: nonzero mid at a pad slot")
+                require(mid is None or bool(torch.all(mid[pads] == 0)),
+                        f"{tag}: nonzero mid at a pad slot")
                 require(all(torch.equal(g, a) for g, a in zip(outs, again[key][0])),
                         f"{tag}: two launches differ")
                 name = f"{key[0]}_{key[1]}/{prec}"
                 worst[name] = max(worst.get(name, 0.0), rel)
+    worst.update(edge_stats(dev, tile, every, hb))
     res = {"rows": int(tile.n_rows), "nnz": nnz, "pads": EDGE["pads"], "Rs": EDGE["Rs"],
            "segments": hb.n_seg, "max_rel_err": worst}
     emit({"phase": "edges", **res})

@@ -1,5 +1,5 @@
-"""Time the SDDMM, fused and SpMM tile kernels of several source trees on
-the same inputs, on one card, in turns.
+"""Time the SDDMM, fused and SpMM tile kernels and the attention stats
+kernel of several source trees on the same inputs, on one card, in turns.
 
     python3 -m distributed_sddmm_tpu_torch.bench.kernel_ab LABEL=TREE ... [-o FILE]
 
@@ -19,20 +19,30 @@ R=128 unless named, standard-normal operands, f32 and bf16:
   (edge_factor 32), the ``DenseShift15D`` S tile: ``sddmm_tile``,
   ``fused_tile``, ``spmm_tile``; at log_m=16 also R = 32, 64, 256, 512;
 * ``window64``: the ``window:64`` attention tile at 2**20 tokens:
-  ``sddmm_tile``, ``spmm_tile``;
+  ``sddmm_tile``, ``spmm_tile``, and ``attn_stats_tile`` (f32) on
+  standard-normal logits with 10% of the gates zeroed; ``window16``: the
+  attention headline's ``window:16`` tile at 2**16 tokens,
+  ``attn_stats_tile``;
 * ``graph500_16`` and ``graph500_20``: the Graph500 R-mat banded by its
-  selected variant: the row-list bands (``sddmm_rows``, ``fused_rows``, a
-  launch per band as the banked op makes them) and the heavy band's pass 1
-  (``sddmm_split``, ``fused_split``).
+  selected variant: the row-list bands (``sddmm_rows``, ``fused_rows``,
+  ``spmm_rows``, a launch per band as the banked op makes them) and the
+  heavy band's pass 1 (``sddmm_split``, ``fused_split``, ``spmm_split``);
+* ``bigbird_16``: the ``bigbird:w=8,g=2,r=2`` attention tile at 2**16
+  tokens banked by its selected variant: the stats of the row-list bands
+  (``attn_stats_rows``) and of the heavy band's segments
+  (``attn_stats_split``), f32, on logits and gates as for ``window64``.
 
 Each case runs the trees in the order given, then in reverse (A B B A),
 each reading CUDA events around ``REPS`` calls after a warmup call. It
-prints one JSON line per case: each tree's two readings (ms per call) and
-the largest difference of its outputs from the first tree's, over their
-largest magnitude. The first line names the card and its power limit; the
-second gives each tree's build time and the ptxas report (registers,
-spills) of its walk kernels. With ``-o`` the lines are also appended to
-FILE.
+prints one JSON line per case: each tree's two readings (ms per call),
+the largest difference of its outputs from the first tree's, absolute
+(``max_abs_diff_vs_first``: 0.0 where they agree bit for bit) and over
+the largest magnitude (``rel_diff_vs_first``); for the stats also
+whether ``m`` equals the first tree's and the largest relative difference
+of each ``d`` (``d_rel_diff_vs_first``). The first line names the card
+and its power limit; the second gives each tree's build time and the
+ptxas report (registers, spills) of its walk kernels. With ``-o`` the
+lines are also appended to FILE.
 """
 
 from __future__ import annotations
@@ -61,6 +71,8 @@ REPS = 20
 #: tokens, mask) and the Graph500 R-mat sizes.
 RMAT = (("headline", 16), ("full", 20))
 WINDOW = (20, "window:64")
+WINDOW16 = (16, "window:16")
+BIGBIRD = (16, "bigbird:w=8,g=2,r=2")
 GRAPH500_LOG_MS = (16, 20)
 R_MAIN = 128
 R_SWEEP = (32, 64, 256, 512)
@@ -130,19 +142,26 @@ def run_op(lib, op: str, tile, bands, sv, at, bt, zero: bool):
     lists = [b for b in bands if not b.heavy]
     heavy = [b for b in bands if b.heavy]
     mid = _alloc(cap, zero, dev)
-    if op in ("sddmm_rows", "fused_rows"):
-        out = _alloc((n, R), zero, dev) if op == "fused_rows" else None
+    if op in ("sddmm_rows", "fused_rows", "spmm_rows"):
+        out = _alloc((n, R), zero, dev) if op != "sddmm_rows" else None
         for i, b in enumerate(lists):
             if op == "sddmm_rows":
                 _call(lib, "sddmm_tile", _p(tile.row_ptr), _p(b.rows), *common, _p(at),
                       _p(bt), _p(mid), b.n_rows, n, cap, int(i == 0), R, bf16, vec, stream)
+            elif op == "spmm_rows":
+                _call(lib, "spmm_tile", _p(tile.row_ptr), _p(b.rows), *common, _p(bt),
+                      _p(out), b.n_rows, R, bf16, vec, stream)
             else:
                 _call(lib, "fused_tile", _p(tile.row_ptr), _p(b.rows), *common, _p(at),
                       _p(bt), _p(out), _p(mid), b.n_rows, n, cap, int(i == 0), R, bf16,
                       vec, stream)
-        return (mid,) if op == "sddmm_rows" else (out, mid)
+        return {"sddmm_rows": (mid,), "spmm_rows": (out,)}.get(op, (out, mid))
     hb = heavy[0]
     seg = (_p(hb.seg_row), _p(hb.seg_beg), _p(hb.seg_end))
+    if op == "spmm_split":
+        work = _alloc((hb.n_seg, R), zero, dev)
+        _call(lib, op, *seg, *common, _p(bt), _p(work), hb.n_seg, R, bf16, vec, stream)
+        return (work,)
     if op == "sddmm_split":
         _call(lib, op, _p(tile.row_ptr), *seg, *common, _p(at), _p(bt), _p(mid), hb.n_seg,
               n, cap, 0, R, bf16, vec, stream)
@@ -151,6 +170,27 @@ def run_op(lib, op: str, tile, bands, sv, at, bt, zero: bool):
     _call(lib, op, _p(tile.row_ptr), *seg, *common, _p(at), _p(bt), _p(work), _p(mid),
           hb.n_seg, n, cap, 0, R, bf16, vec, stream)
     return work, mid
+
+
+def run_stats(lib, op: str, tile, bands, gate, z, zero: bool):
+    """One call of an attention stats op as the port's wrapper (or the
+    banked op, for a band kind) makes it; returns ``(m, d)``."""
+    dev = gate.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    n = tile.n_rows
+    if op == "attn_stats_split":
+        hb = next(b for b in bands if b.heavy)
+        wm, wd = _alloc(hb.n_seg, zero, dev), _alloc(hb.n_seg, zero, dev)
+        _call(lib, op, _p(hb.seg_beg), _p(hb.seg_end), _p(gate), _p(z), _p(wm), _p(wd),
+              hb.n_seg, stream)
+        return wm, wd
+    m, d = _alloc(n, zero, dev), _alloc(n, zero, dev)
+    if op == "attn_stats_tile":
+        _call(lib, op, _p(tile.row_ptr), None, _p(gate), _p(z), _p(m), _p(d), n, stream)
+    for b in (b for b in bands if not b.heavy):  # attn_stats_rows
+        _call(lib, "attn_stats_tile", _p(tile.row_ptr), _p(b.rows), _p(gate), _p(z), _p(m),
+              _p(d), b.n_rows, stream)
+    return m, d
 
 
 def time_ms(fn, reps: int = REPS) -> float:
@@ -172,26 +212,57 @@ def rel_diff(got, want) -> float:
                for g, w in zip(got, want))
 
 
+def abs_diff(got, want) -> float:
+    return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
+def in_turns(trees: dict, run) -> dict:
+    """Each tree's two readings of ``run(lib)``, trees in order then
+    reversed."""
+    ms = {label: [] for label in trees}
+    for label in [*trees, *reversed(trees)]:
+        lib = trees[label]["lib"]
+        ms[label].append(time_ms(lambda: run(lib)))
+    return ms
+
+
 def compare(trees: dict, case: str, op: str, tile, bands, sv, A, B, emit) -> None:
     """Every tree on one case, in turns; one JSON line per precision."""
     nnz = int(tile.row_ptr[-1])
     for prec, dtype in DTYPES.items():
         at, bt = A.to(dtype).contiguous(), B.to(dtype).contiguous()
         first = None
-        diffs = {}
+        diffs, abs_diffs = {}, {}
         for label, t in trees.items():
             got = run_op(t["lib"], op, tile, bands, sv, at, bt, zero=True)
             torch.cuda.synchronize()
             first = got if first is None else first
             diffs[label] = rel_diff(got, first)
+            abs_diffs[label] = abs_diff(got, first)
             del got
-        ms = {label: [] for label in trees}
-        for label in [*trees, *reversed(trees)]:
-            lib = trees[label]["lib"]
-            ms[label].append(time_ms(lambda: run_op(lib, op, tile, bands, sv, at, bt,
-                                                    zero=False)))
+        ms = in_turns(trees, lambda lib: run_op(lib, op, tile, bands, sv, at, bt,
+                                                 zero=False))
         emit({"case": case, "op": op, "precision": prec, "R": B.shape[1], "nnz": nnz,
-              "ms": ms, "rel_diff_vs_first": diffs})
+              "ms": ms, "max_abs_diff_vs_first": abs_diffs, "rel_diff_vs_first": diffs})
+
+
+def compare_stats(trees: dict, case: str, op: str, tile, bands, gate, z, emit) -> None:
+    """Every tree on one attention stats case, in turns; one JSON line."""
+    first = None
+    diffs, abs_diffs, m_equal, d_rel = {}, {}, {}, {}
+    for label, t in trees.items():
+        got = run_stats(t["lib"], op, tile, bands, gate, z, zero=True)
+        torch.cuda.synchronize()
+        first = got if first is None else first
+        diffs[label] = rel_diff(got, first)
+        abs_diffs[label] = abs_diff(got, first)
+        m_equal[label] = torch.equal(got[0], first[0])
+        d_rel[label] = float(((got[1] - first[1]).abs()
+                              / first[1].abs().clamp_min(1e-30)).max())
+    ms = in_turns(trees, lambda lib: run_stats(lib, op, tile, bands, gate, z, zero=False))
+    emit({"case": case, "op": op, "precision": "f32", "nnz": int(tile.row_ptr[-1]),
+          "ms": ms, "max_abs_diff_vs_first": abs_diffs, "rel_diff_vs_first": diffs,
+          "m_equal_to_first": m_equal, "d_rel_diff_vs_first": d_rel})
 
 
 def operands(alg, R: int, dev, seed: int):
@@ -201,6 +272,15 @@ def operands(alg, R: int, dev, seed: int):
     B = torch.randn(alg.N_pad, R, generator=gen, device=dev)
     sv = (tiles.mask * torch.randn(tiles.shape, generator=gen, device=dev))[0, 0].contiguous()
     return sv, A, B
+
+
+def stats_inputs(alg, dev, seed: int):
+    """Standard-normal logits and gates with 10% zeroed (0 at pads)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    real = alg.S_tiles.mask[0, 0]
+    z = torch.randn(real.shape, generator=gen, device=dev) * real
+    gate = real * (torch.rand(real.shape, generator=gen, device=dev) >= 0.1)
+    return gate.contiguous(), z.contiguous()
 
 
 def run_cases(trees: dict, dev, emit) -> None:
@@ -222,7 +302,15 @@ def run_cases(trees: dict, dev, emit) -> None:
     sv, A, B = operands(alg, R_MAIN, dev, seed=0)
     for op in ("sddmm_tile", "spmm_tile"):
         compare(trees, "window64", op, tile, (), sv, A, B, emit)
+    compare_stats(trees, "window64", "attn_stats_tile", tile, (), *stats_inputs(alg, dev, 1),
+                  emit)
     del alg, tile, sv, A, B, S
+    S = masks.from_spec(WINDOW16[1], 1 << WINDOW16[0])
+    alg = make_algorithm("15d_fusion2", S, R_MAIN, kernel=CudaTileKernel("f32", device=dev),
+                         device=dev, attention=True)
+    compare_stats(trees, "window16", "attn_stats_tile", alg.S_tiles.tile(0, 0), (),
+                  *stats_inputs(alg, dev, 1), emit)
+    del alg, S
     for log_m in GRAPH500_LOG_MS:
         S = HostCOO.rmat(log_m, 32, np.random.default_rng(0), **GRAPH500)
         variant = select_variant(Problem.from_coo(S, R_MAIN))
@@ -230,9 +318,19 @@ def run_cases(trees: dict, dev, emit) -> None:
                              kernel=BankedCudaKernel(variant, "f32", device=dev), device=dev)
         tile = alg.S_tiles.tile(0, 0)
         sv, A, B = operands(alg, R_MAIN, dev, seed=0)
-        for op in ("sddmm_rows", "fused_rows", "sddmm_split", "fused_split"):
+        for op in ("sddmm_rows", "fused_rows", "spmm_rows", "sddmm_split", "fused_split",
+                   "spmm_split"):
             compare(trees, f"graph500_{log_m}", op, tile, tile.bands, sv, A, B, emit)
         del alg, tile, sv, A, B, S
+    S = masks.from_spec(BIGBIRD[1], 1 << BIGBIRD[0])
+    variant = select_variant(Problem.from_coo(S, R_MAIN))
+    alg = make_algorithm("15d_fusion2", S, R_MAIN,
+                         kernel=BankedCudaKernel(variant, "f32", device=dev), device=dev,
+                         attention=True)
+    tile = alg.S_tiles.tile(0, 0)
+    gate, z = stats_inputs(alg, dev, 2)
+    for op in ("attn_stats_rows", "attn_stats_split"):
+        compare_stats(trees, f"bigbird_{BIGBIRD[0]}", op, tile, tile.bands, gate, z, emit)
 
 
 def main(argv=None) -> int:

@@ -2,11 +2,12 @@
 ``codegen/banded.py``).
 
 The JAX package builds one 128-lane chunk list per band. On the card a
-band is a list of tile rows: the short and mid bands are walked one warp
-per row, like the generic kernel, and the heavy band's rows are cut into
-segments of at most ``split`` slots, one warp per segment, whose partial
-results a second pass sums per row in segment order. A heavy row then no
-longer serialises on one warp while the rest of the card idles.
+band is a list of tile rows: the short and mid bands are walked one lane
+group per row, like the generic kernel, and the heavy band's rows are cut
+into segments of at most ``split`` slots, one lane group per segment,
+whose partial results a second pass sums per row in segment order. A heavy
+row then no longer serialises on one group while the rest of the card
+idles.
 
 The bands index the tile's CSR (``parallel/sharding.py``: real nonzeros
 in row order, pads at the tail, ``row_ptr``) and change nothing in it, so

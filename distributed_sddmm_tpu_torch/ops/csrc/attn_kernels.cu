@@ -17,11 +17,13 @@
 // because the TPU cannot gather; here each slot's row comes from the
 // tile's CSR (row_ptr for the reduction, rows[k] for the map).
 //
-// Design. attn_stats: one warp per tile row (or per listed row), the
-// lane-and-shuffle rule of tile_common.cuh::warp_row_stats. The stats are
-// partial per tile: the strategy merges tiles (and, later, the c axis)
-// before attn_norm, so the two kernels stay apart. attn_norm: one thread
-// per slot, exp on the select-guarded argument so a masked slot's
+// Design. attn_stats: the stats walk of tile_common.cuh
+// (stats_walk_kernel), a group of kStatLanes lanes a tile row (or listed
+// row), a max pass and then a sum-of-exp pass over the row's slots, each
+// ending in a shuffle reduction over the group. The stats are partial per
+// tile: the strategy merges tiles (and, later, the c axis) before
+// attn_norm, so the two kernels stay apart. attn_norm: one thread per
+// slot, exp on the select-guarded argument so a masked slot's
 // z - ATTN_NEG never makes an inf; it never looks at row lengths, so the
 // banked kernel launches it once over the whole tile. Both run in f32 in
 // either precision mode (the JAX kernels read f32 chunk values whatever
@@ -31,31 +33,16 @@
 // slot: attn_stats reads row_ptr, gate and logits (8 B a slot) and writes
 // m and d; attn_norm reads rows, gate and logits and writes p (16 B a
 // slot) plus one gather of m and d per slot, which the row order keeps in
-// L1/L2. A warp per row idles most lanes on rows shorter than 32 slots
-// and would serialise a heavy row (a bigbird global token) on one warp;
-// the banked launch splits such rows (banked_kernels.cu).
+// L1/L2. A warp a row, one 4-byte load a slot and an online rescale (two
+// expf a merge step) made attn_stats bound by instructions at 45% of its
+// byte bound (PERF.md, section 6); the stats walk loads 16 bytes a lane
+// and spends one expf a live slot. A heavy row (a bigbird global token)
+// would still serialise on one group; the banked launch splits such rows
+// (banked_kernels.cu).
 
 #include "tile_common.cuh"
 
 namespace {
-
-__global__ void __launch_bounds__(kThreads)
-attn_stats_kernel(const int* __restrict__ row_ptr,
-                  const int* __restrict__ row_ids,
-                  const float* __restrict__ gate,
-                  const float* __restrict__ logits, float* __restrict__ m_out,
-                  float* __restrict__ d_out, int n_rows) {
-  const int lane = threadIdx.x % kWarp;
-  const int item = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (item >= n_rows) return;  // warp-uniform: one warp, one row
-  const int row = row_ids != nullptr ? row_ids[item] : item;
-  float m, d;
-  warp_row_stats(gate, logits, row_ptr[row], row_ptr[row + 1], lane, m, d);
-  if (lane == 0) {
-    m_out[row] = m;
-    d_out[row] = d;
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 attn_norm_kernel(const int* __restrict__ rows, const float* __restrict__ gate,
@@ -79,10 +66,8 @@ attn_norm_kernel(const int* __restrict__ rows, const float* __restrict__ gate,
 extern "C" int attn_stats_tile(const int* row_ptr, const int* row_ids,
                                const float* gate, const float* logits,
                                float* m, float* d, int n_rows, void* stream) {
-  attn_stats_kernel<<<blocks_for(n_rows, kWarpsPerBlock), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      row_ptr, row_ids, gate, logits, m, d, n_rows);
-  return static_cast<int>(cudaGetLastError());
+  const Walk w{row_ptr, row_ids, nullptr, nullptr, nullptr, n_rows, 0, 0, 0};
+  return launch_stats<kStatLanes>(w, gate, logits, m, d, stream);
 }
 
 extern "C" int attn_norm_tile(const int* rows, const float* gate,

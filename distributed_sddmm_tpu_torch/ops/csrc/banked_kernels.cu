@@ -7,23 +7,24 @@
 // launches the Pallas tile kernels once per row band; the short and mid
 // bands run tile_kernels.cu and attn_kernels.cu with a row list.
 //
-// Why. A row-owned kernel gives a row of n nonzeros to one warp: a bigbird
-// global token (a row of every column) or a Graph500 R-mat hub then walks
-// thousands of slots alone while the rest of the card idles. Here each
-// heavy row is cut into segments of at most `split` slots
+// Why. A row-owned kernel gives a row of n nonzeros to one lane group: a
+// bigbird global token (a row of every column) or a Graph500 R-mat hub
+// then walks thousands of slots alone while the rest of the card idles.
+// Here each heavy row is cut into segments of at most `split` slots
 // (codegen/banded.py) and:
-//   split pass 1 (sddmm_split / spmm_split / fused_split): one warp
-//     (SpMM) or lane group (SDDMM, fused) per segment, the same walks as
-//     the generic kernel (tile_common.cuh): A of the segment's row loaded
-//     once, mid[k] written for its slots (SDDMM, fused), its f32 partial
-//     output row written to row s of a workspace [n_seg, R] (SpMM, fused).
-//     SDDMM needs this pass only: mid is per slot.
+//   split pass 1 (sddmm_split / spmm_split / fused_split): one lane group
+//     per segment, the same walk as the generic kernel (tile_common.cuh):
+//     A of the segment's row loaded once (SDDMM, fused), mid[k] written for
+//     its slots (SDDMM, fused), its f32 partial output row written to row
+//     s of a workspace [n_seg, R] (SpMM, fused). SDDMM needs this pass
+//     only: mid is per slot.
 //   split pass 2 (split_reduce): per heavy row, its segments' partial rows
 //     summed in segment order, the output row written once.
-//   attn_stats_split: per segment, the warp's masked (max, sum-of-exp)
-//     pair; attn_stats_merge: per heavy row, its segments' pairs merged in
-//     segment order by the attn_merge_stats rule (max of the maxima, each
-//     denominator rescaled into it), (ATTN_NEG, 0) for a row with none.
+//   attn_stats_split: per segment, the masked (max, sum-of-exp) pair of
+//     the stats walk (tile_common.cuh); attn_stats_merge: per heavy row,
+//     its segments' pairs merged in segment order by the attn_merge_stats
+//     rule (max of the maxima, each denominator rescaled into it),
+//     (ATTN_NEG, 0) for a row with none.
 // One owner per output slot, row or segment; no atomics; every sum in a
 // fixed order, so two launches agree bit for bit. Splitting re-associates
 // an output row's sum, so on normal data the result differs from the
@@ -56,23 +57,6 @@ split_reduce_kernel(const int* __restrict__ seg_ptr,
     acc += work[static_cast<size_t>(s) * R + f];
   }
   out[static_cast<size_t>(rows[i]) * R + f] = acc;
-}
-
-__global__ void __launch_bounds__(kThreads)
-attn_split_kernel(const int* __restrict__ seg_beg,
-                  const int* __restrict__ seg_end,
-                  const float* __restrict__ gate,
-                  const float* __restrict__ logits, float* __restrict__ wm,
-                  float* __restrict__ wd, int n_seg) {
-  const int lane = threadIdx.x % kWarp;
-  const int s = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (s >= n_seg) return;  // warp-uniform: one warp, one segment
-  float m, d;
-  warp_row_stats(gate, logits, seg_beg[s], seg_end[s], lane, m, d);
-  if (lane == 0) {
-    wm[s] = m;
-    wd[s] = d;
-  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -155,10 +139,8 @@ extern "C" int attn_stats_split(const int* seg_beg, const int* seg_end,
                                 const float* gate, const float* logits,
                                 float* wm, float* wd, int n_seg,
                                 void* stream) {
-  attn_split_kernel<<<blocks_for(n_seg, kWarpsPerBlock), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      seg_beg, seg_end, gate, logits, wm, wd, n_seg);
-  return static_cast<int>(cudaGetLastError());
+  const Walk w{nullptr, nullptr, nullptr, seg_beg, seg_end, n_seg, 0, 0, 0};
+  return launch_stats<kStatLanes>(w, gate, logits, wm, wd, stream);
 }
 
 extern "C" int attn_stats_merge(const int* seg_ptr, const int* rows,

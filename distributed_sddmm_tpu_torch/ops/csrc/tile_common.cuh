@@ -1,7 +1,7 @@
 // Device code shared by tile_kernels.cu, attn_kernels.cu and
-// banked_kernels.cu: operand loads at the bf16 rounding points, the two
-// walks of the SDDMM / SpMM / fused tile kernels and their launch, and the
-// masked-softmax row statistics of one warp.
+// banked_kernels.cu: operand loads at the bf16 rounding points, the one
+// walk of the SDDMM / SpMM / fused tile kernels and its launch, and the
+// walk of the masked-softmax row statistics.
 //
 // Everything sits in an anonymous namespace: each source compiles its own
 // copy, so no kernel symbol is shared between the objects of the library.
@@ -14,48 +14,61 @@
 // atomics, and every sum runs in a fixed order, so two launches agree bit
 // for bit.
 //
-// The SpMM walk (spmm_walk_kernel). One warp an item; lanes stride over R
-// (16-byte loads when R % 4 == 0); for each slot the warp gathers B[c] and
-// adds sv*B[c] to the output row it keeps in registers, written once.
-// Features beyond one register slab (128 for R <= 128, else 512) go to
-// blockIdx.y.
-//
-// The SDDMM and fused walk (dot_walk_kernel). Walked like the SpMM, each
-// nonzero would be one serial chain a warp (index load, one B row, a
-// 5-step shuffle reduction, one 4-byte store). Instead:
+// The tile walk (dot_walk_kernel<OP>, OP = SDDMM, SpMM or fused). Walked
+// one slot after another, each nonzero would be one serial chain a warp
+// (index load, one B row, for a dot a 5-step shuffle reduction, one
+// store). Instead:
 //  * Lanes sized to the row: a group of G lanes walks one item, each lane
-//    holding 16 features of a row (four 16-byte f32 loads or two of bf16),
-//    so G = R/16 up to a warp and a warp walks 32/G items at once; a short
-//    row no longer holds a whole warp. The scalar path (R % 4 != 0, bf16
-//    with R % 8 != 0, unaligned operands) gives each item the warp, one
-//    feature a lane per load.
+//    holding 16 features of a row for a dot (four 16-byte f32 loads or two
+//    of bf16; G = R/16) and one 16-byte load's for the SpMM (G = R/4 in
+//    f32, R/8 in bf16), up to a warp, and a warp walks 32/G items at once;
+//    a short row no longer holds a whole warp. The scalar path (R % 4 !=
+//    0, bf16 with R % 8 != 0, unaligned operands) gives each item the
+//    warp, one feature a lane per load.
 //  * Index loads leave the chain: a group loads G slots' cols and sv with
 //    one load a lane, a chunk ahead, and hands them out with __shfl_sync.
 //  * Several B rows in flight: a batch is U slots of each group's item
-//    (about 32 registers of raw row data a lane), so a warp has U*32/G
-//    rows of loads in flight, L1-cached (a window mask's neighbouring rows
-//    share most columns), and the next batch's rows are prefetched into L2
-//    (one prefetch a lane, no register) before this batch is reduced.
-//    Two deeper pipelines were tried on the card and lost (PERF.md,
-//    section 6): a register double buffer (up to 199 registers a thread)
-//    and a cp.async ring in shared memory, which takes the L1's capacity
-//    from the window's reuse (window:64 SDDMM 7.0-9.5 ms against 4.7).
-//  * Batched reductions: a lane's U partial dots are reduced together over
+//    (kDotBatchRegs or kSpmmBatchRegs registers of raw row data a lane, U
+//    at most G), so a warp has U*32/G rows of loads in flight, L1-cached
+//    (a window mask's neighbouring rows share most columns); the SDDMM
+//    and fused prefetch the next batch's rows into L2 (no register) before
+//    this batch is used.
+//    Two deeper pipelines were tried on the card for the dot walk and lost
+//    (PERF.md, section 6): a register double buffer (up to 199 registers a
+//    thread) and a cp.async ring in shared memory, which takes the L1's
+//    capacity from the window's reuse (window:64 SDDMM 7.0-9.5 ms against
+//    4.7).
+//  * SDDMM and fused: a lane's U partial dots are reduced together over
 //    its group (reduce-scatter over the low lane bits, U-1 shuffles, then
 //    log2(G/U) butterfly steps), leaving each lane one slot's dot; mid is
-//    written with one store a batch for the warp's 32/G items. For fused,
-//    each slot's weight is broadcast back (one shuffle) and scaled into the
-//    item's output row, which the group owns and writes once.
-// R above one slab (512 features) keeps the whole dot in every slab's
-// blockIdx.y, over the slabs in order, so every slab sees the same mid.
-// Tensor cores are not used: each gathered B element feeds 2 flops (SDDMM)
-// or 4 (fused), at most one flop a byte, far below what wgmma needs to pay.
+//    written with one store a batch for the warp's 32/G items.
+//  * SpMM and fused: each slot's weight (sv for SpMM, the slot's dot for
+//    fused) is broadcast by one shuffle and the slot's row scaled into the
+//    item's output row, which the group keeps in registers and writes
+//    once. Each output feature is summed over the item's slots in slot
+//    order by one lane, acc += round(b * w) with no FMA, so the SpMM gives
+//    the same bits as a walk of one slot after another.
+// R above one slab (512 features) takes more slabs in blockIdx.y; a dot
+// is over the whole row, over the slabs in order, so every slab sees the
+// same mid. Tensor cores are not used: each gathered B element feeds 2
+// flops (SDDMM, SpMM) or 4 (fused), at most one flop a byte, far below
+// what wgmma needs to pay.
+//
+// The stats walk (stats_walk_kernel): per item, m = max z over the slots
+// with gate != 0 and d = sum of exp(z - m) over them; (ATTN_NEG, 0) for
+// an item with none. A group of kStatLanes lanes takes one item, in two
+// passes over its slots: a shuffle max with no exp, then one expf a live
+// slot (the second read comes from L1) and a shuffle sum. gate and logits
+// come in 16-byte loads where both are 16-byte aligned (a scalar head and
+// tail around each item's aligned run). An online rescale of (m, d) would
+// cost two expf a merge step on the critical path; the two passes need
+// none.
 //
 // bf16 mode: A and B are bf16, products accumulate in f32, each scatter
 // contribution (B[c]*mid or B[c]*sv) is rounded to bf16 before it is
 // added to the f32 output, as the TPU kernel rounds
 // (distributed_sddmm_tpu/ops/pallas_kernels.py l.190, 218, 235, 258, 317,
-// 357); mid and the output are f32.
+// 357); mid and the output are f32. The stats are f32 in both modes.
 
 #pragma once
 
@@ -63,6 +76,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 #include <type_traits>
 
 namespace {
@@ -79,45 +93,25 @@ inline int blocks_for(int n, int per_block) {
   return n > 0 ? (n + per_block - 1) / per_block : 1;
 }
 
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  const float4 x = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = x.x;
-  v[1] = x.y;
-  v[2] = x.z;
-  v[3] = x.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 lo = __bfloat1622float2(q[0]);
-  const float2 hi = __bfloat1622float2(q[1]);
-  v[0] = lo.x;
-  v[1] = lo.y;
-  v[2] = hi.x;
-  v[3] = hi.y;
-}
-
-__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
-
-__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-// Scatter contribution at the operand type's rounding point.
+// Scatter contribution at the operand type's rounding point. In bf16,
+// x rounded to bf16 and widened back: converting the pair (0, x) puts
+// bf16(x) in the high half and zeros in the low half, which is the f32
+// value itself (one instruction, where a conversion and a shift take two).
 template <typename T>
 __device__ __forceinline__ float round_contrib(float x) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return __bfloat162float(__float2bfloat16_rn(x));
+    const __nv_bfloat162 h = __floats2bfloat162_rn(0.f, x);
+    return __uint_as_float(*reinterpret_cast<const unsigned*>(&h));
   } else {
     return x;
   }
 }
 
 // What one launch of a walk walks. Exactly one of three item kinds:
-// seg_beg set: segments (seg_row, seg_beg, seg_end), output row = item;
-// row_ids set: the listed rows; neither: rows 0..n_items-1. The SDDMM or
-// fused launch with zero_pads set also zeroes mid's pad slots
-// [row_ptr[frame_rows], cap).
+// seg_beg set: segments (seg_row, seg_beg, seg_end), output row = item
+// (the stats walk reads no seg_row); row_ids set: the listed rows;
+// neither: rows 0..n_items-1. The SDDMM or fused launch with zero_pads set
+// also zeroes mid's pad slots [row_ptr[frame_rows], cap).
 struct Walk {
   const int* row_ptr;
   const int* row_ids;
@@ -133,7 +127,7 @@ struct Walk {
 __device__ __forceinline__ void walk_item(const Walk& w, int item, int& row,
                                           int& beg, int& end, int& out_row) {
   if (w.seg_beg != nullptr) {
-    row = w.seg_row[item];
+    row = w.seg_row != nullptr ? w.seg_row[item] : 0;
     beg = w.seg_beg[item];
     end = w.seg_end[item];
     out_row = item;
@@ -145,108 +139,7 @@ __device__ __forceinline__ void walk_item(const Walk& w, int item, int& row,
   }
 }
 
-// ------------------------------------------------------------ SpMM walk
-
-// Feature index of element (v, e) of a lane's slab registers. VEC: four
-// consecutive features per vector (one 16-byte load); scalar: neighbouring
-// lanes on neighbouring features.
-template <bool VEC>
-__device__ __forceinline__ int feat(int base, int v, int e, int lane) {
-  if constexpr (VEC) {
-    return base + (v * kWarp + lane) * 4 + e;
-  } else {
-    return base + (v * 4 + e) * kWarp + lane;
-  }
-}
-
-template <bool VEC, int NV, typename T>
-__device__ __forceinline__ void gather(const T* __restrict__ row, int base,
-                                       int R, int lane, float x[NV][4]) {
-#pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    if constexpr (VEC) {
-      const int f = feat<true>(base, v, 0, lane);
-      if (f < R) {
-        load4(row + f, x[v]);
-      } else {
-        x[v][0] = x[v][1] = x[v][2] = x[v][3] = 0.f;
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int f = feat<false>(base, v, e, lane);
-        x[v][e] = f < R ? load1(row + f) : 0.f;
-      }
-    }
-  }
-}
-
-template <bool VEC, int NV>
-__device__ __forceinline__ void store(float* __restrict__ row, int base,
-                                      int R, int lane, const float x[NV][4]) {
-#pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    if constexpr (VEC) {
-      const int f = feat<true>(base, v, 0, lane);
-      if (f < R) {
-        *reinterpret_cast<float4*>(row + f) =
-            make_float4(x[v][0], x[v][1], x[v][2], x[v][3]);
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int f = feat<false>(base, v, e, lane);
-        if (f < R) row[f] = x[v][e];
-      }
-    }
-  }
-}
-
-template <bool VEC, int NV, typename T>
-__global__ void __launch_bounds__(kThreads)
-spmm_walk_kernel(Walk w, const int* __restrict__ cols,
-                 const float* __restrict__ sv, const T* __restrict__ B,
-                 float* __restrict__ out, int R) {
-  constexpr int kSlab = kWarp * 4 * NV;
-  const int lane = threadIdx.x % kWarp;
-  const int item = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
-  const int base = blockIdx.y * kSlab;
-  if (item >= w.n_items) return;  // warp-uniform: one warp, one item
-
-  int row, beg, end, out_row;
-  walk_item(w, item, row, beg, end, out_row);
-  float acc[NV][4] = {};
-  for (int k = beg; k < end; ++k) {
-    const T* b_row = B + static_cast<size_t>(cols[k]) * R;
-    const float s = sv[k];
-    float b[NV][4];
-    gather<VEC, NV>(b_row, base, R, lane, b);
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[v][e] += round_contrib<T>(__fmul_rn(b[v][e], s));
-      }
-    }
-  }
-  store<VEC, NV>(out + static_cast<size_t>(out_row) * R, base, R, lane, acc);
-}
-
-template <int NV, typename T>
-void launch_spmm(dim3 grid, cudaStream_t stream, bool vec, const Walk& w,
-                 const int* cols, const float* sv, const void* B, float* out,
-                 int R) {
-  const T* b = static_cast<const T*>(B);
-  if (vec) {
-    spmm_walk_kernel<true, NV, T><<<grid, kThreads, 0, stream>>>(w, cols, sv,
-                                                                  b, out, R);
-  } else {
-    spmm_walk_kernel<false, NV, T><<<grid, kThreads, 0, stream>>>(w, cols, sv,
-                                                                   b, out, R);
-  }
-}
-
-// ------------------------------------------------------ SDDMM / fused walk
+// ------------------------------------------------------------ tile walk
 
 // Raw register form of one load: E features of type T.
 template <typename T, int E>
@@ -312,10 +205,19 @@ __device__ __forceinline__ void unpack(unsigned short r, float x[1]) {
   x[0] = __uint_as_float(static_cast<unsigned>(r) << 16);
 }
 
+// Raw row registers a lane gives one batch. SDDMM and fused: 32, with the
+// L2 prefetch of the next batch, PR 4's choice on the card (their A
+// fragment and dot partials take the rest). SpMM: 32 (8 slots a batch at
+// R = 128) and no prefetch, chosen on the card by bench/kernel_ab.py
+// against 16 and 64 registers with and without it (PERF.md, section 6):
+// the prefetch cost up to 28% on the L1-resident window tile.
+constexpr int kDotBatchRegs = 32;
+constexpr int kSpmmBatchRegs = 32;
+
 // One launch's lane layout: a group of G lanes walks one item; lane gl of
 // the group holds features base + (v*G + gl)*E + e (v < NV, e < E) of the
 // item's A row, of each gathered B row and of its output row.
-template <typename T, int G_, int E_, int NV_>
+template <typename T, int G_, int E_, int NV_, int BATCH_REGS>
 struct DotLayout {
   using Elem = T;
   using Raw = typename RawOf<T, E_>::type;
@@ -325,9 +227,11 @@ struct DotLayout {
   static constexpr int NG = kWarp / G;      // items a warp walks at once
   static constexpr int SLAB = G * E * NV;   // features a group covers
   static constexpr int RAW_REGS = NV * ((static_cast<int>(sizeof(Raw)) + 3) / 4);
-  // Slots a group takes per batch: about 32 registers of raw row data a
-  // lane, and at most G (the reduce-scatter leaves one of U dots a lane).
-  static constexpr int U = G < 32 / RAW_REGS ? G : 32 / RAW_REGS;
+  // Slots a group takes per batch: BATCH_REGS registers of raw row data a
+  // lane, and at most G (one index chunk holds G slots; the dot's
+  // reduce-scatter leaves one of U dots a lane).
+  static constexpr int U = G < BATCH_REGS / RAW_REGS ? G : BATCH_REGS / RAW_REGS;
+  static_assert(U >= 1 && G % U == 0, "a batch divides an index chunk");
 };
 
 constexpr int kMaxSlab = 512;
@@ -452,13 +356,30 @@ __device__ __forceinline__ Chunk load_chunk(const int* __restrict__ cols,
 }
 
 // One batch in registers: the raw B rows of the group's U slots, their
-// columns, and sv of the slot whose dot the lane ends up holding.
+// columns, and (SDDMM, fused) sv of the slot whose dot the lane ends up
+// holding.
 template <class L>
 struct Batch {
   typename L::Raw b[L::U][L::NV];
   int c[L::U];
   float s;
 };
+
+// acc += round(row * w), feature by feature: no FMA, so each output
+// feature's sum takes the same steps as a walk of one slot at a time.
+template <class L>
+__device__ __forceinline__ void scale_add(const typename L::Raw r[L::NV], float w,
+                                          float acc[L::NV][L::E]) {
+  float x[L::NV][L::E];
+  unpack_frag<L>(r, x);
+#pragma unroll
+  for (int v = 0; v < L::NV; ++v) {
+#pragma unroll
+    for (int e = 0; e < L::E; ++e) {
+      acc[v][e] += round_contrib<typename L::Elem>(__fmul_rn(x[v][e], w));
+    }
+  }
+}
 
 // The dot products of one batch (slots k0..k0+U-1 of the group's item),
 // mid at its slots and, for fused, the item's output row.
@@ -489,22 +410,13 @@ __device__ __forceinline__ void consume_batch(
   if constexpr (OP == kFused) {
 #pragma unroll
     for (int u = 0; u < L::U; ++u) {
-      const float wu = __shfl_sync(kFull, wk, g * L::G + u);
-      float x[L::NV][L::E];
-      unpack_frag<L>(bt.b[u], x);
-#pragma unroll
-      for (int v = 0; v < L::NV; ++v) {
-#pragma unroll
-        for (int e = 0; e < L::E; ++e) {
-          acc[v][e] += round_contrib<typename L::Elem>(__fmul_rn(x[v][e], wu));
-        }
-      }
+      scale_add<L>(bt.b[u], __shfl_sync(kFull, wk, g * L::G + u), acc);
     }
   }
 }
 
 // Ask L2 for the 128-byte line at p (no register, no wait): the next
-// batch's rows start on their way from HBM while this batch is reduced.
+// batch's rows start on their way from HBM while this batch is used.
 // One batch ahead: two or four batches ahead read 5-33% slower at full
 // size on the card (PERF.md, section 6).
 __device__ __forceinline__ void prefetch_l2(const void* p) {
@@ -520,6 +432,7 @@ dot_walk_kernel(Walk w, const int* __restrict__ cols,
                 float* __restrict__ out, float* __restrict__ mid, int R,
                 int n_slabs) {
   constexpr int kPerChunk = L::G / L::U;  // batches per index chunk
+  constexpr bool kDot = OP != kSpmm;
   const int lane = threadIdx.x % kWarp;
   const int g = lane / L::G;
   const int gl = lane % L::G;
@@ -528,7 +441,7 @@ dot_walk_kernel(Walk w, const int* __restrict__ cols,
   const int slab = blockIdx.y;
   const int base = slab * L::SLAB;
 
-  if (w.zero_pads && slab == 0) {
+  if (kDot && w.zero_pads && slab == 0) {
     const int stride = gridDim.x * blockDim.x;
     for (int k = w.row_ptr[w.frame_rows] + blockIdx.x * blockDim.x + threadIdx.x;
          k < w.cap; k += stride) {
@@ -540,9 +453,9 @@ dot_walk_kernel(Walk w, const int* __restrict__ cols,
   // A group past the last item walks an empty range and writes nothing.
   int row = 0, beg = 0, end = 0, out_row = 0;
   if (item < w.n_items) walk_item(w, item, row, beg, end, out_row);
-  const typename L::Elem* a_row = A + static_cast<size_t>(row) * R;
-  float a[L::NV][L::E];
-  {
+  const typename L::Elem* a_row = kDot ? A + static_cast<size_t>(row) * R : nullptr;
+  float a[L::NV][L::E] = {};
+  if constexpr (kDot) {
     typename L::Raw r[L::NV];
     load_frag<L>(a_row, item < w.n_items, base, R, gl, r);
     unpack_frag<L>(r, a);
@@ -562,8 +475,9 @@ dot_walk_kernel(Walk w, const int* __restrict__ cols,
   };
 
   // Each batch: the group's U rows gathered into registers (L1-cached
-  // loads), the next batch's rows prefetched into L2 (lane gl takes line
-  // gl % kLines of the next batch's slot gl / kLines), then the dots.
+  // loads), for a dot the next batch's rows prefetched into L2 (lane gl
+  // takes line gl % kLines of the next batch's slot gl / kLines), then the
+  // batch used.
   constexpr int kLineElems = 128 / static_cast<int>(sizeof(typename L::Elem));
   constexpr int kLines = (L::SLAB + kLineElems - 1) / kLineElems;  // a row's
   static_assert(L::U * kLines <= L::G, "one prefetch a lane covers a batch");
@@ -578,8 +492,7 @@ dot_walk_kernel(Walk w, const int* __restrict__ cols,
       load_frag<L>(B + static_cast<size_t>(c < 0 ? 0 : c) * R, c >= 0, base, R,
                    gl, bt.b[u]);
     }
-    bt.s = __shfl_sync(kFull, ch.s, j0 + (gl & (L::U - 1)));
-    if (i + 1 < nb) {
+    if (kDot && i + 1 < nb) {
       const Chunk& next = (i + 1) % kPerChunk == 0 ? nxt : ch;
       const int q = gl < L::U * kLines ? gl : 0;
       const int c = __shfl_sync(
@@ -589,11 +502,19 @@ dot_walk_kernel(Walk w, const int* __restrict__ cols,
         prefetch_l2(B + static_cast<size_t>(c) * R + f);
       }
     }
-    consume_batch<OP, L>(bt, beg + i * L::U, end, g, gl, slab, n_slabs, a,
-                         a_row, B, R, mid, acc);
+    if constexpr (kDot) {
+      bt.s = __shfl_sync(kFull, ch.s, j0 + (gl & (L::U - 1)));
+      consume_batch<OP, L>(bt, beg + i * L::U, end, g, gl, slab, n_slabs, a,
+                           a_row, B, R, mid, acc);
+    } else {
+#pragma unroll
+      for (int u = 0; u < L::U; ++u) {
+        scale_add<L>(bt.b[u], __shfl_sync(kFull, ch.s, j0 + u), acc);
+      }
+    }
   }
 
-  if constexpr (OP == kFused) {
+  if constexpr (OP != kSddmm) {
     if (item < w.n_items) {
       store_frag<L>(out + static_cast<size_t>(out_row) * R, base, R, gl, acc);
     }
@@ -604,7 +525,7 @@ template <int OP, typename T, int G, int E, int NV>
 void launch_dot(int n_items, cudaStream_t stream, const Walk& w,
                 const int* cols, const float* sv, const void* A,
                 const void* B, float* out, float* mid, int R) {
-  using L = DotLayout<T, G, E, NV>;
+  using L = DotLayout<T, G, E, NV, OP == kSpmm ? kSpmmBatchRegs : kDotBatchRegs>;
   const int n_slabs = (R + L::SLAB - 1) / L::SLAB;
   const dim3 grid(blocks_for(n_items, kWarpsPerBlock * L::NG),
                   OP == kSddmm ? 1 : n_slabs);
@@ -613,22 +534,32 @@ void launch_dot(int n_items, cudaStream_t stream, const Walk& w,
       mid, R, n_slabs);
 }
 
-// Lanes per item from R and the type: 16 features a lane on the vector
-// path (G = R/16, from 4 up to the warp; R above 512 takes more slabs),
-// one feature a lane per load on the scalar path.
+// Lanes per item from R and the type. Vector path: F features a lane, G =
+// R/F lanes from 4 up to the warp, and above 32*F features a warp's slabs
+// of 512 (16 features a lane; more slabs in blockIdx.y). SDDMM and fused:
+// F = 16, so a dot is reduced over few lanes. SpMM: F = one 16-byte load
+// (4 features in f32, 8 in bf16), so a row takes as many lanes as it can
+// and a warp walks fewer rows to the longest one's end: with F = 16 the
+// SpMM read up to 28% slower than the parent on the Graph500 bands and
+// the headline tile (PERF.md, section 6). Scalar path: one feature a lane
+// per load.
 template <int OP, typename T>
 void launch_dot_type(cudaStream_t stream, bool vec, const Walk& w,
                      const int* cols, const float* sv, const void* A,
                      const void* B, float* out, float* mid, int R) {
   constexpr int E = std::is_same<T, float>::value ? 4 : 8;
   constexpr int NV = 16 / E;
+  constexpr int NVF = OP == kSpmm ? 1 : NV;  // loads a lane, below a slab
+  constexpr int F = NVF * E;
   const int n = w.n_items;
-  if (vec && R <= 64) {
-    launch_dot<OP, T, 4, E, NV>(n, stream, w, cols, sv, A, B, out, mid, R);
-  } else if (vec && R <= 128) {
-    launch_dot<OP, T, 8, E, NV>(n, stream, w, cols, sv, A, B, out, mid, R);
-  } else if (vec && R <= 256) {
-    launch_dot<OP, T, 16, E, NV>(n, stream, w, cols, sv, A, B, out, mid, R);
+  if (vec && R <= 4 * F) {
+    launch_dot<OP, T, 4, E, NVF>(n, stream, w, cols, sv, A, B, out, mid, R);
+  } else if (vec && R <= 8 * F) {
+    launch_dot<OP, T, 8, E, NVF>(n, stream, w, cols, sv, A, B, out, mid, R);
+  } else if (vec && R <= 16 * F) {
+    launch_dot<OP, T, 16, E, NVF>(n, stream, w, cols, sv, A, B, out, mid, R);
+  } else if (vec && R <= 32 * F) {
+    launch_dot<OP, T, 32, E, NVF>(n, stream, w, cols, sv, A, B, out, mid, R);
   } else if (vec) {
     launch_dot<OP, T, 32, E, NV>(n, stream, w, cols, sv, A, B, out, mid, R);
   } else if (R <= 128) {
@@ -645,22 +576,7 @@ int launch_walk(const Walk& w, const int* cols, const float* sv, const void* A,
                 const void* B, float* out, float* mid, int R, int bf16,
                 int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if constexpr (OP == kSpmm) {
-    const int nv = R <= kWarp * 4 ? 1 : 4;
-    const dim3 grid(blocks_for(w.n_items, kWarpsPerBlock),
-                    (R + kWarp * 4 * nv - 1) / (kWarp * 4 * nv));
-    if (bf16) {
-      if (nv == 1) {
-        launch_spmm<1, __nv_bfloat16>(grid, s, vec != 0, w, cols, sv, B, out, R);
-      } else {
-        launch_spmm<4, __nv_bfloat16>(grid, s, vec != 0, w, cols, sv, B, out, R);
-      }
-    } else if (nv == 1) {
-      launch_spmm<1, float>(grid, s, vec != 0, w, cols, sv, B, out, R);
-    } else {
-      launch_spmm<4, float>(grid, s, vec != 0, w, cols, sv, B, out, R);
-    }
-  } else if (bf16) {
+  if (bf16) {
     launch_dot_type<OP, __nv_bfloat16>(s, vec != 0 && R % 8 == 0, w, cols, sv,
                                        A, B, out, mid, R);
   } else {
@@ -669,40 +585,90 @@ int launch_walk(const Walk& w, const int* cols, const float* sv, const void* A,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Online-softmax merge of the pair (m2, d2) into (m, d).
-__device__ __forceinline__ void merge(float& m, float& d, float m2, float d2) {
-  const float mn = fmaxf(m, m2);
-  d = d * expf(m - mn) + d2 * expf(m2 - mn);
-  m = mn;
+// ------------------------------------------------------------- stats walk
+
+// Lanes an item of the stats walk: chosen on the card by
+// bench/kernel_ab.py (PERF.md, section 6).
+constexpr int kStatLanes = 16;
+
+// f(gate[k], logits[k]) for the slots [beg, end) that lane gl of a group of
+// GL lanes takes. VEC: gate and logits are 16-byte aligned, and the
+// item's aligned run goes in 16-byte loads (lane gl takes every GL-th
+// quad), its head and tail (at most 3 slots each) one slot a lane.
+template <int GL, bool VEC, class F>
+__device__ __forceinline__ void for_each_slot(const float* __restrict__ gate,
+                                              const float* __restrict__ logits,
+                                              int beg, int end, int gl, F f) {
+  static_assert(GL >= 4, "head and tail take a lane a slot");
+  if constexpr (VEC) {
+    const int a = min((beg + 3) & ~3, end);
+    const int b = max(end & ~3, a);
+    if (gl < a - beg) f(__ldg(gate + beg + gl), __ldg(logits + beg + gl));
+    if (gl < end - b) f(__ldg(gate + b + gl), __ldg(logits + b + gl));
+#pragma unroll 4
+    for (int k = a + 4 * gl; k < b; k += 4 * GL) {
+      const float4 g4 = __ldg(reinterpret_cast<const float4*>(gate + k));
+      const float4 z4 = __ldg(reinterpret_cast<const float4*>(logits + k));
+      f(g4.x, z4.x);
+      f(g4.y, z4.y);
+      f(g4.z, z4.z);
+      f(g4.w, z4.w);
+    }
+  } else {
+#pragma unroll 4
+    for (int k = beg + gl; k < end; k += GL) f(__ldg(gate + k), __ldg(logits + k));
+  }
 }
 
-// Masked max and sum-of-exp of slots [beg, end) by one warp: lanes stride
-// over the slots keeping a running (max, rescaled sum) pair, then merge by
-// shuffle. Every lane returns the warp's pair; (ATTN_NEG, 0) when no slot
-// has gate != 0.
-__device__ __forceinline__ void warp_row_stats(const float* __restrict__ gate,
-                                               const float* __restrict__ logits,
-                                               int beg, int end, int lane,
-                                               float& m, float& d) {
-  m = kAttnNeg;
-  d = 0.f;
-  for (int k = beg + lane; k < end; k += kWarp) {
-    if (gate[k] != 0.f) {
-      const float z = logits[k];
-      if (z > m) {
-        d = d * expf(m - z) + 1.f;
-        m = z;
-      } else {
-        d += expf(z - m);
-      }
-    }
-  }
+template <int GL, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+stats_walk_kernel(Walk w, const float* __restrict__ gate,
+                  const float* __restrict__ logits, float* __restrict__ m_out,
+                  float* __restrict__ d_out) {
+  constexpr int kItems = kWarp / GL;  // items a warp takes at once
+  const int lane = threadIdx.x % kWarp;
+  const int gl = lane % GL;
+  const int warp = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+  const int item = warp * kItems + lane / GL;
+  if (warp * kItems >= w.n_items) return;  // warp-uniform: no item here
+
+  // A group past the last item walks an empty range and writes nothing.
+  int row = 0, beg = 0, end = 0, out_row = 0;
+  if (item < w.n_items) walk_item(w, item, row, beg, end, out_row);
+  float m = kAttnNeg;
+  for_each_slot<GL, VEC>(gate, logits, beg, end, gl, [&](float g, float z) {
+    m = fmaxf(m, g != 0.f ? z : kAttnNeg);
+  });
 #pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) {
-    const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
-    const float d2 = __shfl_xor_sync(0xffffffffu, d, o);
-    merge(m, d, m2, d2);
+  for (int o = GL / 2; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, o));
+  float d = 0.f;
+  for_each_slot<GL, VEC>(gate, logits, beg, end, gl, [&](float g, float z) {
+    const float e = expf(z - m);  // discarded where masked, inf or not
+    d += g != 0.f ? e : 0.f;
+  });
+#pragma unroll
+  for (int o = GL / 2; o > 0; o >>= 1) d += __shfl_xor_sync(kFull, d, o);
+  if (item < w.n_items && gl == 0) {
+    m_out[out_row] = m;
+    d_out[out_row] = d;
   }
+}
+
+// Launch the stats walk, GL lanes an item, on `stream`; returns
+// cudaGetLastError().
+template <int GL>
+int launch_stats(const Walk& w, const float* gate, const float* logits,
+                 float* m, float* d, void* stream) {
+  const bool vec = ((reinterpret_cast<std::uintptr_t>(gate) |
+                     reinterpret_cast<std::uintptr_t>(logits)) & 15) == 0;
+  const int grid = blocks_for(w.n_items, kWarpsPerBlock * (kWarp / GL));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    stats_walk_kernel<GL, true><<<grid, kThreads, 0, s>>>(w, gate, logits, m, d);
+  } else {
+    stats_walk_kernel<GL, false><<<grid, kThreads, 0, s>>>(w, gate, logits, m, d);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

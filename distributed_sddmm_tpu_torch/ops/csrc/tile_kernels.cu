@@ -19,15 +19,17 @@
 // in float32, or bfloat16 in the bf16 precision mode. Pad slots get
 // mid = 0.
 //
-// Design. One warp (SpMM) or one group of lanes (SDDMM, fused) owns one
-// output row (tile_common.cuh): no atomics, every sum in a fixed order. A
-// null row_ids walks every tile row (item i, row i); a band's row list
-// walks only its rows (item i, row row_ids[i]), so the bands of a banked launch write disjoint rows of one output and
-// only the launch with zero_pads set touches the pad slots. SpMM runs
-// spmm_walk_kernel, one slot after another; SDDMM and fused run
-// dot_walk_kernel, which gives each row a group of G = R/16 lanes, keeps
-// two batches of B rows in flight a warp in a cp.async ring in shared
-// memory and reduces a batch's dot products together (tile_common.cuh).
+// Design. One group of G = R/16 lanes owns one output row
+// (tile_common.cuh, dot_walk_kernel, one walk for the three ops): no
+// atomics, every sum in a fixed order. A null row_ids walks every tile row
+// (item i, row i); a band's row list walks only its rows (item i, row
+// row_ids[i]), so the bands of a banked launch write disjoint rows of one
+// output and only the launch with zero_pads set touches the pad slots.
+// Index chunks come one slot a lane and go out by shuffle; a batch of B
+// rows is gathered into registers (L1-cached) while the next batch's rows
+// are prefetched into L2; the SDDMM and fused reduce a batch's dot
+// products together; the SpMM and fused scale each row into the output
+// row the group keeps in registers.
 //
 // Bound on this card. Every kernel moves far more bytes than it computes:
 // two flops per gathered element of B[c] (four in fused). The compulsory
@@ -35,7 +37,7 @@
 // it from below, but when B does not fit in the 50 MB L2 each nonzero
 // gathers a whole B row from HBM (nnz * R * 4 bytes, half in bf16), which
 // is the practical floor. At under one flop a byte the tensor cores
-// (wgmma) have nothing to win; what the dot walk buys is bytes in flight
+// (wgmma) have nothing to win; what the walk buys is bytes in flight
 // and fewer instructions per nonzero. Heavy rows are split by
 // banked_kernels.cu.
 

@@ -24,10 +24,10 @@ Bound on an H100: all three are memory-bound, two flops per gathered
 element. The least traffic is the indices, values and ``mid`` (12 bytes a
 nonzero), A and the output once and B once; with B too large for the
 50 MB L2, every nonzero gathers a full B row from HBM instead, which is
-what these row-owned kernels pay. Design: one warp per output row of the
-tile's CSR, no atomics, fixed summation order (see the ``.cu`` header).
-The two attention kernels move 8 and 16 bytes a slot and are f32 in both
-precision modes (``attn_kernels.cu`` header).
+what these row-owned kernels pay. Design: one group of lanes per output
+row of the tile's CSR, no atomics, fixed summation order (see the header
+of ``tile_common.cuh``). The two attention kernels move 8 and 16 bytes a
+slot and are f32 in both precision modes (``attn_kernels.cu`` header).
 
 The banked launches of ``codegen/kernel.py::BankedCudaKernel`` (the
 counterpart of ``BankedPallasKernel``, ``codegen/kernel.py:110-197``) run
@@ -38,7 +38,7 @@ part of one output:
   :func:`attn_stats_rows` -- the short and mid bands: the same kernels
   with the band's row list (``tile_kernels.cu``, ``attn_kernels.cu``).
 * :func:`sddmm_split`, :func:`spmm_split`, :func:`fused_split` -- pass 1
-  of the heavy band, one warp per segment of at most ``split`` slots:
+  of the heavy band, one lane group per segment of at most ``split`` slots:
   ``mid`` at the segment's slots, the partial output rows into a
   ``[n_seg, R]`` f32 workspace (``banked_kernels.cu``).
 * :func:`split_reduce` -- pass 2: each heavy row's partials summed in

@@ -35,6 +35,7 @@ from distributed_sddmm_tpu.utils.coo import HostCOO as JaxCOO
 
 from distributed_sddmm_tpu_torch import masks
 from distributed_sddmm_tpu_torch.bench import harness
+from distributed_sddmm_tpu_torch.codegen import banded
 from distributed_sddmm_tpu_torch.common import MatMode
 from distributed_sddmm_tpu_torch.ops import cuda_kernels
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import (
@@ -164,6 +165,86 @@ def test_attn_tile_plain_matches_pallas():
     got_p = ts.gather_values(p[None, None])
     assert np.abs(got_p - pj).max() <= 1e-6
     assert np.all(got_p[gate == 0] == 0) and np.all(pj[gate == 0] == 0)
+
+
+#: Row lengths around each group size and 16-byte run of the stats walk
+#: (``ops/csrc/tile_common.cuh``), empty rows and a ``window:64`` row; row
+#: ``37 i`` holds ``EDGE_LENS[i]`` slots. EDGE_DEAD is fully masked and
+#: EDGE_ONE has one live slot; rows above EDGE_SPLIT slots are the heavy
+#: band's, cut into segments of EDGE_SPLIT.
+EDGE_LENS = (0, 1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33, 129)
+EDGE_DEAD, EDGE_ONE, EDGE_SPLIT = 14 * 37, 12 * 37, 7
+
+
+def _edge_stats_data(seed=4):
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(len(EDGE_LENS)) * 37, EDGE_LENS).astype(np.int64)
+    cols = np.concatenate([rng.choice(NC, n, replace=False) for n in EDGE_LENS])
+    meta = build_blocked(1, np.zeros(rows.size, np.int64), rows, cols, MR, NC)
+    blk = BlockedTile(
+        lr=jnp.array(meta.lr[0]), lc=jnp.array(meta.lc[0]),
+        meta=jnp.array(meta.meta[0]), bm=meta.bm, bn=meta.bn,
+        gr_blocks=meta.gr_blocks, gc_blocks=meta.gc_blocks, group=meta.group,
+    )
+    ts = build_tiles(HostCOO(rows, cols, np.ones(rows.size), MR, NC),
+                     ShardedBlockCyclicColumn(MR, NC, 1, 1), MR, NC,
+                     torch.device("cpu"))
+    gate = (rng.random(rows.size) >= 0.1).astype(np.float32)
+    gate[rows == EDGE_DEAD] = 0.0
+    one = np.flatnonzero(rows == EDGE_ONE)
+    gate[one] = 0.0
+    gate[one[len(one) // 2]] = 1.0
+    z = rng.standard_normal(rows.size).astype(np.float32)
+    return meta, blk, ts, gate, z
+
+
+def _stats_by_kind(kind, t, g, zt):
+    """The plain stats of the whole tile as one of the stats walk's item
+    kinds: the tile's rows, one band's row list of every row, or the rows
+    above EDGE_SPLIT slots as segments merged per row (the rest by row
+    list)."""
+    if kind == "tile":
+        return attn_stats_tile_plain(t, g, zt)
+    row_ptr = t.row_ptr.numpy()
+    lens = np.diff(row_ptr)
+    m = torch.full((t.n_rows,), float("nan"))
+    d = torch.full((t.n_rows,), float("nan"))
+    if kind == "rows":
+        every = banded.RowBand(None, np.arange(t.n_rows, dtype=np.int32), 0).to("cpu")
+        cuda_kernels.attn_stats_rows_plain(t, every, g, zt, m, d)
+        return m, d
+    heavy = np.flatnonzero(lens > EDGE_SPLIT).astype(np.int32)
+    light = banded.RowBand(None, np.flatnonzero(lens <= EDGE_SPLIT).astype(np.int32), 0)
+    seg_ptr, owner, beg, end = banded._segments(row_ptr[heavy], row_ptr[heavy + 1],
+                                                EDGE_SPLIT)
+    hb = banded.RowBand(None, heavy, int(lens[heavy].sum()),
+                        seg_ptr=seg_ptr.astype(np.int32), seg_row=heavy[owner],
+                        seg_beg=beg.astype(np.int32), seg_end=end.astype(np.int32))
+    hb = hb.to("cpu")
+    assert hb.n_seg > hb.n_rows > 0
+    cuda_kernels.attn_stats_rows_plain(t, light.to("cpu"), g, zt, m, d)
+    wm, wd = cuda_kernels.attn_stats_split_plain(t, hb, g, zt)
+    cuda_kernels.attn_stats_merge_plain(hb, wm, wd, m, d)
+    return m, d
+
+
+@pytest.mark.parametrize("kind", ["tile", "rows", "split"])
+def test_attn_stats_plain_kinds_match_pallas_on_edge_rows(kind):
+    """The plain stats of each item kind against ``attn_stats_tile_t`` on
+    the edge rows: the maxima exact, the denominators 1e-6 relative;
+    empty and fully masked rows give (ATTN_NEG, 0), one live slot d = 1."""
+    meta, blk, ts, gate, z = _edge_stats_data()
+    k = PallasKernel(interpret=True, precision="f32")
+    mj, dj = k.attn_stats_tile_t(blk, _chunked(meta, gate), _chunked(meta, z))
+    mj, dj = np.asarray(mj)[:MR, 0], np.asarray(dj)[:MR, 0]
+    t = ts.tile(0, 0)
+    m, d = _stats_by_kind(kind, t, ts.scatter_values(gate)[0, 0],
+                          ts.scatter_values(z)[0, 0])
+    np.testing.assert_array_equal(m.numpy(), mj)
+    np.testing.assert_allclose(d.numpy(), dj, rtol=1e-6)
+    empty = np.diff(t.row_ptr.numpy()) == 0
+    assert empty.any() and np.all(m.numpy()[empty] == ATTN_NEG) and np.all(d.numpy()[empty] == 0)
+    assert m[EDGE_DEAD] == ATTN_NEG and d[EDGE_DEAD] == 0 and d[EDGE_ONE] == 1
 
 
 def test_attn_tile_plain_pads_give_zero():

@@ -12,6 +12,12 @@ nonzero order. Tolerances:
 * the bf16 plain path against the f32 plain path: <= 1e-2 of the max abs
   value (bf16 keeps 8 significant bits of each operand and contribution).
 
+Besides the random tile, an edge tile holds rows of the lengths around
+each batch and index chunk of the SpMM walk (``EDGE_LENS``); the plain SpMM
+runs there as a whole tile, as a band's row list and as heavy-row
+segments with their reduce, each held bit for bit against the Pallas
+kernel on small integers, in f32 and in bf16 (R = 100: the scalar path).
+
 The CUDA kernels themselves run only on the card; ``chip_smoke.py`` holds
 them against these plain versions there. What is checked here without
 ``nvcc`` is the C ABI the ctypes binding assumes: every ``extern "C"``
@@ -30,9 +36,11 @@ import jax.numpy as jnp
 from distributed_sddmm_tpu.ops.blocked import CHUNK, build_blocked
 from distributed_sddmm_tpu.ops.pallas_kernels import BlockedTile, PallasKernel
 
+from distributed_sddmm_tpu_torch.codegen import banded
 from distributed_sddmm_tpu_torch.ops import _build, cuda_kernels
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import (
-    CudaTileKernel, fused_tile_plain, spmm_tile_plain, sddmm_tile_plain,
+    CudaTileKernel, fused_tile_plain, spmm_rows_plain, spmm_split_plain,
+    spmm_tile_plain, sddmm_tile_plain, split_reduce_plain,
 )
 from distributed_sddmm_tpu_torch.ops.kernels import TorchKernel
 from distributed_sddmm_tpu_torch.parallel.layouts import ShardedBlockCyclicColumn
@@ -40,34 +48,45 @@ from distributed_sddmm_tpu_torch.parallel.sharding import build_tiles
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 
 MR, NC, NNZ = 700, 500, 3000
+#: Row lengths of the edge tile: around each batch (2 to 16 slots) and
+#: index chunk (4 to 32 slots) of the SpMM walk, empty rows and a
+#: ``window:64`` row. Rows above EDGE_SPLIT slots are the heavy band's,
+#: cut into segments of EDGE_SPLIT.
+EDGE_LENS = (0, 1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33, 129)
+EDGE_SPLIT = 7
 
 
-def _tiles(seed=0):
-    """One random tile in both packages' encodings, from the same arrays."""
+def _tiles(seed=0, lens=None):
+    """One tile in both packages' encodings, from the same arrays: random,
+    or with row ``37 i`` holding ``lens[i]`` slots on distinct columns."""
     rng = np.random.default_rng(seed)
-    rows = rng.integers(0, MR, NNZ).astype(np.int64)
-    cols = rng.integers(0, NC, NNZ).astype(np.int64)
-    meta = build_blocked(1, np.zeros(NNZ, np.int64), rows, cols, MR, NC)
+    if lens is None:
+        rows = rng.integers(0, MR, NNZ).astype(np.int64)
+        cols = rng.integers(0, NC, NNZ).astype(np.int64)
+    else:
+        rows = np.repeat(np.arange(len(lens)) * 37, lens).astype(np.int64)
+        cols = np.concatenate([rng.choice(NC, n, replace=False) for n in lens])
+    meta = build_blocked(1, np.zeros(rows.size, np.int64), rows, cols, MR, NC)
     blk = BlockedTile(
         lr=jnp.array(meta.lr[0]), lc=jnp.array(meta.lc[0]),
         meta=jnp.array(meta.meta[0]), bm=meta.bm, bn=meta.bn,
         gr_blocks=meta.gr_blocks, gc_blocks=meta.gc_blocks, group=meta.group,
     )
-    S = HostCOO(rows, cols, np.ones(NNZ), MR, NC)
+    S = HostCOO(rows, cols, np.ones(rows.size), MR, NC)
     ts = build_tiles(S, ShardedBlockCyclicColumn(MR, NC, 1, 1), MR, NC,
                      torch.device("cpu"))
     return meta, blk, ts, rng
 
 
-def _operands(rng, R, kind):
+def _operands(rng, R, kind, nnz=NNZ):
     if kind == "int":
         A = rng.integers(-3, 4, (MR, R)).astype(np.float32)
         B = rng.integers(-3, 4, (NC, R)).astype(np.float32)
-        v = rng.integers(-2, 3, NNZ).astype(np.float32)
+        v = rng.integers(-2, 3, nnz).astype(np.float32)
     else:
         A = rng.standard_normal((MR, R)).astype(np.float32)
         B = rng.standard_normal((NC, R)).astype(np.float32)
-        v = rng.standard_normal(NNZ).astype(np.float32)
+        v = rng.standard_normal(nnz).astype(np.float32)
     return A, B, v
 
 
@@ -95,18 +114,61 @@ def _torch_ops(ts, A, B, v, dtype=torch.float32, budget=None):
             gather(fm[None, None]))
 
 
+def _spmm_kinds(ts, v, B, dtype=torch.float32):
+    """The plain SpMM of the tile's other two item kinds: every row as one
+    band's row list, and the rows above EDGE_SPLIT slots as its segments
+    summed by the split's reduce (the other rows by row list)."""
+    t = ts.tile(0, 0)
+    sv = ts.scatter_values(v)[0, 0]
+    bt = torch.from_numpy(B).to(dtype)
+    row_ptr = t.row_ptr.numpy()
+    lens = np.diff(row_ptr)
+    every = banded.RowBand(None, np.arange(t.n_rows, dtype=np.int32),
+                           int(row_ptr[-1])).to("cpu")
+    by_rows = torch.full((t.n_rows, B.shape[1]), float("nan"))
+    spmm_rows_plain(t, every, sv, bt, by_rows)
+    heavy = np.flatnonzero(lens > EDGE_SPLIT).astype(np.int32)
+    light = np.flatnonzero(lens <= EDGE_SPLIT).astype(np.int32)
+    seg_ptr, owner, beg, end = banded._segments(row_ptr[heavy], row_ptr[heavy + 1],
+                                                EDGE_SPLIT)
+    hb = banded.RowBand(None, heavy, int(lens[heavy].sum()),
+                        seg_ptr=seg_ptr.astype(np.int32), seg_row=heavy[owner],
+                        seg_beg=beg.astype(np.int32), seg_end=end.astype(np.int32))
+    hb = hb.to("cpu")
+    assert hb.n_seg > hb.n_rows > 0
+    by_split = torch.full((t.n_rows, B.shape[1]), float("nan"))
+    spmm_rows_plain(t, banded.RowBand(None, light, 0).to("cpu"), sv, bt, by_split)
+    split_reduce_plain(hb, spmm_split_plain(t, hb, sv, bt), by_split)
+    return by_rows.numpy(), by_split.numpy()
+
+
 def _assert_close(got, want, rel):
     scale = float(np.abs(want).max())
     assert np.abs(got - want).max() <= rel * scale
 
 
-@pytest.mark.parametrize("R", [8, 20])
-def test_plain_bit_identical_to_pallas_on_small_integers(R):
-    meta, blk, ts, rng = _tiles()
-    A, B, v = _operands(rng, R, "int")
-    for got, want in zip(_torch_ops(ts, A, B, v),
-                         _jax_ops(meta, blk, A, B, v, "f32")):
-        np.testing.assert_array_equal(got, want)
+@pytest.mark.parametrize("R,lens,prec", [
+    pytest.param(8, None, "f32", id="8"),
+    pytest.param(20, None, "f32", id="20"),
+    pytest.param(16, EDGE_LENS, "f32", id="edges-16-f32"),
+    pytest.param(16, EDGE_LENS, "bf16", id="edges-16-bf16"),
+    pytest.param(100, EDGE_LENS, "bf16", id="edges-100-bf16"),
+])
+def test_plain_bit_identical_to_pallas_on_small_integers(R, lens, prec):
+    """The three tile ops, and the SpMM as row list and as split + reduce
+    too. In bf16, B is scaled so that contributions round (as in
+    :func:`test_bf16_plain_bit_identical_to_pallas_bf16_on_small_integers`)."""
+    meta, blk, ts, rng = _tiles(lens=lens)
+    A, B, v = _operands(rng, R, "int", int(ts.nnz_per_tile[0, 0]))
+    dtype = torch.float32
+    if prec == "bf16":
+        B, dtype = B * 37, torch.bfloat16
+    got = _torch_ops(ts, A, B, v, dtype=dtype)
+    want = _jax_ops(meta, blk, A, B, v, prec)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    for g in _spmm_kinds(ts, v, B, dtype):
+        np.testing.assert_array_equal(g, want[1])
 
 
 @pytest.mark.parametrize("R", [8, 20])
@@ -311,6 +373,19 @@ def test_ptxas_report_reads_registers_and_spills():
         "_Z4walkv": {"stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 72},
         "_Z4slabv": {"stack": 8, "spill_stores": 4, "spill_loads": 12},
     }
+
+
+def test_every_walk_kernel_is_held_to_no_spill():
+    """Phase build of ``chip_smoke.py`` fails on a spill in any kernel
+    named in its ``WALK_KERNELS``: every ``__global__`` kernel of the
+    shared walks (``ops/csrc/tile_common.cuh``) is named there."""
+    import chip_smoke
+
+    text = (_build.CSRC / "tile_common.cuh").read_text()
+    walks = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+                       text)
+    assert {"dot_walk_kernel", "stats_walk_kernel"} <= set(walks)
+    assert set(walks) <= set(chip_smoke.WALK_KERNELS)
 
 
 def test_precision_default_and_validation():
