@@ -24,7 +24,12 @@ last line is printed):
    attention stats walk on the same tile, its three item kinds, with
    aligned and unaligned gate and logits, a fully masked row and a row of
    one live slot: ``m`` equal to the plain version's, ``d`` within
-   ``ATTN_STATS_RTOL``, two launches bit-equal.
+   ``ATTN_STATS_RTOL``, two launches bit-equal. Then the heavy band's
+   second pass (``split_reduce``, ``attn_stats_merge``) on the same tile's
+   heavy band at several chunk sizes and R (edge_pass2): bit-equal to the
+   plain version on integer data, within phase 3's f32 tolerance on
+   normal data, every call twice in a row with the same bits and its
+   per-row counters back at 0.
 3. kernels  -- at the headline tile (R-mat log_m=16, edge_factor=32, R=128,
    the ``DenseShift15D`` S tile), each kernel against its plain version on
    standard-normal operands, in f32 and bf16. Error is the max abs
@@ -75,7 +80,10 @@ last line is printed):
    (same tolerances as phase 4), launches as the band structure predicts
    and no generic launch; banked == generic bit for bit on operands in
    {-1, 0, 1}; each new kernel against its plain version (phase 3's
-   tolerances, pads exactly 0, two launches equal). At log_m=20: ms per
+   tolerances, pads exactly 0, two launches equal; the second pass twice
+   in a row, counters back at 0, also timed as a CUDA graph of launches
+   (device time without the host), each timing method's launch floor
+   beside it). At log_m=20: ms per
    fused pair, generic and banked in turns, sampled rows (the heaviest
    among them) against float64, the kernels against their plain versions
    again, and a sweep of the segment length. Bigbird ``w=8,g=2,r=2`` at
@@ -93,6 +101,7 @@ last line is printed):
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -177,6 +186,16 @@ EDGE = {"lens": (0, 1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65, 
         "Rs": (16, 32, 64, 100, 128, 256, 512, 520), "pads": 13, "n_cols": 4096,
         "heavy_above": 16, "split": 33}
 EDGE_DEAD, EDGE_ONE = 16, 12
+#: The heavy band's second pass at the edges (phase edges): the edge
+#: tile's heavy band (rows of 1 to 125 segments) with its unit table at
+#: these chunk sizes (4: every row of more than one segment in chunks, the
+#: 4099-slot row in 32 of them; the default: every row in one chunk), at
+#: these R (every lane layout, 7 the scalar path, an output 4 bytes off a
+#: 16-byte boundary the scalar path again).
+EDGE_PASS2 = {"chunks": (4, 8, banded.REDUCE_CHUNK), "Rs": (4, 7, 16, 20, 100, 128, 520)}
+#: Segments of the long rows of pass 2 (long_pass2): past the merge's
+#: one-block rows (1024 segments), fully masked, empty.
+EDGE_LONG = (3000, 2000, 0)
 #: The ``__global__`` walks of ``ops/csrc/tile_common.cuh`` (and the dot
 #: walk's out-of-line helper), whose every instantiation phase build
 #: holds to no spill.
@@ -455,6 +474,131 @@ def edge_stats(dev, tile, every, hb) -> dict:
     return worst
 
 
+def rechunk(band, chunk: int, dev):
+    """``band`` with its pass-2 unit table built at ``chunk`` segments."""
+    return dataclasses.replace(band, chunk=chunk, unit_row=None, unit_beg=None,
+                               unit_end=None, counters=None).to(dev)
+
+
+def check_pass2_twice(tag: str, band, run) -> tuple:
+    """``run()`` twice in a row on the card: the same bits, and every
+    counter of ``band`` back at 0 (a counter left behind would change the
+    second call's sum). Returns the first outputs."""
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    require(all(torch.equal(g, a) for g, a in zip(got, again)),
+            f"{tag}: two calls in a row differ")
+    require(bool((band.counters == 0).all()), f"{tag}: a counter left non-zero")
+    return got
+
+
+def edge_pass2(dev, tile, hb) -> dict:
+    """split_reduce and attn_stats_merge on the edge tile's heavy band at
+    each EDGE_PASS2 chunk size: split_reduce against its plain version on
+    integer workspaces (bit-equal) and standard-normal ones (within
+    KERNEL_TOL f32), aligned and 4 bytes off; the merge on the stats of
+    the split walk (row EDGE_DEAD fully masked: (ATTN_NEG, 0)), ``m``
+    equal to the plain version's and ``d`` within ATTN_STATS_RTOL; every
+    call twice in a row (check_pass2_twice)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    ck = cuda_kernels
+    nnz = int(tile.row_ptr[-1])
+    real = (torch.arange(tile.cap, device=dev) < nnz).float()
+    z = torch.randn(tile.cap, generator=gen, device=dev) * real
+    gate = real * (torch.rand(tile.cap, generator=gen, device=dev) >= 0.1)
+    lo, hi = (int(x) for x in tile.row_ptr[EDGE_DEAD: EDGE_DEAD + 2])
+    gate[lo:hi] = 0
+    wm, wd = ck.attn_stats_split_plain(tile, hb, gate, z)
+    rows = hb.rows.long()
+    dead = hb.rows.tolist().index(EDGE_DEAD)
+    worst = {"split_reduce": 0.0, "attn_stats_merge": 0.0}
+    for chunk in EDGE_PASS2["chunks"]:
+        b = rechunk(hb, chunk, dev)
+        for R in EDGE_PASS2["Rs"]:
+            for kind in ("integer", "normal", "unaligned"):
+                tag = f"edges split_reduce/{kind} at R={R}, chunk {chunk}"
+                work = (torch.randint(-3, 4, (b.n_seg, R), generator=gen, device=dev).float()
+                        if kind == "integer"
+                        else torch.randn(b.n_seg, R, generator=gen, device=dev))
+
+                def run(plain=False):
+                    buf = torch.full((tile.n_rows * R + 1,), float("nan"), device=dev)
+                    out = buf[int(kind == "unaligned"):][:tile.n_rows * R].view(tile.n_rows, R)
+                    (ck.split_reduce_plain if plain else ck.split_reduce)(b, work, out)
+                    return (out[rows],)
+
+                got = check_pass2_twice(tag, b, run)
+                want = run(plain=True)
+                if kind == "integer":
+                    require(torch.equal(got[0], want[0]), f"{tag}: not bit-equal to plain")
+                rel = rel_err(got[0], want[0])[1]
+                require(rel <= KERNEL_TOL["f32"], f"{tag}: error {rel:.3e}")
+                worst["split_reduce"] = max(worst["split_reduce"], rel)
+        tag = f"edges attn_stats_merge at chunk {chunk}"
+
+        def merge(plain=False):
+            m, d = (torch.full((tile.n_rows,), float("nan"), device=dev) for _ in range(2))
+            (ck.attn_stats_merge_plain if plain else ck.attn_stats_merge)(b, wm, wd, m, d)
+            return m[rows], d[rows]
+
+        (m, d), (pm, pd) = check_pass2_twice(tag, b, merge), merge(plain=True)
+        rel = float(((d - pd).abs() / pd.abs().clamp_min(1e-30)).max())
+        require(torch.equal(m, pm), f"{tag}: m differs from the plain version")
+        require(rel <= ATTN_STATS_RTOL, f"{tag}: d error {rel:.3e}")
+        require(bool(m[dead] == ATTN_NEG) and float(d[dead]) == 0.0,
+                f"{tag}: the fully masked row has stats")
+        worst["attn_stats_merge"] = max(worst["attn_stats_merge"], rel)
+    worst.update(long_pass2(dev, gen))
+    return {f"{k}/pass2": v for k, v in worst.items()}
+
+
+def long_pass2(dev, gen) -> dict:
+    """Pass 2 on rows longer than any of the edge tile's: a heavy band of
+    EDGE_LONG segments a row (the first past the merge's one-block rows,
+    the second fully masked, the third empty) over synthetic segment
+    partials, at each EDGE_PASS2 chunk size; split_reduce at R = 128 and
+    the merge against their plain versions as in edge_pass2."""
+    ck = cuda_kernels
+    lens = np.asarray(EDGE_LONG)
+    seg_ptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    n_seg = int(seg_ptr[-1])
+    zeros = np.zeros(n_seg, np.int32)
+    band = banded.RowBand(None, np.arange(lens.size, dtype=np.int32), 0, seg_ptr=seg_ptr,
+                          seg_row=zeros, seg_beg=zeros, seg_end=zeros)
+    work = torch.randn(n_seg, 128, generator=gen, device=dev)
+    wm = torch.randn(n_seg, generator=gen, device=dev) * 4
+    wd = torch.rand(n_seg, generator=gen, device=dev) * 100
+    dead = slice(int(seg_ptr[1]), int(seg_ptr[2]))
+    wm[dead], wd[dead] = ATTN_NEG, 0.0
+    worst = {"split_reduce": 0.0, "attn_stats_merge": 0.0}
+    for chunk in EDGE_PASS2["chunks"]:
+        b = rechunk(band, chunk, dev)
+        tag = f"edges long rows, chunk {chunk}"
+
+        def reduce(plain=False):
+            out = torch.full((lens.size, 128), float("nan"), device=dev)
+            (ck.split_reduce_plain if plain else ck.split_reduce)(b, work, out)
+            return (out,)
+
+        def merge(plain=False):
+            m, d = (torch.full((lens.size,), float("nan"), device=dev) for _ in range(2))
+            (ck.attn_stats_merge_plain if plain else ck.attn_stats_merge)(b, wm, wd, m, d)
+            return m, d
+
+        rel = rel_err(check_pass2_twice(f"{tag}: split_reduce", b, reduce)[0],
+                      reduce(plain=True)[0])[1]
+        require(rel <= KERNEL_TOL["f32"], f"{tag}: split_reduce error {rel:.3e}")
+        worst["split_reduce"] = max(worst["split_reduce"], rel)
+        (m, d), (pm, pd) = check_pass2_twice(f"{tag}: merge", b, merge), merge(plain=True)
+        rel = float(((d - pd).abs() / pd.abs().clamp_min(1e-30)).max())
+        require(torch.equal(m, pm) and rel <= ATTN_STATS_RTOL,
+                f"{tag}: merge m {m.tolist()} vs {pm.tolist()}, d error {rel:.3e}")
+        require(bool(m[1] == ATTN_NEG) and float(d[1]) == 0.0,
+                f"{tag}: the fully masked row has stats")
+        worst["attn_stats_merge"] = max(worst["attn_stats_merge"], rel)
+    return worst
+
+
 def phase_edges(dev) -> dict:
     """The tile walk at the edges (EDGE): SDDMM, SpMM and fused over whole
     tile rows, one band's row list and heavy segments, each against its
@@ -519,8 +663,9 @@ def phase_edges(dev) -> dict:
                 name = f"{key[0]}_{key[1]}/{prec}"
                 worst[name] = max(worst.get(name, 0.0), rel)
     worst.update(edge_stats(dev, tile, every, hb))
+    worst.update(edge_pass2(dev, tile, hb))
     res = {"rows": int(tile.n_rows), "nnz": nnz, "pads": EDGE["pads"], "Rs": EDGE["Rs"],
-           "segments": hb.n_seg, "max_rel_err": worst}
+           "segments": hb.n_seg, "pass2": EDGE_PASS2, "max_rel_err": worst}
     emit({"phase": "edges", **res})
     return res
 
@@ -1109,6 +1254,35 @@ def banked_bound(name: str, nnz: int, n_rows: int, n_seg: int, N: int, R: int,
             "gather_ms": max((moved + gathered) / HBM_BYTES_PER_S * 1e3, t_ops)}
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device time per call without the host: ``reps`` calls captured in
+    one CUDA graph (after a warmup call), the graph replayed and timed as
+    time_ms times a call. Captured on a side stream without
+    ``torch.cuda.graph``, which empties the allocator's cache and would
+    leave the timings after it paying for fresh device allocations."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        g.capture_begin()
+        for _ in range(reps):
+            fn()
+        g.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    return time_ms(g.replay, 3) / reps
+
+
+def launch_floors(dev) -> dict:
+    """The timing methods' floors, for launch-bound kernels: one-element
+    ``zero_()`` calls timed as time_ms times a kernel (CUDA events around
+    KERNEL_REPS calls: below it a reading is host time) and as graph_ms."""
+    one = torch.zeros(1, device=dev)
+    return {"launch_floor_ms": time_ms(one.zero_, KERNEL_REPS),
+            "graph_launch_floor_ms": graph_ms(one.zero_, KERNEL_REPS)}
+
+
 def record_kernel(entries, name, prec, label, kern, plain, got, again, want, tol,
                   b, lib, lib_err, reps_plain, nnz, **extra) -> None:
     """Hold one kernel's outputs against its plain version's (max abs
@@ -1242,13 +1416,18 @@ def compare_banked_kernels(alg, variant, dev, label: str, entries: dict,
     lengths = torch.diff(hb.seg_ptr.long())
     lib, lib_err = lib_or_reason(lambda: time_ms(
         lambda: torch.segment_reduce(work, "sum", lengths=lengths, axis=0), KERNEL_REPS))
+    got = check_pass2_twice(f"split_reduce at {label}", hb, lambda: reduce_run(False))
     record_kernel(entries, "split_reduce", "f32", label,
                   lambda: cuda_kernels.split_reduce(hb, work, out_t),
-                  lambda: reduce_run(True), reduce_run(False), reduce_run(False),
+                  lambda: reduce_run(True), got, reduce_run(False),
                   reduce_run(True), KERNEL_TOL["f32"],
                   banked_bound("split_reduce", nnz_heavy, hb.n_rows, hb.n_seg, alg.N_pad,
                                R, 4),
                   lib, lib_err, reps_plain, nnz_heavy, segments=hb.n_seg,
+                  units=hb.n_units, short_rows=hb.n_short, chunk=hb.chunk,
+                  graph_ms=graph_ms(lambda: cuda_kernels.split_reduce(hb, work, out_t),
+                                    KERNEL_REPS),
+                  **launch_floors(dev),
                   library_covers="torch.segment_reduce: the segment sums, unscattered")
 
 
@@ -1312,6 +1491,11 @@ def compare_banked_attn_kernels(alg, dev, label: str, entries: dict) -> None:
     for name, (run, kern, nnz, n_rows, lib, lib_err) in runs.items():
         got, again, want = run(False), run(False), run(True)
         torch.cuda.synchronize()
+        pass2 = {}
+        if name == "attn_stats_merge":
+            got = check_pass2_twice(f"{name} at {label}", hb, lambda: run(False))
+            pass2 = {"units": hb.n_units, "short_rows": hb.n_short, "chunk": hb.chunk,
+                     "graph_ms": graph_ms(kern, KERNEL_REPS), **launch_floors(dev)}
         m, d = got
         wm_, wd_ = want
         rel = max(float(((m - wm_).abs() / wm_.abs().clamp_min(1e-30)).max()),
@@ -1322,7 +1506,7 @@ def compare_banked_attn_kernels(alg, dev, label: str, entries: dict) -> None:
                       want, ATTN_STATS_RTOL,
                       banked_bound(name, nnz, n_rows, hb.n_seg, alg.N_pad, alg.R, 4),
                       lib, lib_err, KERNEL_REPS, nnz, segments=hb.n_seg,
-                      max_stats_rel_err=rel, **extra)
+                      max_stats_rel_err=rel, **pass2, **extra)
     m, d = merge_run(False)
     i0 = hb.rows.tolist().index(0)
     require(bool(m[i0] == ATTN_NEG) and float(d[i0]) == 0.0,
@@ -1389,7 +1573,6 @@ def banked_attention(dev, launches: dict, entries: dict,
     alg = make_algorithm("15d_fusion2", S, R,
                          kernel=BankedCudaKernel(variant, "f32", device=dev),
                          device=dev, attention=True)
-    compare_banked_attn_kernels(alg, dev, "headline", entries)
     A, B = alg.put_a(X), alg.put_b(X)
     vals = {MatMode.A: alg.like_s_values(1.0), MatMode.B: alg.like_st_values(1.0)}
     bands = {MatMode.A: alg.S_tiles.tile(0, 0).bands, MatMode.B: alg.ST_tiles.tile(0, 0).bands}
@@ -1428,6 +1611,8 @@ def banked_attention(dev, launches: dict, entries: dict,
                            "ms_per_call": ms, "launches": counts,
                            "breakdown": banked_breakdown(alg, A, B, ATTN_CALL_REPS, mode)}
             emit({"phase": "banked_attention", "mode_precision": tag, **result[tag]})
+    alg.kernel = BankedCudaKernel(variant, "f32", device=dev)
+    compare_banked_attn_kernels(alg, dev, "headline", entries)
     return result, alg
 
 
@@ -1646,7 +1831,9 @@ def main() -> int:
             "bound_ms": main_["bound_ms"], "bound_by": main_["bound_by"],
             "bound_gather_ms": main_["bound_gather_ms"],
             "library_ms": main_["library_ms"],
-            **{k: main_[k] for k in ("library_error", "library_covers") if k in main_},
+            **{k: main_[k] for k in ("library_error", "library_covers", "graph_ms",
+                                     "launch_floor_ms", "graph_launch_floor_ms")
+               if k in main_},
             "at": "full" if "full" in shapes else "headline",
             "headline": {k: head[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "bound_gather_ms",

@@ -1,7 +1,9 @@
-"""Time the SDDMM, fused and SpMM tile kernels and the attention stats
-kernel of several source trees on the same inputs, on one card, in turns.
+"""Time the SDDMM, fused and SpMM tile kernels, the attention stats kernel
+and the heavy rows' second pass of several source trees on the same
+inputs, on one card, in turns.
 
     python3 -m distributed_sddmm_tpu_torch.bench.kernel_ab LABEL=TREE ... [-o FILE]
+        [--only-pass2] [--chunks C,...]
 
 A TREE is a directory that holds ``distributed_sddmm_tpu_torch/ops/`` (its
 ``_build.py`` and ``csrc/``): this checkout (``new=.``), or an older
@@ -30,7 +32,21 @@ R=128 unless named, standard-normal operands, f32 and bf16:
 * ``bigbird_16``: the ``bigbird:w=8,g=2,r=2`` attention tile at 2**16
   tokens banked by its selected variant: the stats of the row-list bands
   (``attn_stats_rows``) and of the heavy band's segments
-  (``attn_stats_split``), f32, on logits and gates as for ``window64``.
+  (``attn_stats_split``), f32, on logits and gates as for ``window64``;
+* the heavy band's second pass, f32: ``split_reduce`` on ``graph500_16``,
+  ``graph500_20``, ``bigbird_16`` and ``bigbird_20`` (the same mask at
+  2**20 tokens), on a standard-normal workspace ``[n_seg, R]``, and
+  ``attn_stats_merge`` on ``bigbird_16`` and ``bigbird_20``, on the
+  segment stats that ``attn_stats_split`` gives for the inputs above.
+  Each tree gets the inputs of its own C entry point (the signature in
+  its ``_build.SIGNATURES``: the parent's kernels take the segment table,
+  these the unit table of ``codegen/banded.py``). These lines also carry
+  ``launch_floor_ms``, a one-element ``zero_()`` timed the same way in
+  the same case, and ``graph_ms``, each tree's and the floor's device
+  time a launch when ``REPS`` launches are captured in one CUDA graph and
+  replayed (no host time between launches). With ``--chunks``, the trees
+  of the current entry points are timed again with the unit table built
+  at each of those chunk sizes (``codegen/banded.py::REDUCE_CHUNK``).
 
 Each case runs the trees in the order given, then in reverse (A B B A),
 each reading CUDA events around ``REPS`` calls after a warmup call. It
@@ -41,14 +57,15 @@ the largest magnitude (``rel_diff_vs_first``); for the stats also
 whether ``m`` equals the first tree's and the largest relative difference
 of each ``d`` (``d_rel_diff_vs_first``). The first line names the card
 and its power limit; the second gives each tree's build time and the
-ptxas report (registers, spills) of its walk kernels. With ``-o`` the
-lines are also appended to FILE.
+ptxas report (registers, spills) of its walk and pass-2 kernels. With
+``-o`` the lines are also appended to FILE.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import importlib.util
 import json
 import pathlib
@@ -61,18 +78,25 @@ import torch
 from distributed_sddmm_tpu_torch import masks
 from distributed_sddmm_tpu_torch.autotune.fingerprint import Problem
 from distributed_sddmm_tpu_torch.bench.harness import make_algorithm
-from distributed_sddmm_tpu_torch.codegen import BankedCudaKernel, select_variant
-from distributed_sddmm_tpu_torch.ops import _build
+from distributed_sddmm_tpu_torch.codegen import BankedCudaKernel, banded, select_variant
+from distributed_sddmm_tpu_torch.ops import _build, cuda_kernels
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 
 REPS = 20
+#: HBM rate of one H100 SXM (NVIDIA data sheet), for the bounds of the
+#: banked stats and pass-2 lines.
+HBM_BYTES_PER_S = 3.35e12
 #: (case, log_m) of the uniform R-mat tiles, the attention tile's (log2
 #: tokens, mask) and the Graph500 R-mat sizes.
 RMAT = (("headline", 16), ("full", 20))
 WINDOW = (20, "window:64")
 WINDOW16 = (16, "window:16")
 BIGBIRD = (16, "bigbird:w=8,g=2,r=2")
+BIGBIRD_LOG_NS = (16, 20)
+#: Arguments of the pass-2 entry points that take the segment table (the
+#: kernels before the unit table).
+PARENT_ARGS = {"split_reduce": 7, "attn_stats_merge": 8}
 GRAPH500_LOG_MS = (16, 20)
 R_MAIN = 128
 R_SWEEP = (32, 64, 256, 512)
@@ -95,9 +119,10 @@ def load_tree(root: str) -> dict:
         fn.restype = ctypes.c_int
     lib.tile_error_string.argtypes = [ctypes.c_int]
     lib.tile_error_string.restype = ctypes.c_char_p
-    walks = {k: v for k, v in _build.ptxas_report(info["log"]).items() if "walk_kernel" in k}
-    return {"lib": lib, "build_seconds": info["seconds"], "cached": info["cached"],
-            "walk_ptxas": walks}
+    walks = {k: v for k, v in _build.ptxas_report(info["log"]).items()
+             if any(n in k for n in ("walk_kernel", "split_reduce", "attn_merge"))}
+    return {"lib": lib, "sigs": mod.SIGNATURES, "build_seconds": info["seconds"],
+            "cached": info["cached"], "walk_ptxas": walks}
 
 
 def _call(lib, name: str, *args) -> None:
@@ -193,6 +218,51 @@ def run_stats(lib, op: str, tile, bands, gate, z, zero: bool):
     return m, d
 
 
+def pass2_args(tree: dict, op: str, band, inp: dict, out: dict) -> tuple:
+    """The C arguments but the stream (the last) of one pass-2 call by
+    ``tree``'s entry point: the parent's (the segment table, PARENT_ARGS
+    arguments) or the unit table's."""
+    old = len(tree["sigs"][op]) == PARENT_ARGS[op]
+    if op == "split_reduce":
+        work, dst = inp["work"], out["out"]
+        R = dst.shape[1]
+        if old:
+            return _p(band.seg_ptr), _p(band.rows), _p(work), _p(dst), band.n_rows, R
+        return (*unit_ptrs(band), _p(work), _p(dst), _p(out["partial"]), band.n_short,
+                band.n_units, band.chunk, R, int(R % 4 == 0))
+    wm, wd, m, d = inp["wm"], inp["wd"], out["m"], out["d"]
+    if old:
+        return _p(band.seg_ptr), _p(band.rows), _p(wm), _p(wd), _p(m), _p(d), band.n_rows
+    return (*unit_ptrs(band), _p(wm), _p(wd), _p(m), _p(d), _p(out["partial"]),
+            band.n_short, band.n_units, band.chunk)
+
+
+def unit_ptrs(band) -> tuple:
+    return (_p(band.seg_ptr), _p(band.rows), _p(band.unit_row), _p(band.unit_beg),
+            _p(band.unit_end), _p(band.counters))
+
+
+def graph_ms(make, reps: int = REPS):
+    """Device ms a call when ``reps`` calls are captured in one CUDA graph
+    and replayed: ``make()`` gives the call, bound to the stream current
+    when it is made (the graph captures on its own). ``(ms, None)``, or
+    ``(None, reason)`` where the capture fails."""
+    try:
+        make()()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn = make()
+            for _ in range(reps):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        return None, str(e).strip().splitlines()[0]
+    return time_ms(g.replay, 3) / reps, None
+
+
 def time_ms(fn, reps: int = REPS) -> float:
     """Device ms per call: CUDA events around ``reps`` calls after a warmup."""
     fn()
@@ -260,9 +330,107 @@ def compare_stats(trees: dict, case: str, op: str, tile, bands, gate, z, emit) -
         d_rel[label] = float(((got[1] - first[1]).abs()
                               / first[1].abs().clamp_min(1e-30)).max())
     ms = in_turns(trees, lambda lib: run_stats(lib, op, tile, bands, gate, z, zero=False))
+    # Bound: 8 B a slot read; 12 B a row (row_ptr, m, d) or 16 a segment.
+    if op == "attn_stats_split":
+        hb = next(b for b in bands if b.heavy)
+        moved = 8 * hb.n_slots + 16 * hb.n_seg
+    elif bands:
+        lists = [b for b in bands if not b.heavy]
+        moved = sum(8 * b.n_slots + 12 * b.n_rows for b in lists)
+    else:
+        moved = 8 * int(tile.row_ptr[-1]) + 12 * tile.n_rows
     emit({"case": case, "op": op, "precision": "f32", "nnz": int(tile.row_ptr[-1]),
-          "ms": ms, "max_abs_diff_vs_first": abs_diffs, "rel_diff_vs_first": diffs,
+          "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "ms": ms, "max_abs_diff_vs_first": abs_diffs, "rel_diff_vs_first": diffs,
           "m_equal_to_first": m_equal, "d_rel_diff_vs_first": d_rel})
+
+
+def compare_pass2(trees: dict, case: str, op: str, band, inp: dict, emit,
+                  chunks=()) -> None:
+    """Every tree on one pass-2 case (f32), in turns; one JSON line, then
+    one a chunk size of ``chunks`` for the trees of the current entry
+    points. Outputs are preallocated, so a timed call is the C call."""
+    dev = band.rows.device
+    n_out = int(band.rows.max()) + 1 if band.n_rows else 1
+    R = inp["work"].shape[1] if op == "split_reduce" else None
+
+    def outputs(b, zero: bool):
+        n_part = b.n_units - b.n_short
+        if op == "split_reduce":
+            return {"out": _alloc((n_out, R), zero, dev),
+                    "partial": _alloc((max(n_part, 1), R), False, dev)}
+        return {"m": _alloc(n_out, zero, dev), "d": _alloc(n_out, zero, dev),
+                "partial": _alloc((2, max(n_part, 1)), False, dev)}
+
+    rows = band.rows.long()
+    floor = torch.zeros(1, device=dev)
+    for chunk in (None, *chunks):
+        b = band if chunk is None else dataclasses.replace(
+            band, chunk=chunk, unit_row=None, unit_beg=None, unit_end=None,
+            counters=None).to(dev)
+        sel = {label: t for label, t in trees.items()
+               if chunk is None or len(t["sigs"][op]) != PARENT_ARGS[op]}
+        first = None
+        abs_diffs, diffs, equal_runs, calls = {}, {}, {}, {}
+        for label, t in sel.items():
+            o = outputs(b, zero=True)
+            args = pass2_args(t, op, b, inp, o)
+            runs = []
+            for _ in range(2):
+                _call(t["lib"], op, *args, torch.cuda.current_stream().cuda_stream)
+                torch.cuda.synchronize()
+                runs.append(tuple(v[rows].clone() for k, v in o.items() if k != "partial"))
+            equal_runs[label] = all(torch.equal(x, y) for x, y in zip(*runs))
+            got = runs[0]
+            first = got if first is None else first
+            abs_diffs[label] = abs_diff(got, first)
+            diffs[label] = rel_diff(got, first)
+            calls[label] = (getattr(t["lib"], op), args, o)  # o: keeps args' memory
+
+        def maker(label):
+            """The C call on the stream current when the call is made."""
+            fn, args, _ = calls[label]
+
+            def make():
+                bound = (*args, torch.cuda.current_stream().cuda_stream)
+                return lambda: fn(*bound)
+            return make
+
+        ms = {label: [] for label in sel}
+        for label in [*sel, *reversed(sel)]:
+            ms[label].append(time_ms(maker(label)()))
+        graph, graph_err = {}, {}
+        for label in sel:
+            graph[label], err = graph_ms(maker(label))
+            if err:
+                graph_err[label] = err
+        moved = (b.n_seg * R * 4 + b.n_rows * (8 + R * 4) if op == "split_reduce"
+                 else 8 * b.n_seg + 16 * b.n_rows)
+        line = {"case": case, "op": op, "precision": "f32", "R": R, "rows": b.n_rows,
+                "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+                "segments": b.n_seg, "chunk": b.chunk, "units": b.n_units,
+                "short_rows": b.n_short, "ms": ms, "launch_floor_ms": [
+                    time_ms(floor.zero_), time_ms(floor.zero_)],
+                "graph_ms": graph,
+                "graph_launch_floor_ms": graph_ms(lambda: floor.zero_)[0],
+                "max_abs_diff_vs_first": abs_diffs, "rel_diff_vs_first": diffs,
+                "two_launches_equal": equal_runs,
+                "counters_zero": bool((b.counters == 0).all())}
+        if graph_err:
+            line["graph_error"] = graph_err
+        emit(line)
+
+
+def pass2_inputs(tile, alg, dev, seed: int, stats: bool) -> tuple:
+    """The heavy band and its pass-2 inputs: a standard-normal workspace,
+    and for the stats the segment pairs of ``attn_stats_split`` (this
+    checkout's)."""
+    hb = next(b for b in tile.bands if b.heavy)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    inp = {"work": torch.randn(hb.n_seg, R_MAIN, generator=gen, device=dev)}
+    if stats:
+        gate, z = stats_inputs(alg, dev, seed)
+        inp["wm"], inp["wd"] = cuda_kernels.attn_stats_split(tile, hb, gate, z)
+    return hb, inp
 
 
 def operands(alg, R: int, dev, seed: int):
@@ -283,8 +451,16 @@ def stats_inputs(alg, dev, seed: int):
     return gate.contiguous(), z.contiguous()
 
 
-def run_cases(trees: dict, dev, emit) -> None:
-    """Every case of the module docstring, each tree in turns."""
+def run_cases(trees: dict, dev, emit, chunks=(), pass2_only: bool = False) -> None:
+    """Every case of the module docstring, each tree in turns; with
+    ``pass2_only`` the second-pass cases alone."""
+    if not pass2_only:
+        walk_cases(trees, dev, emit)
+    banked_cases(trees, dev, emit, chunks, pass2_only)
+
+
+def walk_cases(trees: dict, dev, emit) -> None:
+    """The uniform R-mat and window cases."""
     for case, log_m in RMAT:
         S = HostCOO.rmat(log_m, 32, np.random.default_rng(0))
         alg = make_algorithm("15d_fusion2", S, R_MAIN,
@@ -311,33 +487,52 @@ def run_cases(trees: dict, dev, emit) -> None:
     compare_stats(trees, "window16", "attn_stats_tile", alg.S_tiles.tile(0, 0), (),
                   *stats_inputs(alg, dev, 1), emit)
     del alg, S
+
+
+def banked_cases(trees: dict, dev, emit, chunks, pass2_only: bool) -> None:
+    """The Graph500 and bigbird cases."""
     for log_m in GRAPH500_LOG_MS:
         S = HostCOO.rmat(log_m, 32, np.random.default_rng(0), **GRAPH500)
         variant = select_variant(Problem.from_coo(S, R_MAIN))
         alg = make_algorithm("15d_fusion2", S, R_MAIN,
                              kernel=BankedCudaKernel(variant, "f32", device=dev), device=dev)
         tile = alg.S_tiles.tile(0, 0)
-        sv, A, B = operands(alg, R_MAIN, dev, seed=0)
-        for op in ("sddmm_rows", "fused_rows", "spmm_rows", "sddmm_split", "fused_split",
-                   "spmm_split"):
-            compare(trees, f"graph500_{log_m}", op, tile, tile.bands, sv, A, B, emit)
-        del alg, tile, sv, A, B, S
-    S = masks.from_spec(BIGBIRD[1], 1 << BIGBIRD[0])
-    variant = select_variant(Problem.from_coo(S, R_MAIN))
-    alg = make_algorithm("15d_fusion2", S, R_MAIN,
-                         kernel=BankedCudaKernel(variant, "f32", device=dev), device=dev,
-                         attention=True)
-    tile = alg.S_tiles.tile(0, 0)
-    gate, z = stats_inputs(alg, dev, 2)
-    for op in ("attn_stats_rows", "attn_stats_split"):
-        compare_stats(trees, f"bigbird_{BIGBIRD[0]}", op, tile, tile.bands, gate, z, emit)
+        if not pass2_only:
+            sv, A, B = operands(alg, R_MAIN, dev, seed=0)
+            for op in ("sddmm_rows", "fused_rows", "spmm_rows", "sddmm_split",
+                       "fused_split", "spmm_split"):
+                compare(trees, f"graph500_{log_m}", op, tile, tile.bands, sv, A, B, emit)
+            del sv, A, B
+        hb, inp = pass2_inputs(tile, alg, dev, 4, stats=False)
+        compare_pass2(trees, f"graph500_{log_m}", "split_reduce", hb, inp, emit, chunks)
+        del alg, tile, S, hb, inp
+    for log_n in BIGBIRD_LOG_NS:
+        S = masks.from_spec(BIGBIRD[1], 1 << log_n)
+        variant = select_variant(Problem.from_coo(S, R_MAIN))
+        alg = make_algorithm("15d_fusion2", S, R_MAIN,
+                             kernel=BankedCudaKernel(variant, "f32", device=dev), device=dev,
+                             attention=True)
+        tile = alg.S_tiles.tile(0, 0)
+        if not pass2_only:
+            gate, z = stats_inputs(alg, dev, 2)
+            for op in ("attn_stats_rows", "attn_stats_split"):
+                compare_stats(trees, f"bigbird_{log_n}", op, tile, tile.bands, gate, z, emit)
+        hb, inp = pass2_inputs(tile, alg, dev, 4, stats=True)
+        for op in ("split_reduce", "attn_stats_merge"):
+            compare_pass2(trees, f"bigbird_{log_n}", op, hb, inp, emit, chunks)
+        del alg, tile, S, hb, inp
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="+", help="LABEL=DIR, e.g. new=. parent=.chip_archive/parent")
     ap.add_argument("-o", "--output", help="append the JSON lines to this file")
+    ap.add_argument("--chunks", default="",
+                    help="comma-separated pass-2 chunk sizes to time besides the default")
+    ap.add_argument("--only-pass2", action="store_true",
+                    help="run the pass-2 cases alone (Graph500 and bigbird)")
     args = ap.parse_args(argv)
+    chunks = tuple(int(c) for c in args.chunks.split(",") if c)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA card")
     dev = torch.device("cuda")
@@ -359,11 +554,11 @@ def main(argv=None) -> int:
     for spec in args.trees:
         label, _, root = spec.partition("=")
         trees[label] = load_tree(root)
-    emit({"builds": {label: {k: v for k, v in t.items() if k != "lib"}
+    emit({"builds": {label: {k: v for k, v in t.items() if k not in ("lib", "sigs")}
                      for label, t in trees.items()}})
 
     t0 = time.perf_counter()
-    run_cases(trees, dev, emit)
+    run_cases(trees, dev, emit, chunks, args.only_pass2)
     emit({"done": True, "seconds": time.perf_counter() - t0})
     if out_file:
         out_file.close()

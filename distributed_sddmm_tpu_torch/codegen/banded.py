@@ -7,7 +7,11 @@ group per row, like the generic kernel, and the heavy band's rows are cut
 into segments of at most ``split`` slots, one lane group per segment,
 whose partial results a second pass sums per row in segment order. A heavy
 row then no longer serialises on one group while the rest of the card
-idles.
+idles. The second pass walks a unit table (:func:`reduce_units`): the
+rows of at most ``chunk // 4`` segments a warp each, eight to a block, and
+the longer rows cut into chunks of at most ``chunk`` segments, a block
+each, whose partials the row's last block to finish combines in chunk
+order; so no row's segments are summed on one serial chain either.
 
 The bands index the tile's CSR (``parallel/sharding.py``: real nonzeros
 in row order, pads at the tail, ``row_ptr``) and change nothing in it, so
@@ -39,6 +43,10 @@ from distributed_sddmm_tpu_torch.codegen.variants import BandSpec, KernelVariant
 #: bigbird attention call best at 64-128 (256: +13%, 512: +60%) and the
 #: Graph500 R-mat fused pair flat from 128 to 512 (PERF.md, section 5).
 SPLIT = 128
+#: Most segments a block of the second pass sums (``chunk``; a row of at
+#: most a quarter of them is a warp's alone): chosen on an H100 by
+#: ``bench/kernel_ab.py``'s chunk sweep, 16-256 (PERF.md, section 6).
+REDUCE_CHUNK = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,8 +54,11 @@ class RowBand:
     """One band of one tile: its sorted int32 tile rows and, for the heavy
     band, the segment table (``seg_ptr`` [n_rows + 1]: the segments of
     ``rows[i]`` are ``seg_ptr[i]:seg_ptr[i+1]``; segment ``s`` covers
-    slots ``seg_beg[s]:seg_end[s]`` of tile row ``seg_row[s]``). Arrays
-    are numpy on the host and tensors once moved with :meth:`to`."""
+    slots ``seg_beg[s]:seg_end[s]`` of tile row ``seg_row[s]``) and the
+    second pass's unit table (:func:`reduce_units`, made from ``seg_ptr``
+    when not given, at ``chunk`` segments, default :data:`REDUCE_CHUNK`)
+    with one zero counter a row, which the pass's kernels leave at zero.
+    Arrays are numpy on the host and tensors once moved with :meth:`to`."""
 
     spec: BandSpec
     rows: object
@@ -56,6 +67,26 @@ class RowBand:
     seg_row: object = None
     seg_beg: object = None
     seg_end: object = None
+    chunk: int = 0
+    n_short: int = 0
+    unit_row: object = None
+    unit_beg: object = None
+    unit_end: object = None
+    counters: object = None
+
+    def __post_init__(self):
+        if self.seg_ptr is None or self.unit_row is not None:
+            return
+        chunk = self.chunk or REDUCE_CHUNK
+        seg_ptr = self.seg_ptr
+        if isinstance(seg_ptr, torch.Tensor):
+            seg_ptr = seg_ptr.cpu().numpy()
+        n_short, unit_row, unit_beg, unit_end = reduce_units(seg_ptr, chunk)
+        for name, value in (("chunk", chunk), ("n_short", n_short),
+                            ("unit_row", unit_row), ("unit_beg", unit_beg),
+                            ("unit_end", unit_end),
+                            ("counters", np.zeros(seg_ptr.size - 1, np.int32))):
+            object.__setattr__(self, name, value)
 
     @property
     def heavy(self) -> bool:
@@ -69,14 +100,24 @@ class RowBand:
     def n_seg(self) -> int:
         return int(self.seg_beg.shape[0]) if self.heavy else 0
 
+    @property
+    def n_units(self) -> int:
+        return int(self.unit_row.shape[0]) if self.heavy else 0
+
     def to(self, device) -> "RowBand":
         def put(x):
-            return None if x is None else torch.from_numpy(np.asarray(x)).to(device)
+            if x is None:
+                return None
+            if isinstance(x, torch.Tensor):
+                return x.to(device)
+            return torch.from_numpy(np.asarray(x)).to(device)
 
         return dataclasses.replace(
             self, rows=put(self.rows), seg_ptr=put(self.seg_ptr),
             seg_row=put(self.seg_row), seg_beg=put(self.seg_beg),
-            seg_end=put(self.seg_end))
+            seg_end=put(self.seg_end), unit_row=put(self.unit_row),
+            unit_beg=put(self.unit_beg), unit_end=put(self.unit_end),
+            counters=put(self.counters))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,14 +144,42 @@ def _segments(starts: np.ndarray, ends: np.ndarray, split: int):
     return seg_ptr, owner, seg_beg, seg_end
 
 
-def build_banded(row_ptr, variant: KernelVariant, split: int | None = None) -> Banding:
+def reduce_units(seg_ptr, chunk: int):
+    """The second pass's unit table over the rows ``i`` of a heavy band
+    (segments ``seg_ptr[i]:seg_ptr[i+1]``): ``(n_short, unit_row,
+    unit_beg, unit_end)``, int32, unit ``u`` covering segments
+    ``unit_beg[u]:unit_end[u]`` of band row ``unit_row[u]``. Units
+    ``[0, n_short)`` are the rows of at most ``chunk // 4`` segments
+    (rows without one too), whole, in row order; then every longer row's
+    chunks of at most ``chunk`` segments, in row order and, within a row,
+    in segment order (its ``k``-th chunk starts at ``seg_ptr[i] + k *
+    chunk``), a row's chunks consecutive."""
+    if chunk < 4:
+        raise ValueError(f"chunk must be >= 4, got {chunk}")
+    seg_ptr = np.asarray(seg_ptr, dtype=np.int64)
+    n = np.diff(seg_ptr)
+    short = np.flatnonzero(n <= chunk // 4)
+    long_ = np.flatnonzero(n > chunk // 4)
+    n_chunks = -(-n[long_] // chunk)
+    row = np.repeat(long_, n_chunks)
+    k = np.arange(row.size) - np.repeat(np.cumsum(n_chunks) - n_chunks, n_chunks)
+    beg = seg_ptr[row] + k * chunk
+    end = np.minimum(beg + chunk, seg_ptr[row + 1])
+    as32 = [np.concatenate(p).astype(np.int32) for p in
+            ((short, row), (seg_ptr[short], beg), (seg_ptr[short + 1], end))]
+    return int(short.size), *as32
+
+
+def build_banded(row_ptr, variant: KernelVariant, split: int | None = None,
+                 chunk: int | None = None) -> Banding:
     """Partition the rows of every tile by nnz/row into ``variant``'s bands.
 
     ``row_ptr`` is the tile set's ``[n_buckets, tile_rows + 1]`` CSR row
     pointer (numpy or tensor). The band of each row is decided over all
     buckets together, as the JAX builder decides it over all nonzeros.
     ``split`` (default :data:`SPLIT`) bounds the slots of a heavy-row
-    segment."""
+    segment, ``chunk`` (default :data:`REDUCE_CHUNK`) the segments of a
+    second-pass block (:func:`reduce_units`)."""
     split = SPLIT if split is None else int(split)
     if split < 1:
         raise ValueError(f"split must be >= 1, got {split}")
@@ -161,6 +230,7 @@ def build_banded(row_ptr, variant: KernelVariant, split: int | None = None) -> B
                                seg_ptr=seg_ptr.astype(np.int32),
                                seg_row=rows[owner].astype(np.int32),
                                seg_beg=beg.astype(np.int32),
-                               seg_end=end.astype(np.int32)))
+                               seg_end=end.astype(np.int32),
+                               chunk=REDUCE_CHUNK if chunk is None else int(chunk)))
         tiles.append(tuple(per))
     return Banding(specs=specs, band_of_row=band, tiles=tuple(tiles))

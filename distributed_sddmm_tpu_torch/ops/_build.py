@@ -44,9 +44,9 @@ SIGNATURES = {
     "spmm_split": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fused_split": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                     _I, _P],
-    "split_reduce": [_P, _P, _P, _P, _I, _I, _P],
+    "split_reduce": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "attn_stats_split": [_P, _P, _P, _P, _P, _P, _I, _P],
-    "attn_stats_merge": [_P, _P, _P, _P, _P, _P, _I, _P],
+    "attn_stats_merge": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

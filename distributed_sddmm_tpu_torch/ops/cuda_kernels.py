@@ -41,11 +41,13 @@ part of one output:
   of the heavy band, one lane group per segment of at most ``split`` slots:
   ``mid`` at the segment's slots, the partial output rows into a
   ``[n_seg, R]`` f32 workspace (``banked_kernels.cu``).
-* :func:`split_reduce` -- pass 2: each heavy row's partials summed in
-  segment order into its output row.
+* :func:`split_reduce` -- pass 2: each heavy row's partials summed into
+  its output row, a long row's segments spread over warps and blocks by
+  the band's unit table (``codegen/banded.py::reduce_units``).
 * :func:`attn_stats_split` and :func:`attn_stats_merge` -- the heavy
   band's per-segment softmax stats and their merge per row by the
-  :func:`~distributed_sddmm_tpu_torch.ops.kernels.attn_merge_stats` rule.
+  :func:`~distributed_sddmm_tpu_torch.ops.kernels.attn_merge_stats` rule,
+  over the same units.
 
 Every wrapper takes the tile's CSR view (:class:`~distributed_sddmm_tpu_torch.
 parallel.sharding.TileView`). On a CPU tensor it runs the plain version;
@@ -53,8 +55,10 @@ on a CUDA tensor it launches the kernel, adds one to its launch count and
 raises if the launch fails — it never falls back. The plain versions
 compute the same function with index gathers and ``index_add_``, with the
 same bf16 rounding points, in segments that bound their memory. The band
-wrappers allocate only a split's workspace (PyTorch's caching allocator,
-on the current stream); the caller allocates the output they share.
+wrappers allocate only a split's workspace and pass 2's chunk partials
+(PyTorch's caching allocator, on the current stream); the caller
+allocates the output they share. Pass 2's per-row counters live in the
+band (``RowBand.counters``, zero), and its kernels leave them at zero.
 """
 
 from __future__ import annotations
@@ -496,8 +500,19 @@ def fused_split(tile: TileView, band, sv, at, bt, mid, zero_pads: bool):
     return work
 
 
+def _unit_args(band, dev) -> tuple:
+    """The heavy band's second-pass unit table (``codegen/banded.py``): its
+    arrays are int32, built together from ``seg_ptr`` and moved together
+    by ``RowBand.to``, so one call checks where they lie, not their types
+    (a launch-bound kernel pays for every check on the host)."""
+    _on_card(dev, band.rows, band.seg_ptr, band.unit_row, band.counters)
+    return (_ptr(band.seg_ptr), _ptr(band.rows), _ptr(band.unit_row), _ptr(band.unit_beg),
+            _ptr(band.unit_end), _ptr(band.counters))
+
+
 def split_reduce(band, work, out) -> None:
-    """Write the heavy rows of ``out`` from the segments' partial rows."""
+    """Write the heavy rows of ``out`` from the segments' partial rows.
+    Allocates the chunk units' partial rows (``[n_units - n_short, R]``)."""
     if work.device.type == "cpu":
         return split_reduce_plain(band, work, out)
     dev = work.device
@@ -508,10 +523,14 @@ def split_reduce(band, work, out) -> None:
         raise ValueError("work must be [n_seg, R] for an out of R columns")
     if band.n_rows > out.shape[0]:
         raise ValueError("band has more rows than the output")
-    _on_card(dev, band.rows, band.seg_ptr)
+    units = _unit_args(band, dev)
+    R = out.shape[1]
+    partial = torch.empty(band.n_units - band.n_short, R, dtype=torch.float32, device=dev)
+    # partial is fresh from the caching allocator: aligned.
+    vec = R % 4 == 0 and (work.data_ptr() | out.data_ptr()) % 16 == 0
     _launch("split_reduce", "split_reduce",
-            _ptr(band.seg_ptr), _ptr(band.rows), _ptr(work), _ptr(out), band.n_rows,
-            out.shape[1], _stream(dev))
+            *units, _ptr(work), _ptr(out), _ptr(partial), band.n_short, band.n_units,
+            band.chunk, R, int(vec), _stream(dev))
 
 
 def attn_stats_tile(tile: TileView, gate, logits):
@@ -554,20 +573,23 @@ def attn_stats_split(tile: TileView, band, gate, logits):
 
 
 def attn_stats_merge(band, wm, wd, m, d) -> None:
-    """Write the heavy rows' stats into ``m`` and ``d``."""
+    """Write the heavy rows' stats into ``m`` and ``d``. Allocates the
+    chunk units' partial pairs (``[2, n_units - n_short]``)."""
     if wm.device.type == "cpu":
         return attn_stats_merge_plain(band, wm, wd, m, d)
     dev = wm.device
-    _on_card(dev, wm, wd, m, d, band.rows, band.seg_ptr)
+    _on_card(dev, wm, wd, m, d)
     if any(t.dtype != torch.float32 for t in (wm, wd, m, d)):
         raise ValueError("stats must be float32")
     if wm.shape != (band.n_seg,) or wd.shape != (band.n_seg,) or m.shape != d.shape:
         raise ValueError("segment stats must be [n_seg], row stats of one shape")
     if band.n_rows > m.shape[0]:
         raise ValueError("band has more rows than the row stats")
+    units = _unit_args(band, dev)
+    partial = torch.empty(2, band.n_units - band.n_short, dtype=torch.float32, device=dev)
     _launch("attn_stats_merge", "attn_stats_merge",
-            _ptr(band.seg_ptr), _ptr(band.rows), _ptr(wm), _ptr(wd), _ptr(m), _ptr(d),
-            band.n_rows, _stream(dev))
+            *units, _ptr(wm), _ptr(wd), _ptr(m), _ptr(d), _ptr(partial), band.n_short,
+            band.n_units, band.chunk, _stream(dev))
 
 
 def attn_norm_tile(tile: TileView, gate, logits, m, d):

@@ -133,6 +133,26 @@ def _three_bands(seed=4):
     return rows[idx], cols[idx], Mr, Nc
 
 
+def _hub(seed=5):
+    """A one-nonzero tail, mid rows of 12, heavy rows of 33 (with the
+    tail's) and 95 slots, a hub row of 420 columns and a hub column of 420
+    rows, so that S and S^T each have a heavy row of more than 400 slots.
+    Deduplicated."""
+    rng = np.random.default_rng(seed)
+    Mr, Nc = 512, 480
+    parts = [(np.arange(Mr), rng.integers(1, Nc, Mr))]
+    parts += [(np.full(12, r), rng.choice(np.arange(1, Nc), 12, replace=False))
+              for r in range(10, 20)]
+    parts += [(np.full(n, r), rng.choice(np.arange(1, Nc), n, replace=False))
+              for r, n in ((20, 32), (21, 95), (22, 420))]
+    parts += [(rng.choice(np.arange(30, Mr), 420, replace=False), np.zeros(420, np.int64))]
+    rows = np.concatenate([p[0] for p in parts]).astype(np.int64)
+    cols = np.concatenate([p[1] for p in parts]).astype(np.int64)
+    key, idx = np.unique(rows * Nc + cols, return_index=True)
+    idx.sort()
+    return rows[idx], cols[idx], Mr, Nc
+
+
 def _tiles(rows, cols, Mr, Nc, variant):
     S = HostCOO(rows, cols, np.ones(rows.size), Mr, Nc)
     return build_tiles(S, ShardedBlockCyclicColumn(Mr, Nc, 1, 1), Mr, Nc, CPU,
@@ -234,6 +254,71 @@ def test_segments_cover_each_heavy_row_exactly(split):
         assert s1 - s0 == -(-(rp[r + 1] - rp[r]) // split)  # no empty last one
 
 
+def _check_units(band, chunk):
+    """The unit table of ``band`` covers every row's segments exactly
+    once, in order: short rows (at most chunk // 4 segments) whole and
+    first, in row order; then each longer row's chunks of at most
+    ``chunk`` segments, consecutive, the k-th starting at seg_ptr + k *
+    chunk."""
+    seg_ptr = np.asarray(band.seg_ptr, dtype=np.int64)
+    n = np.diff(seg_ptr)
+    row, beg, end = (np.asarray(a, dtype=np.int64)
+                     for a in (band.unit_row, band.unit_beg, band.unit_end))
+    assert band.chunk == chunk
+    assert np.asarray(band.counters).dtype == np.int32
+    np.testing.assert_array_equal(band.counters, np.zeros(band.n_rows))
+    short = np.flatnonzero(n <= chunk // 4)
+    assert band.n_short == short.size
+    np.testing.assert_array_equal(row[:band.n_short], short)
+    np.testing.assert_array_equal(beg[:band.n_short], seg_ptr[short])
+    np.testing.assert_array_equal(end[:band.n_short], seg_ptr[short + 1])
+    covered = np.zeros(int(seg_ptr[-1]), np.int64)
+    for u in range(band.n_units):
+        covered[beg[u]:end[u]] += 1
+    assert np.all(covered == 1)
+    chunks = slice(band.n_short, band.n_units)
+    assert np.all(np.diff(row[chunks]) >= 0)
+    assert np.all((end - beg)[chunks] >= 1) and np.all((end - beg)[chunks] <= chunk)
+    for i in np.flatnonzero(n > chunk // 4):
+        mine = np.flatnonzero(row[chunks] == i) + band.n_short
+        assert mine.size == -(-n[i] // chunk)
+        np.testing.assert_array_equal(np.diff(mine), 1)
+        np.testing.assert_array_equal(beg[mine], seg_ptr[i] + chunk * np.arange(mine.size))
+        assert end[mine[-1]] == seg_ptr[i + 1]
+
+
+@pytest.mark.parametrize("split,chunk", [(1, 4), (1, 64), (3, 4), (3, 8), (3, 12), (7, 8),
+                                         (33, 4)])
+def test_reduce_units_cover_each_heavy_row_once_in_order(split, chunk):
+    rows, cols, Mr, Nc = _hub()
+    ts = _tiles(rows, cols, Mr, Nc, variant_from_id(VID))
+    ban = build_banded(ts.row_ptr[:, 0], variant_from_id(VID), split=split, chunk=chunk)
+    heavy = ban.tiles[0][-1]
+    assert heavy.heavy
+    n = np.diff(heavy.seg_ptr)
+    # Rows of more than 3 chunks, and at split 33 a row of one segment.
+    assert n.max() > 3 * chunk and (split < 33 or n.min() == 1)
+    _check_units(heavy, chunk)
+    # Moved, then rebuilt at another chunk size from the moved arrays.
+    moved = heavy.to(CPU)
+    assert torch.equal(moved.unit_row, torch.from_numpy(heavy.unit_row))
+    again = dataclasses.replace(moved, chunk=chunk + 4, unit_row=None, unit_beg=None,
+                                unit_end=None, counters=None).to(CPU)
+    _check_units(dataclasses.replace(again, **{
+        k: getattr(again, k).numpy() for k in ("seg_ptr", "unit_row", "unit_beg",
+                                               "unit_end", "counters")}), chunk + 4)
+
+
+def test_reduce_units_edge_cases():
+    # No rows; rows without a segment (short); one row of exactly k chunks.
+    assert banded.reduce_units(np.zeros(1, np.int64), 8)[0] == 0
+    n_short, row, beg, end = banded.reduce_units(np.array([0, 0, 0, 16, 17]), 8)
+    assert n_short == 3 and row.tolist() == [0, 1, 3, 2, 2]
+    assert beg.tolist() == [0, 0, 16, 0, 8] and end.tolist() == [0, 0, 17, 8, 16]
+    with pytest.raises(ValueError, match="chunk"):
+        banded.reduce_units(np.array([0, 5]), 3)
+
+
 def test_non_banked_variant_keeps_the_generic_csr_and_records_its_id():
     rows, cols, Mr, Nc = _uniform()
     ts = _tiles(rows, cols, Mr, Nc, variant_from_id("v1.rb0.rm"))
@@ -324,6 +409,42 @@ def test_banked_kernel_equals_jax_banked_and_generic_on_integer_data(split3, fus
     for op in want:
         np.testing.assert_array_equal(got[op], want[op], err_msg=op)
         np.testing.assert_array_equal(got[op], generic[op], err_msg=op)
+
+
+@pytest.mark.parametrize("fusion", [1, 2])
+def test_banked_many_chunk_rows_equal_jax_banked_on_integer_data(split3, monkeypatch,
+                                                                  fusion):
+    """Heavy rows of more than three pass-2 chunks (a hub row of 420 slots
+    at 3 slots a segment and 8 segments a chunk), in S and in S^T."""
+    monkeypatch.setattr(banded, "REDUCE_CHUNK", 8)
+    rows, cols, Mr, Nc = _hub()
+    S, R = JaxCOO(rows, cols, np.ones(rows.size), Mr, Nc), 8
+    state = _int_state(S, R, seed=fusion + 20)
+    want, _ = _run_jax(S, R, fusion, BankedPallasKernel(
+        VID, precision="f32", interpret=True), state)
+    alg, got = _run_port(S, R, fusion, BankedCudaKernel(VID, "f32", device="cpu"), state)
+    for tiles in (alg.S_tiles, alg.ST_tiles):
+        heavy = tiles.tile(0, 0).bands[-1]
+        assert heavy.heavy and heavy.chunk == 8
+        assert int(torch.diff(heavy.seg_ptr).max()) > 3 * 8
+        assert heavy.n_units - heavy.n_short > 3
+    for op in want:
+        np.testing.assert_array_equal(got[op], want[op], err_msg=op)
+
+
+@pytest.mark.parametrize("fusion", [1, 2])
+@pytest.mark.parametrize("M,N", [(30, 23), (23, 41), (64, 17)])
+def test_banked_non_square_equals_jax_banked_on_integer_data(split3, M, N, fusion):
+    S, R = JaxCOO.erdos_renyi(M, N, 3, seed=M + N), 8
+    vid = jax_select(JaxProblem.from_coo(S, R)).variant_id
+    state = _int_state(S, R, seed=fusion)
+    want, jax_vid = _run_jax(S, R, fusion, BankedPallasKernel(
+        vid, precision="f32", interpret=True), state)
+    alg, got = _run_port(S, R, fusion, BankedCudaKernel(vid, "f32", device="cpu"), state)
+    assert alg.kernel_variant_realized == jax_vid
+    for op in want:
+        assert got[op].shape == want[op].shape, op
+        np.testing.assert_array_equal(got[op], want[op], err_msg=op)
 
 
 def test_banked_kernel_matches_the_float64_oracle_on_normal_data(split3):
@@ -455,6 +576,20 @@ def _attention(alg_or_ja, A, B, vals_a, vals_b, port: bool):
 
 
 def test_banked_attention_matches_jax_banked(split3):
+    _check_banked_attention()
+
+
+def test_banked_attention_many_chunk_rows_matches_jax_banked(split3, monkeypatch):
+    """The global rows (160 slots, 54 segments) in more than three pass-2
+    chunks of 4 segments; global row 0 fully masked."""
+    monkeypatch.setattr(banded, "REDUCE_CHUNK", 4)
+    heavy = _check_banked_attention()
+    assert heavy.chunk == 4 and heavy.n_units - heavy.n_short > 2 * 3
+
+
+def _check_banked_attention():
+    """The banked attention call against the JAX package's on
+    :func:`_masked_bigbird`; returns the port's heavy band of S."""
     S, R = _masked_bigbird(), 8
     vid = jax_select(JaxProblem.from_coo(S, R)).variant_id
     rng = np.random.default_rng(11)
@@ -486,6 +621,7 @@ def test_banked_attention_matches_jax_banked(split3):
         out_f, p_f = alg.fused_attention(Ap, Bp, vals, mode)
         out_u, p_u = alg.attention_unfused(Ap, Bp, vals, mode)
         assert torch.equal(out_f, out_u) and torch.equal(p_f, p_u)
+    return heavy
 
 
 # ---------------------------------------------------------------- CLI

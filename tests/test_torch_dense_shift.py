@@ -106,6 +106,30 @@ def test_ops_match_jax_pallas(fusion, R, log_m):
                 assert np.abs(got[op] - want[op]).max() <= 1e-5 * scale, op
 
 
+NON_SQUARE = [(30, 23), (23, 41), (64, 17)]
+
+
+@pytest.mark.parametrize("fusion", [1, 2])
+@pytest.mark.parametrize("R", [8, 20])
+@pytest.mark.parametrize("M,N", NON_SQUARE)
+def test_ops_match_jax_pallas_non_square(M, N, R, fusion):
+    """As :func:`test_ops_match_jax_pallas`, on Erdos-Renyi matrices with
+    M != N (rows and columns padded and sharded differently)."""
+    S = JaxCOO.erdos_renyi(M, N, 3, seed=M + N)
+    ja = _jax_alg(S, R, fusion)
+    for kind in ("int", "normal"):
+        want, state = _run_jax(ja, S, *_data(S, R, kind, seed=M * N + R))
+        got = _run_port(S, R, fusion, state)
+        assert set(got) == set(want)
+        for op in want:
+            assert got[op].shape == want[op].shape, op
+            if kind == "int":
+                np.testing.assert_array_equal(got[op], want[op], err_msg=op)
+            else:
+                scale = float(np.abs(want[op]).max())
+                assert np.abs(got[op] - want[op]).max() <= 1e-5 * scale, op
+
+
 @pytest.mark.parametrize("fusion", [1, 2])
 def test_flat_torch_kernel_matches_jax_pallas(fusion):
     """The strategy's flat-protocol path (``TorchKernel``, gather-dot and
