@@ -95,8 +95,27 @@ last line is printed):
 9. cli -- ``bench.cli.main(["er", "16", "32", "15d_fusion2", "128", "1",
    "--app", "attention", ...])`` on the card, then one ``--kernel-variant``
    run; the records they append.
-10. kernels line -- ``{"kernels": [...]}``.
-11. last line -- ``{"ok": true, "device": {...}}``.
+10. ring -- ``DenseShift15D`` at p > 1 over a ``LocalWorld`` (p logical
+   ranks on this card) and over NCCL. verify: the headline R-mat at (p, c)
+   = (2, 1), (4, 1), (4, 2), (8, 4), fusion 2, 1 and 2 overlapped, f32
+   and bf16, fingerprints against float64 (phase 4's tolerances); on
+   operands in {-1, 0, 1} every f32 output equal to p = 1's bit for bit;
+   p * p/c launches of the fused kernel a pair. attention: ``window:16``
+   at 2**16 tokens, (4, 2), f32, A and B modes, within 1e-5 of p = 1's
+   output (of its max abs value) and 1e-6 on the weights, two all-reduces
+   (the c-axis stats merge) a call. banked: the Graph500 R-mat of phase 8
+   at log_m=16, its variant, (4, 2): banked equals generic bit for bit on
+   integer data, launches as every rank's bands predict. scaling: phase
+   5's cell at (p, c) = (1, 1), (4, 1), (16, 1), (16, 4), f32 and bf16,
+   through the harness's own loop (3 warmup, 10 timed pairs): ms and
+   GFLOP/s a pair, launches a pair, peak memory, the breakdown
+   (``measure_breakdown``: full, no_ring, local), and sampled rows of one
+   pair against float64. nccl: one process, ``init_process_group("nccl",
+   file://...)`` at world size 1: ``GridSpec.self_test`` through NCCL, and
+   the headline verify through a ``DistWorld`` equal to ``LocalWorld``'s at
+   p = 1 bit for bit.
+11. kernels line -- ``{"kernels": [...]}``.
+12. last line -- ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -109,11 +128,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from distributed_sddmm_tpu_torch import masks
 from distributed_sddmm_tpu_torch.autotune.fingerprint import Problem
 from distributed_sddmm_tpu_torch.bench import cli, harness
 from distributed_sddmm_tpu_torch.bench.harness import make_algorithm
+from distributed_sddmm_tpu_torch.bench.kernel_ab import band_coo
 from distributed_sddmm_tpu_torch.codegen import (
     BankedCudaKernel, banded, build_banded, select_variant,
 )
@@ -121,6 +142,8 @@ from distributed_sddmm_tpu_torch.common import MatMode
 from distributed_sddmm_tpu_torch.ops import _build, cuda_kernels
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
 from distributed_sddmm_tpu_torch.ops.kernels import ATTN_NEG
+from distributed_sddmm_tpu_torch.parallel.comm import DistWorld, LocalWorld
+from distributed_sddmm_tpu_torch.parallel.mesh import make_grid
 from distributed_sddmm_tpu_torch.parallel.sharding import BankedTileView, TileView
 from distributed_sddmm_tpu_torch.utils import oracle, verify
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
@@ -222,6 +245,13 @@ DEAD_ROW = 3
 #: Kernel launches of one fused attention call at p = 1.
 ATTN_CALL = {**dict.fromkeys(cuda_kernels.LAUNCHES, 0), "sddmm_tile": 1,
              "spmm_tile": 1, "attn_stats_tile": 1, "attn_norm_tile": 1}
+# The ring (phase ring): (p, c) grids of logical ranks on this card.
+RING = {"verify": ((2, 1), (4, 1), (4, 2), (8, 4)), "attention": (4, 2),
+        "banked": (4, 2), "scaling": ((1, 1), (4, 1), (16, 1), (16, 4))}
+#: (fusion, overlap) builds of the ring verify.
+RING_BUILDS = ((2, False), (1, False), (2, True))
+RING_WARMUP, RING_TRIALS, RING_BREAKDOWN_TRIALS = 3, 10, 3
+RING_OUT_RTOL, RING_P_ATOL = 1e-5, 1e-6
 PLAIN = {
     "sddmm_tile": cuda_kernels.sddmm_tile_plain,
     "spmm_tile": cuda_kernels.spmm_tile_plain,
@@ -753,22 +783,23 @@ def sampled_reference(S: HostCOO, alg, out, mid, dev, rng, heaviest: int = 0) ->
     """Relative error of 64 sampled output rows (and the ``heaviest`` rows
     by degree) and their ``mid`` values against float64 on the host (A =
     the dummy fill, B = 0.01)."""
-    csr = S.to_scipy()
-    deg = np.diff(csr.indptr)
+    deg = np.bincount(S.rows, minlength=S.M)
     rows = rng.choice(np.flatnonzero(deg), 64, replace=False)
     rows = np.union1d(rows, np.argsort(deg)[len(deg) - heaviest:])
     R = alg.R
     out_h = out[torch.as_tensor(rows, device=dev)].double().cpu().numpy()
     mid_h = alg.gather_s_values(mid)
-    order = np.argsort(S.rows, kind="stable")  # host slot -> CSR position
-    starts = np.searchsorted(S.rows[order], rows)
+    # The host slots of the sampled rows, in one pass over the nonzeros.
+    sampled = np.zeros(S.M, dtype=bool)
+    sampled[rows] = True
+    slots = np.flatnonzero(sampled[S.rows])
+    slot_rows = S.rows[slots]
     err = 0.0
     for i, r in enumerate(rows):
         a = r * R + np.arange(R, dtype=np.float64)
-        deg = csr.indptr[r + 1] - csr.indptr[r]
         m = float(a.sum()) * 0.01
-        want_out = np.full(R, deg * m * 0.01)
-        got_mid = mid_h[order[starts[i]: starts[i] + deg]]
+        want_out = np.full(R, deg[r] * m * 0.01)
+        got_mid = mid_h[slots[slot_rows == r]]
         err = max(err, float(np.abs(out_h[i] - want_out).max() / np.abs(want_out).max()),
                   float(np.abs(got_mid - m).max() / abs(m)))
     return err
@@ -1156,7 +1187,7 @@ def banked_verify(S, variant, dev, launches: dict) -> dict:
     return algs[2]
 
 
-def banked_equals_generic(alg, variant, dev) -> None:
+def banked_equals_generic(alg, variant, dev, phase: str = "banked_integer") -> dict:
     """Banked and generic agree bit for bit on operands in {-1, 0, 1}, where
     every sum is an integer below 2**24 (rows of up to 10**4 nonzeros, R =
     128), so the split's other summation order cannot show."""
@@ -1181,9 +1212,10 @@ def banked_equals_generic(alg, variant, dev) -> None:
     names = ["sddmmA", "sddmmB", "spmmA", "spmmB", "fusedA", "fusedA_mid", "fusedB",
              "fusedB_mid"]
     equal = {n: torch.equal(g, w) for n, g, w in zip(names, got, want)}
-    emit({"phase": "banked_integer", "variant": variant.variant_id, "equal": equal,
+    emit({"phase": phase, "variant": variant.variant_id, "equal": equal,
           "max_abs_out": float(got[4].abs().max())})
-    require(all(equal.values()), f"banked != generic on integer data: {equal}")
+    require(all(equal.values()), f"{phase}: banked != generic on integer data: {equal}")
+    return equal
 
 
 def band_csr(tile, sv, bands, n_cols: int):
@@ -1199,16 +1231,6 @@ def band_csr(tile, sv, bands, n_cols: int):
     return torch.sparse_csr_tensor(crow, tile.cols[slots][order].long(),
                                    sv[slots][order], size=(rows.numel(), n_cols),
                                    check_invariants=False)
-
-
-def band_coo(tile, z, bands, n_cols: int):
-    """The band rows' logits as a coalesced COO matrix (for
-    ``torch.sparse.softmax``)."""
-    rows = torch.cat([b.rows for b in bands]).long()
-    slots, owner = cuda_kernels._ranges(tile.row_ptr[rows], tile.row_ptr[rows + 1])
-    idx = torch.stack([owner, tile.cols[slots].long()])
-    return torch.sparse_coo_tensor(idx, z[slots], (rows.numel(), n_cols),
-                                   check_invariants=False).coalesce()
 
 
 def lib_or_reason(fn):
@@ -1794,6 +1816,282 @@ def phase_cli(dev, launches: dict, log_m: int = 16, edge_factor: int = 32,
     return info
 
 
+# ---------------------------------------------------------------- ring
+
+
+def int_operands(S: HostCOO, R: int):
+    """Operands in {-1, 0, 1} (every sum of the ops an exact integer)."""
+    rng = np.random.default_rng(5)
+    return (rng.integers(-1, 2, (S.M, R)).astype(np.float32),
+            rng.integers(-1, 2, (S.N, R)).astype(np.float32),
+            rng.integers(-1, 2, S.nnz).astype(np.float32))
+
+
+def int_outputs(alg, ops) -> dict:
+    """Every op of the verify set and the fused pair in both modes, on
+    ``ops``, in host order."""
+    A_np, B_np, v = ops
+    A, B = alg.put_a(A_np), alg.put_b(B_np)
+    sv, st = alg.scatter_s_values(v), alg.scatter_st_values(v)
+    fa, fa_mid = alg.fused_spmm(A, B, sv, MatMode.A)
+    fb, fb_mid = alg.fused_spmm(A, B, st, MatMode.B)
+    return {"sddmmA": alg.gather_s_values(alg.sddmm_a(A, B, sv)),
+            "sddmmB": alg.gather_st_values(alg.sddmm_b(A, B, st)),
+            "spmmA": alg.host_a(alg.spmm_a(A, B, sv)),
+            "spmmB": alg.host_b(alg.spmm_b(A, B, st)),
+            "fusedA": alg.host_a(fa), "fusedA_mid": alg.gather_s_values(fa_mid),
+            "fusedB": alg.host_b(fb), "fusedB_mid": alg.gather_st_values(fb_mid)}
+
+
+def ring_launches(alg, fusion: int, pair_only: bool = False) -> dict:
+    """Launches of the verify protocol (or of one fused pair) at p ranks:
+    every ring pass launches one tile kernel a rank a step, p * p/c."""
+    n = alg.p * alg.nr
+    counts = dict.fromkeys(cuda_kernels.LAUNCHES, 0)
+    if fusion == 2:
+        counts["fused_tile"] = n
+        if not pair_only:
+            counts.update(sddmm_tile=n, spmm_tile=2 * n)
+    else:
+        counts.update(sddmm_tile=n, spmm_tile=n)
+        if not pair_only:
+            counts.update(sddmm_tile=2 * n, spmm_tile=3 * n)
+    return counts
+
+
+def ring_verify(S, dev, launches: dict, card: str) -> None:
+    R = HEADLINE["R"]
+    want = verify.oracle_fingerprints(S, R)
+    ops = int_operands(S, R)
+    base = int_outputs(make_algorithm("15d_fusion2", S, R, world=LocalWorld(1),
+                                      kernel=CudaTileKernel("f32", device=dev),
+                                      device=dev), ops)
+    for p, c in RING["verify"]:
+        t0 = time.perf_counter()
+        alg = make_algorithm("15d_fusion2", S, R, c=c, world=LocalWorld(p),
+                             kernel=CudaTileKernel("f32", device=dev), device=dev)
+        setup_s = time.perf_counter() - t0
+        A, B = alg.dummy_initialize(MatMode.A), alg.dummy_initialize(MatMode.B)
+        sv = alg.like_s_values(1.0)
+        for prec in PRECISIONS:
+            alg.kernel = CudaTileKernel(prec, device=dev)
+            for fusion, overlap in RING_BUILDS:
+                alg.fusion_approach, alg.overlap = fusion, overlap
+                tag = f"ring verify ({p},{c}) fusion {fusion}{' overlap' if overlap else ''}/{prec}"
+                got, counts = run_counted(lambda: verify.fingerprint_algorithm(alg, S))
+                _, pair = run_counted(lambda: alg.fused_spmm(A, B, sv))
+                rel = {op: abs(got[op] / want[op] - 1) for op in want}
+                equal = None
+                if prec == "f32":
+                    out = int_outputs(alg, ops)
+                    equal = {op: bool(np.array_equal(out[op], base[op])) for op in base}
+                emit({"phase": "ring_verify", "card": card, "p": p, "c": c,
+                      "fusion": fusion, "overlap": overlap, "precision": prec,
+                      "setup_seconds": setup_s, "rtol": VERIFY_RTOL[prec],
+                      "rel_err": rel, "launches": counts, "pair_launches": pair,
+                      "int_equal_p1": equal})
+                require(all(r <= VERIFY_RTOL[prec] for r in rel.values()), f"{tag}: {rel}")
+                require(counts == ring_launches(alg, fusion), f"{tag}: launches {counts}")
+                require(pair == ring_launches(alg, fusion, pair_only=True),
+                        f"{tag}: pair launches {pair}")
+                require(equal is None or all(equal.values()),
+                        f"{tag}: integer outputs differ from p = 1: {equal}")
+                add_launches(launches, counts, prec)
+        del alg, A, B, sv
+
+
+def ring_attention(dev, launches: dict, card: str) -> None:
+    """``window:16`` at 2**16 tokens, (p, c) = RING["attention"], f32,
+    against p = 1."""
+    n, R, spec = 1 << ATTN_HEADLINE["log_n"], ATTN_HEADLINE["R"], "window:16"
+    p, c = RING["attention"]
+    X = (np.random.default_rng(0).standard_normal((n, R)) / np.sqrt(R)).astype(np.float32)
+    S = masks.from_spec(spec, n)
+    res = {}
+    for world in (LocalWorld(1), LocalWorld(p)):
+        alg = make_algorithm("15d_fusion2", S, R, c=c if world.p > 1 else 1, world=world,
+                             kernel=CudaTileKernel("f32", device=dev), device=dev,
+                             attention=True)
+        A, B = alg.put_a(X), alg.put_b(X)
+        for mode, vals in ((MatMode.A, alg.like_s_values(1.0)),
+                           (MatMode.B, alg.like_st_values(1.0))):
+            alg.comm.reset_counts()
+            (out, probs), counts = run_counted(lambda: alg.fused_attention(A, B, vals, mode))
+            host = alg.host_a(out) if mode == MatMode.A else alg.host_b(out)
+            pr = (alg.gather_s_values if mode == MatMode.A else alg.gather_st_values)(probs)
+            res[(world.p, mode)] = (host, pr, counts, dict(alg.comm.counts),
+                                    time_ms(lambda: alg.fused_attention(A, B, vals, mode),
+                                            ATTN_CALL_REPS))
+            if world.p > 1:
+                add_launches(launches, counts, "f32")
+        del alg, A, B
+    for mode in (MatMode.A, MatMode.B):
+        out1, p1, _, _, ms1 = res[(1, mode)]
+        out, pr, counts, comm, ms = res[(p, mode)]
+        out_err, p_err = rel_to(out, out1), float(np.abs(pr - p1).max())
+        n_t = p * (p // c)
+        expect = {**dict.fromkeys(cuda_kernels.LAUNCHES, 0), "sddmm_tile": n_t,
+                  "spmm_tile": n_t, "attn_stats_tile": n_t, "attn_norm_tile": n_t}
+        emit({"phase": "ring_attention", "card": card, "mask": spec, "n": n, "R": R,
+              "p": p, "c": c, "mode": mode.name, "out_rel_err_vs_p1": out_err,
+              "probs_abs_err_vs_p1": p_err, "launches": counts, "collectives": comm,
+              "ms_per_call": ms, "ms_per_call_p1": ms1})
+        tag = f"ring attention ({p},{c})/{mode.name}"
+        require(np.isfinite(out).all() and out_err <= RING_OUT_RTOL and p_err <= RING_P_ATOL,
+                f"{tag}: out {out_err:.3e}, probs {p_err:.3e} off p = 1")
+        require(counts == expect, f"{tag}: launches {counts}")
+        require(comm["all_reduce"] == 2, f"{tag}: c-axis merge all-reduces {comm}")
+
+
+def ring_banked(dev, launches: dict, card: str) -> None:
+    """Graph500 log_m=16 with its selected variant at RING["banked"]:
+    banked == generic on integer data; banked launches as every rank's
+    bands predict."""
+    R = BANKED["R"]
+    p, c = RING["banked"]
+    S = graph500(BANKED["log_ms"][0])
+    variant = select_variant(Problem.from_coo(S, R))
+    alg = make_algorithm("15d_fusion2", S, R, c=c, world=LocalWorld(p),
+                         kernel=BankedCudaKernel(variant, "f32", device=dev), device=dev)
+    banked_equals_generic(alg, variant, dev, phase="ring_banked_integer")
+    A, B = alg.dummy_initialize(MatMode.A), alg.like_b_matrix(0.01)
+    sv = alg.like_s_values(1.0)
+    alg.kernel = BankedCudaKernel(variant, "f32", device=dev)
+    (out, mid), counts = run_counted(lambda: alg.fused_spmm(A, B, sv))
+    tiles = alg.S_tiles
+    expect = added(*(band_launches(tiles.tile(h, s).bands, "fused")
+                     for h in range(p) for s in range(alg.nr)))
+    err = sampled_reference(S, alg, out, mid, dev, np.random.default_rng(3), heaviest=8)
+    emit({"phase": "ring_banked", "card": card, "p": p, "c": c, "nnz": S.nnz,
+          "variant": variant.variant_id, "launches": counts, "sampled_rel_err": err})
+    require(counts == expect, f"ring banked: launches {counts} != {expect}")
+    require(err <= VERIFY_RTOL["f32"], f"ring banked: sampled rows off by {err:.3e}")
+    add_launches(launches, counts, "f32")
+
+
+def ring_scaling(uniform, dev, launches: dict, card: str) -> dict:
+    """The full cell at logical p on this card: the harness's own loop,
+    launches a pair, peak memory, the breakdown, and one pair's sampled
+    rows against float64."""
+    S, alg1 = uniform
+    R = FULL["R"]
+    rng = np.random.default_rng(4)
+    result = {}
+    for p, c in RING["scaling"]:
+        t0 = time.perf_counter()
+        alg = alg1 if p == 1 else make_algorithm(
+            "15d_fusion2", S, R, c=c, world=LocalWorld(p),
+            kernel=CudaTileKernel("f32", device=dev), device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        for prec in PRECISIONS:
+            alg.kernel = CudaTileKernel(prec, device=dev)
+            torch.cuda.reset_peak_memory_stats()
+            elapsed, counts = run_counted(
+                lambda: harness._run_vanilla(alg, True, RING_TRIALS, RING_WARMUP))
+            peak = torch.cuda.max_memory_allocated()
+            pairs = RING_WARMUP + RING_TRIALS
+            per_pair = {k: v / pairs for k, v in counts.items() if v}
+            require(counts == scaled(ring_launches(alg, 2, pair_only=True), pairs),
+                    f"ring scaling ({p},{c})/{prec}: launches {counts}")
+            add_launches(launches, counts, prec)
+            A, B = alg.dummy_initialize(MatMode.A), alg.dummy_initialize(MatMode.B)
+            sv = alg.like_s_values(1.0)
+            breakdown = alg.measure_breakdown(A, B, sv, trials=RING_BREAKDOWN_TRIALS)
+            # The fused kernel alone on rank 0's first tile, as the ring
+            # gives it: its frame of A and the B block of one ring step.
+            k, n = alg.kernel, alg.nr * p
+            at = k.prep(A[: alg.S_tiles.tile_rows])
+            bt = k.prep(B[: alg.localBrows])
+            fused_ms = time_ms(lambda: k.fused_tile(alg.S_tiles.tile(0, 0), sv[0, 0], at, bt),
+                               KERNEL_REPS)
+            del at, bt
+            out, mid = alg.fused_spmm(A, alg.like_b_matrix(0.01), sv)
+            require(tuple(out.shape) == (alg.M_pad, R) and bool(torch.isfinite(out).all()),
+                    f"ring scaling ({p},{c})/{prec}: output not finite or misshapen")
+            err = sampled_reference(S, alg, out, mid, dev, rng)
+            require(err <= VERIFY_RTOL[prec],
+                    f"ring scaling ({p},{c})/{prec}: sampled rows off by {err:.3e}")
+            row = {"ms_per_pair": elapsed / RING_TRIALS * 1e3,
+                   "gflops": 2.0 * S.nnz * 2.0 * R * RING_TRIALS / elapsed / 1e9,
+                   "launches_per_pair": per_pair, "peak_mem_bytes": peak,
+                   "breakdown_ms_per_pair": {key: v / RING_BREAKDOWN_TRIALS * 1e3
+                                             for key, v in breakdown.items()},
+                   "fused_ms_per_launch": fused_ms, "fused_launches_per_pair": n,
+                   "fused_nnz_tile00": int(alg.S_tiles.nnz_per_tile[0, 0]),
+                   "sampled_rel_err": err}
+            result[f"({p},{c})/{prec}"] = row
+            emit({"phase": "ring_scaling", "card": card, "p": p, "c": c, "precision": prec,
+                  "nnz": S.nnz, "R": R, "setup_seconds": setup_s, "warmup": RING_WARMUP,
+                  "pairs": RING_TRIALS, "tile_nnz_max": alg.S_tiles.max_nnz,
+                  "comm_profile": alg.comm_profile("fusedSpMM"), **row})
+            del out, mid, A, B, sv
+        if alg is not alg1:
+            del alg
+    return result
+
+
+def ring_nccl(S, dev, launches: dict, card: str) -> None:
+    """One process over NCCL (world size 1): the grid self test through
+    NCCL collectives, and the headline verify through a ``DistWorld``
+    equal to ``LocalWorld``'s bit for bit."""
+    path = _build.BUILD_DIR / "nccl_init"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    R = HEADLINE["R"]
+    local = make_algorithm("15d_fusion2", S, R, world=LocalWorld(1),
+                           kernel=CudaTileKernel("f32", device=dev), device=dev)
+    dist.init_process_group("nccl", init_method=f"file://{path}", rank=0, world_size=1)
+    try:
+        world = DistWorld()
+        grid = make_grid(1, 1, 1, adjacency=1)
+        comm = world.comm(grid, dev)
+        ok = grid.self_test(comm)
+        require(ok, "ring nccl: GridSpec.self_test through NCCL failed")
+        alg = make_algorithm("15d_fusion2", S, R, world=world,
+                             kernel=CudaTileKernel("f32", device=dev), device=dev)
+        require(type(alg.comm).__name__ == "DistComm", "ring nccl: not a DistWorld comm")
+        for prec in PRECISIONS:
+            for fusion in (2, 1):
+                local.kernel = alg.kernel = CudaTileKernel(prec, device=dev)
+                local.fusion_approach = alg.fusion_approach = fusion
+                want = verify.fingerprint_algorithm(local, S)
+                alg.comm.reset_counts()
+                got, counts = run_counted(lambda: verify.fingerprint_algorithm(alg, S))
+                emit({"phase": "ring_nccl", "card": card, "backend": dist.get_backend(),
+                      "world_size": dist.get_world_size(), "self_test": ok,
+                      "precision": prec, "fusion": fusion, "equal_local": got == want,
+                      "collectives": dict(alg.comm.counts), "launches": counts})
+                require(got == want, f"ring nccl {prec}/fusion {fusion}: {got} != {want}")
+                require(alg.comm.counts["all_gather"] > 0,
+                        "ring nccl: no NCCL collective ran")
+                add_launches(launches, counts, prec)
+    finally:
+        dist.destroy_process_group()
+        path.unlink(missing_ok=True)
+
+
+def phase_ring(S16, uniform, dev, launches: dict, card: str) -> dict:
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    timed("verify", ring_verify, S16, dev, launches, card)
+    timed("attention", ring_attention, dev, launches, card)
+    timed("banked", ring_banked, dev, launches, card)
+    scaling = timed("scaling", ring_scaling, uniform, dev, launches, card)
+    timed("nccl", ring_nccl, S16, dev, launches, card)
+    emit({"phase": "ring", "card": card, "seconds": time.perf_counter() - t0,
+          "seconds_by_part": seconds,
+          "scaling_ms_per_pair": {k: v["ms_per_pair"] for k, v in scaling.items()}})
+    return scaling
+
+
 def main() -> int:
     info = phase_device()
     dev = torch.device("cuda")
@@ -1812,8 +2110,12 @@ def main() -> int:
     phase_attention_verify(dev, launches, entries)
     phase_attention_full(dev, launches, entries)
     phase_banked(dev, launches, entries, uniform)
-    del uniform
     phase_cli(dev, launches)
+    ring: dict = {}
+    phase_ring(S16, uniform, dev, ring, info["nvidia_smi"])
+    del uniform
+    for key, n in ring.items():
+        launches[key] = launches.get(key, 0) + n
 
     kernels = []
     for (op, prec), shapes in entries.items():
@@ -1824,6 +2126,7 @@ def main() -> int:
         kernels.append({
             "name": f"{op}[{prec}]", "route": "cuda", "source": SOURCES[op],
             "replaces": REPLACES[op], "launches": n,
+            "ring_launches": ring.get((op, prec), 0),
             "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
             "max_rel_err": max(r["max_rel_err"] for r in shapes.values()),
             "tol": main_["tol"],

@@ -7,10 +7,15 @@ One subcommand so far, ``er``: an R-mat matrix of ``2**log_m`` rows and
 as many tokens, and the run times fused block-sparse attention. With
 ``--kernel-variant VID`` the local kernel is the banked CUDA kernel of that
 codegen variant (``codegen/``), which refuses ``--kernel torch`` as the
-JAX CLI refuses a kernel other than pallas. Each run
-prints one JSON summary line and appends its full record to ``-o``. Flags
-whose machinery is not ported (tracing, faults, wire precision, overlap)
-are not defined, so argparse refuses them.
+JAX CLI refuses a kernel other than pallas. ``--fusion overlap`` runs the
+double-buffered ring and ``--breakdown`` the region attribution, as in the
+JAX CLI. The world comes from the environment
+(``parallel/comm.world_from_env``): ``torchrun`` starts one rank a
+process (NCCL on ``cuda``, gloo on ``cpu``), otherwise
+``SDDMM_TORCH_LOCAL_RANKS=P`` runs P logical ranks in this process (default
+1). Each run prints one JSON summary line and appends its full record to
+``-o`` (process 0 only). Flags whose machinery is not ported (tracing,
+faults, wire precision) are not defined, so argparse refuses them.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import argparse
 import json
 
 import numpy as np
+import torch.distributed as dist
 
 from distributed_sddmm_tpu_torch import masks
 from distributed_sddmm_tpu_torch.bench.harness import (
@@ -28,6 +34,7 @@ from distributed_sddmm_tpu_torch.codegen import make_banked_kernel
 from distributed_sddmm_tpu_torch.device import resolve_device
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
 from distributed_sddmm_tpu_torch.ops.kernels import TorchKernel
+from distributed_sddmm_tpu_torch.parallel.comm import world_from_env
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 
 KERNELS = ("cuda-f32", "cuda-bf16", "torch")
@@ -69,6 +76,19 @@ def build_parser() -> argparse.ArgumentParser:
     er.add_argument("--trials", type=int, default=5)
     er.add_argument("--warmup", type=int, default=1)
     er.add_argument("--fused", default="yes", choices=["yes", "no", "both"])
+    er.add_argument(
+        "--fusion", default="sequential", choices=["sequential", "overlap"],
+        help="ring-loop build for the 1.5D shift strategies: 'sequential' "
+        "(kernel then ppermute per tile) or 'overlap' (double-buffered "
+        "local kernel overlap: the next tile's ppermute is issued before "
+        "the current tile's kernel, the reference's BufferPair strategy); "
+        "bit-identical results",
+    )
+    er.add_argument(
+        "--breakdown", action="store_true",
+        help="add {Replication, Propagation, Computation} region attribution "
+        "to perf_stats (collective-ablation timing)",
+    )
     er.add_argument("--kernel", default=None, choices=KERNELS,
                     help="local kernel (default: cuda-bf16 on cuda, "
                     "cuda-f32 on cpu)")
@@ -92,20 +112,34 @@ def _maybe_mask(S: HostCOO, args) -> HostCOO:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
-    S = HostCOO.rmat(args.log_m, args.edge_factor, np.random.default_rng(0))
-    S = _maybe_mask(S, args)
-    kernel = _kernel(args.kernel, device, args.kernel_variant)
-    for fused in [True, False] if args.fused == "both" else [args.fused == "yes"]:
-        rec = benchmark_algorithm(
-            S, args.alg, args.output_file, fused=fused, R=args.R, c=args.c,
-            app=args.app, trials=args.trials, warmup=args.warmup,
-            kernel=kernel, device=device,
-            mask=args.mask if args.app == "attention" else None,
+    if args.breakdown and (args.app != "vanilla" or args.fused != "yes"):
+        raise SystemExit(
+            "--breakdown requires --app vanilla and --fused yes "
+            "(it attributes the fusedSpMM op)"
         )
-        print(json.dumps({
-            "algorithm": args.alg, "R": args.R, "c": args.c, "fused": fused,
-            "elapsed": round(rec["elapsed"], 4),
-            "GFLOPs": round(rec["overall_throughput"], 3),
-        }), flush=True)
+    device = resolve_device(args.device)
+    owns_group = not dist.is_initialized()
+    world = world_from_env(device)
+    try:
+        S = HostCOO.rmat(args.log_m, args.edge_factor, np.random.default_rng(0))
+        S = _maybe_mask(S, args)
+        kernel = _kernel(args.kernel, device, args.kernel_variant)
+        for fused in [True, False] if args.fused == "both" else [args.fused == "yes"]:
+            rec = benchmark_algorithm(
+                S, args.alg, args.output_file, fused=fused, R=args.R, c=args.c,
+                app=args.app, trials=args.trials, warmup=args.warmup,
+                kernel=kernel, device=device,
+                mask=args.mask if args.app == "attention" else None,
+                world=world, overlap=args.fusion == "overlap",
+                breakdown=args.breakdown,
+            )
+            if world.process_index == 0:
+                print(json.dumps({
+                    "algorithm": args.alg, "R": args.R, "c": args.c, "fused": fused,
+                    "elapsed": round(rec["elapsed"], 4),
+                    "GFLOPs": round(rec["overall_throughput"], 3),
+                }), flush=True)
+    finally:
+        if owns_group and dist.is_initialized():
+            dist.destroy_process_group()
     return 0

@@ -2,12 +2,14 @@
 ``bench/harness.py``).
 
 The same five algorithm names as the JAX package; the two 1.5D dense-shift
-fusions are ported. Two apps: ``vanilla`` (fused SDDMM->SpMM pairs) and
-``attention`` (fused block-sparse attention over a mask). One untimed
+fusions are ported, sequential or overlapped (``overlap``), over any world
+of ``parallel/comm.py``. Two apps: ``vanilla`` (fused SDDMM->SpMM pairs)
+and ``attention`` (fused block-sparse attention over a mask). One untimed
 warmup precedes the timed trials, whose throughput is
 ``2 * nnz * 2 * R * trials / elapsed`` GFLOP/s (an SDDMM and an SpMM of
-``2 * nnz * R`` flops each). The elapsed time is the host clock around the
-trials, which end in a device synchronise.
+``2 * nnz * R`` flops each, nnz of the whole matrix, so a rate at p ranks
+compares directly with p = 1's). The elapsed time is the host clock
+around the trials, which end in a device synchronise.
 """
 
 from __future__ import annotations
@@ -32,6 +34,11 @@ ALGORITHM_FACTORIES = {
 }
 NOT_PORTED = ("15d_sparse", "25d_dense_replicate", "25d_sparse_replicate")
 
+#: Strategies with a double-buffered local-kernel-overlap ring
+#: (``--fusion overlap``): the 1.5D shift family. The 2.5D Cannon
+#: strategies have none.
+OVERLAP_CAPABLE = ("15d_fusion1", "15d_fusion2", "15d_sparse")
+
 #: Strategies with a fused block-sparse attention op: the 1.5D dense-shift
 #: pair. The row denominator needs every logit of its row before any SpMM
 #: contribution flows, which the dense-shift layout satisfies between its
@@ -43,10 +50,12 @@ APPS_NOT_PORTED = ("gat", "als")
 
 
 def make_algorithm(name: str, S: HostCOO, R: int, c: int = 1, kernel=None,
-                   device=None, attention: bool = False,
-                   **kw) -> DistributedSparse:
-    """Instantiate one of the named algorithm configurations;
-    ``attention=True`` asserts that it can run fused attention."""
+                   device=None, attention: bool = False, world=None,
+                   overlap: bool = False, **kw) -> DistributedSparse:
+    """Instantiate one of the named algorithm configurations on ``world``
+    (None: ``parallel/comm.world_from_env``); ``overlap=True`` selects the
+    double-buffered ring (shift strategies only); ``attention=True``
+    asserts that it can run fused attention."""
     if attention and name not in ATTENTION_CAPABLE:
         raise ValueError(
             f"fused attention is implemented for the 1.5D dense-shift "
@@ -59,7 +68,16 @@ def make_algorithm(name: str, S: HostCOO, R: int, c: int = 1, kernel=None,
     if name not in ALGORITHM_FACTORIES:
         raise ValueError(f"unknown algorithm {name!r}; available: "
                          f"{sorted(ALGORITHM_FACTORIES) + list(NOT_PORTED)}")
-    return ALGORITHM_FACTORIES[name](S, R, c, kernel=kernel, device=device, **kw)
+    if overlap:
+        if name not in OVERLAP_CAPABLE:
+            raise ValueError(
+                f"fusion 'overlap' is implemented for the 1.5D shift "
+                f"strategies {OVERLAP_CAPABLE}; {name} has no "
+                "double-buffered variant"
+            )
+        kw["overlap"] = True
+    return ALGORITHM_FACTORIES[name](S, R, c, kernel=kernel, device=device,
+                                     world=world, **kw)
 
 
 def _run_vanilla(alg: DistributedSparse, fused: bool, trials: int, warmup: int):
@@ -149,32 +167,53 @@ def benchmark_algorithm(
     kernel=None,
     device=None,
     mask: Optional[str] = None,
+    world=None,
+    overlap: bool = False,
+    breakdown: bool = False,
 ) -> dict:
     """Run one ``vanilla`` or ``attention`` configuration; append a JSON
-    record to ``output_file`` (if given) and return it. With ``attention``
-    ``S`` is the mask and ``mask`` its spec, which the record carries.
-    Field names follow the JAX package's record for what this port
-    measures."""
+    record to ``output_file`` (if given; process 0 of a world of
+    processes) and return it. With ``attention`` ``S`` is the mask and
+    ``mask`` its spec, which the record carries. ``breakdown`` replaces
+    ``perf_stats`` by the fused pair's region attribution
+    (``measure_breakdown``). Field names follow the JAX package's record
+    for what this port measures."""
     if app in APPS_NOT_PORTED:
         raise NotImplementedError(
             f"app {app!r} is not ported yet (ROADMAP.md, queue A items 8-9)")
     if app not in APPS:
         raise ValueError(f"unknown app {app!r}; expected "
                          f"{' | '.join(APPS + APPS_NOT_PORTED)}")
+    if breakdown and (app != "vanilla" or not fused):
+        # Fail before any measurement: the attribution times the fusedSpMM
+        # op, so it would mix ops and units into unfused or attention
+        # records.
+        raise ValueError(
+            "--breakdown requires app='vanilla' and fused=True (it "
+            "attributes the fusedSpMM op)"
+        )
     alg = make_algorithm(algorithm_name, S, R, c, kernel=kernel, device=device,
-                         attention=app == "attention")
+                         attention=app == "attention", world=world,
+                         overlap=overlap)
     if app == "attention":
         elapsed, app_stats = _run_attention(alg, fused, trials, warmup)
     else:
         elapsed, app_stats = _run_vanilla(alg, fused, trials, warmup), {}
     throughput = 2.0 * S.nnz * 2.0 * alg.R * trials / max(elapsed, 1e-12) / 1e9
+    perf_stats = alg.json_perf_statistics()
+    if breakdown:
+        # The breakdown replaces the whole-call counters, so comm time is
+        # not counted twice into Computation.
+        perf_stats = alg.measure_breakdown(
+            alg.dummy_initialize(MatMode.A), alg.dummy_initialize(MatMode.B),
+            alg.like_s_values(1.0), op="fusedSpMM", trials=trials)
     record = {
         "algorithm": algorithm_name,
         "app": app,
         "R": alg.R,
         "c": c,
         "fused": bool(fused),
-        "fusion": "sequential",
+        "fusion": "overlap" if alg.overlap else "sequential",
         "mask": mask if app == "attention" else None,
         "num_trials": trials,
         "elapsed": elapsed,
@@ -182,12 +221,14 @@ def benchmark_algorithm(
         "kernel": getattr(alg.kernel, "name", type(alg.kernel).__name__),
         "kernel_variant": realized_kernel_variant(alg),
         "device": device_label(alg.device),
+        "num_processes": alg.world.num_processes,
+        "process_index": alg.world.process_index,
         "alg_info": alg.json_algorithm_info(),
-        "perf_stats": alg.json_perf_statistics(),
+        "perf_stats": perf_stats,
         "metrics": {k: dict(v) for k, v in alg.metrics.items()},
         **app_stats,
     }
-    if output_file:
+    if output_file and alg.world.process_index == 0:
         with open(output_file, "a") as f:
             f.write(json.dumps(record) + "\n")
     return record

@@ -29,10 +29,13 @@ R=128 unless named, standard-normal operands, f32 and bf16:
   selected variant: the row-list bands (``sddmm_rows``, ``fused_rows``,
   ``spmm_rows``, a launch per band as the banked op makes them) and the
   heavy band's pass 1 (``sddmm_split``, ``fused_split``, ``spmm_split``);
-* ``bigbird_16``: the ``bigbird:w=8,g=2,r=2`` attention tile at 2**16
-  tokens banked by its selected variant: the stats of the row-list bands
-  (``attn_stats_rows``) and of the heavy band's segments
-  (``attn_stats_split``), f32, on logits and gates as for ``window64``;
+* ``bigbird_16`` and ``bigbird_20``: the ``bigbird:w=8,g=2,r=2``
+  attention tile at 2**16 and 2**20 tokens banked by its selected
+  variant: the stats of the row-list bands (``attn_stats_rows``) and of
+  the heavy band's segments (``attn_stats_split``), f32, on logits and
+  gates as for ``window64``; these lines also time this checkout's plain
+  version (``plain_ms``) and ``torch.sparse.softmax`` of the same rows
+  (``library_ms``, stats and weights: a yardstick the port never calls);
 * the heavy band's second pass, f32: ``split_reduce`` on ``graph500_16``,
   ``graph500_20``, ``bigbird_16`` and ``bigbird_20`` (the same mask at
   2**20 tokens), on a standard-normal workspace ``[n_seg, R]``, and
@@ -47,6 +50,7 @@ R=128 unless named, standard-normal operands, f32 and bf16:
   replayed (no host time between launches). With ``--chunks``, the trees
   of the current entry points are timed again with the unit table built
   at each of those chunk sizes (``codegen/banded.py::REDUCE_CHUNK``).
+  They carry ``plain_ms`` too, this checkout's plain version.
 
 Each case runs the trees in the order given, then in reverse (A B B A),
 each reading CUDA events around ``REPS`` calls after a warmup call. It
@@ -316,6 +320,37 @@ def compare(trees: dict, case: str, op: str, tile, bands, sv, A, B, emit) -> Non
               "ms": ms, "max_abs_diff_vs_first": abs_diffs, "rel_diff_vs_first": diffs})
 
 
+def band_coo(tile, z, bands, n_cols: int):
+    """The band rows' logits as a coalesced COO matrix (for
+    ``torch.sparse.softmax``)."""
+    rows = torch.cat([b.rows for b in bands]).long()
+    slots, owner = cuda_kernels._ranges(tile.row_ptr[rows], tile.row_ptr[rows + 1])
+    idx = torch.stack([owner, tile.cols[slots].long()])
+    return torch.sparse_coo_tensor(idx, z[slots], (rows.numel(), n_cols),
+                                   check_invariants=False).coalesce()
+
+
+def stats_yardsticks(op: str, tile, bands, gate, z) -> dict:
+    """This checkout's plain version of a banked stats op and one
+    ``torch.sparse.softmax`` call over the same rows, ms a call."""
+    dev = gate.device
+    if op == "attn_stats_split":
+        hb = [b for b in bands if b.heavy]
+
+        def plain():
+            cuda_kernels.attn_stats_split_plain(tile, hb[0], gate, z)
+    else:
+        hb = [b for b in bands if not b.heavy]
+        m, d = _alloc(tile.n_rows, False, dev), _alloc(tile.n_rows, False, dev)
+
+        def plain():
+            for b in hb:
+                cuda_kernels.attn_stats_rows_plain(tile, b, gate, z, m, d)
+    coo = band_coo(tile, z, hb, tile.n_cols)
+    return {"plain_ms": time_ms(plain, 3),
+            "library_ms": time_ms(lambda: torch.sparse.softmax(coo, 1))}
+
+
 def compare_stats(trees: dict, case: str, op: str, tile, bands, gate, z, emit) -> None:
     """Every tree on one attention stats case, in turns; one JSON line."""
     first = None
@@ -339,9 +374,10 @@ def compare_stats(trees: dict, case: str, op: str, tile, bands, gate, z, emit) -
         moved = sum(8 * b.n_slots + 12 * b.n_rows for b in lists)
     else:
         moved = 8 * int(tile.row_ptr[-1]) + 12 * tile.n_rows
+    extra = stats_yardsticks(op, tile, bands, gate, z) if bands else {}
     emit({"case": case, "op": op, "precision": "f32", "nnz": int(tile.row_ptr[-1]),
           "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "ms": ms, "max_abs_diff_vs_first": abs_diffs, "rel_diff_vs_first": diffs,
-          "m_equal_to_first": m_equal, "d_rel_diff_vs_first": d_rel})
+          "m_equal_to_first": m_equal, "d_rel_diff_vs_first": d_rel, **extra})
 
 
 def compare_pass2(trees: dict, case: str, op: str, band, inp: dict, emit,
@@ -417,6 +453,14 @@ def compare_pass2(trees: dict, case: str, op: str, band, inp: dict, emit,
                 "counters_zero": bool((b.counters == 0).all())}
         if graph_err:
             line["graph_error"] = graph_err
+        if chunk is None:
+            o = outputs(b, zero=False)
+            if op == "split_reduce":
+                line["plain_ms"] = time_ms(
+                    lambda: cuda_kernels.split_reduce_plain(b, inp["work"], o["out"]), 3)
+            else:
+                line["plain_ms"] = time_ms(lambda: cuda_kernels.attn_stats_merge_plain(
+                    b, inp["wm"], inp["wd"], o["m"], o["d"]), 3)
         emit(line)
 
 

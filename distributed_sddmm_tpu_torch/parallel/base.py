@@ -1,12 +1,18 @@
 """Distributed SDDMM/SpMM strategy base: dense buffers, sparse values,
 public ops and per-op counters (counterpart of ``parallel/base.py``).
 
-Dense operands are float32 tensors of the canonical shape ``(M_pad, R)`` /
-``(N_pad, R)`` on the strategy's device; sparse values live in the tile
-layout of ``parallel/sharding.py``. Ops return new tensors. In place of the
-JAX package's observability and resilience machinery, every public op adds
-its call count and seconds (host clock around the op, ending in a device
-synchronise) to a plain per-op counter.
+A strategy runs on a world of ranks (``parallel/comm.py``) laid out on a
+grid (``parallel/mesh.py``). Dense operands are float32 row blocks: rank
+``(i, j, k)`` owns block ``i * nc + j`` of ``M_pad / (nr * nc)`` rows (the
+JAX package's ``P(("rows", "cols"), None)``, replicated over ``layers``).
+Under a :class:`~distributed_sddmm_tpu_torch.parallel.comm.LocalWorld` a
+dense operand stays the global ``(M_pad, R)`` / ``(N_pad, R)`` tensor, and
+each rank's block is a view of its rows; under a ``DistWorld`` it is the
+process's own block. Sparse values live in the tile layout of
+``parallel/sharding.py``, one slot a rank held. Ops return new tensors.
+In place of the JAX package's observability and resilience machinery,
+every public op adds its call count and seconds (host clock around the op,
+ending in a device synchronise) to a plain per-op counter.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ import torch
 from distributed_sddmm_tpu_torch.common import KernelMode, MatMode
 from distributed_sddmm_tpu_torch.device import resolve_device, synchronize
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
+from distributed_sddmm_tpu_torch.parallel.loops import ABLATION_MODES, ablation_mode
+from distributed_sddmm_tpu_torch.parallel.mesh import COLS, ROWS, GridSpec
 from distributed_sddmm_tpu_torch.parallel.sharding import TileSet
 
 
@@ -44,14 +52,17 @@ class DistributedSparse(abc.ABC):
     #: Type of the dense operands and the sparse values.
     dtype = torch.float32
 
-    def __init__(self, M: int, N: int, R: int, c: int, p: int, kernel=None,
-                 device=None):
+    def __init__(self, M: int, N: int, R: int, c: int, world, grid: GridSpec,
+                 kernel=None, device=None):
         self.device = resolve_device(device)
-        self.M, self.N, self.R, self.c, self.p = M, N, R, c, p
+        self.M, self.N, self.R, self.c, self.p = M, N, R, c, grid.p
+        self.world, self.grid = world, grid
+        self.comm = world.comm(grid, self.device)
+        #: The dense block (and tile slot) of each rank held, in slot order.
+        self.blocks = [i * grid.nc + j for i, j, _ in self.comm.coords]
         self.kernel = kernel if kernel is not None else CudaTileKernel(device=self.device)
         #: ``{op: {"calls": n, "seconds": s}}`` over the public ops.
         self.metrics: dict[str, dict] = {}
-        self.grid_dims = (p // c, c, 1)
         # Subclasses set these before use:
         self.M_pad: int = -1
         self.N_pad: int = -1
@@ -60,8 +71,20 @@ class DistributedSparse(abc.ABC):
 
     # ---------------------------- dense buffers ---------------------------- #
 
+    def _block_rows(self, mode: MatMode) -> int:
+        n_pad = self.M_pad if mode == MatMode.A else self.N_pad
+        return n_pad // (self.grid.nr * self.grid.nc)
+
     def dense_shape(self, mode: MatMode) -> tuple:
-        return (self.M_pad if mode == MatMode.A else self.N_pad, self.R)
+        """The global ``(M_pad, R)`` / ``(N_pad, R)`` in one process, a
+        rank's block under a world of processes."""
+        if self.comm.in_process:
+            return (self.M_pad if mode == MatMode.A else self.N_pad, self.R)
+        return (self._block_rows(mode), self.R)
+
+    def _row0(self, mode: MatMode) -> int:
+        """The global row of this process's first dense row."""
+        return 0 if self.comm.in_process else self.blocks[0] * self._block_rows(mode)
 
     def like_a_matrix(self, value: float) -> torch.Tensor:
         return torch.full(self.dense_shape(MatMode.A), value, dtype=self.dtype,
@@ -74,30 +97,56 @@ class DistributedSparse(abc.ABC):
     def dummy_initialize(self, mode: MatMode) -> torch.Tensor:
         """Deterministic ``value = globalRow * R + globalCol`` fill,
         computed in float32 like the JAX package's."""
-        n_rows = self.dense_shape(mode)[0]
-        rows = torch.arange(n_rows, dtype=self.dtype, device=self.device)[:, None]
+        n_rows, row0 = self.dense_shape(mode)[0], self._row0(mode)
+        rows = torch.arange(row0, row0 + n_rows, dtype=self.dtype,
+                            device=self.device)[:, None]
         col = torch.arange(self.R, dtype=self.dtype, device=self.device)
         return rows * self.R + col
 
-    def _put(self, host, n_pad: int) -> torch.Tensor:
+    def _put(self, host, mode: MatMode) -> torch.Tensor:
         host = torch.as_tensor(host)
-        buf = torch.zeros((n_pad, self.R), dtype=self.dtype, device=self.device)
-        buf[: host.shape[0]] = host.to(device=self.device, dtype=self.dtype)
+        buf = torch.zeros(self.dense_shape(mode), dtype=self.dtype, device=self.device)
+        row0 = self._row0(mode)
+        part = host[row0: row0 + buf.shape[0]]
+        buf[: part.shape[0]] = part.to(device=self.device, dtype=self.dtype)
         return buf
 
     def put_a(self, host) -> torch.Tensor:
-        """A host ``(M, R)`` matrix (numpy or tensor), zero-padded to M_pad."""
-        return self._put(host, self.M_pad)
+        """A host ``(M, R)`` matrix (numpy or tensor), zero-padded to M_pad
+        (this process's block of it under a world of processes)."""
+        return self._put(host, MatMode.A)
 
     def put_b(self, host) -> torch.Tensor:
-        return self._put(host, self.N_pad)
+        return self._put(host, MatMode.B)
+
+    def _all_blocks(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's part of a dense operand or of the values,
+        concatenated in block order (an all-gather under a world of
+        processes)."""
+        if self.comm.in_process:
+            return x
+        return self.comm.all_gather([x], (ROWS, COLS))[0]
 
     def host_a(self, A: torch.Tensor) -> np.ndarray:
         """A in global ``(M, R)`` row order on the host, padding stripped."""
+        A = self._all_blocks(A)
         return A.detach().cpu().numpy().reshape(self.M_pad, self.R)[: self.M]
 
     def host_b(self, B: torch.Tensor) -> np.ndarray:
+        B = self._all_blocks(B)
         return B.detach().cpu().numpy().reshape(self.N_pad, self.R)[: self.N]
+
+    def _blocks(self, X: torch.Tensor, mode: MatMode) -> list:
+        """Each held rank's block of a dense operand (views, in one
+        process)."""
+        if not self.comm.in_process:
+            return [X]
+        n = self._block_rows(mode)
+        return [X[b * n: (b + 1) * n] for b in self.blocks]
+
+    def _assemble(self, blocks: list) -> torch.Tensor:
+        """The inverse of :meth:`_blocks` for an output."""
+        return blocks[0] if len(blocks) == 1 else torch.cat(blocks)
 
     # ---------------------------- sparse values ---------------------------- #
 
@@ -111,13 +160,13 @@ class DistributedSparse(abc.ABC):
         return self.S_tiles.scatter_values(host_vals)
 
     def gather_s_values(self, dev_vals: torch.Tensor) -> np.ndarray:
-        return self.S_tiles.gather_values(dev_vals)
+        return self.S_tiles.gather_values(self._all_blocks(dev_vals))
 
     def scatter_st_values(self, host_vals) -> torch.Tensor:
         return self.ST_tiles.scatter_values(host_vals)
 
     def gather_st_values(self, dev_vals: torch.Tensor) -> np.ndarray:
-        return self.ST_tiles.gather_values(dev_vals)
+        return self.ST_tiles.gather_values(self._all_blocks(dev_vals))
 
     # ------------------------------ public ops ----------------------------- #
 
@@ -197,6 +246,46 @@ class DistributedSparse(abc.ABC):
     def reset_performance_timers(self) -> None:
         self.metrics.clear()
 
+    def measure_breakdown(self, A, B, s_vals, op: str = "fusedSpMM",
+                          trials: int = 3) -> dict:
+        """Region attribution {Replication, Propagation, Computation} by
+        timing the op under the three ablation modes of
+        ``parallel/loops.py`` (one untimed call each first):
+
+        * Computation = t(local)            -- every collective ablated;
+        * Replication = t(no_ring) - t(local) -- gathers and reduce-scatters real;
+        * Propagation = t(full) - t(no_ring)  -- ring hops real.
+
+        Times are totals over ``trials`` calls (the unit of
+        :meth:`json_perf_statistics`), host clock around calls that end in
+        a device synchronise. Returns the op name (Computation),
+        ``replication``, ``ppermute`` and ``<op>_total``. Overlap of
+        communication and compute makes the split approximate."""
+        runners = {
+            "fusedSpMM": lambda: self.fused_spmm(A, B, s_vals),
+            "sddmmA": lambda: self.sddmm_a(A, B, s_vals),
+            "spmmA": lambda: self.spmm_a(A, B, s_vals),
+        }
+        if op not in runners:
+            raise ValueError(f"op must be one of {sorted(runners)}")
+        times = {}
+        for mode in ABLATION_MODES:
+            with ablation_mode(mode):
+                runners[op]()
+                synchronize(self.device)
+                t0 = time.perf_counter()
+                for _ in range(trials):
+                    runners[op]()
+                synchronize(self.device)
+                times[mode] = time.perf_counter() - t0
+        comp = times["local"]
+        return {
+            op: comp,
+            "replication": max(times["no_ring"] - comp, 0.0),
+            "ppermute": max(times["full"] - times["no_ring"], 0.0),
+            f"{op}_total": times["full"],
+        }
+
     def json_perf_statistics(self) -> dict:
         """Per-op seconds, sorted by op name."""
         return {k: self.metrics[k]["seconds"] for k in sorted(self.metrics)}
@@ -208,10 +297,11 @@ class DistributedSparse(abc.ABC):
             "n": self.N,
             "nnz": self.S_tiles.nnz if self.S_tiles else 0,
             "r": self.R,
+            "adjacency_mode": self.grid.adjacency,
             "p": self.p,
             "c": self.c,
             "dim_interpretations": list(self.proc_grid_names),
-            "dim_values": list(self.grid_dims[: len(self.proc_grid_names)]),
+            "dim_values": list(self.grid.dims[: len(self.proc_grid_names)]),
             "nnz_procs": self.S_tiles.nnz_per_device.reshape(-1).tolist()
             if self.S_tiles else [],
             "nnz_tpose_procs": self.ST_tiles.nnz_per_device.reshape(-1).tolist()

@@ -3,19 +3,27 @@
 
 Grid ``(p/c) x c``: the sparse matrix stays put in block rows, tiles are
 pre-skewed into ring-step order, the stationary dense operand is
-replicated over the ``c`` axis and the moving one rotates around the
-``p/c`` ring. ``fusion_approach=2`` runs the fused SDDMM->SpMM tile kernel
-at every ring step; ``fusion_approach=1`` runs a whole SDDMM rotation,
-then a whole SpMM rotation over its output. Both return the SDDMM values.
+replicated over the ``cols`` axis (an all-gather of the ``c`` blocks of a
+grid row) and the moving one rotates around the ``p/c``-long ``rows``
+ring; SpMM partials are reduce-scattered back over ``cols``.
+``fusion_approach=2`` runs the fused SDDMM->SpMM tile kernel at every
+ring step; ``fusion_approach=1`` runs a whole SDDMM rotation, then a whole
+SpMM rotation over its output. Both return the SDDMM values.
+``overlap=True`` issues each step's hop before the step's kernels
+(``ring_loop_overlap``), with the same results bit for bit.
+
+Each op runs per rank the process holds (every rank under a
+``LocalWorld``, one under a ``DistWorld``); the collectives are the comm
+layer's (``parallel/comm.py``) through the ablation wrappers of
+``parallel/loops.py``. The moving operand is read-only on every ring: each
+rank's block is cast to the kernel's type once, before the ring, and the
+ring carries what the kernel reads.
 
 Block-sparse attention (:meth:`DenseShift15D.fused_attention`) runs a
 complete SDDMM rotation over the mask, a row-wise masked softmax over the
-logits and an SpMM rotation over the weights, whatever the fusion
-approach: a row's denominator needs its complete set of logits.
-
-This slice runs one rank (``p = c = 1``): the ring has one step, so its
-shift is the identity and no collective runs. The ring structure stays so
-that the communication layer slots in later.
+logits (row stats merged over the ``c`` ranks of a row frame) and an SpMM
+rotation over the weights, whatever the fusion approach: a row's
+denominator needs its complete set of logits.
 """
 
 from __future__ import annotations
@@ -23,14 +31,17 @@ from __future__ import annotations
 import torch
 
 from distributed_sddmm_tpu_torch.common import MatMode, divide_round_up
+from distributed_sddmm_tpu_torch.device import resolve_device
 from distributed_sddmm_tpu_torch.ops.kernels import attn_merge_stats
 from distributed_sddmm_tpu_torch.parallel.base import DistributedSparse
+from distributed_sddmm_tpu_torch.parallel.comm import world_from_env
 from distributed_sddmm_tpu_torch.parallel.layouts import ShardedBlockCyclicColumn
+from distributed_sddmm_tpu_torch.parallel.loops import (
+    Shifter, abl_all_gather, abl_psum_scatter, ring_loop, ring_loop_overlap,
+)
+from distributed_sddmm_tpu_torch.parallel.mesh import COLS, ROWS, make_grid
 from distributed_sddmm_tpu_torch.parallel.sharding import TileSet, build_tiles
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
-
-_MULTI_RANK = ("p > 1 needs the comm, mesh and ring layer, which is not "
-               "ported yet (ROADMAP.md, queue A item 5)")
 
 
 class DenseShift15D(DistributedSparse):
@@ -38,15 +49,23 @@ class DenseShift15D(DistributedSparse):
     proc_grid_names = ("# Rows", "# Layers")
 
     def __init__(self, S: HostCOO, R: int, c: int = 1, fusion_approach: int = 2,
-                 kernel=None, p: int = 1, device=None):
-        if p % c != 0:
-            raise ValueError(f"1.5D algorithm requires c | p (p={p}, c={c})")
+                 kernel=None, adjacency: int = 1, overlap: bool = False,
+                 world=None, device=None):
+        """``world``: a ``LocalWorld`` or ``DistWorld``
+        (``parallel/comm.py``); None takes it from the environment
+        (``world_from_env``). ``p`` is the world's size."""
         if fusion_approach not in (1, 2):
             raise ValueError("fusion_approach must be 1 or 2")
-        if p > 1:
-            raise NotImplementedError(_MULTI_RANK)
-        super().__init__(S.M, S.N, R, c, p, kernel=kernel, device=device)
+        device = resolve_device(device)
+        world = world_from_env(device) if world is None else world
+        p = world.p
+        if p % c != 0:
+            raise ValueError(f"1.5D algorithm requires c | p (p={p}, c={c})")
+        super().__init__(S.M, S.N, R, c, world,
+                         make_grid(p // c, c, 1, adjacency=adjacency),
+                         kernel=kernel, device=device)
         self.fusion_approach = fusion_approach
+        self.overlap = bool(overlap)
         self.nr = p // c
         self.localArows = divide_round_up(S.M, p)
         self.localBrows = divide_round_up(S.N, p)
@@ -58,107 +77,202 @@ class DenseShift15D(DistributedSparse):
         self.S_tiles = build_tiles(
             S, ShardedBlockCyclicColumn(self.M_pad, self.N_pad, p, c),
             tile_rows=self.localArows * c, tile_cols=self.localBrows,
-            device=self.device, variant=variant,
+            device=self.device, variant=variant, devs=self.blocks,
         )
         self.ST_tiles = build_tiles(
             S.transpose(), ShardedBlockCyclicColumn(self.N_pad, self.M_pad, p, c),
             tile_rows=self.localBrows * c, tile_cols=self.localArows,
-            device=self.device, variant=variant,
+            device=self.device, variant=variant, devs=self.blocks,
         )
 
-    # ------------------------------ ring pieces ---------------------------- #
-    # This process holds grid coordinate (0, 0): device slot 0 of the tiles.
-    # With c = 1 the stationary block needs no all-gather and the output no
-    # reduce-scatter; the comm layer adds both with p > 1.
+    def comm_profile(self, op: str, pairs: float = 1.0) -> list[dict]:
+        """Per-collective word and byte volumes of one op from the layout
+        math: a rank's stationary block is ``localArows x R``
+        (all-gathered over the c-wide ``cols`` axis), its moving block
+        ``localBrows x R`` (hopped around the ``p/c``-long ``rows`` ring),
+        and SpMM partials reduce-scatter back over ``cols``; B-output ops
+        swap the two. Words are the JAX package's (``in_model`` marks the
+        ones its cost model counts). Bytes: the gather, the reduce-scatter
+        and the attention stats merge move float32; the ring moves the
+        blocks in the type the kernel reads (bf16 for a bf16 tile kernel).
+        A ``LocalWorld`` moves none of it: its collectives are list
+        operations."""
+        R, c, nr = self.R, self.c, self.nr
+        n_pass = 1 if self.fusion_approach == 2 else 2
+        stat_rows, mov_rows = self.localArows, self.localBrows
+        if op.endswith("B"):
+            stat_rows, mov_rows = mov_rows, stat_rows
+        ring_bytes = self._prep(torch.empty(0, dtype=self.dtype)).element_size()
+        repl_words = (c - 1) * stat_rows * R * pairs
+        repl = {"collective": "all_gather", "axis": COLS,
+                "count": (1 if c > 1 else 0) * pairs, "words": repl_words,
+                "bytes": repl_words * 4, "in_model": True}
+        reduce_ = {"collective": "psum_scatter", "axis": COLS,
+                   "count": (1 if c > 1 else 0) * pairs, "words": repl_words,
+                   "bytes": repl_words * 4, "in_model": False}
 
-    def _after_step(self, s: int, mov, final_shift: bool = False):
-        """Shift the moving block one rank along the ring between steps,
-        and after the last one if asked. On a ring of one rank the
-        permutation is the identity."""
-        return mov
+        def ring(passes):
+            words = (nr - 1) * mov_rows * R * passes * pairs
+            return {"collective": "ppermute", "axis": ROWS,
+                    "count": (nr - 1) * passes * pairs, "words": words,
+                    "bytes": words * ring_bytes, "in_model": True}
+
+        if op in ("fusedSpMM", "fusedSpMMB"):
+            return [repl, ring(n_pass), reduce_]
+        if op in ("fusedAttn", "fusedAttnB"):
+            merge_words = 2 * (c - 1) * stat_rows * pairs
+            merge = {"collective": "pmax+psum", "axis": COLS,
+                     "count": (2 if c > 1 else 0) * pairs, "words": merge_words,
+                     "bytes": merge_words * 4, "in_model": False}
+            return [repl, ring(2), merge, reduce_]
+        if op in ("sddmmA", "sddmmB"):
+            return [repl, ring(1)]
+        if op in ("spmmA", "spmmB"):
+            return [ring(1), reduce_]
+        return []
+
+    # ------------------------------ ring pieces ---------------------------- #
+    # Lists hold one entry per rank this process holds; entry h is tile
+    # slot h and dense block ``self.blocks[h]``.
 
     @property
     def _tiled(self) -> bool:
         return getattr(self.kernel, "is_tiled", False)
 
-    def _stationary(self, stat):
-        return self.kernel.prep(stat) if self._tiled else stat
+    def _prep(self, x):
+        return self.kernel.prep(x) if self._tiled else x
+
+    def _prep_each(self, xs: list) -> list:
+        """The kernel's type of each block, cast once per distinct tensor
+        (the ranks of one row frame share their gathered block)."""
+        done: dict = {}
+        for x in xs:
+            if id(x) not in done:
+                done[id(x)] = self._prep(x)
+        return [done[id(x)] for x in xs]
+
+    def _replicate(self, stat, mode: MatMode) -> list:
+        """Each rank's stationary row frame: the all-gather of its grid
+        row's ``c`` blocks over ``cols``."""
+        blocks = self._blocks(stat, mode)
+        if self.c > 1:
+            blocks = abl_all_gather(self.comm, blocks, COLS, self.c)
+        return self._prep_each(blocks)
+
+    def _moving(self, mov, mode: MatMode) -> list:
+        """Each rank's moving block, in the kernel's type: prepared once,
+        before the ring."""
+        return self._prep_each(self._blocks(mov, mode))
+
+    def _reduce_out(self, accs: list, dtype) -> torch.Tensor:
+        """Reduce-scatter the SpMM partials over ``cols`` (c > 1) and
+        assemble the output blocks."""
+        if self.c > 1:
+            accs = abl_psum_scatter(self.comm, accs, COLS, self.c)
+        return self._assemble(accs).to(dtype)
+
+    def _ring(self, body, carry, movs: list, final_shift: bool = False):
+        """``carry = body(s, carry, movs)`` over the ring's steps, the
+        moving blocks hopping one rank along ``rows`` between steps (and
+        after the last with ``final_shift``). Returns ``(carry, movs)``."""
+        shift = Shifter(self.comm, ROWS, self.nr)
+        if self.overlap:
+            return ring_loop_overlap(self.nr, body, carry, movs, shift.start,
+                                     final_shift=final_shift)
+
+        def step(s, state):
+            carry, movs = state
+            return body(s, carry, movs), movs
+
+        def hop(state):
+            carry, movs = state
+            return carry, shift(movs)
+
+        return ring_loop(self.nr, step, (carry, movs), hop,
+                         hop if final_shift else None)
 
     # ------------------------------ local ops ------------------------------ #
 
-    def _tile_sddmm(self, tiles: TileSet, s: int, vals, at, mov):
-        t, k = tiles.tile(0, s), self.kernel
+    def _tile_sddmm(self, tiles: TileSet, h: int, s: int, vals, at, mov):
+        t, k = tiles.tile(h, s), self.kernel
         if self._tiled:
-            return k.sddmm_tile(t, vals, at, k.prep(mov))
+            return k.sddmm_tile(t, vals, at, mov)
         return k.sddmm(t.rows, t.cols, vals, at, mov)
 
-    def _tile_spmm(self, tiles: TileSet, s: int, vals, mov):
-        t, k = tiles.tile(0, s), self.kernel
+    def _tile_spmm(self, tiles: TileSet, h: int, s: int, vals, mov):
+        t, k = tiles.tile(h, s), self.kernel
         if self._tiled:
-            return k.spmm_tile(t, vals, k.prep(mov))
+            return k.spmm_tile(t, vals, mov)
         return k.spmm(t.rows, t.cols, vals, mov, t.n_rows)
 
-    def _tile_fused(self, tiles: TileSet, s: int, vals, at, mov):
-        t, k = tiles.tile(0, s), self.kernel
+    def _tile_fused(self, tiles: TileSet, h: int, s: int, vals, at, mov):
+        t, k = tiles.tile(h, s), self.kernel
         if self._tiled:
-            return k.fused_tile(t, vals, at, k.prep(mov))
+            return k.fused_tile(t, vals, at, mov)
         mid = k.sddmm(t.rows, t.cols, vals, at, mov)
         return k.spmm(t.rows, t.cols, mid, mov, t.n_rows), mid
 
     # ------------------------------- rings --------------------------------- #
 
-    def _sddmm_ring(self, tiles, at, mov, vals, final_shift=False):
-        out = torch.empty_like(vals)
-        for s in range(self.nr):
-            out[0, s] = self._tile_sddmm(tiles, s, vals[0, s], at, mov)
-            mov = self._after_step(s, mov, final_shift)
-        return out, mov
+    def _sddmm_ring(self, tiles, ats, movs, vals, final_shift=False):
+        def body(s, out, movs):
+            for h, mov in enumerate(movs):
+                out[h, s] = self._tile_sddmm(tiles, h, s, vals[h, s], ats[h], mov)
+            return out
 
-    def _spmm_ring(self, tiles, mov, vals):
-        acc = None
-        for s in range(self.nr):
-            part = self._tile_spmm(tiles, s, vals[0, s], mov)
-            acc = part if acc is None else acc + part
-            mov = self._after_step(s, mov)
-        return acc
+        return self._ring(body, torch.empty_like(vals), movs, final_shift)
 
-    def _fused_ring(self, tiles, at, mov, vals):
-        acc, out_vals = None, torch.empty_like(vals)
-        for s in range(self.nr):
-            part, out_vals[0, s] = self._tile_fused(tiles, s, vals[0, s], at, mov)
-            acc = part if acc is None else acc + part
-            mov = self._after_step(s, mov)
-        return acc, out_vals
+    def _spmm_ring(self, tiles, movs, vals) -> list:
+        def body(s, accs, movs):
+            parts = [self._tile_spmm(tiles, h, s, vals[h, s], mov)
+                     for h, mov in enumerate(movs)]
+            return parts if accs is None else [a + p for a, p in zip(accs, parts)]
+
+        return self._ring(body, None, movs)[0]
+
+    def _fused_ring(self, tiles, ats, movs, vals):
+        out_vals = torch.empty_like(vals)
+
+        def body(s, accs, movs):
+            parts = []
+            for h, mov in enumerate(movs):
+                part, out_vals[h, s] = self._tile_fused(tiles, h, s, vals[h, s],
+                                                        ats[h], mov)
+                parts.append(part)
+            return parts if accs is None else [a + p for a, p in zip(accs, parts)]
+
+        return self._ring(body, None, movs)[0], out_vals
 
     # --------------------------- masked softmax ---------------------------- #
     # The values double as the mask: ``gate != 0`` marks an attended slot.
-    # After a complete SDDMM rotation the device holds every logit of its
+    # After a complete SDDMM rotation each rank holds every logit of its
     # rows, spread over its T tiles, which share one row frame.
 
-    def _merge_stats_cols(self, m, d):
-        """Online-softmax merge of the row stats over the replication
-        axis: with c > 1 a row's nonzeros are spread column-cyclically
-        over the ``c`` devices of its row frame, so the global max is an
-        all-reduce max and each denominator is rescaled into it before an
-        all-reduce sum. The identity at c = 1."""
+    def _merge_stats_cols(self, stats: list) -> list:
+        """Online-softmax merge of each rank's row stats over the
+        replication axis: with c > 1 a row's nonzeros are spread
+        column-cyclically over the ``c`` ranks of its row frame, so the
+        global max is an all-reduce max and each denominator is rescaled
+        into it before an all-reduce sum. The identity at c = 1."""
         if self.c == 1:
-            return m, d
-        mg = self._cols_all_reduce(m, "max")
-        return mg, self._cols_all_reduce(d * torch.exp(m - mg), "sum")
-
-    def _cols_all_reduce(self, x, op: str):
-        """All-reduce over the ``c`` axis (the comm layer's)."""
-        raise NotImplementedError(_MULTI_RANK)
+            return stats
+        ms = self.comm.all_reduce([m for m, _ in stats], COLS, "max")
+        ds = self.comm.all_reduce([d * torch.exp(m - mg) for (m, d), mg
+                                   in zip(stats, ms)], COLS, "sum")
+        return list(zip(ms, ds))
 
     def _softmax_flat(self, tiles: TileSet, gate, logits):
-        """Flat route: row stats over all of the device's tiles at once
+        """Flat route: each rank's row stats over all of its tiles at once
         (``attn_stats`` of the flat kernel), the c-axis merge, then the
         weights."""
         k = self.kernel
-        rows, g, z = tiles.rows[0].reshape(-1), gate[0].reshape(-1), logits[0].reshape(-1)
-        m, d = self._merge_stats_cols(*k.attn_stats(rows, g, z, tiles.tile_rows))
+        flat = [(tiles.rows[h].reshape(-1), gate[h].reshape(-1), logits[h].reshape(-1))
+                for h in range(len(self.blocks))]
+        stats = self._merge_stats_cols([k.attn_stats(r, g, z, tiles.tile_rows)
+                                        for r, g, z in flat])
         probs = torch.empty_like(logits)
-        probs[0] = k.attn_normalize(rows, g, z, m, d).reshape(logits.shape[1:])
+        for h, ((r, g, z), (m, d)) in enumerate(zip(flat, stats)):
+            probs[h] = k.attn_normalize(r, g, z, m, d).reshape(logits.shape[1:])
         return probs
 
     def _softmax_blk(self, tiles: TileSet, gate, logits):
@@ -166,13 +280,16 @@ class DenseShift15D(DistributedSparse):
         merge, the c-axis merge, then one ``attn_norm_tile`` launch per
         tile."""
         k = self.kernel
-        views = [tiles.tile(0, s) for s in range(tiles.n_tiles)]
-        m, d = attn_merge_stats([k.attn_stats_tile(t, gate[0, s], logits[0, s])
-                                 for s, t in enumerate(views)])
-        m, d = self._merge_stats_cols(m, d)
+        views = [[tiles.tile(h, s) for s in range(tiles.n_tiles)]
+                 for h in range(len(self.blocks))]
+        stats = self._merge_stats_cols([
+            attn_merge_stats([k.attn_stats_tile(t, gate[h, s], logits[h, s])
+                              for s, t in enumerate(ts)])
+            for h, ts in enumerate(views)])
         probs = torch.empty_like(logits)
-        for s, t in enumerate(views):
-            probs[0, s] = k.attn_norm_tile(t, gate[0, s], logits[0, s], m, d)
+        for h, (ts, (m, d)) in enumerate(zip(views, stats)):
+            for s, t in enumerate(ts):
+                probs[h, s] = k.attn_norm_tile(t, gate[h, s], logits[h, s], m, d)
         return probs
 
     def _softmax(self, use_st: bool, gate, logits):
@@ -182,36 +299,44 @@ class DenseShift15D(DistributedSparse):
         return self._softmax_flat(tiles, gate, logits)
 
     # ------------------------------ programs ------------------------------- #
+    # ``use_st``: the transposed tile set (B-output ops), whose stationary
+    # operand is B and moving operand A.
+
+    def _sides(self, use_st: bool) -> tuple:
+        return ((self.ST_tiles, MatMode.B, MatMode.A) if use_st
+                else (self.S_tiles, MatMode.A, MatMode.B))
 
     def _sddmm(self, use_st: bool, stat, mov, vals):
-        tiles = self.ST_tiles if use_st else self.S_tiles
-        return self._sddmm_ring(tiles, self._stationary(stat), mov, vals)[0]
+        tiles, sm, mm = self._sides(use_st)
+        return self._sddmm_ring(tiles, self._replicate(stat, sm),
+                                self._moving(mov, mm), vals)[0]
 
     def _spmm(self, use_st: bool, mov, vals):
-        tiles = self.ST_tiles if use_st else self.S_tiles
-        return self._spmm_ring(tiles, mov, vals).to(mov.dtype)
+        tiles, _, mm = self._sides(use_st)
+        return self._reduce_out(self._spmm_ring(tiles, self._moving(mov, mm), vals),
+                                mov.dtype)
 
     def _fused(self, use_st: bool, stat, mov, vals):
-        tiles = self.ST_tiles if use_st else self.S_tiles
-        at = self._stationary(stat)
+        tiles, sm, mm = self._sides(use_st)
+        ats, movs = self._replicate(stat, sm), self._moving(mov, mm)
         if self.fusion_approach == 2:
-            acc, mid = self._fused_ring(tiles, at, mov, vals)
+            accs, mid = self._fused_ring(tiles, ats, movs, vals)
         else:
             # One replicated stationary block feeds a complete SDDMM
             # rotation, then a complete SpMM rotation over its output.
-            mid, mov = self._sddmm_ring(tiles, at, mov, vals, final_shift=True)
-            acc = self._spmm_ring(tiles, mov, mid)
-        return acc.to(mov.dtype), mid
+            mid, movs = self._sddmm_ring(tiles, ats, movs, vals, final_shift=True)
+            accs = self._spmm_ring(tiles, movs, mid)
+        return self._reduce_out(accs, mov.dtype), mid
 
     def _attention(self, use_st: bool, stat, mov, vals):
         """SDDMM rotation over the mask values (complete, so every logit of
         a row lands before its softmax), masked softmax, SpMM rotation
         over the weights."""
-        tiles = self.ST_tiles if use_st else self.S_tiles
-        logits, mov = self._sddmm_ring(tiles, self._stationary(stat), mov, vals,
-                                       final_shift=True)
+        tiles, sm, mm = self._sides(use_st)
+        logits, movs = self._sddmm_ring(tiles, self._replicate(stat, sm),
+                                        self._moving(mov, mm), vals, final_shift=True)
         probs = self._softmax(use_st, vals, logits)
-        return self._spmm_ring(tiles, mov, probs).to(mov.dtype), probs
+        return self._reduce_out(self._spmm_ring(tiles, movs, probs), mov.dtype), probs
 
     # ------------------------------ public ops ----------------------------- #
 

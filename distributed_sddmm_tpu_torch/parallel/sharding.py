@@ -51,13 +51,16 @@ class BankedTileView(TileView):
 
 @dataclasses.dataclass
 class TileSet:
-    """Padded struct-of-arrays tiles of every device, ``(n_dev, T, max_nnz)``
-    with ``n_dev = nr * nc`` in grid row-major order."""
+    """Padded struct-of-arrays tiles, ``(slots, T, max_nnz)``: slot ``h``
+    holds grid device ``devs[h]`` (``d = i * nc + j``, grid row-major).
+    A process that holds every rank holds every device in order; a
+    process of one rank holds its own slot only. Host-side fields
+    (``host_to_flat``, ``nnz_per_tile``) cover every device."""
 
     rows: torch.Tensor
     cols: torch.Tensor
     mask: torch.Tensor      # 1 at real nonzeros, 0 at pads
-    row_ptr: torch.Tensor   # (n_dev, T, tile_rows + 1) int32
+    row_ptr: torch.Tensor   # (slots, T, tile_rows + 1) int32
     host_to_flat: np.ndarray  # [nnz] int64: host nonzero -> flat slot
     tile_rows: int
     tile_cols: int
@@ -69,8 +72,18 @@ class TileSet:
     blk_variant: str | None = None
     #: Host banding (``codegen/banded.Banding``) of a banked variant.
     banding: object = None
-    #: Each tile's row bands on the device, ``bands[dev][s]``.
+    #: Each tile's row bands on the device, ``bands[slot][s]``.
     bands: tuple | None = None
+    #: The grid devices held, one a slot (None: every device, in order).
+    devs: tuple | None = None
+
+    def __post_init__(self):
+        if self.devs is None:
+            self.devs = tuple(range(self.grid[0] * self.grid[1]))
+
+    @property
+    def n_dev(self) -> int:
+        return self.grid[0] * self.grid[1]
 
     @property
     def shape(self) -> tuple:
@@ -88,31 +101,34 @@ class TileSet:
     def nnz_per_device(self) -> np.ndarray:
         return self.nnz_per_tile.sum(axis=1).reshape(self.grid)
 
-    def tile(self, dev: int, s: int) -> TileView:
-        args = (self.row_ptr[dev, s], self.rows[dev, s], self.cols[dev, s],
+    def tile(self, slot: int, s: int) -> TileView:
+        args = (self.row_ptr[slot, s], self.rows[slot, s], self.cols[slot, s],
                 self.tile_rows, self.tile_cols)
         if self.bands is None:
             return TileView(*args)
-        return BankedTileView(*args, bands=self.bands[dev][s])
+        return BankedTileView(*args, bands=self.bands[slot][s])
 
     def like_values(self, value: float) -> torch.Tensor:
         """``value`` at every real nonzero, 0 at pads."""
         return self.mask * value
 
     def scatter_values(self, host_vals) -> torch.Tensor:
-        """Place a vector in host nonzero order into tile structure."""
+        """Place a vector in host nonzero order into tile structure (the
+        held slots)."""
         if isinstance(host_vals, torch.Tensor):
             host_vals = host_vals.detach().cpu().numpy()
         host_vals = np.asarray(host_vals)
         if host_vals.shape != (self.nnz,):
             raise ValueError(f"expected ({self.nnz},) values, got {host_vals.shape}")
-        buf = np.zeros(int(np.prod(self.shape)), dtype=np.float32)
+        buf = np.zeros(self.n_dev * self.n_tiles * self.max_nnz, dtype=np.float32)
         buf[self.host_to_flat] = host_vals
-        return torch.from_numpy(buf.reshape(self.shape)).to(self.mask.device)
+        buf = buf.reshape(self.n_dev, self.n_tiles, self.max_nnz)[list(self.devs)]
+        return torch.from_numpy(buf).to(self.mask.device)
 
-    def gather_values(self, dev_vals: torch.Tensor) -> np.ndarray:
-        """Values back in host nonzero order."""
-        return dev_vals.detach().reshape(-1).cpu().numpy()[self.host_to_flat]
+    def gather_values(self, all_vals: torch.Tensor) -> np.ndarray:
+        """Values back in host nonzero order, from the values of every
+        device, ``(n_dev, T, max_nnz)``."""
+        return all_vals.detach().reshape(-1).cpu().numpy()[self.host_to_flat]
 
 
 def build_tiles(
@@ -123,9 +139,13 @@ def build_tiles(
     device: torch.device,
     min_pad: int = 1,
     variant=None,
+    devs=None,
 ) -> TileSet:
     """Bucket ``S``'s nonzeros by (device, tile), sort each bucket by
-    tile-local row and pad every bucket to the largest one's size.
+    tile-local row and pad every bucket to the largest one's size. Only
+    the grid devices ``devs`` (default: all) go to ``device``; the host
+    build and ``max_nnz`` cover every device, so each slot has one shape
+    whichever process holds it.
 
     ``variant`` (a ``codegen.KernelVariant``): a banked one adds each
     tile's row bands; a non-banked one keeps the generic CSR. Either way
@@ -145,7 +165,11 @@ def build_tiles(
     n_buckets = n_dev * T
     bucket = (res.i * nc + res.j) * T + res.tile
     row_key = bucket * tile_rows + res.local_r
-    order = np.argsort(row_key, kind="stable")
+    # A stable sort is unique, so sorting on ``device`` gives the host
+    # sort's permutation; a card sorts the full cell's 33.5M keys in
+    # milliseconds, where the host takes tens of seconds.
+    order = torch.sort(torch.from_numpy(row_key).to(device), stable=True
+                       ).indices.cpu().numpy()
     counts = np.bincount(bucket, minlength=n_buckets)
     max_nnz = max(int(counts.max(initial=0)), min_pad)
 
@@ -170,9 +194,10 @@ def build_tiles(
               out=row_ptr[:, 1:])
 
     shape = (n_dev, T, max_nnz)
+    devs = tuple(range(n_dev)) if devs is None else tuple(devs)
 
     def put(x):
-        return torch.from_numpy(x).to(device)
+        return torch.from_numpy(x[list(devs)]).to(device)
 
     banding = bands = None
     if variant is not None and variant.banked:
@@ -180,8 +205,8 @@ def build_tiles(
         from distributed_sddmm_tpu_torch.codegen.banded import build_banded
 
         banding = build_banded(row_ptr, variant)
-        on_dev = [tuple(b.to(device) for b in t) for t in banding.tiles]
-        bands = tuple(tuple(on_dev[d * T: (d + 1) * T]) for d in range(n_dev))
+        bands = tuple(tuple(tuple(b.to(device) for b in banding.tiles[d * T + s])
+                            for s in range(T)) for d in devs)
 
     return TileSet(
         rows=put(rows_flat.reshape(shape)),
@@ -197,4 +222,5 @@ def build_tiles(
         blk_variant=None if variant is None else variant.variant_id,
         banding=banding,
         bands=bands,
+        devs=devs,
     )

@@ -45,6 +45,7 @@ from distributed_sddmm_tpu_torch.ops.kernels import (
     ATTN_NEG, TorchKernel, attn_merge_stats,
 )
 from distributed_sddmm_tpu_torch.parallel.base import DistributedSparse
+from distributed_sddmm_tpu_torch.parallel.comm import LocalWorld
 from distributed_sddmm_tpu_torch.parallel.dense_shift_15d import DenseShift15D
 from distributed_sddmm_tpu_torch.parallel.layouts import ShardedBlockCyclicColumn
 from distributed_sddmm_tpu_torch.parallel.sharding import build_tiles
@@ -371,10 +372,12 @@ def test_oracle_softmax_matches_jax_oracle():
 # --------------------------------------------------------------------- #
 
 
-def _jax_attention(S, R, A, B):
-    ja = JaxDS(S, R=R, c=1, fusion_approach=2,
-               kernel=PallasKernel(interpret=True, precision="f32"),
-               devices=jax.devices()[:1])
+def _jax_attention(S, R, A, B, p=1, c=1):
+    """The JAX package's fused attention: the Pallas kernel in interpret
+    mode on one device, its default XLA kernel at p > 1."""
+    kernel = PallasKernel(interpret=True, precision="f32") if p == 1 else None
+    ja = JaxDS(S, R=R, c=c, fusion_approach=2, kernel=kernel,
+               devices=jax.devices()[:p])
     Aj, Bj = ja.put_a(A), ja.put_b(B)
     vals = S.vals.astype(np.float32)
     oa, pa = ja.fused_attention(Aj, Bj, ja.scatter_s_values(vals))
@@ -384,8 +387,9 @@ def _jax_attention(S, R, A, B):
     return want, (ja.host_a(Aj), ja.host_b(Bj), ja.gather_s_values(ja.scatter_s_values(vals)))
 
 
-def _port_attention(cs, R, kernel, fusion=2):
-    alg = DenseShift15D(cs.S, R=R, fusion_approach=fusion, kernel=kernel, device="cpu")
+def _port_attention(cs, R, kernel, fusion=2, p=1, c=1):
+    alg = DenseShift15D(cs.S, R=R, c=c, fusion_approach=fusion, kernel=kernel,
+                        world=LocalWorld(p), device="cpu")
     A, B = alg.put_a(cs.A), alg.put_b(cs.B)
     sv, st = alg.scatter_s_values(cs.s_vals), alg.scatter_st_values(cs.s_vals)
     oa, pa = alg.fused_attention(A, B, sv)
@@ -425,6 +429,32 @@ def test_fused_attention_matches_jax_pallas_and_oracle(family, R):
             assert np.abs(got[op] - exact[op]).max() <= 1e-5 * scale, op
         assert np.all(got["outA"][DEAD_ROW] == 0)
         assert np.all(got["probsA"][S.rows == DEAD_ROW] == 0)
+
+
+@pytest.mark.parametrize("family", ["bigbird", "window"])
+def test_fused_attention_at_4_ranks_matches_jax(family):
+    """(p, c) = (4, 2): the row stats merge over the two ranks of each
+    row frame (an all-reduce max, then an all-reduce sum, per call), A and
+    B modes, both routes, against the JAX package at the same grid."""
+    rng = np.random.default_rng(3)
+    base = (jax_masks.bigbird(160, 3, 2, 2) if family == "bigbird"
+            else jax_masks.sliding_window(128, 5))
+    S, R = _masked(base, rng), 8
+    A = rng.standard_normal((S.M, R)).astype(np.float32)
+    B = rng.standard_normal((S.N, R)).astype(np.float32)
+    want, state = _jax_attention(S, R, A, B, p=4, c=2)
+    cs = state_from_reference(S.rows, S.cols, S.vals, S.M, S.N, *state, device="cpu")
+    for kernel in (CudaTileKernel(device="cpu"), TorchKernel()):
+        for fusion in (1, 2):
+            alg, _, got = _port_attention(cs, R, kernel, fusion, p=4, c=2)
+            _check(got, want)
+            assert alg.comm.counts["all_reduce"] == 4  # two calls, max and sum each
+            assert np.all(got["outA"][DEAD_ROW] == 0)
+    # Without the merge the weights of a row would not sum to one.
+    probs = got["probsA"]
+    sums = np.bincount(S.rows, weights=probs, minlength=S.M)
+    live = np.bincount(S.rows, weights=S.vals != 0, minlength=S.M) > 0
+    np.testing.assert_allclose(sums[live], 1.0, rtol=1e-5)
 
 
 @pytest.mark.parametrize("kernel", [CudaTileKernel(device="cpu"), TorchKernel(),

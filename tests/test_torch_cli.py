@@ -84,3 +84,37 @@ def test_er_unported_app_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A items 8-9"):
         cli.main(["er", "5", "4", "15d_fusion2", "4", "1", "--device", "cpu",
                   "--app", "als"])
+
+
+def test_er_at_four_local_ranks_overlap_and_breakdown(tmp_path, capsys, monkeypatch):
+    """``SDDMM_TORCH_LOCAL_RANKS=4``: the world of the run is four ranks in
+    this process; ``--fusion overlap`` and ``--breakdown`` run, and the
+    records carry the world, the fusion build and the grid."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.setenv("SDDMM_TORCH_LOCAL_RANKS", "4")
+    out = tmp_path / "rec.jsonl"
+    base = ["er", "6", "4", "15d_fusion2", "8", "2", "--device", "cpu",
+            "--trials", "2", "-o", str(out)]
+    assert cli.main(base + ["--fusion", "overlap"]) == 0
+    assert cli.main(base + ["--breakdown"]) == 0
+    overlap, breakdown = (json.loads(line) for line in out.read_text().splitlines())
+    assert len(capsys.readouterr().out.splitlines()) == 2
+    for rec, fusion in ((overlap, "overlap"), (breakdown, "sequential")):
+        assert rec["fusion"] == fusion
+        assert (rec["num_processes"], rec["process_index"]) == (1, 0)
+        info = rec["alg_info"]
+        assert info["p"] == 4 and info["c"] == 2 and info["adjacency_mode"] == 1
+        assert info["dim_values"] == [2, 2] and len(info["nnz_procs"]) == 4
+    assert set(breakdown["perf_stats"]) == {"fusedSpMM", "replication", "ppermute",
+                                            "fusedSpMM_total"}
+    assert set(overlap["perf_stats"]) == {"fusedSpMM"}
+
+
+def test_er_breakdown_refuses_what_it_cannot_attribute():
+    for extra in (["--app", "attention"], ["--fused", "no"]):
+        with pytest.raises(SystemExit, match="--breakdown requires"):
+            cli.main(["er", "5", "4", "15d_fusion2", "4", "1", "--device", "cpu",
+                      "--breakdown", *extra])
+    proc = _run("er", "5", "4", "15d_fusion2", "4", "1", "--device", "cpu",
+                "--fusion", "double")
+    assert proc.returncode == 2 and "--fusion" in proc.stderr

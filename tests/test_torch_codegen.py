@@ -61,6 +61,7 @@ from distributed_sddmm_tpu_torch.ops import cuda_kernels
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
 from distributed_sddmm_tpu_torch.ops.kernels import ATTN_NEG
 from distributed_sddmm_tpu_torch.parallel.base import realized_kernel_variant
+from distributed_sddmm_tpu_torch.parallel.comm import LocalWorld
 from distributed_sddmm_tpu_torch.parallel.dense_shift_15d import DenseShift15D
 from distributed_sddmm_tpu_torch.parallel.layouts import ShardedBlockCyclicColumn
 from distributed_sddmm_tpu_torch.parallel.sharding import (
@@ -364,9 +365,10 @@ def _run_jax(S, R, fusion, kernel, state):
     }, ja.kernel_variant_realized
 
 
-def _run_port(S, R, fusion, kernel, state):
-    alg = DenseShift15D(HostCOO(S.rows, S.cols, S.vals, S.M, S.N), R=R,
-                        fusion_approach=fusion, kernel=kernel, device="cpu")
+def _run_port(S, R, fusion, kernel, state, p=1, c=1):
+    alg = DenseShift15D(HostCOO(S.rows, S.cols, S.vals, S.M, S.N), R=R, c=c,
+                        fusion_approach=fusion, kernel=kernel, world=LocalWorld(p),
+                        device="cpu")
     A_np, B_np, v = state
     A, B = alg.put_a(A_np), alg.put_b(B_np)
     sv, st = alg.scatter_s_values(v), alg.scatter_st_values(v)
@@ -408,6 +410,25 @@ def test_banked_kernel_equals_jax_banked_and_generic_on_integer_data(split3, fus
     assert alg.kernel_variant_realized == jax_vid == VID
     for op in want:
         np.testing.assert_array_equal(got[op], want[op], err_msg=op)
+        np.testing.assert_array_equal(got[op], generic[op], err_msg=op)
+
+
+@pytest.mark.parametrize("fusion", [1, 2])
+def test_banked_at_4_ranks_equals_generic_on_integer_data(split3, fusion):
+    """(p, c) = (4, 2): each rank's tiles carry their own bands, and the
+    banked launches give the generic kernel's bits."""
+    rows, cols, Mr, Nc = _hub()
+    S, R = JaxCOO(rows, cols, np.ones(rows.size), Mr, Nc), 8
+    state = _int_state(S, R, seed=fusion + 30)
+    alg, got = _run_port(S, R, fusion, BankedCudaKernel(VID, "f32", device="cpu"), state,
+                         p=4, c=2)
+    _, generic = _run_port(S, R, fusion, CudaTileKernel("f32", device="cpu"), state,
+                           p=4, c=2)
+    for tiles in (alg.S_tiles, alg.ST_tiles):
+        assert len(tiles.bands) == 4 and all(len(b) == 2 for b in tiles.bands)
+        assert any(band.heavy for dev in tiles.bands for t in dev for band in t)
+    assert alg.kernel_variant_realized == VID
+    for op in generic:
         np.testing.assert_array_equal(got[op], generic[op], err_msg=op)
 
 

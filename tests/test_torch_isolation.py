@@ -79,7 +79,7 @@ def test_ast_scan_finds_no_forbidden_import():
     assert {k: v for k, v in offenders.items() if v} == {}
     # And every import the port makes is one the card's machine has.
     allowed = {"torch", "numpy", "scipy", "distributed_sddmm_tpu_torch",
-               "__future__", "abc", "argparse", "ctypes", "dataclasses", "enum",
+               "__future__", "abc", "argparse", "contextlib", "ctypes", "dataclasses", "enum",
                "functools", "hashlib", "importlib", "json", "os", "pathlib", "re",
                "shutil", "subprocess", "sys", "tempfile", "time", "typing"}
     used = set().union(*(_imported_roots(f) for f in files))
