@@ -114,14 +114,51 @@ last line is printed):
    file://...)`` at world size 1: ``GridSpec.self_test`` through NCCL, and
    the headline verify through a ``DistWorld`` equal to ``LocalWorld``'s at
    p = 1 bit for bit.
-11. kernels line -- ``{"kernels": [...]}``.
-12. last line -- ``{"ok": true, "device": {...}}``.
+11. apps -- ALS-CG and the GAT forward pass (``models/``). als_protocol:
+   the JAX package's ALS protocol (``tests/test_als.py``: ER 48 x 32, R =
+   8, 5 CG iterations, p = 8 with c = 2) on the card, ``r1 < 0.5 r0`` and
+   ``r2 < 1.01 r1``; then the ladder on the card: guards on, ``S_host``
+   given, the Gram operator poisoned twice, ``run_cg`` raises
+   ``NumericalFault`` with the factors untouched (no host fallback on the
+   card). als_full: phase
+   5's cell through the harness's ``_run_als`` (one warmup step, 3 timed
+   steps of 10 CG iterations a half-step), f32 and bf16: ms a step, the
+   residual trajectory a step at a time (the first step's ``r1 / r0``
+   within ``ALS_RATIO_TOL`` of the float64 serial solver's on a uniform
+   R-mat of the same shape at log_m 12, both precisions: 128 unknowns a
+   row against about 32 observations leave far more than half the
+   residual after a step of 10 CG iterations; f32: no step raises it by
+   1%, and a control whose Gram operator drops one slot in
+   ``ALS_CONTROL_GATED`` must miss that tolerance), a CG iteration
+   through the model's own ``cgStep`` program split by CUDA events into
+   the fused pair and the rest beside the rest's byte bound (7 frames of
+   M x R x 4 bytes), peak memory. als_oracle: uniform R-mat log_m=12,
+   R=32, from the float64 serial solver's factors and observations: after
+   2 steps the port's residual within 1.05 x the serial one either way
+   and its factors within 1e-4 of the serial ones. als_ring: the headline R-mat, one step at
+   (p, c) = (4, 2) within 1e-4 of p = 1's factors (of their max abs
+   value); Graph500 16 with its variant, two steps within 1e-4 relative of
+   the generic kernel's residual, the banked launches of each half-step as
+   the bands predict (no generic launch, ``split_reduce`` in B mode).
+   gat_headline: the harness's GAT (heads 4, 4, 6, 128 features a head) on
+   the headline R-mat against a float64 host forward pass with the same
+   weights, within 1e-4 (f32) / 1e-2 (bf16) of its max abs value.
+   gat_full: ``_run_gat`` at phase 5's cell (1 warmup, 3 timed forwards),
+   a forward through ``GAT.layer_forward`` (the code ``forward`` times)
+   split per layer into projection, SDDMM, SpMM and elementwise work by
+   CUDA events, peak memory. cli: ``er ... --app als`` with
+   ``--checkpoint-dir``, the same with ``--resume`` (it starts from the
+   stored step), ``er ... --app gat``. Launch counts as each drive
+   predicts.
+12. kernels line -- ``{"kernels": [...]}``.
+13. last line -- ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -139,12 +176,16 @@ from distributed_sddmm_tpu_torch.codegen import (
     BankedCudaKernel, banded, build_banded, select_variant,
 )
 from distributed_sddmm_tpu_torch.common import MatMode
+from distributed_sddmm_tpu_torch.models import als as als_mod
+from distributed_sddmm_tpu_torch.models import gat as gat_mod
+from distributed_sddmm_tpu_torch.models.serial_als import SerialALS
 from distributed_sddmm_tpu_torch.ops import _build, cuda_kernels
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
 from distributed_sddmm_tpu_torch.ops.kernels import ATTN_NEG
 from distributed_sddmm_tpu_torch.parallel.comm import DistWorld, LocalWorld
 from distributed_sddmm_tpu_torch.parallel.mesh import make_grid
 from distributed_sddmm_tpu_torch.parallel.sharding import BankedTileView, TileView
+from distributed_sddmm_tpu_torch.resilience import CheckpointStore, NumericalFault
 from distributed_sddmm_tpu_torch.utils import oracle, verify
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 
@@ -252,6 +293,42 @@ RING = {"verify": ((2, 1), (4, 1), (4, 2), (8, 4)), "attention": (4, 2),
 RING_BUILDS = ((2, False), (1, False), (2, True))
 RING_WARMUP, RING_TRIALS, RING_BREAKDOWN_TRIALS = 3, 10, 3
 RING_OUT_RTOL, RING_P_ATOL = 1e-5, 1e-6
+# The apps (phase apps): ALS-CG and the GAT forward pass of ``models/``.
+# ALS: one warmup step, then timed steps of cg_iters CG iterations a
+# half-step; its float64 oracle at log_m 12 (R 32, 2 steps, the port's
+# residual within ``slack`` of the serial one); one step at (p, c) within
+# ``tol`` of p = 1's factors; two banked steps within ``rtol`` of the
+# generic kernel's residual (Graph500 16, its selected variant).
+ALS = {"cg_iters": 10, "warmup": 1, "steps": 3}
+#: The JAX package's own ALS protocol (``tests/test_als.py``): ER 48 x 32,
+#: 5 nonzeros a row, R = 8, 5 CG iterations, 8 ranks with c = 2; step 1
+#: more than halves the residual, step 2 does not raise it by 1%.
+ALS_PROTOCOL = {"M": 48, "N": 32, "nnz_per_row": 5, "R": 8, "cg_iters": 5, "p": 8, "c": 2}
+#: At the full cell (128 unknowns a row, about 32 observations, 10 CG
+#: iterations) a step cuts the residual far less; its first-step ratio is
+#: held to the float64 serial solver's on a uniform R-mat of the same
+#: shape at this log_m (edge_factor and R of the full cell). The tolerance
+#: lies between the gaps of sound runs (f32, bf16) and those of controls
+#: whose Gram operator drops one nonzero slot in k (k in ALS_CONTROLS):
+#: the control at ALS_CONTROL_GATED must land outside it, or the gate is
+#: blind and the phase fails. Readings on an H100 (PERF.md, section 6): sound
+#: 2.57e-4 (f32); controls k = 10, 100, 1000, 10000: 9.57e-3, 1.16e-3,
+#: 3.46e-4, 2.66e-4.
+ALS_SHAPE_LOG_M, ALS_RATIO_TOL = 12, 5e-4
+ALS_CONTROLS, ALS_CONTROL_GATED = (10, 100, 1000, 10000), 100
+#: The port's residual within ``slack`` of the serial one (both ways) and
+#: its factors within ``factor_tol`` of the serial ones (of their max abs).
+ALS_ORACLE = {"log_m": 12, "edge_factor": 32, "R": 32, "steps": 2, "slack": 1.05,
+              "factor_tol": 1e-4}
+ALS_RING = {"grid": (4, 2), "tol": 1e-4, "banked_steps": 2, "banked_rtol": 1e-4}
+#: Frames of M_pad x R float32 the CG vector algebra must move an
+#: iteration at the least: X, r, p and the Gram product read; X, r, p
+#: written.
+CG_FRAMES = 7
+#: GAT: the harness's network (heads 4, 4, 6, features_per_head = R);
+#: the headline output against float64 within these of its max abs value.
+GAT = {"warmup": 1, "forwards": 3}
+GAT_TOL = {"f32": 1e-4, "bf16": 1e-2}
 PLAIN = {
     "sddmm_tile": cuda_kernels.sddmm_tile_plain,
     "spmm_tile": cuda_kernels.spmm_tile_plain,
@@ -2092,6 +2169,450 @@ def phase_ring(S16, uniform, dev, launches: dict, card: str) -> dict:
     return scaling
 
 
+# ---------------------------------------------------------------- apps
+
+
+def als_launches(steps: int, cg_iters: int, truth: bool = True, residuals: int = 1) -> dict:
+    """Generic launches of ``DistributedALS`` at p = 1: the artificial
+    ground truth (an SDDMM in each mode), each half-step's right-hand side
+    (an SpMM) and its ``cg_iters + 1`` fused pairs, an SDDMM a residual."""
+    counts = dict.fromkeys(cuda_kernels.LAUNCHES, 0)
+    counts.update(sddmm_tile=2 * truth + residuals, spmm_tile=2 * steps,
+                  fused_tile=2 * steps * (cg_iters + 1))
+    return counts
+
+
+def gat_launches(forwards: int, heads: int) -> dict:
+    counts = dict.fromkeys(cuda_kernels.LAUNCHES, 0)
+    counts.update(sddmm_tile=forwards * heads, spmm_tile=forwards * heads)
+    return counts
+
+
+def cg_split(als, iters: int) -> dict:
+    """An A half-step's CG iterations through the model's own ``cgStep``
+    program, timed in parts by CUDA events (its ``mark`` hook): the fused
+    pair and the rest (``+ lambda * p`` and the vector algebra), beside the
+    rest's byte bound. Not counted as main-path launches."""
+    alg = als.d_ops
+    prog = als._cg_iter_program(MatMode.A, als.ridge_lambda)
+    r = als.compute_rhs(MatMode.A) - als.compute_queries(als.A, als.B, MatMode.A)
+    rsold = als_mod._batch_dot(r, r)
+    X, p = als.A.clone(), r.clone()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * iters + 1)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    for i in range(iters):
+        X, r, p, rsold = prog(X, als.B, r, p, rsold, mark=lambda _, e=ev[2 * i + 1]: e.record())
+        ev[2 * i + 2].record()
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(X).all()), "als cg split: non-finite factors")
+    pair = sum(ev[2 * i].elapsed_time(ev[2 * i + 1]) for i in range(iters)) / iters
+    rest = sum(ev[2 * i + 1].elapsed_time(ev[2 * i + 2]) for i in range(iters)) / iters
+    return {"pair_ms": pair, "rest_ms": rest, "iteration_ms": pair + rest,
+            "rest_share": rest / (pair + rest), "rest_frames_bound": CG_FRAMES,
+            "rest_bound_ms": CG_FRAMES * alg.M_pad * alg.R * 4 / HBM_BYTES_PER_S * 1e3}
+
+
+def als_full(uniform, dev, launches: dict, card: str) -> dict:
+    """ALS at the full cell through the harness's ``_run_als`` (one warmup
+    step, timed steps), f32 and bf16; the residual trajectory a step at a
+    time from fresh embeddings; a CG iteration split into pair and rest."""
+    S, alg = uniform
+    it, steps = ALS["cg_iters"], ALS["steps"]
+    t0 = time.perf_counter()
+    shape_ratio = serial_first_step_ratio(ALS_SHAPE_LOG_M, alg.R, it)
+    result = {"float64_first_step_ratio": shape_ratio, "float64_log_m": ALS_SHAPE_LOG_M,
+              "float64_seconds": time.perf_counter() - t0}
+    for prec in PRECISIONS:
+        alg.kernel = CudaTileKernel(prec, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        (elapsed, stats), counts = run_counted(
+            lambda: harness._run_als(alg, steps, ALS["warmup"], cg_iters=it, S=S))
+        peak = torch.cuda.max_memory_allocated()
+        expect = als_launches(ALS["warmup"] + steps, it)
+        require(counts == expect, f"als full/{prec}: launches {counts} != {expect}")
+        add_launches(launches, counts, prec)
+        cg = alg.metrics["cgStep"]
+        als = als_mod.DistributedALS(alg, S_host=S)
+        als.initialize_embeddings()
+        traj = [als.compute_residual()]
+        for _ in range(steps):
+            als.run_cg(1, cg_iters=it)
+            traj.append(als.compute_residual())
+        split = cg_split(als, it)
+        row = {"ms_per_step": elapsed / steps * 1e3, "steps": steps, "cg_iters": it,
+               "residual": stats["als_residual"], "trajectory": traj,
+               "cg_step_host_ms": cg["seconds"] / cg["calls"] * 1e3,
+               "cg_iteration": split, "peak_mem_bytes": peak, "launches": counts,
+               "gflops": 2.0 * S.nnz * 2.0 * alg.R * steps / elapsed / 1e9}
+        ratio = traj[1] / traj[0]
+        row["first_step_ratio"] = ratio
+        row["ratio_gap"] = abs(ratio - shape_ratio)
+        if prec == "f32":
+            row["controls"] = {k: first_step_ratio_with_dropped_slots(S, alg, k, it)
+                               for k in ALS_CONTROLS}
+            for c in row["controls"].values():
+                c["ratio_gap"] = abs(c["first_step_ratio"] - shape_ratio)
+        emit({"phase": "apps_als_full", "card": card, "precision": prec, "nnz": S.nnz,
+              "R": alg.R, "float64_first_step_ratio": shape_ratio,
+              "ratio_tol": ALS_RATIO_TOL, **row})
+        require(all(np.isfinite(traj)) and np.isfinite(stats["als_residual"])
+                and "als_degraded" not in stats, f"als full/{prec}: {traj}")
+        require(ratio < 1 and row["ratio_gap"] <= ALS_RATIO_TOL,
+                f"als full/{prec}: trajectory {traj}, first-step ratio {ratio:.6f} against "
+                f"float64's {shape_ratio:.6f} at log_m {ALS_SHAPE_LOG_M} "
+                f"(tolerance {ALS_RATIO_TOL})")
+        if prec == "f32":
+            require(all(b < 1.01 * a for a, b in zip(traj[1:], traj[2:])),
+                    f"als full/f32: a step raised the residual: {traj}")
+            gap = row["controls"][ALS_CONTROL_GATED]["ratio_gap"]
+            require(gap > ALS_RATIO_TOL,
+                    f"als full: the ratio gate is blind: the control dropping 1 in "
+                    f"{ALS_CONTROL_GATED} Gram slots is off by {gap:.3e} only "
+                    f"(tolerance {ALS_RATIO_TOL})")
+        result[prec] = row
+        del als
+    return result
+
+
+def first_step_ratio_with_dropped_slots(S, alg, every: int, cg_iters: int) -> dict:
+    """A control for the ratio gate: ``r1 / r0`` of one step whose Gram
+    operator (the CG iterations' fused pair) drops one nonzero slot in
+    ``every`` (a partly wrong operator; the right-hand side and the
+    residual see every observation)."""
+    real = alg.fused_program
+
+    def dropped(s_vals, mode=MatMode.A):
+        vals = s_vals.clone()
+        vals.view(-1)[::every] = 0
+        return real(vals, mode)
+
+    als = als_mod.DistributedALS(alg, S_host=S)
+    als.initialize_embeddings()
+    r0 = als.compute_residual()
+    alg.fused_program = dropped
+    try:
+        als.run_cg(1, cg_iters=cg_iters)
+    finally:
+        del alg.fused_program
+    r1 = als.compute_residual()
+    require(np.isfinite(r1), f"als control 1/{every}: residual {r1}")
+    return {"every": every, "trajectory": [r0, r1], "first_step_ratio": r1 / r0}
+
+
+def serial_first_step_ratio(log_m: int, R: int, cg_iters: int) -> float:
+    """``r1 / r0`` of the float64 serial solver on a uniform R-mat with the
+    full cell's edge factor and R."""
+    serial = SerialALS(HostCOO.rmat(log_m, FULL["edge_factor"], np.random.default_rng(0)), R)
+    r0 = serial.compute_residual()
+    serial.run_cg(1, cg_iters=cg_iters)
+    return serial.compute_residual() / r0
+
+
+def als_protocol(dev, launches: dict, card: str) -> dict:
+    """The JAX package's ALS protocol on the card: its problem, its strategy
+    (``DenseShift15D``, fusion 2, c = 2 at p = 8, here a ``LocalWorld``),
+    its gates, f32."""
+    cfg = ALS_PROTOCOL
+    S = HostCOO.erdos_renyi(cfg["M"], cfg["N"], cfg["nnz_per_row"], np.random.default_rng(0))
+    alg = make_algorithm("15d_fusion2", S, cfg["R"], c=cfg["c"], world=LocalWorld(cfg["p"]),
+                         kernel=CudaTileKernel("f32", device=dev), device=dev)
+    als = als_mod.DistributedALS(alg, seed=0)
+    als.initialize_embeddings()
+    traj = [als.compute_residual()]
+    for _ in range(2):
+        _, counts = run_counted(lambda: als.run_cg(1, cg_iters=cfg["cg_iters"]))
+        add_launches(launches, counts, "f32")
+        traj.append(als.compute_residual())
+    r0, r1, r2 = traj
+    rung = als_card_rung(S, alg, cfg["cg_iters"])
+    emit({"phase": "apps_als_protocol", "card": card, "nnz": S.nnz, **cfg, "trajectory": traj,
+          "card_rung": rung})
+    require(r1 < 0.5 * r0 and r2 < 1.01 * r1, f"als protocol: {traj}")
+    require(rung["raised"] and "no host fallback" in rung["message"]
+            and rung["degraded"] is None and rung["factors_kept"],
+            f"als protocol: the ladder's last rung on the card: {rung}")
+    return {"trajectory": traj, "card_rung": rung}
+
+
+def als_card_rung(S, alg, cg_iters: int) -> dict:
+    """The ladder on the card: guards on, ``S_host`` given, the public fused
+    pair (each half-step's initial residual) returns NaN twice. The
+    damped restart fails as well, and ``run_cg`` must raise
+    ``NumericalFault`` rather than continue on the host's serial solver,
+    with the factors left as they were."""
+    als = als_mod.DistributedALS(alg, seed=0, S_host=S, guard=True)
+    als.initialize_embeddings()
+    A0, B0 = als.A.clone(), als.B.clone()
+    real, hits = alg.fused_spmm, []
+
+    def poisoned(*args, **kw):
+        out, mid = real(*args, **kw)
+        if len(hits) < 2:
+            hits.append(1)
+            out = torch.full_like(out, float("nan"))
+        return out, mid
+
+    alg.fused_spmm = poisoned
+    message = None
+    try:
+        als.run_cg(1, cg_iters=cg_iters)
+    except NumericalFault as e:
+        message = str(e)
+    finally:
+        del alg.fused_spmm
+    return {"raised": message is not None, "message": message, "poisoned_calls": len(hits),
+            "degraded": als.degraded,
+            "factors_kept": bool(torch.equal(als.A, A0) and torch.equal(als.B, B0))}
+
+
+def als_oracle(dev, launches: dict, card: str) -> dict:
+    """The port's f32 ALS and the float64 serial solver from the same host
+    factors and observations."""
+    cfg = ALS_ORACLE
+    S = HostCOO.rmat(cfg["log_m"], cfg["edge_factor"], np.random.default_rng(0))
+    serial = SerialALS(S, cfg["R"], seed=1)
+    alg = make_algorithm("15d_fusion2", S, cfg["R"], kernel=CudaTileKernel("f32", device=dev),
+                         device=dev)
+    als = als_mod.DistributedALS(
+        alg, artificial_groundtruth=False, ground_truth_vals=serial.ground_truth,
+        ground_truth_vals_transpose=S.with_values(serial.ground_truth).transpose().vals)
+    als.A = alg.put_a(serial.A.astype(np.float32))
+    als.B = alg.put_b(serial.B.astype(np.float32))
+    r0 = (serial.compute_residual(), als.compute_residual())
+    serial.run_cg(cfg["steps"], cg_iters=ALS["cg_iters"])
+    _, counts = run_counted(lambda: als.run_cg(cfg["steps"], cg_iters=ALS["cg_iters"]))
+    expect = als_launches(cfg["steps"], ALS["cg_iters"], truth=False, residuals=0)
+    rs, rp = serial.compute_residual(), als.compute_residual()
+    rel = {"A": float(np.abs(alg.host_a(als.A) - serial.A).max() / np.abs(serial.A).max()),
+           "B": float(np.abs(alg.host_b(als.B) - serial.B).max() / np.abs(serial.B).max())}
+    row = {"nnz": S.nnz, "R": cfg["R"], "steps": cfg["steps"], "residual_start": r0,
+           "residual_serial": rs, "residual_port": rp, "factor_rel_diff": rel,
+           "launches": counts}
+    emit({"phase": "apps_als_oracle", "card": card, **row})
+    require(counts == expect, f"als oracle: launches {counts} != {expect}")
+    require(rs / cfg["slack"] <= rp <= cfg["slack"] * rs,
+            f"als oracle: residual {rp} not within {cfg['slack']} x of {rs}")
+    require(max(rel.values()) <= cfg["factor_tol"],
+            f"als oracle: factors off the float64 ones by {rel} > {cfg['factor_tol']}")
+    add_launches(launches, counts, "f32")
+    return row
+
+
+def als_ring(S16, dev, launches: dict, card: str) -> dict:
+    """One step at (p, c) on a ``LocalWorld`` against p = 1; two steps of
+    the banked kernel (Graph500 16, its variant) against the generic one,
+    the banked launches as the bands predict, ``split_reduce`` in B mode."""
+    R, it = HEADLINE["R"], ALS["cg_iters"]
+    p, c = ALS_RING["grid"]
+    factors = {}
+    for grid in ((1, 1), (p, c)):
+        alg = make_algorithm("15d_fusion2", S16, R, c=grid[1], world=LocalWorld(grid[0]),
+                             kernel=CudaTileKernel("f32", device=dev), device=dev)
+        als = als_mod.DistributedALS(alg, seed=0)
+        _, counts = run_counted(lambda: als.run_cg(1, cg_iters=it))
+        add_launches(launches, counts, "f32")
+        factors[grid] = (alg.host_a(als.A), alg.host_b(als.B), als.compute_residual(), counts)
+        del als, alg
+    (a1, b1, r1, _), (ap, bp, rp, cp) = factors[(1, 1)], factors[(p, c)]
+    rel = {"A": float(np.abs(ap - a1).max() / np.abs(a1).max()),
+           "B": float(np.abs(bp - b1).max() / np.abs(b1).max())}
+    result = {"ring": {"p": p, "c": c, "factor_rel_diff": rel, "residual": [r1, rp],
+                       "launches": cp}}
+    emit({"phase": "apps_als_ring", "card": card, **result["ring"]})
+    require(max(rel.values()) <= ALS_RING["tol"], f"als ring ({p},{c}): {rel}")
+
+    S = graph500(HEADLINE["log_m"])
+    variant = select_variant(Problem.from_coo(S, R))
+    alg = make_algorithm("15d_fusion2", S, R, kernel=BankedCudaKernel(variant, "f32", device=dev),
+                         device=dev)
+    s_b, st_b = alg.S_tiles.tile(0, 0).bands, alg.ST_tiles.tile(0, 0).bands
+    half = {MatMode.A: added(band_launches(s_b, "spmm"), scaled(band_launches(s_b, "fused"), it + 1)),
+            MatMode.B: added(band_launches(st_b, "spmm"), scaled(band_launches(st_b, "fused"), it + 1))}
+    res = {}
+    for name, kernel in (("banked", BankedCudaKernel(variant, "f32", device=dev)),
+                         ("generic", CudaTileKernel("f32", device=dev))):
+        alg.kernel = kernel
+        als = als_mod.DistributedALS(alg, seed=0)
+        als.initialize_embeddings()
+        counts = {}
+        for mode in (MatMode.A, MatMode.B):
+            _, counts[mode] = run_counted(lambda: als.cg_optimizer(mode, it))
+        _, rest = run_counted(lambda: als.run_cg(ALS_RING["banked_steps"] - 1, cg_iters=it))
+        res[name] = als.compute_residual()
+        if name == "banked":
+            for mode in (MatMode.A, MatMode.B):
+                require(counts[mode] == half[mode],
+                        f"als banked {mode.name}: launches {counts[mode]} != {half[mode]}")
+            require(counts[MatMode.B]["split_reduce"] > 0, "als banked: no split_reduce in B mode")
+        add_launches(launches, added(counts[MatMode.A], counts[MatMode.B], rest), "f32")
+        del als
+    rel_res = abs(res["banked"] / res["generic"] - 1)
+    result["banked"] = {"variant": variant.variant_id, "nnz": S.nnz, "residual": res,
+                        "rel_diff": rel_res, "launches_A": half[MatMode.A],
+                        "launches_B": half[MatMode.B],
+                        "bands_S": band_info(alg.S_tiles), "bands_ST": band_info(alg.ST_tiles)}
+    emit({"phase": "apps_als_banked", "card": card, **result["banked"]})
+    require(rel_res <= ALS_RING["banked_rtol"], f"als banked: residuals {res}")
+    return result
+
+
+def gat_headline(S16, dev, launches: dict, card: str) -> dict:
+    """The harness's GAT at the headline size, f32 and bf16, against a
+    float64 host forward pass with the same weights."""
+    R = HEADLINE["R"]
+    alg = make_algorithm("15d_fusion2", S16, R, kernel=CudaTileKernel("f32", device=dev),
+                         device=dev)
+    gat = gat_mod.GAT(harness._gat_layers(R), alg, seed=0)
+    heads = sum(layer.num_heads for layer in gat.layers)
+    t0 = time.perf_counter()
+    want = oracle.gat_forward(S16, oracle.dummy_dense(alg.M_pad, R) / (alg.M * R),
+                              [[w.double().cpu().numpy() for w in layer.weights]
+                               for layer in gat.layers])[: alg.M]
+    oracle_s = time.perf_counter() - t0
+    scale = float(np.abs(want).max())
+    result = {"oracle_seconds": oracle_s, "max_abs": scale}
+    for prec in PRECISIONS:
+        alg.kernel = CudaTileKernel(prec, device=dev)
+        out, counts = run_counted(gat.forward)
+        got = alg.host_a(out)
+        err = float(np.abs(got - want).max()) / scale
+        result[prec] = {"rel_err": err, "tol": GAT_TOL[prec], "launches": counts}
+        emit({"phase": "apps_gat_headline", "card": card, "precision": prec,
+              "shape": list(got.shape), "oracle_seconds": oracle_s, **result[prec]})
+        require(got.shape == want.shape and np.isfinite(got).all(),
+                f"gat headline/{prec}: output {got.shape} not finite or misshapen")
+        require(err <= GAT_TOL[prec], f"gat headline/{prec}: {err:.3e} > {GAT_TOL[prec]}")
+        require(counts == gat_launches(1, heads), f"gat headline/{prec}: launches {counts}")
+        add_launches(launches, counts, prec)
+    return result
+
+
+def gat_breakdown(gat) -> list:
+    """One forward pass through ``GAT.layer_forward``, the code that
+    ``forward`` times, with a CUDA event after each part of each head (its
+    ``mark`` hook): the projection, the SDDMM, the SpMM and the elementwise
+    work (LeakyReLU, ReLU, the head concat); ms a layer."""
+    X = gat.default_input()
+    rows = []
+    for i, layer in enumerate(gat.layers):
+        marks = []
+
+        def mark(part, marks=marks):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((part, ev))
+
+        start = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        X = gat.layer_forward(i, X, mark=mark)
+        torch.cuda.synchronize()
+        parts = dict.fromkeys(("projection", "sddmm", "spmm", "elementwise"), 0.0)
+        prev = start
+        for part, ev in marks:
+            parts[part if part in parts else "elementwise"] += prev.elapsed_time(ev)
+            prev = ev
+        rows.append({"in": layer.input_features, "heads": layer.num_heads,
+                     "out": layer.output_features, **parts, "total_ms": sum(parts.values())})
+    require(bool(torch.isfinite(X).all()), "gat breakdown: output not finite")
+    return rows
+
+
+def gat_full(uniform, dev, launches: dict, card: str) -> dict:
+    """The harness's ``_run_gat`` at the full cell (1 warmup, 3 timed
+    forwards), f32 and bf16, a forward's breakdown per layer, peak
+    memory."""
+    S, alg = uniform
+    R = FULL["R"]
+    result = {}
+    for prec in PRECISIONS:
+        alg.set_r_value(R)
+        alg.kernel = CudaTileKernel(prec, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        (elapsed, stats), counts = run_counted(
+            lambda: harness._run_gat(alg, GAT["forwards"], GAT["warmup"]))
+        peak = torch.cuda.max_memory_allocated()
+        heads = sum(stats["gat_heads"])
+        expect = gat_launches(GAT["warmup"] + GAT["forwards"], heads)
+        require(counts == expect, f"gat full/{prec}: launches {counts} != {expect}")
+        add_launches(launches, counts, prec)
+        alg.set_r_value(R)
+        layers = gat_breakdown(gat_mod.GAT(harness._gat_layers(R), alg, seed=0))
+        row = {"ms_per_forward": elapsed / GAT["forwards"] * 1e3, "forwards": GAT["forwards"],
+               "heads": stats["gat_heads"], "peak_mem_bytes": peak, "launches": counts,
+               "layers": layers, "breakdown_total_ms": sum(r["total_ms"] for r in layers)}
+        emit({"phase": "apps_gat_full", "card": card, "precision": prec, "nnz": S.nnz,
+              "R": R, **row})
+        result[prec] = row
+    alg.set_r_value(R)
+    return result
+
+
+def cli_apps(dev, launches: dict, card: str) -> dict:
+    """``er --app als`` with a checkpoint store, the same resumed from it,
+    and ``er --app gat``, in-process on the card (the CLI's default kernel,
+    cuda-bf16), under the gitignored build directory."""
+    path = _build.BUILD_DIR / "chip_smoke_cli_apps.jsonl"
+    ckpt = _build.BUILD_DIR / "chip_smoke_checkpoints"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    it = ALS["cg_iters"]
+    R = HEADLINE["R"]
+    base = ["er", str(HEADLINE["log_m"]), str(HEADLINE["edge_factor"]), "15d_fusion2",
+            str(R), "1", "-o", str(path)]
+    runs = (
+        ("als", ["--app", "als", "--trials", "2", "--checkpoint-dir", str(ckpt)],
+         als_launches(1 + 2, it), [1, 2], 2),
+        ("als_resume", ["--app", "als", "--trials", "3", "--checkpoint-dir", str(ckpt),
+                        "--resume"], als_launches(1 + 1, it), [1, 2, 3], 1),
+        ("gat", ["--app", "gat", "--trials", "2"], gat_launches(3, 14), None, None),
+    )
+    result = {}
+    for name, extra, expect, steps, spmm_a in runs:
+        rc, counts = run_counted(lambda: cli.main(base + extra))
+        rec = json.loads(path.read_text().splitlines()[-1])
+        info = {k: rec.get(k) for k in ("app", "kernel", "device", "elapsed",
+                                        "overall_throughput", "als_residual", "cg_iters",
+                                        "gat_heads")}
+        info["metrics_calls"] = {k: v["calls"] for k, v in rec["metrics"].items()}
+        emit({"phase": "apps_cli", "card": card, "run": name, "argv": base + extra,
+              "launches": counts, **info})
+        require(rc == 0 and rec["kernel"] == "cuda-bf16"
+                and rec["device"] == torch.cuda.get_device_name(0), f"cli {name}: {info}")
+        require(counts == expect, f"cli {name}: launches {counts} != {expect}")
+        if steps is None:
+            require(rec["gat_heads"] == [4, 4, 6] and rec["R"] == 6 * R, f"cli {name}: {info}")
+        else:
+            require(np.isfinite(rec["als_residual"]) and rec["cg_iters"] == it
+                    and CheckpointStore(ckpt).steps() == steps
+                    and info["metrics_calls"]["spmmA"] == spmm_a, f"cli {name}: {info}")
+        add_launches(launches, counts, "bf16")
+        result[name] = info
+    path.unlink()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return result
+
+
+def phase_apps(S16, uniform, dev, launches: dict, card: str) -> dict:
+    t0 = time.perf_counter()
+    seconds, out = {}, {}
+    for name, fn, args in (("als_protocol", als_protocol, ()), ("als_full", als_full, (uniform,)),
+                           ("als_oracle", als_oracle, ()),
+                           ("als_ring", als_ring, (S16,)), ("gat_headline", gat_headline, (S16,)),
+                           ("gat_full", gat_full, (uniform,)), ("cli", cli_apps, ())):
+        t = time.perf_counter()
+        out[name] = fn(*args, dev, launches, card)
+        seconds[name] = time.perf_counter() - t
+    emit({"phase": "apps", "card": card, "seconds": time.perf_counter() - t0,
+          "seconds_by_part": seconds,
+          "als_ms_per_step": {p: out["als_full"][p]["ms_per_step"] for p in PRECISIONS},
+          "als_cg_iteration": {p: out["als_full"][p]["cg_iteration"] for p in PRECISIONS},
+          "gat_ms_per_forward": {p: out["gat_full"][p]["ms_per_forward"] for p in PRECISIONS}})
+    return out
+
+
 def main() -> int:
     info = phase_device()
     dev = torch.device("cuda")
@@ -2113,8 +2634,10 @@ def main() -> int:
     phase_cli(dev, launches)
     ring: dict = {}
     phase_ring(S16, uniform, dev, ring, info["nvidia_smi"])
+    apps: dict = {}
+    phase_apps(S16, uniform, dev, apps, info["nvidia_smi"])
     del uniform
-    for key, n in ring.items():
+    for key, n in (*ring.items(), *apps.items()):
         launches[key] = launches.get(key, 0) + n
 
     kernels = []
@@ -2127,6 +2650,7 @@ def main() -> int:
             "name": f"{op}[{prec}]", "route": "cuda", "source": SOURCES[op],
             "replaces": REPLACES[op], "launches": n,
             "ring_launches": ring.get((op, prec), 0),
+            "apps_launches": apps.get((op, prec), 0),
             "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
             "max_rel_err": max(r["max_rel_err"] for r in shapes.values()),
             "tol": main_["tol"],

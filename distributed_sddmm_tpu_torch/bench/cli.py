@@ -4,7 +4,11 @@
 One subcommand so far, ``er``: an R-mat matrix of ``2**log_m`` rows and
 ``edge_factor`` edges a row, one algorithm, one R, one c. With
 ``--app attention`` the matrix is replaced by the ``--mask`` pattern over
-as many tokens, and the run times fused block-sparse attention. With
+as many tokens, and the run times fused block-sparse attention;
+``--app gat`` times the GAT forward pass and ``--app als`` alternating
+ALS-CG steps, whose factors persist under ``--checkpoint-dir`` (every
+``--checkpoint-every`` steps; ``--resume`` starts from the newest valid
+checkpoint there). With
 ``--kernel-variant VID`` the local kernel is the banked CUDA kernel of that
 codegen variant (``codegen/``), which refuses ``--kernel torch`` as the
 JAX CLI refuses a kernel other than pallas. ``--fusion overlap`` runs the
@@ -27,9 +31,7 @@ import numpy as np
 import torch.distributed as dist
 
 from distributed_sddmm_tpu_torch import masks
-from distributed_sddmm_tpu_torch.bench.harness import (
-    APPS, APPS_NOT_PORTED, benchmark_algorithm,
-)
+from distributed_sddmm_tpu_torch.bench.harness import APPS, benchmark_algorithm
 from distributed_sddmm_tpu_torch.codegen import make_banked_kernel
 from distributed_sddmm_tpu_torch.device import resolve_device
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
@@ -66,7 +68,7 @@ def build_parser() -> argparse.ArgumentParser:
     er.add_argument("alg", help="algorithm name (15d_fusion1 | 15d_fusion2)")
     er.add_argument("R", type=int)
     er.add_argument("c", type=int)
-    er.add_argument("--app", default="vanilla", choices=APPS + APPS_NOT_PORTED)
+    er.add_argument("--app", default="vanilla", choices=APPS)
     er.add_argument(
         "--mask", default="window:16", metavar="SPEC",
         help="with --app attention: the mask, window:<w>, "
@@ -95,6 +97,13 @@ def build_parser() -> argparse.ArgumentParser:
     er.add_argument("--kernel-variant", default=None, metavar="VID",
                     help="codegen variant id (v1.rb<thr>.<rs|rm|rl>): run the "
                     "banked CUDA kernel, one launch per row band")
+    er.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                    help="persist app state (ALS factors) under DIR atomically")
+    er.add_argument("--checkpoint-every", type=int, default=1, metavar="N",
+                    help="checkpoint every N alternating steps (with --checkpoint-dir)")
+    er.add_argument("--resume", action="store_true",
+                    help="resume from the newest valid checkpoint in --checkpoint-dir "
+                    "instead of step 0 (corrupt checkpoints scan back; none = fresh)")
     er.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     er.add_argument("-o", "--output-file", default=None,
                     help="append JSON records here")
@@ -131,7 +140,8 @@ def main(argv=None) -> int:
                 kernel=kernel, device=device,
                 mask=args.mask if args.app == "attention" else None,
                 world=world, overlap=args.fusion == "overlap",
-                breakdown=args.breakdown,
+                breakdown=args.breakdown, checkpoint_dir=args.checkpoint_dir,
+                checkpoint_every=args.checkpoint_every, resume=args.resume,
             )
             if world.process_index == 0:
                 print(json.dumps({

@@ -3,13 +3,17 @@
 
 The same five algorithm names as the JAX package; the two 1.5D dense-shift
 fusions are ported, sequential or overlapped (``overlap``), over any world
-of ``parallel/comm.py``. Two apps: ``vanilla`` (fused SDDMM->SpMM pairs)
-and ``attention`` (fused block-sparse attention over a mask). One untimed
-warmup precedes the timed trials, whose throughput is
-``2 * nnz * 2 * R * trials / elapsed`` GFLOP/s (an SDDMM and an SpMM of
-``2 * nnz * R`` flops each, nnz of the whole matrix, so a rate at p ranks
-compares directly with p = 1's). The elapsed time is the host clock
-around the trials, which end in a device synchronise.
+of ``parallel/comm.py``. Four apps: ``vanilla`` (fused SDDMM->SpMM pairs),
+``attention`` (fused block-sparse attention over a mask), ``gat`` (the
+multi-head GAT forward pass, ``models/gat.py``) and ``als`` (alternating
+steps of ALS-CG, ``models/als.py``). Untimed warmup precedes the timed
+trials, whose throughput is ``2 * nnz * 2 * R * trials / elapsed`` GFLOP/s
+for every app (an SDDMM and an SpMM of ``2 * nnz * R`` flops each, nnz of
+the whole matrix, so a rate at p ranks compares directly with p = 1's;
+for ALS a trial is an alternating step, which runs about
+``2 * (cg_iters + 2)`` pairs, and for GAT a forward pass, at the last
+layer's R). The elapsed time is the host clock around the trials, which
+end in a device synchronise.
 """
 
 from __future__ import annotations
@@ -20,10 +24,13 @@ from typing import Optional
 
 from distributed_sddmm_tpu_torch.common import MatMode
 from distributed_sddmm_tpu_torch.device import device_label, synchronize
+from distributed_sddmm_tpu_torch.models.als import DistributedALS
+from distributed_sddmm_tpu_torch.models.gat import GAT, GATLayer
 from distributed_sddmm_tpu_torch.parallel.base import (
     DistributedSparse, realized_kernel_variant,
 )
 from distributed_sddmm_tpu_torch.parallel.dense_shift_15d import DenseShift15D
+from distributed_sddmm_tpu_torch.resilience import CheckpointStore
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 
 ALGORITHM_FACTORIES = {
@@ -45,8 +52,8 @@ OVERLAP_CAPABLE = ("15d_fusion1", "15d_fusion2", "15d_sparse")
 #: two ring passes; the sparse-shift and Cannon layouts move the values
 #: with the ring.
 ATTENTION_CAPABLE = ("15d_fusion1", "15d_fusion2")
-APPS = ("vanilla", "attention")
-APPS_NOT_PORTED = ("gat", "als")
+APPS = ("vanilla", "attention", "gat", "als")
+APPS_NOT_PORTED = ()
 
 
 def make_algorithm(name: str, S: HostCOO, R: int, c: int = 1, kernel=None,
@@ -154,6 +161,55 @@ def _run_attention(alg: DistributedSparse, fused: bool, trials: int,
     return elapsed, {"attention_hbm": _attention_hbm_bytes(alg, s_vals, A, B)}
 
 
+def _gat_layers(R: int, num_layers: int = 3) -> list[GATLayer]:
+    """The GAT of the JAX benchmark: heads (4, 4, 6), ``features_per_head
+    = R``, each layer's input the previous layer's output."""
+    layers, in_feat = [], R
+    for h in [4, 4, 6][:num_layers]:
+        layers.append(GATLayer(input_features=in_feat, features_per_head=R, num_heads=h))
+        in_feat = R * h
+    return layers
+
+
+def _run_gat(alg: DistributedSparse, trials: int, warmup: int, num_layers: int = 3):
+    """Forward passes of the benchmark GAT on the dummy input."""
+    gat = GAT(_gat_layers(alg.R, num_layers), alg)
+    for _ in range(warmup):
+        gat.forward()
+    synchronize(alg.device)
+    alg.reset_performance_timers()
+    t0 = time.perf_counter()
+    for _ in range(trials):
+        gat.forward()
+    synchronize(alg.device)
+    return time.perf_counter() - t0, {"gat_heads": [layer.num_heads for layer in gat.layers]}
+
+
+def _run_als(alg: DistributedSparse, trials: int, warmup: int, cg_iters: int = 10,
+             S: Optional[HostCOO] = None, checkpoint_dir: Optional[str] = None,
+             checkpoint_every: int = 1, resume: bool = False):
+    """``trials`` alternating ALS steps (one warmup step first, then the
+    embeddings start afresh), with a checkpoint store under
+    ``checkpoint_dir`` when given."""
+    als = DistributedALS(alg, S_host=S)
+    als.initialize_embeddings()
+    if warmup:
+        als.run_cg(1, cg_iters=cg_iters)
+        als.initialize_embeddings()
+    store = CheckpointStore(checkpoint_dir) if checkpoint_dir else None
+    synchronize(alg.device)
+    alg.reset_performance_timers()
+    t0 = time.perf_counter()
+    als.run_cg(trials, cg_iters=cg_iters, checkpoint=store,
+               checkpoint_every=checkpoint_every, resume=resume)
+    synchronize(alg.device)
+    elapsed = time.perf_counter() - t0
+    stats = {"als_residual": als.compute_residual(), "cg_iters": cg_iters}
+    if als.degraded:
+        stats["als_degraded"] = als.degraded
+    return elapsed, stats
+
+
 def benchmark_algorithm(
     S: HostCOO,
     algorithm_name: str,
@@ -170,20 +226,19 @@ def benchmark_algorithm(
     world=None,
     overlap: bool = False,
     breakdown: bool = False,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 1,
+    resume: bool = False,
 ) -> dict:
-    """Run one ``vanilla`` or ``attention`` configuration; append a JSON
-    record to ``output_file`` (if given; process 0 of a world of
-    processes) and return it. With ``attention`` ``S`` is the mask and
-    ``mask`` its spec, which the record carries. ``breakdown`` replaces
-    ``perf_stats`` by the fused pair's region attribution
-    (``measure_breakdown``). Field names follow the JAX package's record
-    for what this port measures."""
-    if app in APPS_NOT_PORTED:
-        raise NotImplementedError(
-            f"app {app!r} is not ported yet (ROADMAP.md, queue A items 8-9)")
+    """Run one configuration of an app; append a JSON record to
+    ``output_file`` (if given; process 0 of a world of processes) and
+    return it. With ``attention`` ``S`` is the mask and ``mask`` its spec,
+    which the record carries. ``breakdown`` replaces ``perf_stats`` by the
+    fused pair's region attribution (``measure_breakdown``). The
+    checkpoint arguments are ALS's (``run_cg``). Field names follow the
+    JAX package's record for what this port measures."""
     if app not in APPS:
-        raise ValueError(f"unknown app {app!r}; expected "
-                         f"{' | '.join(APPS + APPS_NOT_PORTED)}")
+        raise ValueError(f"unknown app {app!r}; expected {' | '.join(APPS)}")
     if breakdown and (app != "vanilla" or not fused):
         # Fail before any measurement: the attribution times the fusedSpMM
         # op, so it would mix ops and units into unfused or attention
@@ -197,6 +252,12 @@ def benchmark_algorithm(
                          overlap=overlap)
     if app == "attention":
         elapsed, app_stats = _run_attention(alg, fused, trials, warmup)
+    elif app == "gat":
+        elapsed, app_stats = _run_gat(alg, trials, warmup)
+    elif app == "als":
+        elapsed, app_stats = _run_als(alg, trials, warmup, S=S,
+                                      checkpoint_dir=checkpoint_dir,
+                                      checkpoint_every=checkpoint_every, resume=resume)
     else:
         elapsed, app_stats = _run_vanilla(alg, fused, trials, warmup), {}
     throughput = 2.0 * S.nnz * 2.0 * alg.R * trials / max(elapsed, 1e-12) / 1e9

@@ -219,6 +219,38 @@ class DistributedSparse(abc.ABC):
     def de_shift(self, A, B, mode: KernelMode):
         return A, B
 
+    # ------------------------- feature width (GAT) ------------------------- #
+
+    def set_r_value(self, R: int) -> None:
+        """Change the inner dimension R. Nothing a strategy keeps is sized
+        by R: dense buffers, ring buffers and ``comm_profile`` all take the
+        new width from here or from the operands of each call."""
+        self.R = R
+
+    def _unskew_cols(self, X: torch.Tensor, mode: MatMode) -> torch.Tensor:
+        """Resident layout -> global column order (identity: no ported
+        strategy skews its columns)."""
+        return X
+
+    def _skew_cols(self, X: torch.Tensor, mode: MatMode) -> torch.Tensor:
+        """Global column order -> resident layout (identity)."""
+        return X
+
+    def dense_project(self, X: torch.Tensor, W: torch.Tensor, mode: MatMode) -> torch.Tensor:
+        """The local projection ``X @ W`` in the canonical layout (the GAT
+        head's matrix product; ``W`` is ``(R_in, R_out)`` in global column
+        order, and each process projects its own rows). float32 matmuls
+        run without TF32: resolving the device pinned it off."""
+        self.set_r_value(W.shape[1])
+        return self._skew_cols(torch.matmul(self._unskew_cols(X, mode), W), mode)
+
+    def concat_heads(self, heads: list, mode: MatMode) -> torch.Tensor:
+        """The per-head outputs side by side on the feature dimension, in
+        the canonical layout."""
+        self.set_r_value(sum(h.shape[-1] for h in heads))
+        return self._skew_cols(torch.cat([self._unskew_cols(h, mode) for h in heads],
+                                         dim=-1), mode)
+
     @staticmethod
     def fingerprint(x) -> float:
         x64 = np.asarray(x, dtype=np.float64)

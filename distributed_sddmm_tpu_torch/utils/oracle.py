@@ -91,3 +91,29 @@ def fingerprint(x) -> float:
     """Squared-norm fingerprint."""
     x = np.asarray(x, dtype=np.float64)
     return float(np.sum(x * x))
+
+
+def gat_forward(S: HostCOO, X: np.ndarray, layer_weights: list,
+                alpha: float = 0.2) -> np.ndarray:
+    """Multi-head GAT forward pass in float64 on the pattern of S (its
+    values are not used): per layer and head ``A = X @ W``, the logits
+    ``<A[r], A[c]>`` at the nonzeros, LeakyReLU ``max(l, 0) + min(l, 0) *
+    alpha``, the SpMM with ``A``, ReLU; the heads concatenated.
+    ``layer_weights`` holds one list of ``(R_in, R_head)`` weights a
+    layer. The pattern is sorted by row once, and each head's weights
+    become the data of one CSR matrix."""
+    import scipy.sparse as sp
+
+    P = S.sorted_by_row().with_values(np.ones(S.nnz))
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(P.rows, minlength=S.M))])
+    X = np.asarray(X, dtype=np.float64)
+    for weights in layer_weights:
+        heads = []
+        for W in weights:
+            A = X @ np.asarray(W, dtype=np.float64)
+            logits = sddmm(P, A, A)
+            att = np.maximum(logits, 0) + np.minimum(logits, 0) * alpha
+            h = sp.csr_matrix((att, P.cols, indptr), shape=(S.M, S.N)) @ A
+            heads.append(np.maximum(h, 0))
+        X = np.concatenate(heads, axis=1)
+    return X

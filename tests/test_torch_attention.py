@@ -560,11 +560,17 @@ def test_benchmark_record_carries_mask_and_counted_bytes():
 
 
 def test_benchmark_refuses_unported_and_unknown_apps():
+    """No app is left unported: ``gat`` and ``als`` run on the benchmark's
+    square mask and carry their fields; an unknown app is refused."""
     S = masks.sliding_window(32, 1)
-    for app in ("gat", "als"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            harness.benchmark_algorithm(S, "15d_fusion2", None, True, 4, app=app,
-                                        device="cpu")
+    assert harness.APPS_NOT_PORTED == ()
+    gat = harness.benchmark_algorithm(S, "15d_fusion2", None, True, 4, app="gat",
+                                      trials=1, device="cpu")
+    assert gat["gat_heads"] == [4, 4, 6] and gat["R"] == 24 and gat["mask"] is None
+    als = harness.benchmark_algorithm(S, "15d_fusion2", None, True, 4, app="als",
+                                      trials=1, device="cpu")
+    assert als["cg_iters"] == 10 and 0 <= als["als_residual"] < float("inf")
+    assert "als_degraded" not in als and "attention_hbm" not in als
     with pytest.raises(ValueError, match="unknown app"):
         harness.benchmark_algorithm(S, "15d_fusion2", None, True, 4, app="nope",
                                     device="cpu")

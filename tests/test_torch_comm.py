@@ -11,6 +11,7 @@ adjacencies and every axis, and ``GridSpec.self_test`` are held against a
 fingerprints must equal ``LocalWorld``'s exactly. Exact equality holds for
 these sums: the operands of the collectives are small integers, and the
 reductions of the verify run add two partials (c = 2), which commute.
+A second spawn runs ALS with a checkpoint store at (4, 2) and resumes it.
 
 This module imports no JAX: the spawned processes import it to find
 their entry point.
@@ -25,12 +26,14 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from distributed_sddmm_tpu_torch.models.als import DistributedALS
 from distributed_sddmm_tpu_torch.parallel import comm as comm_mod
 from distributed_sddmm_tpu_torch.parallel.comm import (
     DistWorld, LocalWorld, backend_for, world_from_env,
 )
 from distributed_sddmm_tpu_torch.parallel.dense_shift_15d import DenseShift15D
 from distributed_sddmm_tpu_torch.parallel.mesh import make_grid
+from distributed_sddmm_tpu_torch.resilience import CheckpointStore
 from distributed_sddmm_tpu_torch.utils import verify
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 
@@ -116,6 +119,47 @@ def test_dist_world_over_gloo_equals_local_world(tmp_path):
             want = verify.fingerprint_algorithm(
                 DenseShift15D(S, 8, c=c, world=LocalWorld(4), device="cpu"), S)
             assert res[f"verify c={c} overlap={overlap}"] == want, (rank, c, overlap)
+
+
+def _als_worker(rank: int, init: str, out_dir: str) -> None:
+    """Two ALS steps at (4, 2) over gloo into a checkpoint store, then a
+    fresh model resumed from it for a third step."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=4)
+    try:
+        alg = DenseShift15D(_matrix(), 8, c=2, world=DistWorld(), device="cpu")
+        store = CheckpointStore(f"{out_dir}/ckpt")
+        DistributedALS(alg, seed=0).run_cg(2, cg_iters=3, checkpoint=store)
+        resumed = DistributedALS(alg, seed=0)
+        resumed.run_cg(3, cg_iters=3, checkpoint=store, resume=True)
+        np.save(f"{out_dir}/B{rank}.npy", resumed.item_factors())
+    finally:
+        dist.destroy_process_group()
+
+
+def test_als_checkpoints_over_gloo(tmp_path):
+    """Under a world of processes the factors are gathered, process 0 writes
+    the JAX package's padded operands, and every process resumes from
+    them: equal, bit for bit, to the same steps on a ``LocalWorld``."""
+    ctx = mp.spawn(_als_worker, args=(str(tmp_path / "init"), str(tmp_path)), nprocs=4,
+                   join=False)
+    deadline = time.monotonic() + 240
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            pytest.fail("the gloo processes did not finish in 240 s")
+    alg = DenseShift15D(_matrix(), 8, c=2, world=LocalWorld(4), device="cpu")
+    want = DistributedALS(alg, seed=0)
+    want.run_cg(2, cg_iters=3)
+    store = CheckpointStore(tmp_path / "ckpt")
+    assert store.steps() == [1, 2, 3]
+    two = store.load(2)
+    assert np.array_equal(two["A"], want.A.numpy()) and np.array_equal(two["B"], want.B.numpy())
+    want.run_cg(1, cg_iters=3)
+    for rank in range(4):
+        assert np.array_equal(np.load(tmp_path / f"B{rank}.npy"), want.item_factors()), rank
 
 
 # ------------------------------------------------------- LocalWorld alone
