@@ -150,14 +150,41 @@ last line is printed):
    ``--checkpoint-dir``, the same with ``--resume`` (it starts from the
    stored step), ``er ... --app gat``. Launch counts as each drive
    predicts.
-12. kernels line -- ``{"kernels": [...]}``.
-13. last line -- ``{"ok": true, "device": {...}}``.
+12. strategies -- the other three strategies (``SparseShift15D``,
+   ``CannonDense25D``, ``CannonSparse25D``) beside ``DenseShift15D``, on
+   the tile kernels in their new roles (R-split operands 16-64 wide,
+   tiles spanning all ``N_pad`` columns, the swapped Cannon tiles).
+   verify: the headline R-mat at (p, c) = (4, 1), (8, 2), (16, 4) of a
+   ``LocalWorld``, f32 and bf16: the verify protocol (phase 4's
+   tolerances, launches one kernel a rank a ring step), every op on
+   operands in {-1, 0, 1} equal to p = 1's bit for bit (f32), sampled
+   rows of every op on N(0, 1) operands against float64 (phase 4's
+   tolerances); the f32 spmmA fingerprints of all four at every grid
+   within 1e-5 of each other. banked: Graph500 16 with its variant at
+   (4, 1): sparse shift and Cannon dense banked equal to generic bit for
+   bit, launches as every tile's bands predict; Cannon sparse builds
+   generic (realized variant None, a ``codegen_generic_fallbacks`` a
+   tile set) and launches the generic kernel. full: phase 5's cell at
+   (4, 1), all four, f32 and bf16, the harness's loop (3 warmup, 10 timed
+   pairs): ms and GFLOP/s a pair, launches a pair, peak memory, set-up
+   seconds, the breakdown, sampled rows against float64; the SDDMM and
+   SpMM kernels at each R-split strategy's shapes against their plain
+   versions (``kernels_<strategy>_full``). nccl: ``CannonDense25D`` over
+   NCCL at world size 1 equal to ``LocalWorld`` bit for bit. cli: ``er
+   12 8 15d|25d|all ... 128 1`` over four logical ranks, one record a
+   member, ``all --fusion overlap`` reporting both Cannon members skipped.
+13. kernels line -- ``{"kernels": [...]}``.
+14. last line -- ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import math
+import os
 import shutil
 import subprocess
 import sys
@@ -175,14 +202,18 @@ from distributed_sddmm_tpu_torch.bench.kernel_ab import band_coo
 from distributed_sddmm_tpu_torch.codegen import (
     BankedCudaKernel, banded, build_banded, select_variant,
 )
-from distributed_sddmm_tpu_torch.common import MatMode
+from distributed_sddmm_tpu_torch.common import KernelMode, MatMode
 from distributed_sddmm_tpu_torch.models import als as als_mod
 from distributed_sddmm_tpu_torch.models import gat as gat_mod
 from distributed_sddmm_tpu_torch.models.serial_als import SerialALS
 from distributed_sddmm_tpu_torch.ops import _build, cuda_kernels
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
 from distributed_sddmm_tpu_torch.ops.kernels import ATTN_NEG
+from distributed_sddmm_tpu_torch.parallel import comm as comm_mod
+from distributed_sddmm_tpu_torch.parallel import sharding
+from distributed_sddmm_tpu_torch.parallel.cannon_dense_25d import CannonDense25D
 from distributed_sddmm_tpu_torch.parallel.comm import DistWorld, LocalWorld
+from distributed_sddmm_tpu_torch.parallel.dense_shift_15d import DenseShift15D
 from distributed_sddmm_tpu_torch.parallel.mesh import make_grid
 from distributed_sddmm_tpu_torch.parallel.sharding import BankedTileView, TileView
 from distributed_sddmm_tpu_torch.resilience import CheckpointStore, NumericalFault
@@ -293,6 +324,20 @@ RING = {"verify": ((2, 1), (4, 1), (4, 2), (8, 4)), "attention": (4, 2),
 RING_BUILDS = ((2, False), (1, False), (2, True))
 RING_WARMUP, RING_TRIALS, RING_BREAKDOWN_TRIALS = 3, 10, 3
 RING_OUT_RTOL, RING_P_ATOL = 1e-5, 1e-6
+# The four strategies (phase strategies): the verify grids at the
+# headline size, the banked grid at Graph500 16, the full cell's grid, the
+# strategy over NCCL; the harness's loop at the full cell.
+STRATEGIES = {"names": ("15d_fusion2", "15d_sparse", "25d_dense_replicate",
+                        "25d_sparse_replicate"),
+              "r_split": ("15d_sparse", "25d_dense_replicate", "25d_sparse_replicate"),
+              "grids": ((4, 1), (8, 2), (16, 4)), "banked": (4, 1), "full": (4, 1),
+              "nccl": "25d_dense_replicate"}
+STRATEGY_LABELS = {"15d_sparse": "sparse_shift", "25d_dense_replicate": "cannon_dense",
+                   "25d_sparse_replicate": "cannon_sparse"}
+STRAT_WARMUP, STRAT_TRIALS, STRAT_BREAKDOWN_TRIALS = 3, 10, 3
+#: The spmmA fingerprints of every strategy and grid agree within this
+#: (the JAX package's ``test_fused_and_four_algorithm_fingerprints``).
+STRAT_FP_RTOL = 1e-5
 # The apps (phase apps): ALS-CG and the GAT forward pass of ``models/``.
 # ALS: one warmup step, then timed steps of cg_iters CG iterations a
 # half-step; its float64 oracle at log_m 12 (R 32, 2 steps, the port's
@@ -2613,6 +2658,378 @@ def phase_apps(S16, uniform, dev, launches: dict, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- strategies
+
+
+def ring_steps(alg) -> int:
+    """Steps of one ring pass: p/c for the 1.5D strategies, sqrt(p/c) for
+    the Cannon ones."""
+    return getattr(alg, "sqrtpc", None) or alg.nr
+
+
+def strategy_launches(alg, pair_only: bool = False) -> dict:
+    """Generic launches of the verify protocol (or of one fused pair): one
+    tile kernel a rank a ring step, ``p * steps`` a pass. The R-split
+    strategies' pair is an SDDMM pass and an SpMM pass (their dots are
+    complete only after a ring trip, so no fused kernel); the protocol is
+    sddmmA, spmmA, spmmB and a pair."""
+    if alg.algorithm_name == DenseShift15D.algorithm_name:
+        return ring_launches(alg, alg.fusion_approach, pair_only)
+    n = alg.p * ring_steps(alg)
+    counts = dict.fromkeys(cuda_kernels.LAUNCHES, 0)
+    counts.update(sddmm_tile=n, spmm_tile=n) if pair_only else counts.update(
+        sddmm_tile=2 * n, spmm_tile=3 * n)
+    return counts
+
+
+def strategy_band_launches(alg, pair_only: bool = False) -> dict:
+    """Banked launches of the verify protocol (or one pair): each tile is
+    held by ``steps`` ranks in a pass, each launching its bands. The A-ops
+    of the Cannon dense strategy walk the S^T tiles."""
+    a, b = ((alg.ST_tiles, alg.S_tiles) if alg.algorithm_name == CannonDense25D.algorithm_name
+            else (alg.S_tiles, alg.ST_tiles))
+    n = ring_steps(alg)
+
+    def one(tiles, op):
+        return scaled(added(*(band_launches(tiles.tile(h, 0).bands, op)
+                              for h in range(alg.p))), n)
+
+    sdd, spa = one(a, "sddmm"), one(a, "spmm")
+    return added(sdd, spa) if pair_only else added(sdd, sdd, spa, spa, one(b, "spmm"))
+
+
+def sampled_ops(S: HostCOO, ops, out: dict, rng) -> float:
+    """Relative error (of the sampled values' max abs) of 64 sampled rows of
+    spmmA and fusedA, their sddmmA and fused values, and 64 sampled rows of
+    spmmB, against float64 on the host."""
+    A, B, v = (x.astype(np.float64) for x in ops)
+    err = 0.0
+    for side, (rows, cols, X, Y, a_op, s_op, f_op, m_op) in (
+            ("A", (S.rows, S.cols, A, B, "spmmA", "sddmmA", "fusedA", "fusedA_mid")),
+            ("B", (S.cols, S.rows, B, A, "spmmB", "sddmmB", "fusedB", "fusedB_mid"))):
+        pick = rng.choice(np.unique(rows), 64, replace=False)
+        slots = np.flatnonzero(np.isin(rows, pick))
+        r, c = rows[slots], cols[slots]
+        mid = v[slots] * np.einsum("kr,kr->k", X[r], Y[c])
+        lut = np.full(X.shape[0], -1)
+        lut[pick] = np.arange(pick.size)
+        spmm = np.zeros((pick.size, Y.shape[1]))
+        np.add.at(spmm, lut[r], v[slots, None] * Y[c])
+        fused = np.zeros_like(spmm)
+        np.add.at(fused, lut[r], mid[:, None] * Y[c])
+        for got, want in ((out[a_op][pick], spmm), (out[s_op][slots], mid),
+                          (out[f_op][pick], fused), (out[m_op][slots], mid)):
+            err = max(err, float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)))
+    return err
+
+
+def strategies_verify(S, dev, launches: dict, card: str) -> dict:
+    """The four strategies at STRATEGIES["grids"] on the headline R-mat:
+    the verify protocol (fingerprints against float64, launches as the
+    ring structure predicts), every op on operands in {-1, 0, 1} equal to
+    p = 1's bit for bit (f32), sampled rows of every op on N(0, 1)
+    operands against float64; the spmmA fingerprints of the four agree."""
+    R = HEADLINE["R"]
+    want = verify.oracle_fingerprints(S, R)
+    ints = int_operands(S, R)
+    rng = np.random.default_rng(6)
+    normal = (rng.standard_normal((S.M, R)).astype(np.float32),
+              rng.standard_normal((S.N, R)).astype(np.float32),
+              rng.standard_normal(S.nnz).astype(np.float32))
+    base = verify.op_outputs(make_algorithm("15d_fusion2", S, R, world=LocalWorld(1),
+                                            kernel=CudaTileKernel("f32", device=dev),
+                                            device=dev), *ints)
+    spmm_fps = {}
+    for p, c in STRATEGIES["grids"]:
+        for name in STRATEGIES["names"]:
+            t0 = time.perf_counter()
+            alg = make_algorithm(name, S, R, c=c, world=LocalWorld(p),
+                                 kernel=CudaTileKernel("f32", device=dev), device=dev)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            for prec in PRECISIONS:
+                alg.kernel = CudaTileKernel(prec, device=dev)
+                tag = f"strategies verify {name} ({p},{c})/{prec}"
+                got, counts = run_counted(lambda: verify.fingerprint_algorithm(alg, S))
+                rel = {op: abs(got[op] / want[op] - 1) for op in want}
+                equal = None
+                if prec == "f32":
+                    out, ops_counts = run_counted(lambda: verify.op_outputs(alg, *ints))
+                    equal = {op: bool(np.array_equal(out[op], base[op])) for op in base}
+                    add_launches(launches, ops_counts, prec)
+                out, ops_counts = run_counted(lambda: verify.op_outputs(alg, *normal))
+                add_launches(launches, ops_counts, prec)
+                normal_err = sampled_ops(S, normal, out, np.random.default_rng(p + c))
+                spmm_fps[(name, p, c, prec)] = got["spmmA"]
+                emit({"phase": "strategies_verify", "card": card, "algorithm": name,
+                      "p": p, "c": c, "precision": prec, "setup_seconds": setup_s,
+                      "widths": alg.R // (alg._n_slices()), "rtol": VERIFY_RTOL[prec],
+                      "rel_err": rel, "launches": counts, "int_equal_p1": equal,
+                      "normal_sampled_rel_err": normal_err})
+                require(all(r <= VERIFY_RTOL[prec] for r in rel.values()), f"{tag}: {rel}")
+                require(counts == strategy_launches(alg), f"{tag}: launches {counts}")
+                require(equal is None or all(equal.values()),
+                        f"{tag}: integer outputs differ from p = 1: {equal}")
+                require(normal_err <= VERIFY_RTOL[prec], f"{tag}: normal data {normal_err:.3e}")
+                add_launches(launches, counts, prec)
+            del alg
+    fps = np.array([v for (_, _, _, prec), v in spmm_fps.items() if prec == "f32"])
+    spread = float(np.abs(fps / fps[0] - 1).max())
+    emit({"phase": "strategies_fingerprints", "card": card, "spmmA_f32": {
+        f"{n} ({p},{c})": v for (n, p, c, prec), v in spmm_fps.items() if prec == "f32"},
+        "oracle": want["spmmA"], "max_rel_spread": spread, "rtol": STRAT_FP_RTOL})
+    require(spread <= STRAT_FP_RTOL, f"strategies: spmmA fingerprints spread {spread:.3e}")
+    return {"spmmA_max_rel_spread": spread}
+
+
+def strategies_banked(dev, launches: dict, card: str) -> dict:
+    """Graph500 16 with its variant at STRATEGIES["banked"]: the sparse
+    shift and the Cannon dense strategy banked equal to generic bit for
+    bit on integer data, launches as every tile's bands predict; the
+    Cannon sparse strategy builds generic (its realized variant None, one
+    ``codegen_generic_fallbacks`` a tile set) and launches the generic
+    kernel."""
+    R = BANKED["R"]
+    p, c = STRATEGIES["banked"]
+    S = graph500(BANKED["log_ms"][0])
+    variant = select_variant(Problem.from_coo(S, R))
+    ints = int_operands(S, R)
+    result = {}
+    for name in STRATEGIES["r_split"]:
+        before = sharding.COUNTERS["codegen_generic_fallbacks"]
+        alg = make_algorithm(name, S, R, c=c, world=LocalWorld(p),
+                             kernel=BankedCudaKernel(variant, "f32", device=dev), device=dev)
+        fallbacks = sharding.COUNTERS["codegen_generic_fallbacks"] - before
+        banked = alg.kernel_variant_realized is not None
+        got, counts = run_counted(lambda: verify.op_outputs(alg, *ints))
+        _, proto = run_counted(lambda: verify.fingerprint_algorithm(alg, S))
+        alg.kernel = CudaTileKernel("f32", device=dev)
+        want = verify.op_outputs(alg, *ints)
+        equal = {op: bool(np.array_equal(got[op], want[op])) for op in want}
+        expect = strategy_band_launches(alg) if banked else strategy_launches(alg)
+        row = {"variant": variant.variant_id, "realized": alg.kernel_variant_realized,
+               "generic_fallbacks": fallbacks, "equal_generic": equal,
+               "launches": proto, "ops_launches": counts}
+        emit({"phase": "strategies_banked", "card": card, "algorithm": name, "p": p, "c": c,
+              "nnz": S.nnz, **row})
+        tag = f"strategies banked {name}"
+        require(all(equal.values()), f"{tag}: banked != generic on integer data: {equal}")
+        require(proto == expect, f"{tag}: launches {proto} != {expect}")
+        if name == "25d_sparse_replicate":
+            require(not banked and fallbacks == 2, f"{tag}: realized {row['realized']}, "
+                    f"{fallbacks} fallbacks")
+        else:
+            require(banked and fallbacks == 0, f"{tag}: not banked")
+        add_launches(launches, counts, "f32")
+        add_launches(launches, proto, "f32")
+        result[name] = row
+        del alg
+    return result
+
+
+def strategy_kernels(alg, name: str, dev, entries: dict) -> None:
+    """The SDDMM and SpMM kernels at the shapes the strategy gives them at
+    the full cell: rank 0's own tile with R-split operands of its frames,
+    standard-normal, against their plain versions; timed with their bounds
+    and library calls."""
+    label = f"{STRATEGY_LABELS[name]}_full"
+    tiles = alg.ST_tiles if name == "25d_dense_replicate" else alg.S_tiles
+    tile = tiles.tile(0) if name == "25d_sparse_replicate" else tiles.tile(0, 0)
+    mask = (tiles.mask[tiles.floor_slot[0]] if name == "25d_sparse_replicate"
+            else tiles.mask[0, 0])
+    w = alg.R // alg._n_slices()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    A = torch.randn(tile.n_rows, w, generator=gen, device=dev)
+    B = torch.randn(tile.n_cols, w, generator=gen, device=dev)
+    sv = (mask * torch.randn(mask.shape, generator=gen, device=dev)).contiguous()
+    nnz = int(tile.row_ptr[-1])
+    for prec in PRECISIONS:
+        k = CudaTileKernel(prec, device=dev)
+        at, bt = k.prep(A), k.prep(B)
+        csr = library_csr(tile, sv if prec == "f32" else sv.bfloat16(), tile.n_cols)
+        for op in ("sddmm_tile", "spmm_tile"):
+            try:
+                lib, lib_err = library_ms(op, csr, at, bt, k.prep(B.t().contiguous())), None
+            except RuntimeError as e:  # PyTorch refuses the type: say why
+                if prec == "f32":
+                    raise
+                lib, lib_err = None, str(e).strip().splitlines()[0]
+            got = as_tuple(call(k, op, tile, sv, at, bt))
+            again = as_tuple(call(k, op, tile, sv, at, bt))
+            want = as_tuple(call_plain(op, tile, sv, at, bt))
+            record_kernel(entries, op, prec, label, lambda: call(k, op, tile, sv, at, bt),
+                          lambda: call_plain(op, tile, sv, at, bt), got, again, want,
+                          KERNEL_TOL[prec],
+                          bound(op, nnz, tile.n_rows, tile.n_cols, w, at.element_size()),
+                          lib, lib_err, PLAIN_REPS, nnz, R=w, n_rows=tile.n_rows,
+                          n_cols=tile.n_cols)
+        del csr
+
+
+def strategies_full(uniform, dev, launches: dict, entries: dict, card: str) -> dict:
+    """The full cell at STRATEGIES["full"], the four strategies in turn:
+    the harness's own loop (STRAT_WARMUP, then STRAT_TRIALS timed pairs),
+    launches a pair against the ring structure, peak memory, the tile
+    sets' set-up seconds, the breakdown, one pair's sampled rows against
+    float64, and the R-split strategies' kernels at their shapes."""
+    S = uniform[0]
+    R = FULL["R"]
+    p, c = STRATEGIES["full"]
+    rng = np.random.default_rng(7)
+    result = {}
+    for name in STRATEGIES["names"]:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        alg = make_algorithm(name, S, R, c=c, world=LocalWorld(p),
+                             kernel=CudaTileKernel("f32", device=dev), device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        for prec in PRECISIONS:
+            alg.kernel = CudaTileKernel(prec, device=dev)
+            tag = f"strategies full {name} ({p},{c})/{prec}"
+            torch.cuda.reset_peak_memory_stats()
+            elapsed, counts = run_counted(
+                lambda: harness._run_vanilla(alg, True, STRAT_TRIALS, STRAT_WARMUP))
+            peak = torch.cuda.max_memory_allocated()
+            pairs = STRAT_WARMUP + STRAT_TRIALS
+            require(counts == scaled(strategy_launches(alg, pair_only=True), pairs),
+                    f"{tag}: launches {counts}")
+            add_launches(launches, counts, prec)
+            A, B = alg.dummy_initialize(MatMode.A), alg.like_b_matrix(0.01)
+            sv = alg.like_s_values(1.0)
+            breakdown = alg.measure_breakdown(A, B, sv, trials=STRAT_BREAKDOWN_TRIALS)
+            a, b = alg.initial_shift(A, B, KernelMode.SDDMM_A)
+            out, mid = alg.fused_spmm(a, b, sv)
+            out = alg._to_global(alg.de_shift(out, None, KernelMode.SPMM_A)[0], MatMode.A)
+            require(tuple(out.shape) == (alg.M_pad, R) and bool(torch.isfinite(out).all()),
+                    f"{tag}: output not finite or misshapen")
+            err = sampled_reference(S, alg, out, mid, dev, rng)
+            require(err <= VERIFY_RTOL[prec], f"{tag}: sampled rows off by {err:.3e}")
+            row = {"ms_per_pair": elapsed / STRAT_TRIALS * 1e3,
+                   "gflops": 2.0 * S.nnz * 2.0 * R * STRAT_TRIALS / elapsed / 1e9,
+                   "launches_per_pair": {k: v / pairs for k, v in counts.items() if v},
+                   "peak_mem_bytes": peak, "setup_seconds": setup_s,
+                   "breakdown_ms_per_pair": {key: v / STRAT_BREAKDOWN_TRIALS * 1e3
+                                             for key, v in breakdown.items()},
+                   "sampled_rel_err": err}
+            result[f"{name}/{prec}"] = row
+            emit({"phase": "strategies_full", "card": card, "algorithm": name, "p": p,
+                  "c": c, "precision": prec, "nnz": S.nnz, "R": R, "warmup": STRAT_WARMUP,
+                  "pairs": STRAT_TRIALS, "width": R // alg._n_slices(),
+                  "tile_nnz_max": alg.S_tiles.max_nnz, "comm_profile":
+                  alg.comm_profile("fusedSpMM"), **row})
+            del out, mid, A, B, sv, a, b
+        if name in STRATEGIES["r_split"]:
+            strategy_kernels(alg, name, dev, entries)
+        del alg
+    return result
+
+
+def strategies_nccl(S, dev, launches: dict, card: str) -> None:
+    """STRATEGIES["nccl"] over NCCL at world size 1 (its moving tiles take
+    the packed path of a world of processes): every op on integer operands
+    equal to ``LocalWorld``'s bit for bit, f32 and bf16."""
+    path = _build.BUILD_DIR / "nccl_init_strategies"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    R, name = HEADLINE["R"], STRATEGIES["nccl"]
+    ints = int_operands(S, R)
+    local = make_algorithm(name, S, R, world=LocalWorld(1), device=dev)
+    dist.init_process_group("nccl", init_method=f"file://{path}", rank=0, world_size=1)
+    try:
+        alg = make_algorithm(name, S, R, world=DistWorld(), device=dev)
+        require(not alg.comm.in_process, "strategies nccl: not a DistWorld comm")
+        for prec in PRECISIONS:
+            local.kernel = alg.kernel = CudaTileKernel(prec, device=dev)
+            want = verify.op_outputs(local, *ints)
+            alg.comm.reset_counts()
+            got, counts = run_counted(lambda: verify.op_outputs(alg, *ints))
+            equal = {op: bool(np.array_equal(got[op], want[op])) for op in want}
+            emit({"phase": "strategies_nccl", "card": card, "algorithm": name,
+                  "backend": dist.get_backend(), "world_size": dist.get_world_size(),
+                  "precision": prec, "equal_local": equal,
+                  "collectives": dict(alg.comm.counts), "launches": counts})
+            require(all(equal.values()), f"strategies nccl {prec}: {equal}")
+            require(alg.comm.counts["all_gather"] > 0, "strategies nccl: no NCCL collective")
+            add_launches(launches, counts, prec)
+    finally:
+        dist.destroy_process_group()
+        path.unlink(missing_ok=True)
+
+
+def strategies_cli(dev, launches: dict, card: str) -> dict:
+    """``er 12 8 15d|25d|all`` in-process on the card (cuda-bf16) over four
+    logical ranks: one record a member that runs; ``all`` with ``--fusion
+    overlap``, which the Cannon members refuse, reports them skipped."""
+    path = _build.BUILD_DIR / "chip_smoke_cli_strategies.jsonl"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    p, trials = 4, 2
+    every = list(cli.ALG_GROUPS["all"])
+    runs = (("15d", [], every[:3], []), ("25d", [], every[3:], []),
+            ("all", ["--fusion", "overlap"], every[:3], every[3:]))
+    prev = os.environ.get(comm_mod.LOCAL_RANKS_ENV)
+    os.environ[comm_mod.LOCAL_RANKS_ENV] = str(p)
+    result = {}
+    try:
+        for group, extra, ran, skipped in runs:
+            argv = ["er", "12", "8", group, "128", "1", "--trials", str(trials), "-o",
+                    str(path), *extra]
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                rc, counts = run_counted(lambda: cli.main(argv))
+            recs = [json.loads(line) for line in path.read_text().splitlines()]
+            path.unlink()
+            said = [line.split()[1] for line in err.getvalue().splitlines()
+                    if line.startswith("skip ")]
+            expect = dict.fromkeys(cuda_kernels.LAUNCHES, 0)
+            for name in ran:
+                steps = p if name.startswith("15d") else math.isqrt(p)
+                per = {"fused_tile": p * steps} if name.startswith("15d_fusion2") else {
+                    "sddmm_tile": p * steps, "spmm_tile": p * steps}
+                for k, v in per.items():
+                    expect[k] += v * (trials + 1)
+            emit({"phase": "strategies_cli", "card": card, "argv": argv, "ran": [
+                r["algorithm"] for r in recs], "skipped": said, "launches": counts,
+                "ms_per_pair": {r["algorithm"]: r["elapsed"] / trials * 1e3 for r in recs}})
+            require(rc == 0 and [r["algorithm"] for r in recs] == ran and said == skipped,
+                    f"strategies cli {group}: ran {[r['algorithm'] for r in recs]}, "
+                    f"skipped {said}")
+            require(all(r["kernel"] == "cuda-bf16"
+                        and r["device"] == torch.cuda.get_device_name(0) for r in recs),
+                    f"strategies cli {group}: kernel or device of a record")
+            require(counts == expect, f"strategies cli {group}: launches {counts} != {expect}")
+            add_launches(launches, counts, "bf16")
+            result[group] = {"ran": ran, "skipped": said}
+    finally:
+        if prev is None:
+            os.environ.pop(comm_mod.LOCAL_RANKS_ENV, None)
+        else:
+            os.environ[comm_mod.LOCAL_RANKS_ENV] = prev
+    return result
+
+
+def phase_strategies(S16, uniform, dev, launches: dict, entries: dict, card: str) -> dict:
+    t0 = time.perf_counter()
+    seconds, out = {}, {}
+    for part, fn, args in (("verify", strategies_verify, (S16,)),
+                           ("banked", strategies_banked, ()),
+                           ("full", strategies_full, (uniform,)),
+                           ("nccl", strategies_nccl, (S16,)),
+                           ("cli", strategies_cli, ())):
+        t = time.perf_counter()
+        if part == "full":
+            out[part] = fn(*args, dev, launches, entries, card)
+        else:
+            out[part] = fn(*args, dev, launches, card)
+        seconds[part] = time.perf_counter() - t
+    emit({"phase": "strategies", "card": card, "seconds": time.perf_counter() - t0,
+          "seconds_by_part": seconds,
+          "full_ms_per_pair": {k: v["ms_per_pair"] for k, v in out["full"].items()}})
+    return out
+
+
 def main() -> int:
     info = phase_device()
     dev = torch.device("cuda")
@@ -2636,8 +3053,10 @@ def main() -> int:
     phase_ring(S16, uniform, dev, ring, info["nvidia_smi"])
     apps: dict = {}
     phase_apps(S16, uniform, dev, apps, info["nvidia_smi"])
+    strategies: dict = {}
+    phase_strategies(S16, uniform, dev, strategies, entries, info["nvidia_smi"])
     del uniform
-    for key, n in (*ring.items(), *apps.items()):
+    for key, n in (*ring.items(), *apps.items(), *strategies.items()):
         launches[key] = launches.get(key, 0) + n
 
     kernels = []
@@ -2651,6 +3070,7 @@ def main() -> int:
             "replaces": REPLACES[op], "launches": n,
             "ring_launches": ring.get((op, prec), 0),
             "apps_launches": apps.get((op, prec), 0),
+            "strategies_launches": strategies.get((op, prec), 0),
             "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
             "max_rel_err": max(r["max_rel_err"] for r in shapes.values()),
             "tol": main_["tol"],
@@ -2665,6 +3085,11 @@ def main() -> int:
             "headline": {k: head[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "bound_gather_ms",
                 "library_ms", "max_abs_err")},
+            # At the R-split strategies' shapes of the full cell.
+            "strategies": {label: {k: row[k] for k in (
+                "R", "n_rows", "n_cols", "nnz", "ms", "plain_ms", "bound_ms", "bound_by",
+                "bound_gather_ms", "library_ms", "max_abs_err")}
+                for label, row in shapes.items() if label.endswith("_full") and "R" in row},
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

@@ -2,7 +2,12 @@
 (counterpart of ``bench/cli.py``).
 
 One subcommand so far, ``er``: an R-mat matrix of ``2**log_m`` rows and
-``edge_factor`` edges a row, one algorithm, one R, one c. With
+``edge_factor`` edges a row, one R, one c, and one algorithm or a group of
+them (``ALG_GROUPS``, the reference's ``bench_erdos_renyi.cpp:50-115``:
+``15d``, ``25d``, ``all``), each member run in turn with a record of its
+own. A member that refuses the configuration (a grid or R it cannot split,
+an app or a fusion build it lacks) is reported on stderr and skipped, as
+the JAX sweep driver skips it. With
 ``--app attention`` the matrix is replaced by the ``--mask`` pattern over
 as many tokens, and the run times fused block-sparse attention;
 ``--app gat`` times the GAT forward pass and ``--app als`` alternating
@@ -26,12 +31,15 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 
 import numpy as np
 import torch.distributed as dist
 
 from distributed_sddmm_tpu_torch import masks
-from distributed_sddmm_tpu_torch.bench.harness import APPS, benchmark_algorithm
+from distributed_sddmm_tpu_torch.bench.harness import (
+    ALGORITHM_FACTORIES, APPS, benchmark_algorithm,
+)
 from distributed_sddmm_tpu_torch.codegen import make_banked_kernel
 from distributed_sddmm_tpu_torch.device import resolve_device
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
@@ -40,6 +48,27 @@ from distributed_sddmm_tpu_torch.parallel.comm import world_from_env
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 
 KERNELS = ("cuda-f32", "cuda-bf16", "torch")
+
+# ``bench_erdos_renyi.cpp:50-115``: "15d" runs the three 1.5D strategies,
+# "25d" both replication strategies.
+ALG_GROUPS = {
+    "15d": ["15d_fusion1", "15d_fusion2", "15d_sparse"],
+    "25d": ["25d_dense_replicate", "25d_sparse_replicate"],
+    "all": list(ALGORITHM_FACTORIES),
+}
+
+
+def resolve_algs(name: str) -> list[str]:
+    """The algorithms an ``alg`` argument names: a group's members or the
+    one algorithm."""
+    if name in ALG_GROUPS:
+        return ALG_GROUPS[name]
+    if name in ALGORITHM_FACTORIES:
+        return [name]
+    raise SystemExit(
+        f"unknown algorithm {name!r}; expected one of "
+        f"{sorted(ALGORITHM_FACTORIES) + sorted(ALG_GROUPS)}"
+    )
 
 
 def _kernel(name: str | None, device, variant: str | None = None):
@@ -65,7 +94,7 @@ def build_parser() -> argparse.ArgumentParser:
     er = sub.add_parser("er", help="synthetic R-mat benchmark")
     er.add_argument("log_m", type=int, help="log2 of matrix side")
     er.add_argument("edge_factor", type=int, help="average nnz per row")
-    er.add_argument("alg", help="algorithm name (15d_fusion1 | 15d_fusion2)")
+    er.add_argument("alg", help="algorithm name or group (15d | 25d | all)")
     er.add_argument("R", type=int)
     er.add_argument("c", type=int)
     er.add_argument("--app", default="vanilla", choices=APPS)
@@ -133,22 +162,29 @@ def main(argv=None) -> int:
         S = HostCOO.rmat(args.log_m, args.edge_factor, np.random.default_rng(0))
         S = _maybe_mask(S, args)
         kernel = _kernel(args.kernel, device, args.kernel_variant)
-        for fused in [True, False] if args.fused == "both" else [args.fused == "yes"]:
-            rec = benchmark_algorithm(
-                S, args.alg, args.output_file, fused=fused, R=args.R, c=args.c,
-                app=args.app, trials=args.trials, warmup=args.warmup,
-                kernel=kernel, device=device,
-                mask=args.mask if args.app == "attention" else None,
-                world=world, overlap=args.fusion == "overlap",
-                breakdown=args.breakdown, checkpoint_dir=args.checkpoint_dir,
-                checkpoint_every=args.checkpoint_every, resume=args.resume,
-            )
-            if world.process_index == 0:
-                print(json.dumps({
-                    "algorithm": args.alg, "R": args.R, "c": args.c, "fused": fused,
-                    "elapsed": round(rec["elapsed"], 4),
-                    "GFLOPs": round(rec["overall_throughput"], 3),
-                }), flush=True)
+        for alg in resolve_algs(args.alg):
+            for fused in [True, False] if args.fused == "both" else [args.fused == "yes"]:
+                try:
+                    rec = benchmark_algorithm(
+                        S, alg, args.output_file, fused=fused, R=args.R, c=args.c,
+                        app=args.app, trials=args.trials, warmup=args.warmup,
+                        kernel=kernel, device=device,
+                        mask=args.mask if args.app == "attention" else None,
+                        world=world, overlap=args.fusion == "overlap",
+                        breakdown=args.breakdown, checkpoint_dir=args.checkpoint_dir,
+                        checkpoint_every=args.checkpoint_every, resume=args.resume,
+                    )
+                except (ValueError, NotImplementedError) as e:
+                    # A grid, R, app or fusion build the member lacks.
+                    print(f"skip {alg} R={args.R} c={args.c}: {e}", file=sys.stderr,
+                          flush=True)
+                    continue
+                if world.process_index == 0:
+                    print(json.dumps({
+                        "algorithm": alg, "R": args.R, "c": args.c, "fused": fused,
+                        "elapsed": round(rec["elapsed"], 4),
+                        "GFLOPs": round(rec["overall_throughput"], 3),
+                    }), flush=True)
     finally:
         if owns_group and dist.is_initialized():
             dist.destroy_process_group()

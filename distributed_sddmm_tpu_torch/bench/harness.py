@@ -1,9 +1,10 @@
 """Algorithm factory and timed trial loop (counterpart of
 ``bench/harness.py``).
 
-The same five algorithm names as the JAX package; the two 1.5D dense-shift
-fusions are ported, sequential or overlapped (``overlap``), over any world
-of ``parallel/comm.py``. Four apps: ``vanilla`` (fused SDDMM->SpMM pairs),
+The same five algorithm names as the JAX package, all ported, over any
+world of ``parallel/comm.py``: the two 1.5D dense-shift fusions and the
+1.5D sparse shift, sequential or overlapped (``overlap``), and the two
+2.5D Cannon variants. Four apps: ``vanilla`` (fused SDDMM->SpMM pairs),
 ``attention`` (fused block-sparse attention over a mask), ``gat`` (the
 multi-head GAT forward pass, ``models/gat.py``) and ``als`` (alternating
 steps of ALS-CG, ``models/als.py``). Untimed warmup precedes the timed
@@ -29,7 +30,10 @@ from distributed_sddmm_tpu_torch.models.gat import GAT, GATLayer
 from distributed_sddmm_tpu_torch.parallel.base import (
     DistributedSparse, realized_kernel_variant,
 )
+from distributed_sddmm_tpu_torch.parallel.cannon_dense_25d import CannonDense25D
+from distributed_sddmm_tpu_torch.parallel.cannon_sparse_25d import CannonSparse25D
 from distributed_sddmm_tpu_torch.parallel.dense_shift_15d import DenseShift15D
+from distributed_sddmm_tpu_torch.parallel.sparse_shift_15d import SparseShift15D
 from distributed_sddmm_tpu_torch.resilience import CheckpointStore
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 
@@ -38,8 +42,12 @@ ALGORITHM_FACTORIES = {
         S, R=R, c=c, fusion_approach=1, **kw),
     "15d_fusion2": lambda S, R, c, **kw: DenseShift15D(
         S, R=R, c=c, fusion_approach=2, **kw),
+    "15d_sparse": lambda S, R, c, **kw: SparseShift15D(S, R=R, c=c, **kw),
+    "25d_dense_replicate": lambda S, R, c, **kw: CannonDense25D(S, R=R, c=c, **kw),
+    "25d_sparse_replicate": lambda S, R, c, **kw: CannonSparse25D(S, R=R, c=c, **kw),
 }
-NOT_PORTED = ("15d_sparse", "25d_dense_replicate", "25d_sparse_replicate")
+#: The JAX package's strategies the port lacks: none.
+NOT_PORTED = ()
 
 #: Strategies with a double-buffered local-kernel-overlap ring
 #: (``--fusion overlap``): the 1.5D shift family. The 2.5D Cannon
@@ -69,12 +77,9 @@ def make_algorithm(name: str, S: HostCOO, R: int, c: int = 1, kernel=None,
             f"strategies {ATTENTION_CAPABLE}; {name} cannot carry the "
             "softmax row denominator on its traveling accumulator"
         )
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP.md, queue A item 10)")
     if name not in ALGORITHM_FACTORIES:
         raise ValueError(f"unknown algorithm {name!r}; available: "
-                         f"{sorted(ALGORITHM_FACTORIES) + list(NOT_PORTED)}")
+                         f"{sorted(ALGORITHM_FACTORIES)}")
     if overlap:
         if name not in OVERLAP_CAPABLE:
             raise ValueError(

@@ -12,8 +12,9 @@ because every rank holds whole rows.
 A CG iteration runs as one unit on the strategy's ``fused_program``
 accessor, timed once as the ``cgStep`` op, as the JAX package's
 jit-chained program is; a strategy without that accessor, or with skews
-around its public ops, is refused (the skewing strategies are ROADMAP.md,
-queue A item 10). The CG carries are updated in place (this port's
+around its public ops, is refused: the three R-split strategies (the JAX
+package runs them through its R-split psums) are ROADMAP.md, queue A
+item 10b. The CG carries are updated in place (this port's
 counterpart of the JAX program's buffer donation): ``X`` is a copy of the
 factor and ``p`` a copy of ``r``, so the committed factors stay untouched
 until a half-step succeeds.
@@ -114,8 +115,8 @@ class DistributedALS:
         if not _supports_programs(d_ops):
             raise NotImplementedError(
                 f"{type(d_ops).__name__} has no fused_program or skews its operands; "
-                "ALS runs on DenseShift15D (the skewing strategies are ROADMAP.md, "
-                "queue A item 10)")
+                "ALS runs on DenseShift15D (the apps on the R-split strategies are "
+                "ROADMAP.md, queue A item 10b)")
         self.d_ops = d_ops
         self.seed = seed
         self.ridge_lambda = ridge_lambda

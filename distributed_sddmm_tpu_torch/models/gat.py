@@ -16,7 +16,8 @@ fresh ``S_att @ A_h``, and the strategy's R follows each layer's widths
 (``set_r_value``). A whole layer runs as one unit on the strategy's raw
 ``sddmm_program`` / ``spmm_program`` accessors, timed once as the
 ``gatLayer`` op; a strategy without them, or with skews around its public
-ops, is refused (the skewing strategies are ROADMAP.md, queue A item 10).
+ops, is refused: the three R-split strategies are ROADMAP.md, queue A
+item 10b.
 With guards on (``SDDMM_TORCH_GUARDS``) every layer's output passes
 ``guard_output``.
 """
@@ -75,8 +76,8 @@ class GAT:
         if not _supports_programs(d_ops):
             raise NotImplementedError(
                 f"{type(d_ops).__name__} has no sddmm_program/spmm_program or skews its "
-                "operands; GAT runs on DenseShift15D (the skewing strategies are "
-                "ROADMAP.md, queue A item 10)")
+                "operands; GAT runs on DenseShift15D (the apps on the R-split "
+                "strategies are ROADMAP.md, queue A item 10b)")
         if d_ops.M != d_ops.N:
             raise ValueError("GAT requires a square adjacency matrix")
         if not layers:

@@ -2,17 +2,22 @@
 public ops and per-op counters (counterpart of ``parallel/base.py``).
 
 A strategy runs on a world of ranks (``parallel/comm.py``) laid out on a
-grid (``parallel/mesh.py``). Dense operands are float32 row blocks: rank
-``(i, j, k)`` owns block ``i * nc + j`` of ``M_pad / (nr * nc)`` rows (the
-JAX package's ``P(("rows", "cols"), None)``, replicated over ``layers``).
-Under a :class:`~distributed_sddmm_tpu_torch.parallel.comm.LocalWorld` a
-dense operand stays the global ``(M_pad, R)`` / ``(N_pad, R)`` tensor, and
-each rank's block is a view of its rows; under a ``DistWorld`` it is the
-process's own block. Sparse values live in the tile layout of
-``parallel/sharding.py``, one slot a rank held. Ops return new tensors.
-In place of the JAX package's observability and resilience machinery,
-every public op adds its call count and seconds (host clock around the op,
-ending in a device synchronise) to a plain per-op counter.
+grid (``parallel/mesh.py``). A dense operand is float32 and split into
+``p`` disjoint blocks, one a rank, each ``(block_rows, width)``: a row
+block of the whole width for the dense-shift strategy (the JAX package's
+``P(("rows", "cols"), None)``), a set of rows of one R-slice for the
+R-split strategies (sparse shift, both Cannon variants). A strategy says
+which global rows and columns each rank's block holds (:meth:`_dense_map`);
+the host converters, the fills and the column skews follow from that. Under
+a :class:`~distributed_sddmm_tpu_torch.parallel.comm.LocalWorld` a dense
+operand is one tensor of the ``p`` blocks stacked in rank order,
+``(p * block_rows, width)``, and each rank's block is a contiguous view of
+it; under a ``DistWorld`` it is the process's own block. Sparse values live
+in the tile layout of ``parallel/sharding.py``, one slot a rank held. Ops
+return new tensors. In place of the JAX package's observability and
+resilience machinery, every public op adds its call count and seconds
+(host clock around the op, ending in a device synchronise) to a plain
+per-op counter.
 """
 
 from __future__ import annotations
@@ -27,8 +32,11 @@ from distributed_sddmm_tpu_torch.common import KernelMode, MatMode
 from distributed_sddmm_tpu_torch.device import resolve_device, synchronize
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
 from distributed_sddmm_tpu_torch.parallel.loops import ABLATION_MODES, ablation_mode
-from distributed_sddmm_tpu_torch.parallel.mesh import COLS, ROWS, GridSpec
-from distributed_sddmm_tpu_torch.parallel.sharding import TileSet
+from distributed_sddmm_tpu_torch.parallel.mesh import AXES, GridSpec
+from distributed_sddmm_tpu_torch.parallel.sharding import (
+    BankedTileView, TileSet, TileView, packed_structure, unpack_structure,
+)
+from distributed_sddmm_tpu_torch.tools import costmodel
 
 
 def realized_kernel_variant(alg):
@@ -48,6 +56,14 @@ class DistributedSparse(abc.ABC):
 
     algorithm_name: str = ""
     proc_grid_names: tuple = ()
+    #: The ``tools/costmodel.py`` model of the strategy's layout (None: no
+    #: analytic model, as for the dense shift, whose ``comm_profile``
+    #: counts each collective itself).
+    cost_model_name: str | None = None
+    #: True for the strategies that split the dense operands' R dimension.
+    r_split = False
+    #: The double-buffered ring build (the shift strategies that have one).
+    overlap = False
 
     #: Type of the dense operands and the sparse values.
     dtype = torch.float32
@@ -58,11 +74,17 @@ class DistributedSparse(abc.ABC):
         self.M, self.N, self.R, self.c, self.p = M, N, R, c, grid.p
         self.world, self.grid = world, grid
         self.comm = world.comm(grid, self.device)
-        #: The dense block (and tile slot) of each rank held, in slot order.
-        self.blocks = [i * grid.nc + j for i, j, _ in self.comm.coords]
+        #: The grid device (dense block and tile slot) of each rank held,
+        #: in slot order: ``(i * nc + j) * nh + k``.
+        self.blocks = [(i * grid.nc + j) * grid.nh + k for i, j, k in self.comm.coords]
         self.kernel = kernel if kernel is not None else CudaTileKernel(device=self.device)
         #: ``{op: {"calls": n, "seconds": s}}`` over the public ops.
         self.metrics: dict[str, dict] = {}
+        self._maps: dict = {}
+        #: Moving tiles between processes: each tile set's packed
+        #: structure, and the device bands of the tiles a ring brings.
+        self._packed: dict = {}
+        self._bands: dict = {}
         # Subclasses set these before use:
         self.M_pad: int = -1
         self.N_pad: int = -1
@@ -75,16 +97,37 @@ class DistributedSparse(abc.ABC):
         n_pad = self.M_pad if mode == MatMode.A else self.N_pad
         return n_pad // (self.grid.nr * self.grid.nc)
 
-    def dense_shape(self, mode: MatMode) -> tuple:
-        """The global ``(M_pad, R)`` / ``(N_pad, R)`` in one process, a
-        rank's block under a world of processes."""
-        if self.comm.in_process:
-            return (self.M_pad if mode == MatMode.A else self.N_pad, self.R)
-        return (self._block_rows(mode), self.R)
+    def _n_slices(self) -> int:
+        """Into how many R-slices the strategy splits a dense operand."""
+        return 1
 
-    def _row0(self, mode: MatMode) -> int:
-        """The global row of this process's first dense row."""
-        return 0 if self.comm.in_process else self.blocks[0] * self._block_rows(mode)
+    def _dense_map(self, mode: MatMode, width: int) -> tuple:
+        """``(rows [p, block_rows], col0 [p])`` int64 numpy: the global rows
+        of each grid device's block of a ``(n_pad, width)`` operand, and the
+        first of the ``width / _n_slices()`` consecutive global columns it
+        holds. The dense shift's: device ``d`` holds rows ``[d *
+        block_rows, (d + 1) * block_rows)``, every column."""
+        n = self._block_rows(mode)
+        return (np.arange(self.p * n, dtype=np.int64).reshape(self.p, n),
+                np.zeros(self.p, dtype=np.int64))
+
+    def _held_map(self, mode: MatMode, width: int) -> tuple:
+        """:meth:`_dense_map` of the held ranks: ``(rows, col0, block
+        width)``, rows and col0 as device tensors."""
+        key = (mode, width)
+        if key not in self._maps:
+            rows, col0 = self._dense_map(mode, width)
+            self._maps[key] = (torch.from_numpy(rows[self.blocks]).to(self.device),
+                               torch.from_numpy(col0[self.blocks]).to(self.device),
+                               width // self._n_slices())
+        return self._maps[key]
+
+    def dense_shape(self, mode: MatMode, width: int | None = None) -> tuple:
+        """The held ranks' blocks stacked: ``(held * block_rows,
+        block_width)`` (the global ``(M_pad, R)`` / ``(N_pad, R)`` for the
+        dense shift in one process)."""
+        rows, _, w = self._held_map(mode, self.R if width is None else width)
+        return (rows.numel(), w)
 
     def like_a_matrix(self, value: float) -> torch.Tensor:
         return torch.full(self.dense_shape(MatMode.A), value, dtype=self.dtype,
@@ -97,23 +140,44 @@ class DistributedSparse(abc.ABC):
     def dummy_initialize(self, mode: MatMode) -> torch.Tensor:
         """Deterministic ``value = globalRow * R + globalCol`` fill,
         computed in float32 like the JAX package's."""
-        n_rows, row0 = self.dense_shape(mode)[0], self._row0(mode)
-        rows = torch.arange(row0, row0 + n_rows, dtype=self.dtype,
-                            device=self.device)[:, None]
-        col = torch.arange(self.R, dtype=self.dtype, device=self.device)
-        return rows * self.R + col
+        rows, col0, w = self._held_map(mode, self.R)
+        cols = col0[:, None] + torch.arange(w, device=self.device)
+        out = rows.to(self.dtype)[:, :, None] * self.R + cols.to(self.dtype)[:, None, :]
+        return out.reshape(-1, w)
+
+    def _from_global(self, G: torch.Tensor, mode: MatMode) -> torch.Tensor:
+        """A global-order ``(n_pad, width)`` tensor -> the held blocks."""
+        rows, col0, w = self._held_map(mode, G.shape[-1])
+        if not self.r_split:  # whole rows, blocks in rank order
+            return G if self.comm.in_process else G.index_select(0, rows[0])
+        return torch.cat([G[:, c0:c0 + w].index_select(0, r)
+                          for r, c0 in zip(rows, col0.tolist())])
+
+    def _to_global(self, X: torch.Tensor, mode: MatMode) -> torch.Tensor:
+        """Every rank's blocks (gathered under a world of processes) -> the
+        global-order ``(n_pad, width)`` tensor."""
+        X = self._all_blocks(X)
+        if not self.r_split:
+            return X
+        width = X.shape[-1] * self._n_slices()
+        rows, col0 = (torch.from_numpy(x).to(X.device) for x in self._dense_map(mode, width))
+        out = torch.empty((self.M_pad if mode == MatMode.A else self.N_pad, width),
+                          dtype=X.dtype, device=X.device)
+        blocks = X.reshape(self.p, rows.shape[1], X.shape[-1])
+        for r, c0, x in zip(rows, col0.tolist(), blocks):
+            out[:, c0:c0 + x.shape[-1]].index_copy_(0, r, x)
+        return out
 
     def _put(self, host, mode: MatMode) -> torch.Tensor:
-        host = torch.as_tensor(host)
-        buf = torch.zeros(self.dense_shape(mode), dtype=self.dtype, device=self.device)
-        row0 = self._row0(mode)
-        part = host[row0: row0 + buf.shape[0]]
-        buf[: part.shape[0]] = part.to(device=self.device, dtype=self.dtype)
-        return buf
+        host = torch.as_tensor(host).to(device=self.device, dtype=self.dtype)
+        n_pad = self.M_pad if mode == MatMode.A else self.N_pad
+        G = torch.zeros((n_pad, self.R), dtype=self.dtype, device=self.device)
+        G[: host.shape[0]] = host
+        return self._from_global(G, mode)
 
     def put_a(self, host) -> torch.Tensor:
-        """A host ``(M, R)`` matrix (numpy or tensor), zero-padded to M_pad
-        (this process's block of it under a world of processes)."""
+        """A host ``(M, R)`` matrix (numpy or tensor), zero-padded to M_pad,
+        as the held blocks."""
         return self._put(host, MatMode.A)
 
     def put_b(self, host) -> torch.Tensor:
@@ -121,32 +185,98 @@ class DistributedSparse(abc.ABC):
 
     def _all_blocks(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's part of a dense operand or of the values,
-        concatenated in block order (an all-gather under a world of
+        concatenated in rank order (an all-gather under a world of
         processes)."""
         if self.comm.in_process:
             return x
-        return self.comm.all_gather([x], (ROWS, COLS))[0]
+        return self.comm.all_gather([x], AXES)[0]
 
     def host_a(self, A: torch.Tensor) -> np.ndarray:
         """A in global ``(M, R)`` row order on the host, padding stripped."""
-        A = self._all_blocks(A)
-        return A.detach().cpu().numpy().reshape(self.M_pad, self.R)[: self.M]
+        return self._to_global(A, MatMode.A).detach().cpu().numpy()[: self.M]
 
     def host_b(self, B: torch.Tensor) -> np.ndarray:
-        B = self._all_blocks(B)
-        return B.detach().cpu().numpy().reshape(self.N_pad, self.R)[: self.N]
+        return self._to_global(B, MatMode.B).detach().cpu().numpy()[: self.N]
 
     def _blocks(self, X: torch.Tensor, mode: MatMode) -> list:
-        """Each held rank's block of a dense operand (views, in one
-        process)."""
-        if not self.comm.in_process:
-            return [X]
-        n = self._block_rows(mode)
-        return [X[b * n: (b + 1) * n] for b in self.blocks]
+        """Each held rank's block of a dense operand (contiguous views)."""
+        n = X.shape[0] // len(self.blocks)
+        return [X[h * n: (h + 1) * n] for h in range(len(self.blocks))]
 
     def _assemble(self, blocks: list) -> torch.Tensor:
         """The inverse of :meth:`_blocks` for an output."""
         return blocks[0] if len(blocks) == 1 else torch.cat(blocks)
+
+    # ---------------------------- local kernels ---------------------------- #
+
+    @property
+    def _tiled(self) -> bool:
+        return getattr(self.kernel, "is_tiled", False)
+
+    def _prep(self, x):
+        return self.kernel.prep(x) if self._tiled else x
+
+    def _prep_each(self, xs: list) -> list:
+        """The kernel's type of each block, cast once per distinct tensor
+        (ranks that share a gathered block share its cast)."""
+        done: dict = {}
+        for x in xs:
+            if id(x) not in done:
+                done[id(x)] = self._prep(x)
+        return [done[id(x)] for x in xs]
+
+    def _k_sddmm(self, t: TileView, vals, at, bt):
+        """One tile's SDDMM: the tile kernel, or the flat protocol."""
+        if self._tiled:
+            return self.kernel.sddmm_tile(t, vals, at, bt)
+        return self.kernel.sddmm(t.rows, t.cols, vals, at, bt)
+
+    def _k_spmm(self, t: TileView, vals, bt):
+        if self._tiled:
+            return self.kernel.spmm_tile(t, vals, bt)
+        return self.kernel.spmm(t.rows, t.cols, vals, bt, t.n_rows)
+
+    def _k_fused(self, t: TileView, vals, at, bt):
+        if self._tiled:
+            return self.kernel.fused_tile(t, vals, at, bt)
+        mid = self.kernel.sddmm(t.rows, t.cols, vals, at, bt)
+        return self.kernel.spmm(t.rows, t.cols, mid, bt, t.n_rows), mid
+
+    # ---------------------------- moving tiles ----------------------------- #
+    # The sparse shift and the dense-replicating Cannon strategies send the
+    # tile itself round a ring. In one process a hop relabels: the ring
+    # carries the held ranks' tile views, and a rank receives the view its
+    # neighbour held. Between processes it carries each tile's structure
+    # packed in one int32 vector (``row_ptr``, ``rows``, ``cols``; every
+    # tile of a set has one frame and one cap). A banked tile's row bands
+    # are the host banding's of the tile that arrived: every process built
+    # the banding of the whole set, so the receiver moves the bands of the
+    # tiles its ring brings to the device once and looks them up by the
+    # sending device, which the ring step fixes.
+
+    def _tile_states(self, tiles: TileSet) -> list:
+        """What a ring carries of each held rank's own tile."""
+        views = [tiles.tile(h, 0) for h in range(len(self.blocks))]
+        if self.comm.in_process:
+            return views
+        if id(tiles) not in self._packed:
+            self._packed[id(tiles)] = [packed_structure(v) for v in views]
+        return self._packed[id(tiles)]
+
+    def _tile_view(self, tiles: TileSet, state, src: int) -> TileView:
+        """The tile a rank holds: ``state`` as the ring brought it, which
+        grid device ``src`` sent (under the full program)."""
+        if self.comm.in_process:
+            return state
+        view = unpack_structure(state, tiles.tile(0, 0))
+        if tiles.bands is None:
+            return view
+        key = (id(tiles), src)
+        if key not in self._bands:
+            self._bands[key] = tuple(b.to(self.device) for b in
+                                     tiles.banding.tiles[src * tiles.n_tiles])
+        return BankedTileView(view.row_ptr, view.rows, view.cols, view.n_rows,
+                              view.n_cols, bands=self._bands[key])
 
     # ---------------------------- sparse values ---------------------------- #
 
@@ -213,7 +343,8 @@ class DistributedSparse(abc.ABC):
         )
 
     def initial_shift(self, A, B, mode: KernelMode):
-        """Pre-skew dense operands where the strategy needs it (identity)."""
+        """Pre-skew dense operands where the strategy needs it (identity;
+        the Cannon strategies move their moving operand)."""
         return A, B
 
     def de_shift(self, A, B, mode: KernelMode):
@@ -228,13 +359,17 @@ class DistributedSparse(abc.ABC):
         self.R = R
 
     def _unskew_cols(self, X: torch.Tensor, mode: MatMode) -> torch.Tensor:
-        """Resident layout -> global column order (identity: no ported
-        strategy skews its columns)."""
-        return X
+        """Resident layout -> global column order. The identity for the
+        dense shift, whose blocks hold whole rows (each process projects
+        its own). An R-split strategy's block holds some columns of some
+        rows (and the sparse-replicating Cannon's a skewed choice of them):
+        there it is the global ``(n_pad, width)`` operand, gathered under a
+        world of processes."""
+        return self._to_global(X, mode) if self.r_split else X
 
     def _skew_cols(self, X: torch.Tensor, mode: MatMode) -> torch.Tensor:
-        """Global column order -> resident layout (identity)."""
-        return X
+        """Global column order -> resident layout (the inverse)."""
+        return self._from_global(X, mode) if self.r_split else X
 
     def dense_project(self, X: torch.Tensor, W: torch.Tensor, mode: MatMode) -> torch.Tensor:
         """The local projection ``X @ W`` in the canonical layout (the GAT
@@ -317,6 +452,26 @@ class DistributedSparse(abc.ABC):
             "ppermute": max(times["full"] - times["no_ring"], 0.0),
             f"{op}_total": times["full"],
         }
+
+    def comm_profile(self, op: str, pairs: float = 1.0) -> list[dict]:
+        """Per-call collective profile, the JAX base's: one ``modeled``
+        entry of the strategy's analytic model (``tools/costmodel.py``),
+        its pair volume scaled by the op's pair fraction, priced at the
+        float32 wire's 4 bytes a word; empty for an op the model does not
+        cover, a strategy without a model or a grid it cannot price. A
+        ``LocalWorld`` moves none of it."""
+        model = self.cost_model_name
+        frac = costmodel.OP_PAIRS.get(op)
+        if model is None or frac is None or self.S_tiles is None:
+            return []
+        try:
+            words = costmodel.pair_words(model, self.M_pad, self.N_pad, self.R,
+                                         self.S_tiles.nnz, self.p, self.c)
+        except ValueError:
+            return []
+        return [{"collective": "modeled", "axis": None, "count": 0,
+                 "words": words * frac * pairs, "bytes": 4.0 * words * frac * pairs,
+                 "in_model": True}]
 
     def json_perf_statistics(self) -> dict:
         """Per-op seconds, sorted by op name."""

@@ -135,22 +135,6 @@ class DenseShift15D(DistributedSparse):
     # Lists hold one entry per rank this process holds; entry h is tile
     # slot h and dense block ``self.blocks[h]``.
 
-    @property
-    def _tiled(self) -> bool:
-        return getattr(self.kernel, "is_tiled", False)
-
-    def _prep(self, x):
-        return self.kernel.prep(x) if self._tiled else x
-
-    def _prep_each(self, xs: list) -> list:
-        """The kernel's type of each block, cast once per distinct tensor
-        (the ranks of one row frame share their gathered block)."""
-        done: dict = {}
-        for x in xs:
-            if id(x) not in done:
-                done[id(x)] = self._prep(x)
-        return [done[id(x)] for x in xs]
-
     def _replicate(self, stat, mode: MatMode) -> list:
         """Each rank's stationary row frame: the all-gather of its grid
         row's ``c`` blocks over ``cols``."""
@@ -191,40 +175,19 @@ class DenseShift15D(DistributedSparse):
         return ring_loop(self.nr, step, (carry, movs), hop,
                          hop if final_shift else None)
 
-    # ------------------------------ local ops ------------------------------ #
-
-    def _tile_sddmm(self, tiles: TileSet, h: int, s: int, vals, at, mov):
-        t, k = tiles.tile(h, s), self.kernel
-        if self._tiled:
-            return k.sddmm_tile(t, vals, at, mov)
-        return k.sddmm(t.rows, t.cols, vals, at, mov)
-
-    def _tile_spmm(self, tiles: TileSet, h: int, s: int, vals, mov):
-        t, k = tiles.tile(h, s), self.kernel
-        if self._tiled:
-            return k.spmm_tile(t, vals, mov)
-        return k.spmm(t.rows, t.cols, vals, mov, t.n_rows)
-
-    def _tile_fused(self, tiles: TileSet, h: int, s: int, vals, at, mov):
-        t, k = tiles.tile(h, s), self.kernel
-        if self._tiled:
-            return k.fused_tile(t, vals, at, mov)
-        mid = k.sddmm(t.rows, t.cols, vals, at, mov)
-        return k.spmm(t.rows, t.cols, mid, mov, t.n_rows), mid
-
     # ------------------------------- rings --------------------------------- #
 
     def _sddmm_ring(self, tiles, ats, movs, vals, final_shift=False):
         def body(s, out, movs):
             for h, mov in enumerate(movs):
-                out[h, s] = self._tile_sddmm(tiles, h, s, vals[h, s], ats[h], mov)
+                out[h, s] = self._k_sddmm(tiles.tile(h, s), vals[h, s], ats[h], mov)
             return out
 
         return self._ring(body, torch.empty_like(vals), movs, final_shift)
 
     def _spmm_ring(self, tiles, movs, vals) -> list:
         def body(s, accs, movs):
-            parts = [self._tile_spmm(tiles, h, s, vals[h, s], mov)
+            parts = [self._k_spmm(tiles.tile(h, s), vals[h, s], mov)
                      for h, mov in enumerate(movs)]
             return parts if accs is None else [a + p for a, p in zip(accs, parts)]
 
@@ -236,8 +199,8 @@ class DenseShift15D(DistributedSparse):
         def body(s, accs, movs):
             parts = []
             for h, mov in enumerate(movs):
-                part, out_vals[h, s] = self._tile_fused(tiles, h, s, vals[h, s],
-                                                        ats[h], mov)
+                part, out_vals[h, s] = self._k_fused(tiles.tile(h, s), vals[h, s], ats[h],
+                                                     mov)
                 parts.append(part)
             return parts if accs is None else [a + p for a, p in zip(accs, parts)]
 

@@ -130,22 +130,27 @@ def ring_loop(n: int, body: Callable, state, shift_between: Callable,
 
 
 def ring_loop_overlap(n: int, body: Callable, carry, mov, start_shift: Callable,
-                      final_shift: bool = False):
+                      final_shift: bool = False, shift_carry: Optional[Callable] = None):
     """Double-buffered ring loop, the paper's local kernel overlap: each
     step issues the next hop of the moving operand before the body
     consumes the resident one, and waits for it after the body, so a
     hop between processes runs while the step computes.
 
     ``body(s, carry, mov) -> carry``; ``start_shift(mov)`` issues a hop
-    and returns its wait. With ``final_shift`` the hop after the last step
-    runs too; hop counts are the sequential :func:`ring_loop`'s: ``n - 1``
-    without it, ``n`` with (none when ``n == 1``). Every body consumes
-    exactly the blocks the sequential loop would, in the same order, so
-    the results are the same bits. Returns ``(carry, mov)``."""
+    and returns its wait. ``shift_carry`` hops state that travels but
+    depends on the body (the sparse shift's accumulating dots): after the
+    body, with the moving operand's hops. With ``final_shift`` the hop
+    after the last step runs too; hop counts are the sequential
+    :func:`ring_loop`'s: ``n - 1`` without it, ``n`` with (none when
+    ``n == 1``). Every body consumes exactly the blocks the sequential
+    loop would, in the same order, so the results are the same bits.
+    Returns ``(carry, mov)``."""
     final_shift = final_shift and n > 1
     for s in range(n):
         wait = start_shift(mov) if s < n - 1 or final_shift else None
         carry = body(s, carry, mov)
         if wait is not None:
+            if shift_carry is not None:
+                carry = shift_carry(carry)
             mov = wait()
     return carry, mov

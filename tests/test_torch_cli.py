@@ -118,12 +118,19 @@ APP_RECORD_DIFFS = {
 }
 
 
-@pytest.mark.parametrize("app", ["als", "gat"])
-def test_app_records_match_jax(app):
+@pytest.mark.parametrize("app,alg,p", [
+    pytest.param("als", "15d_fusion2", 4, id="als"),
+    pytest.param("gat", "15d_fusion2", 4, id="gat"),
+    pytest.param("vanilla", "15d_sparse", 4, id="vanilla-15d_sparse"),
+    pytest.param("vanilla", "25d_dense_replicate", 8, id="vanilla-25d_dense_replicate"),
+    pytest.param("vanilla", "25d_sparse_replicate", 8, id="vanilla-25d_sparse_replicate"),
+])
+def test_app_records_match_jax(app, alg, p):
     """Both packages' ``benchmark_algorithm`` on one ER matrix: the same
     record fields but the listed ones, the same configuration values, the
     same app fields and the same per-op counters (``cgStep`` an ALS CG
-    iteration, ``gatLayer`` a GAT layer)."""
+    iteration, ``gatLayer`` a GAT layer; the R-split strategies' fused
+    pair is their sddmmA and spmmA) and the same ``alg_info``."""
     import jax
 
     from distributed_sddmm_tpu.bench import harness as jax_harness
@@ -133,11 +140,11 @@ def test_app_records_match_jax(app):
 
     S = JaxCOO.erdos_renyi(32, 32, 4, seed=1)
     kw = dict(R=4, c=2, app=app, trials=2)
-    want = jax_harness.benchmark_algorithm(S, "15d_fusion2", None, True,
-                                           devices=jax.devices()[:4], **kw)
+    want = jax_harness.benchmark_algorithm(S, alg, None, True,
+                                           devices=jax.devices()[:p], **kw)
     got = harness.benchmark_algorithm(HostCOO(S.rows, S.cols, S.vals, S.M, S.N),
-                                      "15d_fusion2", None, True, device="cpu",
-                                      world=LocalWorld(4), **kw)
+                                      alg, None, True, device="cpu",
+                                      world=LocalWorld(p), **kw)
     assert set(got) - set(want) == APP_RECORD_DIFFS["port_only"]
     assert set(want) - set(got) <= APP_RECORD_DIFFS["jax_only"]
     for key in ("algorithm", "app", "R", "c", "fused", "fusion", "mask", "num_trials",
@@ -150,6 +157,48 @@ def test_app_records_match_jax(app):
     assert set(got["perf_stats"]) == set(want["perf_stats"])
     for key in ("m", "n", "nnz", "r", "p", "c", "dim_values", "nnz_procs"):
         assert got["alg_info"][key] == want["alg_info"][key], key
+    if app == "vanilla":
+        assert got["alg_info"] == want["alg_info"]
+
+
+def test_er_groups_run_each_member_and_skip_what_refuses(tmp_path, capsys, monkeypatch):
+    """``er 15d|25d|all``: one record and one summary line a member that
+    runs; a member the grid, the app or the fusion build refuses is
+    reported on stderr and skipped, and the group goes on (the JAX sweep
+    driver's rule)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.setenv("SDDMM_TORCH_LOCAL_RANKS", "4")
+    out = tmp_path / "rec.jsonl"
+
+    def run(group, c, *extra):
+        assert cli.main(["er", "5", "4", group, "4", str(c), "--device", "cpu", "--trials",
+                         "1", "-o", str(out), *extra]) == 0
+        io = capsys.readouterr()
+        ran = [json.loads(line)["algorithm"] for line in io.out.splitlines()]
+        skipped = [line.split()[1] for line in io.err.splitlines() if line.startswith("skip ")]
+        return ran, skipped
+
+    every = ["15d_fusion1", "15d_fusion2", "15d_sparse", "25d_dense_replicate",
+             "25d_sparse_replicate"]
+    assert run("all", 1) == (every, [])
+    assert run("15d", 2) == (every[:3], [])
+    # p/c = 2 is no square: both Cannon members refuse the grid.
+    assert run("25d", 2) == ([], every[3:])
+    assert run("all", 1, "--fusion", "overlap") == (every[:3], every[3:])
+    assert run("all", 1, "--app", "attention", "--mask", "window:2") == (
+        every[:2], every[2:])
+    assert run("all", 1, "--app", "als") == (every[:2], every[2:])
+    assert run("all", 1, "--app", "gat") == (every[:2], every[2:])
+    recs = [json.loads(line) for line in out.read_text().splitlines()]
+    assert [r["algorithm"] for r in recs] == every + every[:3] + every[:3] + every[:2] * 3
+    assert {r["alg_info"]["alg_name"] for r in recs[:5]} == {
+        "1.5D Block Row Replicated S Striped AB Cyclic Shift",
+        "1.5D Sparse Shifting Dense Replicating Algorithm",
+        "2.5D Cannon's Algorithm Replicating Dense Matrices",
+        "2.5D Cannon's Algorithm Replicating Sparse Matrix"}
+    assert recs[3]["alg_info"]["dim_values"] == [2, 2, 1]
+    with pytest.raises(SystemExit, match="unknown algorithm 'nope'"):
+        cli.main(["er", "5", "4", "nope", "4", "1", "--device", "cpu"])
 
 
 def test_er_at_four_local_ranks_overlap_and_breakdown(tmp_path, capsys, monkeypatch):

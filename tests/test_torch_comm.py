@@ -12,6 +12,12 @@ fingerprints must equal ``LocalWorld``'s exactly. Exact equality holds for
 these sums: the operands of the collectives are small integers, and the
 reductions of the verify run add two partials (c = 2), which commute.
 A second spawn runs ALS with a checkpoint store at (4, 2) and resumes it.
+A third runs the R-split strategies on four processes: ``CannonDense25D``
+(2 x 2, generic and banked, whose moving tiles travel packed and take their
+bands from the host banding), ``SparseShift15D`` (sequential and
+overlapped) and ``CannonSparse25D`` (2 x 2, and 1 x 1 x 4, whose fiber
+gather and reduce-scatter cross processes): every op on integer operands
+equal to ``LocalWorld``'s bit for bit.
 
 This module imports no JAX: the spawned processes import it to find
 their entry point.
@@ -26,13 +32,17 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from distributed_sddmm_tpu_torch.codegen import BankedCudaKernel
 from distributed_sddmm_tpu_torch.models.als import DistributedALS
 from distributed_sddmm_tpu_torch.parallel import comm as comm_mod
 from distributed_sddmm_tpu_torch.parallel.comm import (
     DistWorld, LocalWorld, backend_for, world_from_env,
 )
+from distributed_sddmm_tpu_torch.parallel.cannon_dense_25d import CannonDense25D
+from distributed_sddmm_tpu_torch.parallel.cannon_sparse_25d import CannonSparse25D
 from distributed_sddmm_tpu_torch.parallel.dense_shift_15d import DenseShift15D
 from distributed_sddmm_tpu_torch.parallel.mesh import make_grid
+from distributed_sddmm_tpu_torch.parallel.sparse_shift_15d import SparseShift15D
 from distributed_sddmm_tpu_torch.resilience import CheckpointStore
 from distributed_sddmm_tpu_torch.utils import verify
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
@@ -160,6 +170,61 @@ def test_als_checkpoints_over_gloo(tmp_path):
     want.run_cg(1, cg_iters=3)
     for rank in range(4):
         assert np.array_equal(np.load(tmp_path / f"B{rank}.npy"), want.item_factors()), rank
+
+
+# R-split strategies at p = 4: (class, c, keyword arguments, banked).
+STRATEGIES = (("cannon_dense", CannonDense25D, 1, {}, False),
+              ("cannon_dense_banked", CannonDense25D, 1, {}, True),
+              ("sparse_shift", SparseShift15D, 2, {}, False),
+              ("sparse_shift_overlap", SparseShift15D, 1, {"overlap": True}, False),
+              ("cannon_sparse", CannonSparse25D, 1, {}, False),
+              ("cannon_sparse_fiber", CannonSparse25D, 4, {}, False))
+
+
+def _strategy(cls, c, kw, banked, world):
+    kernel = BankedCudaKernel("v1.rb2.rs", "f32", device="cpu") if banked else None
+    return cls(_matrix(), 8, c=c, kernel=kernel, world=world, device="cpu", **kw)
+
+
+def _int_outputs(alg) -> dict:
+    """Every op on small-integer operands (``utils/verify.op_outputs``)."""
+    S = _matrix()
+    rng = np.random.default_rng(5)
+    return verify.op_outputs(alg, rng.integers(-3, 4, (S.M, 8)).astype(np.float32),
+                             rng.integers(-3, 4, (S.N, 8)).astype(np.float32),
+                             rng.integers(-2, 3, S.nnz).astype(np.float32))
+
+
+def _strategies_worker(rank: int, init: str, out_dir: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=4)
+    try:
+        for name, cls, c, kw, banked in STRATEGIES:
+            alg = _strategy(cls, c, kw, banked, DistWorld())
+            np.savez(f"{out_dir}/{name}{rank}.npz", **_int_outputs(alg))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_r_split_strategies_over_gloo_equal_local_world(tmp_path):
+    ctx = mp.spawn(_strategies_worker, args=(str(tmp_path / "init"), str(tmp_path)),
+                   nprocs=4, join=False)
+    deadline = time.monotonic() + 240
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            pytest.fail("the gloo processes did not finish in 240 s")
+    for name, cls, c, kw, banked in STRATEGIES:
+        alg = _strategy(cls, c, kw, banked, LocalWorld(4))
+        assert alg.kernel_variant_realized == ("v1.rb2.rs" if banked else None)
+        want = _int_outputs(alg)
+        for rank in range(4):
+            got = np.load(tmp_path / f"{name}{rank}.npz")
+            assert set(got.files) == set(want)
+            for op in want:
+                np.testing.assert_array_equal(got[op], want[op], err_msg=f"{name} {op} {rank}")
 
 
 # ------------------------------------------------------- LocalWorld alone

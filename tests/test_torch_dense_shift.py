@@ -183,7 +183,9 @@ def test_padding_rows_stay_inert():
 
 def test_multi_rank_not_ported():
     """The grid must split: c | p (the JAX package's ValueError), and
-    fusion 3 and the strategies of ``NOT_PORTED`` are refused."""
+    fusion 3 is refused. Every strategy of the JAX package is ported
+    (``NOT_PORTED`` is empty): each name builds, and an unknown one is
+    refused with the JAX package's text."""
     S = JaxCOO.erdos_renyi(16, 16, 2, seed=0)
     cs = state_from_reference(S.rows, S.cols, S.vals, 16, 16, np.zeros((16, 2)),
                               np.zeros((16, 2)), S.vals, device="cpu")
@@ -193,9 +195,12 @@ def test_multi_rank_not_ported():
         JaxDS(S, R=2, c=3, devices=jax.devices()[:4])
     with pytest.raises(ValueError):
         DenseShift15D(cs.S, R=2, fusion_approach=3, device="cpu")
-    for name in harness.NOT_PORTED:
-        with pytest.raises(NotImplementedError):
-            harness.make_algorithm(name, cs.S, 2, device="cpu")
+    assert harness.NOT_PORTED == ()
+    for name in harness.ALGORITHM_FACTORIES:
+        alg = harness.make_algorithm(name, cs.S, 2, device="cpu")
+        assert alg.p == 1 and alg.S_tiles.nnz == S.nnz, name
+    with pytest.raises(ValueError, match=r"unknown algorithm 'nope'; available: \['15d_f"):
+        harness.make_algorithm("nope", cs.S, 2, device="cpu")
 
 
 def test_benchmark_record_fields():

@@ -60,6 +60,9 @@ def test_port_and_chip_smoke_import_no_jax_in_subprocess():
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res == {"bad": [], "n": len(mods)}
     assert len(mods) > 15  # every module of the slice was imported
+    for mod in ("parallel.sparse_shift_15d", "parallel.cannon_dense_25d",
+                "parallel.cannon_sparse_25d", "tools.costmodel"):
+        assert f"distributed_sddmm_tpu_torch.{mod}" in mods
 
 
 def _imported_roots(path: pathlib.Path) -> set:
@@ -94,6 +97,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     for build in (
         lambda: DenseShift15D(S, R=4),
         lambda: harness.make_algorithm("15d_fusion2", S, 4),
+        lambda: harness.make_algorithm("15d_sparse", S, 4),
+        lambda: harness.make_algorithm("25d_dense_replicate", S, 4),
+        lambda: harness.make_algorithm("25d_sparse_replicate", S, 4),
         lambda: CudaTileKernel(),
         lambda: BankedCudaKernel("v1.rb4.rs"),
         lambda: state_from_reference(S.rows, S.cols, S.vals, 2, 2, np.zeros((2, 4)),
