@@ -130,7 +130,7 @@ last line is printed):
    residual after a step of 10 CG iterations; f32: no step raises it by
    1%, and a control whose Gram operator drops one slot in
    ``ALS_CONTROL_GATED`` must miss that tolerance), a CG iteration
-   through the model's own ``cgStep`` program split by CUDA events into
+   through the model's own ``cgStep`` split by CUDA events into
    the fused pair and the rest beside the rest's byte bound (7 frames of
    M x R x 4 bytes), peak memory. als_oracle: uniform R-mat log_m=12,
    R=32, from the float64 serial solver's factors and observations: after
@@ -173,18 +173,57 @@ last line is printed):
    NCCL at world size 1 equal to ``LocalWorld`` bit for bit. cli: ``er
    12 8 15d|25d|all ... 128 1`` over four logical ranks, one record a
    member, ``all --fusion overlap`` reporting both Cannon members skipped.
-13. kernels line -- ``{"kernels": [...]}``.
-14. last line -- ``{"ok": true, "device": {...}}``.
+13. training -- gradients through the strategies (``ops/autograd.py``):
+   the tile kernels in new roles in the backward (an SDDMM for the value
+   grads and ``<G_out, B>``, an SpMM for ``dA``), the column scatter
+   ``index_add_``. headline: the sddmm, spmm and fused grads at the
+   headline R-mat, p = 1, f32 and bf16, against float64 on 64 sampled rows
+   and their nonzeros and 64 sampled columns (1e-4 / 1e-2 of the max abs
+   value); each backward launches the kernels the design names (SDDMM +
+   SpMM, SDDMM, 2 SDDMM + SpMM), on float32 operands in both modes (the
+   launches are counted by the type of the operands they read), and no
+   plain version runs. banked:
+   Graph500 16 with its variant, the fused pair's grads equal to the
+   generic kernel's (1e-5), the bands' launches in the backward. strategies:
+   the four at (4, 1), f32, every op's grads within 1e-5 of p = 1's.
+   timing: the full cell's fused pair, f32 and bf16, ms of the forward and
+   of forward + backward (CUDA events), peak memory. gat: at the headline
+   R-mat one step's weight grads of the harness's GAT (heads 4, 4, 6, 128
+   a head) within 1e-4 of a float64 CPU autograd of the same network from
+   the same weights at the port's own branch pattern (read from
+   ``GAT.layer_forward``), every logit and aggregate where that pattern
+   leaves float64's within float32 rounding of its kink (``gat_kinks``),
+   and within ``GAT_TRAIN["own_cap"]`` at float64's own pattern; at the
+   full cell 1 + 3 steps of plain SGD on an MSE
+   against an N(0, 0.1) target, f32 and bf16: ms a step, the loss at each
+   step (it must fall), peak memory, the backward's launches on float32.
+14. apps_strategies -- ALS and GAT on ``SparseShift15D``,
+   ``CannonDense25D`` and ``CannonSparse25D`` (the per-op counters). protocol:
+   phase 11's ALS protocol on each. full: phase 5's cell at (4, 1) on the
+   tile sets phase 12 built, f32: ALS through ``_run_als`` (ms a step, the
+   first step's ratio within ``ALS_RATIO_TOL`` of the float64 solver's),
+   the GAT forward (ms a forward, the output within 1e-4 of the dense
+   shift's at p = 1 from the same weights). cli: ``er 12 8 all ... 128 1
+   --app als`` and ``--app gat`` over four logical ranks, a record a
+   member, none skipped.
+15. kernels line -- ``{"kernels": [...]}``.
+16. last line -- ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --gat-grad-drift [SEED ...]`` is another mode
+(``gat_grad_drift``): the readings behind GAT_DRIFT["plain"].
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import inspect
 import io
 import json
 import math
+import multiprocessing
 import os
+import pathlib
 import shutil
 import subprocess
 import sys
@@ -193,6 +232,7 @@ import time
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.utils.checkpoint
 
 from distributed_sddmm_tpu_torch import masks
 from distributed_sddmm_tpu_torch.autotune.fingerprint import Problem
@@ -207,6 +247,7 @@ from distributed_sddmm_tpu_torch.models import als as als_mod
 from distributed_sddmm_tpu_torch.models import gat as gat_mod
 from distributed_sddmm_tpu_torch.models.serial_als import SerialALS
 from distributed_sddmm_tpu_torch.ops import _build, cuda_kernels
+from distributed_sddmm_tpu_torch.ops import autograd as tile_autograd
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
 from distributed_sddmm_tpu_torch.ops.kernels import ATTN_NEG
 from distributed_sddmm_tpu_torch.parallel import comm as comm_mod
@@ -357,8 +398,8 @@ ALS_PROTOCOL = {"M": 48, "N": 32, "nnz_per_row": 5, "R": 8, "cg_iters": 5, "p": 
 #: whose Gram operator drops one nonzero slot in k (k in ALS_CONTROLS):
 #: the control at ALS_CONTROL_GATED must land outside it, or the gate is
 #: blind and the phase fails. Readings on an H100 (PERF.md, section 6): sound
-#: 2.57e-4 (f32); controls k = 10, 100, 1000, 10000: 9.57e-3, 1.16e-3,
-#: 3.46e-4, 2.66e-4.
+#: 2.57e-4 (f32); controls (every pair of the step dropping slots) k = 10,
+#: 100, 1000, 10000: 1.71e-2, 1.45e-3, 8.6e-5, 2.40e-4.
 ALS_SHAPE_LOG_M, ALS_RATIO_TOL = 12, 5e-4
 ALS_CONTROLS, ALS_CONTROL_GATED = (10, 100, 1000, 10000), 100
 #: The port's residual within ``slack`` of the serial one (both ways) and
@@ -374,6 +415,55 @@ CG_FRAMES = 7
 #: the headline output against float64 within these of its max abs value.
 GAT = {"warmup": 1, "forwards": 3}
 GAT_TOL = {"f32": 1e-4, "bf16": 1e-2}
+# Training (phase training): the grads of the tile ops through a strategy
+# against float64 on sampled rows (f32 / bf16 tolerances of the max abs
+# value), the four strategies and the banked kernel against the generic
+# p = 1 grads, the fused pair timed with its backward at the full cell.
+TRAINING = {"sample": 64, "grad_tol": {"f32": 1e-4, "bf16": 1e-2}, "grid": (4, 1),
+            "strategy_tol": 1e-5, "reps": 5}
+#: Kernel launches of one backward at p = 1 (``ops/autograd.py``), when
+#: the values and both dense operands ask for grads.
+BACKWARD_LAUNCHES = {"sddmm": {"sddmm_tile": 1, "spmm_tile": 1},
+                     "spmm": {"sddmm_tile": 1},
+                     "fused": {"sddmm_tile": 2, "spmm_tile": 1}}
+#: GAT training: the harness's network on an N(0, 1) input, MSE against an
+#: N(0, target_std) target, plain SGD at ``lr``. The network is
+#: homogeneous of degree 27 in its input (a layer's logits are bilinear in
+#: its projection, the aggregation linear; ReLU and LeakyReLU commute with
+#: a positive scale), so a probe forward at ``probe_scale`` fixes the
+#: input scale at which the output's RMS is ``target_std``: a fixed scale
+#: would leave the output vanishing or overflowing for other weights (at
+#: log_m 10, 0.1 gives an RMS of 4e-9, 0.3 of 3e4). At that scale lr 0.1
+#: lowered the loss at every step on uniform R-mats of log_m 10 and 12
+#: (1.0 collapses the output in one step). One step's weight grads at the
+#: headline size are held to a float64 CPU autograd of the same network at
+#: the port's own pattern (``training_gat``): LeakyReLU's and ReLU's kinks
+#: let float32 rounding pick another branch for the few logits and
+#: aggregates within rounding of 0, which moves any float32 evaluation's
+#: first-layer grads, plain PyTorch's too, from float64's. So the port's
+#: pattern may leave float64's only within float32 rounding of a kink
+#: (``gat_kinks``), and its distance from float64 at float64's own pattern
+#: is capped at ``own_cap``: ten times the largest distance of plain
+#: PyTorch float32 (CPU) over GAT_DRIFT["seeds"] (GAT_DRIFT["plain"], by
+#: layer a seed, from ``python3 chip_smoke.py --gat-grad-drift`` on an
+#: NVIDIA H100 80GB HBM3 host, PERF.md section 6; the port read 5.0e-4,
+#: 1.8e-4 and 9.7e-5 at layer 1 there).
+GAT_DRIFT = {"seeds": (5, 6, 7),
+             "plain": ((4.566155905847896e-05, 3.311793385536195e-07, 1.6368348376874323e-07),
+                       (1.849948181010732e-04, 5.303029448024412e-07, 9.535799883600262e-07),
+                       (9.811061580664375e-05, 2.756981301660221e-07, 1.3480779407220779e-06))}
+GAT_TRAIN = {"probe_scale": 0.19, "target_std": 0.1, "lr": 0.1, "warmup": 1, "steps": 3,
+             "grad_tol": 1e-4, "seed": GAT_DRIFT["seeds"][0],
+             "own_cap": 10 * max(max(seed) for seed in GAT_DRIFT["plain"])}
+#: The float64 host references of the headline GAT (``HostReference``): a
+#: spawned process of ``threads`` CPU threads, started before phase edges,
+#: which the card's phases overlap (the two grads take about five minutes
+#: of host time); the forward check's weights seed; the most seconds to
+#: wait for a result.
+GAT_REF = {"threads": 4, "forward_seed": 0, "timeout": 900}
+#: ALS on the R-split strategies at the full cell (phase apps_strategies):
+#: timed steps after ALS["warmup"].
+ALS_STRAT = {"steps": 2}
 PLAIN = {
     "sddmm_tile": cuda_kernels.sddmm_tile_plain,
     "spmm_tile": cuda_kernels.spmm_tile_plain,
@@ -475,6 +565,18 @@ def add_launches(launches: dict, counts: dict, prec: str) -> None:
     for op, n in counts.items():
         key = launch_key(op, prec)
         launches[key] = launches.get(key, 0) + n
+
+
+def by_type() -> dict:
+    """The launches since the counters were zeroed, by the type of the
+    dense operands each launch read (``cuda_kernels.launch_counts``)."""
+    return {prec: cuda_kernels.launch_counts(prec) for prec in ("f32", "bf16")}
+
+
+def add_by_type(launches: dict, counts: dict) -> None:
+    """Add ``by_type`` counts, each under the type its launches read."""
+    for prec, n in counts.items():
+        add_launches(launches, n, prec)
 
 
 def library_csr(tile, sv, n_cols: int):
@@ -2235,19 +2337,21 @@ def gat_launches(forwards: int, heads: int) -> dict:
 
 def cg_split(als, iters: int) -> dict:
     """An A half-step's CG iterations through the model's own ``cgStep``
-    program, timed in parts by CUDA events (its ``mark`` hook): the fused
-    pair and the rest (``+ lambda * p`` and the vector algebra), beside the
-    rest's byte bound. Not counted as main-path launches."""
+    (the code the solver runs), timed in parts by CUDA events (its
+    ``mark`` hook): the fused pair and the rest (``+ lambda * p`` and the
+    vector algebra), beside the rest's byte bound. Not counted as
+    main-path launches."""
     alg = als.d_ops
-    prog = als._cg_iter_program(MatMode.A, als.ridge_lambda)
+    lam = als.ridge_lambda
     r = als.compute_rhs(MatMode.A) - als.compute_queries(als.A, als.B, MatMode.A)
-    rsold = als_mod._batch_dot(r, r)
+    rsold = alg.batch_dot(r, r, MatMode.A)
     X, p = als.A.clone(), r.clone()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * iters + 1)]
     torch.cuda.synchronize()
     ev[0].record()
     for i in range(iters):
-        X, r, p, rsold = prog(X, als.B, r, p, rsold, mark=lambda _, e=ev[2 * i + 1]: e.record())
+        X, r, p, rsold = als._cg_step(MatMode.A, lam, X, r, p, rsold,
+                                      mark=lambda *_, e=ev[2 * i + 1]: e.record())
         ev[2 * i + 2].record()
     torch.cuda.synchronize()
     require(bool(torch.isfinite(X).all()), "als cg split: non-finite factors")
@@ -2322,24 +2426,25 @@ def als_full(uniform, dev, launches: dict, card: str) -> dict:
 
 def first_step_ratio_with_dropped_slots(S, alg, every: int, cg_iters: int) -> dict:
     """A control for the ratio gate: ``r1 / r0`` of one step whose Gram
-    operator (the CG iterations' fused pair) drops one nonzero slot in
-    ``every`` (a partly wrong operator; the right-hand side and the
-    residual see every observation)."""
-    real = alg.fused_program
+    operator (every fused pair of the step: each half-step's initial
+    residual and its CG iterations) drops one nonzero slot in ``every`` (a
+    partly wrong operator; the right-hand side and the residual see every
+    observation)."""
+    real = alg.fused_spmm
 
-    def dropped(s_vals, mode=MatMode.A):
+    def dropped(A, B, s_vals, mode=MatMode.A):
         vals = s_vals.clone()
         vals.view(-1)[::every] = 0
-        return real(vals, mode)
+        return real(A, B, vals, mode)
 
     als = als_mod.DistributedALS(alg, S_host=S)
     als.initialize_embeddings()
     r0 = als.compute_residual()
-    alg.fused_program = dropped
+    alg.fused_spmm = dropped
     try:
         als.run_cg(1, cg_iters=cg_iters)
     finally:
-        del alg.fused_program
+        del alg.fused_spmm
     r1 = als.compute_residual()
     require(np.isfinite(r1), f"als control 1/{every}: residual {r1}")
     return {"every": every, "trajectory": [r0, r1], "first_step_ratio": r1 / r0}
@@ -2382,7 +2487,8 @@ def als_protocol(dev, launches: dict, card: str) -> dict:
 
 def als_card_rung(S, alg, cg_iters: int) -> dict:
     """The ladder on the card: guards on, ``S_host`` given, the public fused
-    pair (each half-step's initial residual) returns NaN twice. The
+    pair returns NaN for its first two calls outside a ``cgStep`` (each
+    half-step's initial residual on the dense shift). The
     damped restart fails as well, and ``run_cg`` must raise
     ``NumericalFault`` rather than continue on the host's serial solver,
     with the factors left as they were."""
@@ -2393,7 +2499,7 @@ def als_card_rung(S, alg, cg_iters: int) -> dict:
 
     def poisoned(*args, **kw):
         out, mid = real(*args, **kw)
-        if len(hits) < 2:
+        if not alg._timing and len(hits) < 2:
             hits.append(1)
             out = torch.full_like(out, float("nan"))
         return out, mid
@@ -2502,21 +2608,23 @@ def als_ring(S16, dev, launches: dict, card: str) -> dict:
     return result
 
 
-def gat_headline(S16, dev, launches: dict, card: str) -> dict:
+def gat_headline(S16, ref, dev, launches: dict, card: str) -> dict:
     """The harness's GAT at the headline size, f32 and bf16, against a
-    float64 host forward pass with the same weights."""
+    float64 host forward pass with the same weights (``HostReference``:
+    ``oracle.gat_forward`` of the default input, weights drawn on the
+    host)."""
     R = HEADLINE["R"]
     alg = make_algorithm("15d_fusion2", S16, R, kernel=CudaTileKernel("f32", device=dev),
                          device=dev)
-    gat = gat_mod.GAT(harness._gat_layers(R), alg, seed=0)
+    gat = gat_mod.GAT(harness._gat_layers(R), alg)
+    for layer, ws in zip(gat.layers, gat_host_weights(R, GAT_REF["forward_seed"])):
+        layer.weights = [w.float().to(dev) for w in ws]
     heads = sum(layer.num_heads for layer in gat.layers)
-    t0 = time.perf_counter()
-    want = oracle.gat_forward(S16, oracle.dummy_dense(alg.M_pad, R) / (alg.M * R),
-                              [[w.double().cpu().numpy() for w in layer.weights]
-                               for layer in gat.layers])[: alg.M]
-    oracle_s = time.perf_counter() - t0
+    want = ref.forward()
+    oracle_s, wait_s = float(want["seconds"]), want["wait_seconds"]
+    want = want["forward"][: alg.M]
     scale = float(np.abs(want).max())
-    result = {"oracle_seconds": oracle_s, "max_abs": scale}
+    result = {"oracle_seconds": oracle_s, "oracle_wait_seconds": wait_s, "max_abs": scale}
     for prec in PRECISIONS:
         alg.kernel = CudaTileKernel(prec, device=dev)
         out, counts = run_counted(gat.forward)
@@ -2524,7 +2632,8 @@ def gat_headline(S16, dev, launches: dict, card: str) -> dict:
         err = float(np.abs(got - want).max()) / scale
         result[prec] = {"rel_err": err, "tol": GAT_TOL[prec], "launches": counts}
         emit({"phase": "apps_gat_headline", "card": card, "precision": prec,
-              "shape": list(got.shape), "oracle_seconds": oracle_s, **result[prec]})
+              "shape": list(got.shape), "oracle_seconds": oracle_s,
+              "oracle_wait_seconds": wait_s, **result[prec]})
         require(got.shape == want.shape and np.isfinite(got).all(),
                 f"gat headline/{prec}: output {got.shape} not finite or misshapen")
         require(err <= GAT_TOL[prec], f"gat headline/{prec}: {err:.3e} > {GAT_TOL[prec]}")
@@ -2543,7 +2652,7 @@ def gat_breakdown(gat) -> list:
     for i, layer in enumerate(gat.layers):
         marks = []
 
-        def mark(part, marks=marks):
+        def mark(part, value=None, marks=marks):
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             marks.append((part, ev))
@@ -2640,12 +2749,13 @@ def cli_apps(dev, launches: dict, card: str) -> dict:
     return result
 
 
-def phase_apps(S16, uniform, dev, launches: dict, card: str) -> dict:
+def phase_apps(S16, uniform, ref, dev, launches: dict, card: str) -> dict:
     t0 = time.perf_counter()
     seconds, out = {}, {}
     for name, fn, args in (("als_protocol", als_protocol, ()), ("als_full", als_full, (uniform,)),
                            ("als_oracle", als_oracle, ()),
-                           ("als_ring", als_ring, (S16,)), ("gat_headline", gat_headline, (S16,)),
+                           ("als_ring", als_ring, (S16,)),
+                           ("gat_headline", gat_headline, (S16, ref)),
                            ("gat_full", gat_full, (uniform,)), ("cli", cli_apps, ())):
         t = time.perf_counter()
         out[name] = fn(*args, dev, launches, card)
@@ -2866,7 +2976,8 @@ def strategy_kernels(alg, name: str, dev, entries: dict) -> None:
         del csr
 
 
-def strategies_full(uniform, dev, launches: dict, entries: dict, card: str) -> dict:
+def strategies_full(uniform, dev, launches: dict, entries: dict, card: str,
+                    keep: dict | None = None) -> dict:
     """The full cell at STRATEGIES["full"], the four strategies in turn:
     the harness's own loop (STRAT_WARMUP, then STRAT_TRIALS timed pairs),
     launches a pair against the ring structure, peak memory, the tile
@@ -2922,6 +3033,8 @@ def strategies_full(uniform, dev, launches: dict, entries: dict, card: str) -> d
             del out, mid, A, B, sv, a, b
         if name in STRATEGIES["r_split"]:
             strategy_kernels(alg, name, dev, entries)
+            if keep is not None:  # phase apps_strategies runs on these tiles
+                keep[name] = alg
         del alg
     return result
 
@@ -3020,7 +3133,8 @@ def phase_strategies(S16, uniform, dev, launches: dict, entries: dict, card: str
                            ("cli", strategies_cli, ())):
         t = time.perf_counter()
         if part == "full":
-            out[part] = fn(*args, dev, launches, entries, card)
+            out["algs"] = {}
+            out[part] = fn(*args, dev, launches, entries, card, keep=out["algs"])
         else:
             out[part] = fn(*args, dev, launches, card)
         seconds[part] = time.perf_counter() - t
@@ -3030,10 +3144,1032 @@ def phase_strategies(S16, uniform, dev, launches: dict, entries: dict, card: str
     return out
 
 
-def main() -> int:
+# ---------------------------------------------------------------- training
+# Gradients through the strategies (``ops/autograd.py``): the tile ops'
+# backward runs the SDDMM and SpMM tile kernels in new roles, and the
+# column scatters are ``index_add_`` on the card.
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Count every call of a plain version of ``ops/cuda_kernels.py`` while
+    the ``with`` block runs (a CUDA tensor must never reach one); yields
+    the list of the names called."""
+    saved = {n: getattr(cuda_kernels, n) for n in dir(cuda_kernels) if n.endswith("_plain")}
+    calls: list = []
+
+    def spy(name, fn):
+        def run(*args, **kw):
+            calls.append(name)
+            return fn(*args, **kw)
+        return run
+
+    for n, fn in saved.items():
+        setattr(cuda_kernels, n, spy(n, fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(cuda_kernels, n, fn)
+
+
+def grad_operands(S: HostCOO, R: int, seed: int) -> dict:
+    """N(0, 1) operands, values and cotangents of the output and the values
+    in host order, float32."""
+    rng = np.random.default_rng(seed)
+    return {"A": rng.standard_normal((S.M, R)).astype(np.float32),
+            "B": rng.standard_normal((S.N, R)).astype(np.float32),
+            "v": rng.standard_normal(S.nnz).astype(np.float32),
+            "g_out": rng.standard_normal((S.M, R)).astype(np.float32),
+            "g_mid": rng.standard_normal(S.nnz).astype(np.float32)}
+
+
+def op_grads(alg, op: str, ops: dict, counts: dict | None = None) -> dict:
+    """``(gA, gB, g_sv)`` in host order of one op through the strategy's
+    public ops (with its shifts), the cotangents ``g_out`` / ``g_mid`` put
+    in its layouts. With ``counts`` the forward's and the backward's launch
+    counts land there, each read from zeroed counters, and beside them the
+    same split by the type of the operands each launch read."""
+    A = alg.put_a(ops["A"]).requires_grad_()
+    B = alg.put_b(ops["B"]).requires_grad_()
+    sv = alg.scatter_s_values(ops["v"]).requires_grad_()
+    g_out, g_mid = alg.put_a(ops["g_out"]), alg.scatter_s_values(ops["g_mid"])
+    cuda_kernels.reset_launch_counts()
+    if op == "spmm":
+        z, b = alg.initial_shift(alg.like_a_matrix(0.0), B, KernelMode.SPMM_A)
+        outs, cots = (alg.de_shift(alg.spmm_a(z, b, sv), None, KernelMode.SPMM_A)[0],), (g_out,)
+    else:
+        a, b = alg.initial_shift(A, B, KernelMode.SDDMM_A)
+        if op == "sddmm":
+            outs, cots = (alg.sddmm_a(a, b, sv),), (g_mid,)
+        else:
+            out, mid = alg.fused_spmm(a, b, sv, MatMode.A)
+            outs = (alg.de_shift(out, None, KernelMode.SPMM_A)[0], mid)
+            cots = (g_out, g_mid)
+    if counts is not None:
+        torch.cuda.synchronize()
+        counts["forward"], counts["forward_by_type"] = cuda_kernels.launch_counts(), by_type()
+        cuda_kernels.reset_launch_counts()
+    grads = torch.autograd.grad(outs, (A, B, sv), cots, allow_unused=True)
+    torch.cuda.synchronize()
+    if counts is not None:
+        counts["backward"], counts["backward_by_type"] = cuda_kernels.launch_counts(), by_type()
+    gA, gB, gv = (torch.zeros_like(x) if g is None else g for g, x in zip(grads, (A, B, sv)))
+    return {"gA": alg.host_a(gA), "gB": alg.host_b(gB), "g_sv": alg.gather_s_values(gv)}
+
+
+def grad_reference(S: HostCOO, op: str, ops: dict, rows, cols) -> dict:
+    """The grads of ``op`` in float64 on the host, the JAX package's
+    formulas: ``gA`` at the rows ``rows`` and ``g_sv`` at their nonzeros
+    (in host order), ``gB`` at the columns ``cols``."""
+    A, B, v, Go, Gm = (ops[k].astype(np.float64) for k in ("A", "B", "v", "g_out", "g_mid"))
+    out: dict = {}
+    k = np.flatnonzero(np.isin(S.rows, rows))
+    r, c = S.rows[k], S.cols[k]
+    dots = np.einsum("kr,kr->k", A[r], B[c])
+    lut = np.full(S.M, -1)
+    lut[rows] = np.arange(len(rows))
+    gA = np.zeros((len(rows), A.shape[1]))
+    if op == "spmm":
+        out["g_sv"] = np.einsum("kr,kr->k", Go[r], B[c])
+    else:
+        g = Gm[k] if op == "sddmm" else Gm[k] + np.einsum("kr,kr->k", Go[r], B[c])
+        out["g_sv"] = g * dots
+        np.add.at(gA, lut[r], (g * v[k])[:, None] * B[c])
+    out["gA"], out["slots"] = gA, k
+    k = np.flatnonzero(np.isin(S.cols, cols))
+    r, c = S.rows[k], S.cols[k]
+    lut = np.full(S.N, -1)
+    lut[cols] = np.arange(len(cols))
+    gB = np.zeros((len(cols), B.shape[1]))
+    if op == "spmm":
+        np.add.at(gB, lut[c], v[k, None] * Go[r])
+    else:
+        dots = np.einsum("kr,kr->k", A[r], B[c])
+        g = Gm[k] if op == "sddmm" else Gm[k] + np.einsum("kr,kr->k", Go[r], B[c])
+        contrib = (g * v[k])[:, None] * A[r]
+        if op == "fused":
+            contrib += (v[k] * dots)[:, None] * Go[r]
+        np.add.at(gB, lut[c], contrib)
+    out["gB"] = gB
+    return out
+
+
+def max_rel(got, want) -> float:
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def grads_rel(got: dict, want: dict) -> float:
+    return max(max_rel(got[k], want[k]) for k in ("gA", "gB", "g_sv"))
+
+
+def training_headline(S16, dev, launches: dict, card: str) -> dict:
+    """The sddmm, spmm and fused grads at the headline R-mat, p = 1, f32 and
+    bf16, against float64 on 64 sampled rows and their nonzeros (and 64
+    sampled columns for ``gB``); each backward's launches as the design
+    says, and no plain version called."""
+    R = HEADLINE["R"]
+    alg = make_algorithm("15d_fusion2", S16, R, kernel=CudaTileKernel("f32", device=dev),
+                         device=dev)
+    ops = grad_operands(S16, R, seed=11)
+    rng = np.random.default_rng(12)
+    rows = rng.choice(np.unique(S16.rows), TRAINING["sample"], replace=False)
+    cols = rng.choice(np.unique(S16.cols), TRAINING["sample"], replace=False)
+    result = {}
+    for prec in PRECISIONS:
+        alg.kernel = CudaTileKernel(prec, device=dev)
+        # The forward reads bf16 operands: so does the reference.
+        ref_ops = dict(ops)
+        if prec == "bf16":
+            for key in ("A", "B"):
+                ref_ops[key] = torch.from_numpy(ops[key]).bfloat16().float().numpy()
+        for op in ("sddmm", "spmm", "fused"):
+            counts: dict = {}
+            with plain_calls() as plain:
+                got = op_grads(alg, op, ops, counts)
+            want = grad_reference(S16, op, ref_ops, rows, cols)
+            err = {"gA": max_rel(got["gA"][rows], want["gA"]),
+                   "gB": max_rel(got["gB"][cols], want["gB"]),
+                   "g_sv": max_rel(got["g_sv"][want["slots"]], want["g_sv"])}
+            tag = f"training grads {op}/{prec}"
+            emit({"phase": "training_grads", "card": card, "op": op, "precision": prec,
+                  "nnz": S16.nnz, "R": R, "rel_err": err, "tol": TRAINING["grad_tol"][prec],
+                  "launches_forward": counts["forward"],
+                  "launches_backward": counts["backward"],
+                  "launches_bf16": {k: counts[f"{k}_by_type"]["bf16"]
+                                    for k in ("forward", "backward")},
+                  "plain_calls": len(plain)})
+            require(max(err.values()) <= TRAINING["grad_tol"][prec], f"{tag}: {err}")
+            want_bwd = {**dict.fromkeys(cuda_kernels.LAUNCHES, 0), **BACKWARD_LAUNCHES[op]}
+            require(counts["backward"] == want_bwd,
+                    f"{tag}: backward launches {counts['backward']} != {want_bwd}")
+            require(not plain, f"{tag}: plain versions ran on the card: {sorted(set(plain))}")
+            # The forward's kernels read the drive's type; the backward's
+            # read float32 operands in both modes.
+            fwd = counts["forward_by_type"]
+            require(fwd[prec] == counts["forward"],
+                    f"{tag}: forward launches on other operands than {prec}: {fwd}")
+            bwd_bf16 = counts["backward_by_type"]["bf16"]
+            require(not any(bwd_bf16.values()),
+                    f"{tag}: the backward launched on bf16 operands: {bwd_bf16}")
+            add_by_type(launches, fwd)
+            add_by_type(launches, counts["backward_by_type"])
+            result[f"{op}/{prec}"] = err
+    return result
+
+
+def training_banked(dev, launches: dict, card: str) -> dict:
+    """Graph500 16 with its variant, fusion 2, f32: the fused pair's grads
+    through the banked kernel equal the generic kernel's; the backward
+    launches the bands' SDDMM twice and their SpMM once, no generic
+    launch."""
+    R = BANKED["R"]
+    S = graph500(BANKED["log_ms"][0])
+    variant = select_variant(Problem.from_coo(S, R))
+    alg = make_algorithm("15d_fusion2", S, R, kernel=BankedCudaKernel(variant, "f32", device=dev),
+                         device=dev)
+    ops = grad_operands(S, R, seed=13)
+    counts: dict = {}
+    with plain_calls() as plain:
+        banked = op_grads(alg, "fused", ops, counts)
+    bands = alg.S_tiles.tile(0, 0).bands
+    expect = added(band_launches(bands, "sddmm"), band_launches(bands, "sddmm"),
+                   band_launches(bands, "spmm"))
+    alg.kernel = CudaTileKernel("f32", device=dev)
+    generic = op_grads(alg, "fused", ops)
+    err = grads_rel(banked, generic)
+    row = {"variant": variant.variant_id, "nnz": S.nnz, "rel_diff_generic": err,
+           "launches_forward": counts["forward"], "launches_backward": counts["backward"],
+           "bands": band_info(alg.S_tiles)}
+    emit({"phase": "training_banked", "card": card, **row})
+    require(err <= TRAINING["strategy_tol"], f"training banked: {err:.3e} from generic")
+    require(counts["backward"] == expect,
+            f"training banked: backward launches {counts['backward']} != {expect}")
+    require(not plain, f"training banked: plain versions ran: {sorted(set(plain))}")
+    add_by_type(launches, counts["forward_by_type"])
+    add_by_type(launches, counts["backward_by_type"])
+    return row
+
+
+def training_strategies(S16, dev, launches: dict, card: str) -> dict:
+    """The four strategies at TRAINING["grid"], f32: the grads of each op
+    within ``strategy_tol`` of p = 1's."""
+    R = HEADLINE["R"]
+    p, c = TRAINING["grid"]
+    ops = grad_operands(S16, R, seed=14)
+    base = make_algorithm("15d_fusion2", S16, R, world=LocalWorld(1),
+                          kernel=CudaTileKernel("f32", device=dev), device=dev)
+    want = {op: op_grads(base, op, ops) for op in ("sddmm", "spmm", "fused")}
+    del base
+    result = {}
+    for name in STRATEGIES["names"]:
+        alg = make_algorithm(name, S16, R, c=c, world=LocalWorld(p),
+                             kernel=CudaTileKernel("f32", device=dev), device=dev)
+        err = {}
+        for op in want:
+            cuda_kernels.reset_launch_counts()
+            with plain_calls() as plain:
+                err[op] = grads_rel(op_grads(alg, op, ops), want[op])
+            add_by_type(launches, by_type())
+            require(not plain, f"training {name}: plain versions ran: {sorted(set(plain))}")
+        emit({"phase": "training_strategies", "card": card, "algorithm": name, "p": p,
+              "c": c, "rel_diff_p1": err, "tol": TRAINING["strategy_tol"]})
+        require(max(err.values()) <= TRAINING["strategy_tol"],
+                f"training {name} ({p},{c}): grads off p = 1's by {err}")
+        result[name] = err
+        del alg
+    return result
+
+
+def scatter_timing(alg, A, B, g_out, g_mid, sv) -> dict:
+    """The fused backward's column scatter alone (``dB[c] += gs * A[r] +
+    mid * G[r]``, ``ops/autograd.py``) on the full cell's tile, in float32
+    (CUDA events), beside its bound (every input read once, ``dB`` written
+    once; 4 operations a nonzero and feature at the float32 rate) and its
+    gather floor (an A and a G row read a nonzero): the yardstick of a
+    hand-written scatter kernel (ROADMAP queue B)."""
+    tile = alg.S_tiles.tile(0, 0)
+    A32, G = A.detach().float(), g_out.float()
+    mid = alg.kernel.sddmm_tile(tile, sv.detach()[0, 0], A32, B.detach().float())
+    gs = (g_mid[0, 0] * sv.detach()[0, 0]).contiguous()
+    nnz, R = int(tile.row_ptr[-1]), A32.shape[1]
+
+    def run():
+        return tile_autograd._cols_grad(tile, lambda sl: gs[sl, None] * A32[tile.rows[sl]]
+                                        + mid[sl, None] * G[tile.rows[sl]], B)
+
+    ms = time_ms(run, 3)
+    moved = 2 * A32.numel() * 4 + 4 * 4 * nnz + B.numel() * 4
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * nnz * R / F32_FLOP_PER_S * 1e3
+    return {"ms": ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "gather_ms": max((moved + 2 * nnz * R * 4) / HBM_BYTES_PER_S * 1e3, t_ops)}
+
+
+def training_timing(uniform, dev, launches: dict, card: str) -> dict:
+    """The full cell's fused pair with grads, f32 and bf16: ms of the
+    forward and of forward + backward (CUDA events, TRAINING["reps"] after
+    one untimed), peak memory of forward + backward."""
+    S, alg = uniform
+    gen = torch.Generator(device=dev).manual_seed(3)
+    A = alg.dummy_initialize(MatMode.A).requires_grad_()
+    B = alg.like_b_matrix(0.01).requires_grad_()
+    sv = alg.like_s_values(1.0).requires_grad_()
+    g_out = torch.randn(A.shape, generator=gen, device=dev)
+    g_mid = alg.like_s_values(1.0) * torch.randn(sv.shape, generator=gen, device=dev)
+    result = {}
+    for prec in PRECISIONS:
+        alg.kernel = CudaTileKernel(prec, device=dev)
+
+        def forward():
+            return alg.fused_spmm(A, B, sv, MatMode.A)
+
+        def step():
+            out, mid = forward()
+            torch.autograd.backward((out, mid), (g_out, g_mid))
+
+        fwd_ms = time_ms(forward, TRAINING["reps"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, counts = run_counted(step)
+        typed = by_type()
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = time_ms(step, TRAINING["reps"])
+        A.grad = B.grad = sv.grad = None
+        expect = {**dict.fromkeys(cuda_kernels.LAUNCHES, 0), "fused_tile": 1,
+                  **BACKWARD_LAUNCHES["fused"]}
+        row = {"forward_ms": fwd_ms, "forward_backward_ms": step_ms,
+               "backward_ms": step_ms - fwd_ms, "backward_over_forward": (step_ms - fwd_ms) / fwd_ms,
+               "peak_mem_bytes": peak, "launches": counts, "launches_bf16": typed["bf16"],
+               "dB_scatter": scatter_timing(alg, A, B, g_out, g_mid, sv)}
+        emit({"phase": "training_timing", "card": card, "precision": prec, "nnz": S.nnz,
+              "R": alg.R, "reps": TRAINING["reps"], **row})
+        require(counts == expect, f"training timing/{prec}: launches {counts} != {expect}")
+        # Only the forward's fused launch reads the drive's type; the
+        # backward's read float32.
+        want_bf16 = {**dict.fromkeys(cuda_kernels.LAUNCHES, 0),
+                     **({"fused_tile": 1} if prec == "bf16" else {})}
+        require(typed["bf16"] == want_bf16,
+                f"training timing/{prec}: bf16 launches {typed['bf16']} != {want_bf16}")
+        add_by_type(launches, typed)
+        result[prec] = row
+    return result
+
+
+def gat_host_weights(R: int, seed: int) -> list:
+    """Weights of the harness's GAT (one list a layer), U(-1, 1)/sqrt(in)
+    in float64 from a CPU ``torch.Generator``: the card and a float64 host
+    network take the same values."""
+    gen = torch.Generator().manual_seed(seed)
+    return [[(torch.rand(l.input_features, l.features_per_head, generator=gen,
+                         dtype=torch.float64) * 2 - 1) / math.sqrt(l.input_features)
+             for _ in range(l.num_heads)] for l in harness._gat_layers(R)]
+
+
+def gat_train_data(M: int, R: int, seed: int, device, dtype) -> tuple:
+    """The training input's N(0, 1) draw ``[M, R]`` and the N(0,
+    target_std) target ``[M, heads * R]`` of the last layer's width."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    width = harness._gat_layers(R)[-1].output_features
+    Z = torch.randn(M, R, generator=gen, dtype=dtype, device=device)
+    return Z, torch.randn(M, width, generator=gen, dtype=dtype, device=device) * GAT_TRAIN[
+        "target_std"]
+
+
+def input_scale(rms: float) -> float:
+    """The input scale at which the output's RMS is the target's, from the
+    RMS at ``probe_scale`` (the network is homogeneous of degree 27)."""
+    require(math.isfinite(rms) and rms > 0, f"gat training: probe output RMS {rms}")
+    return GAT_TRAIN["probe_scale"] * (GAT_TRAIN["target_std"] / rms) ** (1 / 27)
+
+
+def gat_plain_head(S: HostCOO, alpha: float):
+    """One GAT head in plain PyTorch, on its inputs' device and type: the
+    projection, the logits by gathers, LeakyReLU, the aggregation by
+    ``index_add``, ReLU. Given a ``pattern`` (where the logits and where
+    the aggregation are positive), the two kinks take those branches
+    instead of their own input's: the same function on the other side of
+    a kink only, so its grads are the float64 grads at that pattern. With
+    ``parts`` it also returns the logits and the aggregates."""
+    rows = torch.from_numpy(S.rows).long()
+    cols = torch.from_numpy(S.cols).long()
+
+    def head(X, W, pattern=None, parts: bool = False):
+        nonlocal rows, cols
+        rows, cols = rows.to(X.device), cols.to(X.device)
+        A = X @ W
+        logits = (A.index_select(0, rows) * A.index_select(0, cols)).sum(-1)
+        if pattern is None:
+            att = logits.clamp(min=0) + logits.clamp(max=0) * alpha
+        else:
+            att = torch.where(pattern[0], logits, logits * alpha)
+        h = torch.zeros_like(A).index_add(0, rows, att[:, None] * A.index_select(0, cols))
+        out = torch.relu(h) if pattern is None else torch.where(pattern[1], h, 0.0)
+        return (out, (logits, h)) if parts else out
+
+    return head
+
+
+def gat_plain_grads(S: HostCOO, weights: list, X, T, alpha: float, patterns=None) -> tuple:
+    """Autograd of the GAT in plain PyTorch, in the inputs' type and on
+    their device, one head recomputed in the backward at a time so that
+    its ``[nnz, R]`` intermediates are not all held (at the ``patterns`` of
+    each layer's heads, when given): the MSE loss and the grads of every
+    weight."""
+    head = gat_plain_head(S, alpha)
+    ws = [[w.clone().requires_grad_() for w in layer] for layer in weights]
+    Y = X
+    for i, layer in enumerate(ws):
+        Y = torch.cat([torch.utils.checkpoint.checkpoint(
+            head, Y, w, None if patterns is None else patterns[i][j], use_reentrant=False)
+            for j, w in enumerate(layer)], dim=-1)
+    loss = torch.mean((Y - T) ** 2)
+    grads = torch.autograd.grad(loss, [w for layer in ws for w in layer])
+    return float(loss.detach()), grads
+
+
+def rounding_factor(n):
+    """``gamma(n) = n u / (1 - n u)``: the relative error bound of a chain
+    of ``n`` float32 operations (u = 2^-24, float32's unit roundoff)."""
+    u = 2.0 ** -24
+    return n * u / (1 - n * u)
+
+
+@torch.no_grad()
+def gat_kinks(S: HostCOO, weights: list, X, alpha: float) -> list:
+    """Float64's pattern of the forward from ``X`` (``gat_plain_head``'s
+    expressions) and, for each layer and head, the logits and aggregates
+    that lie within float32 rounding of their kink at 0: ``|v| <= E_v``, a
+    first-order bound of a float32 evaluation's error in any order of
+    summation (fused multiply-adds included). ``E_v`` is carried forward
+    from the input's rounding: each operation adds its inputs' bounds
+    through its absolute partial derivatives and its own rounding,
+    ``gamma(n)`` of the sum of its terms' absolute values, ``n`` the terms
+    summed (``R_in`` and the weight's rounding a projection, ``R`` a
+    logit, the row's degree an aggregate); LeakyReLU and ReLU pass the
+    bound on. Only these values can take the other side of a kink in a
+    float32 forward. Returns ``{"own": (logits > 0, h > 0), "near":
+    (logits, aggregates within their bound)}`` a head."""
+    u = rounding_factor(1)
+    rows = torch.from_numpy(S.rows).long()
+    cols = torch.from_numpy(S.cols).long()
+    # An aggregate's own rounding, by the row of each of its terms.
+    g_row = rounding_factor(torch.bincount(rows, minlength=S.M).to(X.dtype))[rows]
+    E = u * X.abs()
+    kinks = []
+    for layer in weights:
+        outs, errs, heads = [], [], []
+        for W in layer:
+            A = X @ W
+            EA = E @ W.abs() + rounding_factor(W.shape[0] + 2) * (X.abs() @ W.abs())
+            Ar, Ac = A.index_select(0, rows), A.index_select(0, cols)
+            prod = Ar * Ac
+            logits = prod.sum(-1)
+            El = rounding_factor(W.shape[1]) * prod.abs_().sum(-1)
+            EAc = EA.index_select(0, cols)
+            El += (EA.index_select(0, rows) * Ac.abs() + Ar.abs_() * EAc).sum(-1)
+            del prod, Ar
+            att = logits.clamp(min=0) + logits.clamp(max=0) * alpha
+            h = torch.zeros_like(A).index_add(0, rows, att[:, None] * Ac)
+            a = att.abs()
+            Eh = torch.zeros_like(A).index_add(
+                0, rows, (El + (u + g_row) * a)[:, None] * Ac.abs_() + a[:, None] * EAc)
+            del Ac, EAc
+            heads.append({"own": (logits > 0, h > 0),
+                          "near": (logits.abs() <= El, (h.abs() <= Eh) & (Eh > 0))})
+            outs.append(torch.relu(h))
+            errs.append(Eh)
+        X, E = torch.cat(outs, -1), torch.cat(errs, -1)
+        kinks.append(heads)
+    return kinks
+
+
+def gat_port_pattern(gat, X) -> list:
+    """The port's own pattern in its forward from ``X`` (numpy, host order):
+    for each layer and head, where its logits and its aggregation (before
+    ReLU) are positive, read through ``GAT.layer_forward``'s hook from the
+    code that ``forward`` runs and phase training times."""
+    d = gat.d_ops
+    patterns = []
+
+    def mark(part, value):
+        if part == "sddmm":
+            pats.append([d.gather_s_values(value) > 0])
+        elif part == "spmm":
+            pats[-1].append(d.host_a(value) > 0)
+
+    with torch.no_grad():
+        for i in range(len(gat.layers)):
+            pats: list = []
+            X = gat.layer_forward(i, X, mark=mark)
+            patterns.append([tuple(p) for p in pats])
+    return patterns
+
+
+def gat_reference_job(paths: dict, log_m: int, edge_factor: int, R: int, scale: float,
+                      alpha: float, seed: int, threads: int, drift: bool) -> None:
+    """The host references of the headline GAT, in a process of its own
+    (``HostReference``), on the R-mat ``log_m``, ``edge_factor`` (seed 0)
+    at ``R``. Unless ``drift``: first the float64 forward pass of phase
+    apps' gat_headline on the default input (``oracle.gat_forward``) to
+    ``paths["forward"]``. Then, for the training network of ``seed`` at
+    input scale ``scale``: float64's own pattern and the logits and
+    aggregates within float32 rounding of a kink (``gat_kinks``), and a
+    head's flips (where the port's pattern, ``paths["pattern"]``, differs
+    from float64's): ``[logits, aggregates]`` flipped, near a kink, and
+    flipped but not near; the MSE loss and weight grads by float64 CPU
+    autograd at float64's own pattern, and at the port's (or, with
+    ``drift``, by plain float32 CPU autograd from the float32-rounded
+    weights and input), to ``paths["grads"]``. Each file is written
+    atomically."""
+    torch.set_num_threads(threads)
+    os.nice(10)  # the card's phases' host work comes first
+    S = HostCOO.rmat(log_m, edge_factor, np.random.default_rng(0))
+
+    def save(path, **arrays):
+        np.savez(f"{path}.tmp.npz", **arrays)
+        os.replace(f"{path}.tmp.npz", path)
+
+    t0 = time.perf_counter()
+    if not drift:
+        forward = oracle.gat_forward(
+            S, oracle.dummy_dense(S.M, R) / (S.M * R),
+            [[w.numpy() for w in layer] for layer in gat_host_weights(R, GAT_REF["forward_seed"])],
+            alpha)
+        save(paths["forward"], forward=forward, seconds=time.perf_counter() - t0)
+    t1 = time.perf_counter()
+    weights = gat_host_weights(R, seed)
+    Z, T = gat_train_data(S.M, R, seed, "cpu", torch.float64)
+    X = Z * scale
+    kinks = gat_kinks(S, weights, X, alpha)
+    with np.load(paths["pattern"]) as z:
+        port = [[(torch.from_numpy(z[f"l{i}_{j}"]), torch.from_numpy(z[f"h{i}_{j}"]))
+                 for j in range(len(layer))] for i, layer in enumerate(weights)]
+    flips = []
+    for layer_kinks, layer_port in zip(kinks, port):
+        for k, got in zip(layer_kinks, layer_port):
+            flip = [a != b for a, b in zip(k["own"], got)]
+            flips.append([int(f.sum()) for f in flip] + [int(n.sum()) for n in k["near"]]
+                         + [int((f & ~n).sum()) for f, n in zip(flip, k["near"])])
+    del kinks
+    loss, grads = gat_plain_grads(S, weights, X, T, alpha)
+    if drift:
+        name, (loss_other, grads_other) = "loss32", gat_plain_grads(
+            S, [[w.float() for w in layer] for layer in weights], X.float(), T.float(), alpha)
+    else:
+        name, (loss_other, grads_other) = "loss_at_port_pattern", gat_plain_grads(
+            S, weights, X, T, alpha, port)
+    save(paths["grads"], loss=loss, flips=np.array(flips), seconds=time.perf_counter() - t1,
+         **{name: loss_other},
+         **{f"g{i}": g.numpy() for i, g in enumerate(grads)},
+         **{f"m{i}": g.double().numpy() for i, g in enumerate(grads_other)})
+
+
+class HostReference:
+    """The host references of the headline GAT (``gat_reference_job``) in
+    a spawned process of ``threads`` CPU threads, started before the
+    card's phases so that its minutes of host work overlap them. On
+    construction the card runs the training network of ``seed`` once, to
+    fix its input scale and the port's pattern (through
+    ``gat_port_pattern``), which the process takes. ``forward()`` and
+    ``grads()`` wait for their files; ``stop()`` ends the process."""
+
+    def __init__(self, dev, seed: int = GAT_TRAIN["seed"], drift: bool = False,
+                 threads: int = GAT_REF["threads"]):
+        R = HEADLINE["R"]
+        S = HostCOO.rmat(HEADLINE["log_m"], HEADLINE["edge_factor"], np.random.default_rng(0))
+        alg = make_algorithm("15d_fusion2", S, R, kernel=CudaTileKernel("f32", device=dev),
+                             device=dev)
+        gat = gat_mod.GAT(harness._gat_layers(R), alg)
+        for layer, ws in zip(gat.layers, gat_host_weights(R, seed)):
+            layer.weights = [w.float().to(dev) for w in ws]
+        Z, _ = gat_train_data(S.M, R, seed, "cpu", torch.float64)
+        with torch.no_grad():
+            out = alg._to_global(gat.forward(put_wide(alg, Z * GAT_TRAIN["probe_scale"])),
+                                 MatMode.A)
+            self.scale = input_scale(float(out[: S.M].double().pow(2).mean().sqrt()))
+        pattern = gat_port_pattern(gat, put_wide(alg, Z * self.scale))
+        base = _build.BUILD_DIR / "chip_smoke_gat_reference" / f"seed{seed}"
+        base.mkdir(parents=True, exist_ok=True)
+        self.seed = seed
+        self.paths = {k: str(base / f"{k}.npz") for k in ("pattern", "forward", "grads")}
+        for path in self.paths.values():
+            pathlib.Path(path).unlink(missing_ok=True)
+        np.savez(self.paths["pattern"], **{f"{kind}{i}_{j}": p[n]
+                                           for i, layer in enumerate(pattern)
+                                           for j, p in enumerate(layer)
+                                           for n, kind in enumerate("lh")})
+        del gat, alg, out, pattern
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=gat_reference_job, daemon=True,
+            args=(self.paths, HEADLINE["log_m"], HEADLINE["edge_factor"], R, self.scale,
+                  inspect.signature(gat_mod.GAT).parameters["leaky_relu_alpha"].default,
+                  seed, threads, drift))
+        self.proc.start()
+        self._loaded: dict = {}
+
+    def _wait(self, name: str) -> dict:
+        if name not in self._loaded:
+            t = time.perf_counter()
+            path = pathlib.Path(self.paths[name])
+            while not path.exists() and self.proc.is_alive():
+                require(time.perf_counter() - t < GAT_REF["timeout"],
+                        f"GAT reference: no {name} in {GAT_REF['timeout']} s")
+                time.sleep(0.5)
+            require(path.exists(), f"GAT reference: exit code {self.proc.exitcode} "
+                    f"before its {name}")
+            with np.load(path) as z:
+                self._loaded[name] = {k: z[k] for k in z.files}
+            self._loaded[name]["wait_seconds"] = time.perf_counter() - t
+        return self._loaded[name]
+
+    def forward(self) -> dict:
+        return self._wait("forward")
+
+    def grads(self) -> dict:
+        return self._wait("grads")
+
+    def stop(self) -> None:
+        if self.proc.is_alive():
+            self.proc.kill()
+        self.proc.join(30)
+        shutil.rmtree(pathlib.Path(self.paths["grads"]).parent, ignore_errors=True)
+
+
+def gat_train_steps(gat, weights, X, T, steps: int, lr: float, marks=None) -> list:
+    """``steps`` plain SGD steps of the MSE loss (CUDA events in ``marks``
+    around each, when given); returns the loss at each step and leaves the
+    trained weights in the layers."""
+    losses = []
+    flat = [w for layer in weights for w in layer]
+    for _ in range(steps):
+        if marks is not None:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        k = 0
+        for layer in gat.layers:
+            layer.weights = flat[k:k + layer.num_heads]
+            k += layer.num_heads
+        loss = torch.mean((gat.forward(X) - T) ** 2)
+        grads = torch.autograd.grad(loss, flat)
+        with torch.no_grad():
+            flat = [(w - lr * g).requires_grad_() for w, g in zip(flat, grads)]
+        losses.append(loss.detach())
+    if marks is not None:
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+    torch.cuda.synchronize()
+    return [float(x) for x in losses]
+
+
+def gat_headline_grads(S16, ref: HostReference, dev) -> dict:
+    """One step's weight grads of the headline GAT of ``ref.seed`` on the
+    card (f32) against the host references (``ref.grads()``), each as the
+    max abs difference over the reference's max abs value, a layer:
+    ``own`` to float64 at float64's own pattern, ``other`` to the
+    reference's other grads (float64 at the port's pattern; with drift,
+    plain float32), ``other_own`` between the two references; the flip
+    table (``gat_reference_job``), the launches by operand type."""
+    R = HEADLINE["R"]
+    alg = make_algorithm("15d_fusion2", S16, R, kernel=CudaTileKernel("f32", device=dev),
+                         device=dev)
+    gat = gat_mod.GAT(harness._gat_layers(R), alg)
+    flat = [w.float().to(dev).requires_grad_() for layer in gat_host_weights(R, ref.seed)
+            for w in layer]
+    k = 0
+    for layer in gat.layers:
+        layer.weights = flat[k:k + layer.num_heads]
+        k += layer.num_heads
+    Z, T = gat_train_data(S16.M, R, ref.seed, "cpu", torch.float64)
+    Xd, Td = put_wide(alg, Z * ref.scale), put_wide(alg, T)
+    (loss, grads), counts = run_counted(lambda: _loss_and_grads(gat, Xd, Td, flat))
+    typed = by_type()
+    want = ref.grads()
+
+    def by_layer(got, ref) -> list:
+        """Max abs difference over the reference's max abs value, a layer."""
+        errs, k = [], 0
+        for layer in gat.layers:
+            a = torch.cat([torch.as_tensor(got[i]).reshape(-1).double()
+                           for i in range(k, k + layer.num_heads)])
+            b = torch.cat([torch.as_tensor(ref[i]).reshape(-1).double()
+                           for i in range(k, k + layer.num_heads)])
+            errs.append(float((a - b).abs().max() / b.abs().max()))
+            k += layer.num_heads
+        return errs
+
+    port = [g.cpu() for g in grads]
+    own = [want[f"g{i}"] for i in range(len(flat))]
+    other = [want[f"m{i}"] for i in range(len(flat))]
+    return {"nnz": S16.nnz, "seed": ref.seed, "input_scale": ref.scale, "loss": loss,
+            "loss64": float(want["loss"]),
+            **{key: float(want[key]) for key in ("loss_at_port_pattern", "loss32")
+               if key in want},
+            "own": by_layer(port, own), "other": by_layer(port, other),
+            "other_own": by_layer(other, own), "flips": want["flips"].tolist(),
+            "reference_seconds": float(want["seconds"]),
+            "reference_wait_seconds": want["wait_seconds"], "launches": counts,
+            "by_type": typed}
+
+
+def training_gat(S16, uniform, ref: HostReference, dev, launches: dict, card: str) -> dict:
+    """GAT training. At the headline R-mat, f32: one step's weight grads
+    against a float64 CPU autograd of the same network from the same
+    weights, input and target (``HostReference``), within ``grad_tol`` at
+    the port's own pattern (the sides of LeakyReLU's and ReLU's kinks its
+    forward took); every logit and aggregate on which that pattern differs
+    from float64's must lie within float32 rounding of its kink
+    (``gat_kinks``), and the distance to float64 at float64's own pattern
+    within ``own_cap``. At the full cell, f32 and bf16:
+    GAT_TRAIN["warmup"] step and GAT_TRAIN["steps"] timed steps of plain
+    SGD on the MSE against the target; ms a step, the losses (they must
+    fall), peak memory."""
+    R = HEADLINE["R"]
+    g = gat_headline_grads(S16, ref, dev)
+    add_by_type(launches, g.pop("by_type"))
+    err_at, err_own, branch = g["other"], g["own"], g["other_own"]
+    flips = np.array(g.pop("flips"))
+    loss, loss64 = g["loss"], g["loss64"]
+    tol, cap = GAT_TRAIN["grad_tol"], GAT_TRAIN["own_cap"]
+    head = {**{k: g[k] for k in ("nnz", "seed", "input_scale", "loss", "loss64",
+                                 "reference_seconds", "reference_wait_seconds", "launches")},
+            "loss64_at_port_pattern": g["loss_at_port_pattern"],
+            "grad_rel_err_float64_at_port_pattern_by_layer": err_at,
+            "grad_rel_err_float64_by_layer": err_own,
+            "float64_pattern_change_by_layer": branch, "tol": tol, "own_cap": cap,
+            "flips_logits_aggregates_by_head": flips[:, :2].tolist(),
+            "near_kink_logits_aggregates_by_head": flips[:, 2:4].tolist(),
+            "flips_not_near_a_kink": int(flips[:, 4:].sum())}
+    emit({"phase": "training_gat_headline", "card": card, **head})
+    require(abs(loss / loss64 - 1) <= tol and max(err_at) <= tol,
+            f"training gat headline: grads off float64 at the port's pattern by {err_at} "
+            f"(at float64's own: {err_own}); loss {loss} against {loss64}")
+    require(not flips[:, 4:].any(),
+            f"training gat headline: the port's pattern leaves float64's where float32 "
+            f"rounding cannot reach (flips not near a kink by head: {flips[:, 4:].tolist()})")
+    require(max(err_own) <= cap,
+            f"training gat headline: grads off float64 at its own pattern by {err_own} "
+            f"> {cap:.3e}")
+
+    S, alg = uniform
+    result = {"headline": head}
+    for prec in PRECISIONS:
+        alg.kernel = CudaTileKernel(prec, device=dev)
+        gat = gat_mod.GAT(harness._gat_layers(R), alg)
+        weights = [[w.float().to(dev) for w in layer]
+                   for layer in gat_host_weights(R, GAT_TRAIN["seed"])]
+        for layer, ws in zip(gat.layers, weights):
+            layer.weights = ws
+        Z, T = gat_train_data(alg.M_pad, R, GAT_TRAIN["seed"], dev, torch.float32)
+        Td = put_wide(alg, T)
+        with torch.no_grad():
+            out = alg._to_global(gat.forward(put_wide(alg, Z * GAT_TRAIN["probe_scale"])),
+                                 MatMode.A)
+            scale = input_scale(float(out[: S.M].double().pow(2).mean().sqrt()))
+            del out
+        Xd = put_wide(alg, Z * scale)
+        weights = [[w.requires_grad_() for w in layer] for layer in weights]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        marks: list = []
+        losses, counts = run_counted(lambda: gat_train_steps(
+            gat, weights, Xd, Td, GAT_TRAIN["warmup"] + GAT_TRAIN["steps"], GAT_TRAIN["lr"],
+            marks))
+        typed = by_type()
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(len(marks) - 1)]
+        timed = step_ms[GAT_TRAIN["warmup"]:]
+        heads = sum(layer.num_heads for layer in gat.layers)
+        steps = GAT_TRAIN["warmup"] + GAT_TRAIN["steps"]
+        # A head's forward: an SDDMM and an SpMM; its backward: the SpMM's
+        # value grad (an SDDMM) and the SDDMM's dA (an SpMM).
+        expect = {**dict.fromkeys(cuda_kernels.LAUNCHES, 0), "sddmm_tile": 2 * heads * steps,
+                  "spmm_tile": 2 * heads * steps}
+        row = {"ms_per_step": sum(timed) / len(timed), "step_ms": step_ms, "losses": losses,
+               "peak_mem_bytes": peak, "launches": counts, "launches_bf16": typed["bf16"],
+               "lr": GAT_TRAIN["lr"],
+               "input_scale": scale}
+        emit({"phase": "training_gat_full", "card": card, "precision": prec, "nnz": S.nnz,
+              "R": R, "heads": [layer.num_heads for layer in gat.layers], **row})
+        require(all(np.isfinite(losses)) and all(b < a for a, b in zip(losses, losses[1:])),
+                f"training gat full/{prec}: the loss did not fall: {losses}")
+        require(counts == expect, f"training gat full/{prec}: launches {counts} != {expect}")
+        # The forward's launches read the drive's type, the backward's
+        # float32.
+        want_bf16 = {**dict.fromkeys(cuda_kernels.LAUNCHES, 0),
+                     **({"sddmm_tile": heads * steps, "spmm_tile": heads * steps}
+                        if prec == "bf16" else {})}
+        require(typed["bf16"] == want_bf16,
+                f"training gat full/{prec}: bf16 launches {typed['bf16']} != {want_bf16}")
+        add_by_type(launches, typed)
+        result[prec] = row
+        del gat, weights, Xd, Td, Z, T
+    alg.set_r_value(R)
+    return result
+
+
+def put_wide(alg, X):
+    """A host ``(M, width)`` tensor in A's layout at its own width."""
+    alg.set_r_value(X.shape[1])
+    return alg.put_a(X.float())
+
+
+def _loss_and_grads(gat, X, T, flat) -> tuple:
+    loss = torch.mean((gat.forward(X) - T) ** 2)
+    grads = torch.autograd.grad(loss, flat)
+    return float(loss.detach()), grads
+
+
+def phase_training(S16, uniform, ref: HostReference, dev, launches: dict,
+                   card: str) -> dict:
+    t0 = time.perf_counter()
+    seconds, out = {}, {}
+    for part, fn, args in (("headline", training_headline, (S16,)),
+                           ("banked", training_banked, ()),
+                           ("strategies", training_strategies, (S16,)),
+                           ("timing", training_timing, (uniform,)),
+                           ("gat", training_gat, (S16, uniform, ref))):
+        t = time.perf_counter()
+        out[part] = fn(*args, dev, launches, card)
+        seconds[part] = time.perf_counter() - t
+    emit({"phase": "training", "card": card, "seconds": time.perf_counter() - t0,
+          "seconds_by_part": seconds,
+          "fused_pair_ms": {p: {k: out["timing"][p][k] for k in
+                                ("forward_ms", "forward_backward_ms", "backward_ms")}
+                            for p in PRECISIONS},
+          "gat_ms_per_step": {p: out["gat"][p]["ms_per_step"] for p in PRECISIONS}})
+    return out
+
+
+# ------------------------------------------------ apps on the R-split strategies
+
+
+def pass_launches(alg, op: str) -> dict:
+    """Generic launches of one SDDMM or SpMM op: a kernel a rank a ring
+    step."""
+    counts = dict.fromkeys(cuda_kernels.LAUNCHES, 0)
+    counts[f"{op}_tile"] = alg.p * ring_steps(alg)
+    return counts
+
+
+def strategy_als_launches(alg, steps: int, cg_iters: int, truth: bool = True,
+                          residuals: int = 1) -> dict:
+    """``DistributedALS`` on an R-split strategy (the per-op path): the
+    ground truth (an SDDMM in each mode), each half-step's right-hand side
+    (an SpMM) and its ``cg_iters + 1`` Gram products (an SDDMM and an SpMM
+    each), an SDDMM a residual."""
+    sddmm, spmm = pass_launches(alg, "sddmm"), pass_launches(alg, "spmm")
+    pairs = 2 * steps * (cg_iters + 1)
+    return added(scaled(sddmm, 2 * truth + residuals + pairs), scaled(spmm, 2 * steps + pairs))
+
+
+def apps_strategies_protocol(dev, launches: dict, card: str) -> dict:
+    """The JAX package's ALS protocol (``tests/test_als.py``) on each R-split
+    strategy on the card, f32."""
+    cfg = ALS_PROTOCOL
+    S = HostCOO.erdos_renyi(cfg["M"], cfg["N"], cfg["nnz_per_row"], np.random.default_rng(0))
+    result = {}
+    for name in STRATEGIES["r_split"]:
+        alg = make_algorithm(name, S, cfg["R"], c=cfg["c"], world=LocalWorld(cfg["p"]),
+                             kernel=CudaTileKernel("f32", device=dev), device=dev)
+        als = als_mod.DistributedALS(alg, seed=0)
+        als.initialize_embeddings()
+        traj = [als.compute_residual()]
+        for _ in range(2):
+            _, counts = run_counted(lambda: als.run_cg(1, cg_iters=cfg["cg_iters"]))
+            add_launches(launches, counts, "f32")
+            traj.append(als.compute_residual())
+        r0, r1, r2 = traj
+        emit({"phase": "apps_strategies_als_protocol", "card": card, "algorithm": name,
+              "nnz": S.nnz, **cfg, "trajectory": traj, "cg_step_unit": als._unit})
+        require(not als._unit and r1 < 0.5 * r0 and r2 < 1.01 * r1,
+                f"apps strategies protocol {name}: {traj}")
+        result[name] = traj
+    return result
+
+
+def apps_strategies_full(uniform, algs: dict, shape_ratio: float, dev, launches: dict,
+                         card: str) -> dict:
+    """Phase 5's cell at STRATEGIES["full"] on the R-split strategies (the
+    tile sets phase strategies built), f32: ALS through the harness's
+    ``_run_als`` (ms a step) and the first step's ratio against the float64
+    solver's; the GAT forward (ms a forward) against the dense shift's at
+    p = 1 from the same weights."""
+    S, base = uniform
+    R, it = FULL["R"], ALS["cg_iters"]
+    base.kernel = CudaTileKernel("f32", device=dev)
+    base.set_r_value(R)
+    ref_gat = gat_mod.GAT(harness._gat_layers(R), base, seed=0)
+    with torch.no_grad():
+        want = ref_gat.forward()
+    scale = float(want.abs().max())
+    heads = sum(layer.num_heads for layer in ref_gat.layers)
+    result = {}
+    for name, alg in algs.items():
+        alg.kernel = CudaTileKernel("f32", device=dev)
+        alg.set_r_value(R)
+        tag = f"apps strategies full {name}"
+        torch.cuda.reset_peak_memory_stats()
+        (elapsed, stats), counts = run_counted(
+            lambda: harness._run_als(alg, ALS_STRAT["steps"], ALS["warmup"], cg_iters=it, S=S))
+        expect = strategy_als_launches(alg, ALS["warmup"] + ALS_STRAT["steps"], it)
+        require(counts == expect, f"{tag}: ALS launches {counts} != {expect}")
+        add_launches(launches, counts, "f32")
+        als = als_mod.DistributedALS(alg, S_host=S)
+        als.initialize_embeddings()
+        r0 = als.compute_residual()
+        _, counts1 = run_counted(lambda: als.run_cg(1, cg_iters=it))
+        add_launches(launches, counts1, "f32")
+        ratio = als.compute_residual() / r0
+        als_peak = torch.cuda.max_memory_allocated()
+        del als
+
+        gat = gat_mod.GAT(harness._gat_layers(R), alg, seed=0)
+        for layer, ref in zip(gat.layers, ref_gat.layers):
+            layer.weights = ref.weights
+        with torch.no_grad():
+            gat.forward()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(GAT["forwards"]):
+                out, counts2 = run_counted(gat.forward)
+            gat_ms = (time.perf_counter() - t0) / GAT["forwards"] * 1e3
+            gat_peak = torch.cuda.max_memory_allocated()
+            err = float((alg._to_global(out, MatMode.A) - want).abs().max()) / scale
+        expect = added(scaled(pass_launches(alg, "sddmm"), heads),
+                       scaled(pass_launches(alg, "spmm"), heads))
+        require(counts2 == expect, f"{tag}: GAT launches {counts2} != {expect}")
+        add_launches(launches, scaled(counts2, GAT["forwards"]), "f32")
+        row = {"als_ms_per_step": elapsed / ALS_STRAT["steps"] * 1e3,
+               "als_steps": ALS_STRAT["steps"], "als_residual": stats["als_residual"],
+               "first_step_ratio": ratio, "float64_first_step_ratio": shape_ratio,
+               "ratio_gap": abs(ratio - shape_ratio), "ratio_tol": ALS_RATIO_TOL,
+               "als_peak_mem_bytes": als_peak, "gat_ms_per_forward": gat_ms,
+               "gat_rel_err_dense_shift": err, "gat_tol": GAT_TOL["f32"],
+               "gat_peak_mem_bytes": gat_peak, "width": R // alg._n_slices()}
+        emit({"phase": "apps_strategies_full", "card": card, "algorithm": name,
+              "p": alg.p, "c": alg.c, "nnz": S.nnz, "R": R, **row})
+        require(np.isfinite(stats["als_residual"]) and "als_degraded" not in stats,
+                f"{tag}: ALS {stats}")
+        require(row["ratio_gap"] <= ALS_RATIO_TOL,
+                f"{tag}: first-step ratio {ratio:.6f} against float64's {shape_ratio:.6f}")
+        require(err <= GAT_TOL["f32"], f"{tag}: GAT output off the dense shift's by {err:.3e}")
+        result[name] = row
+        del gat, out
+    del ref_gat, want
+    return result
+
+
+def apps_strategies_cli(dev, launches: dict, card: str) -> dict:
+    """``er 12 8 all ... 128 1 --app als`` and ``--app gat`` over four
+    logical ranks (cuda-bf16): a record a member, none skipped."""
+    path = _build.BUILD_DIR / "chip_smoke_cli_apps_strategies.jsonl"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    every = list(cli.ALG_GROUPS["all"])
+    prev = os.environ.get(comm_mod.LOCAL_RANKS_ENV)
+    os.environ[comm_mod.LOCAL_RANKS_ENV] = "4"
+    result = {}
+    try:
+        for app in ("als", "gat"):
+            argv = ["er", "12", "8", "all", "128", "1", "--app", app, "--trials", "1",
+                    "-o", str(path)]
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                rc, counts = run_counted(lambda: cli.main(argv))
+            recs = [json.loads(line) for line in path.read_text().splitlines()]
+            path.unlink()
+            said = [line.split()[1] for line in err.getvalue().splitlines()
+                    if line.startswith("skip ")]
+            ran = [r["algorithm"] for r in recs]
+            emit({"phase": "apps_strategies_cli", "card": card, "argv": argv, "ran": ran,
+                  "skipped": said, "launches": counts,
+                  "ms_per_trial": {r["algorithm"]: r["elapsed"] * 1e3 for r in recs}})
+            require(rc == 0 and ran == every and not said,
+                    f"apps strategies cli {app}: ran {ran}, skipped {said}")
+            require(all(r["kernel"] == "cuda-bf16" and r["app"] == app for r in recs),
+                    f"apps strategies cli {app}: kernel or app of a record")
+            require(sum(counts.values()) > 0, f"apps strategies cli {app}: no launch")
+            add_launches(launches, counts, "bf16")
+            result[app] = ran
+    finally:
+        if prev is None:
+            os.environ.pop(comm_mod.LOCAL_RANKS_ENV, None)
+        else:
+            os.environ[comm_mod.LOCAL_RANKS_ENV] = prev
+    return result
+
+
+def phase_apps_strategies(uniform, algs: dict, shape_ratio: float, dev, launches: dict,
+                          card: str) -> dict:
+    t0 = time.perf_counter()
+    seconds, out = {}, {}
+    for part, fn, args in (("protocol", apps_strategies_protocol, ()),
+                           ("full", apps_strategies_full, (uniform, algs, shape_ratio)),
+                           ("cli", apps_strategies_cli, ())):
+        t = time.perf_counter()
+        out[part] = fn(*args, dev, launches, card)
+        seconds[part] = time.perf_counter() - t
+    emit({"phase": "apps_strategies", "card": card, "seconds": time.perf_counter() - t0,
+          "seconds_by_part": seconds,
+          "als_ms_per_step": {k: v["als_ms_per_step"] for k, v in out["full"].items()},
+          "gat_ms_per_forward": {k: v["gat_ms_per_forward"] for k, v in out["full"].items()}})
+    return out
+
+
+def gat_grad_drift(seeds: list) -> int:
+    """``python3 chip_smoke.py --gat-grad-drift [SEED ...]`` (by default
+    GAT_DRIFT["seeds"]): for each seed, one step's weight grads of the
+    headline GAT of phase training on the card (f32) and by plain PyTorch
+    float32 autograd on the host, each against float64 at float64's own
+    pattern (the readings behind GAT_DRIFT["plain"]), with the port's
+    flips. The seeds' host references run at once, each in a process of
+    its own."""
     info = phase_device()
     dev = torch.device("cuda")
     phase_build()
+    S16 = HostCOO.rmat(HEADLINE["log_m"], HEADLINE["edge_factor"], np.random.default_rng(0))
+    threads = max(1, len(os.sched_getaffinity(0)) // len(seeds))
+    refs = []
+    try:
+        for seed in seeds:
+            refs.append(HostReference(dev, seed, drift=True, threads=threads))
+        for ref in refs:
+            g = gat_headline_grads(S16, ref, dev)
+            flips = np.array(g["flips"])
+            emit({"phase": "gat_grad_drift", "card": info["nvidia_smi"],
+                  **{k: g[k] for k in ("seed", "nnz", "input_scale", "loss", "loss64", "loss32",
+                                       "reference_seconds")},
+                  "port_from_float64_by_layer": g["own"],
+                  "plain_float32_from_float64_by_layer": g["other_own"],
+                  "port_from_plain_float32_by_layer": g["other"],
+                  "flips_logits_aggregates_by_head": flips[:, :2].tolist(),
+                  "near_kink_logits_aggregates_by_head": flips[:, 2:4].tolist(),
+                  "flips_not_near_a_kink": int(flips[:, 4:].sum())})
+    finally:
+        for ref in refs:
+            ref.stop()
+    return 0
+
+
+def main() -> int:
+    if "--gat-grad-drift" in sys.argv:
+        seeds = [int(a) for a in sys.argv[sys.argv.index("--gat-grad-drift") + 1:]]
+        return gat_grad_drift(seeds or list(GAT_DRIFT["seeds"]))
+    info = phase_device()
+    dev = torch.device("cuda")
+    phase_build()
+    ref = HostReference(dev)
+    try:
+        return drive(info, dev, ref)
+    finally:
+        ref.stop()
+
+
+def drive(info: dict, dev, ref: HostReference) -> int:
+    card = info["nvidia_smi"]
     phase_edges(dev)
     S16 = HostCOO.rmat(HEADLINE["log_m"], HEADLINE["edge_factor"],
                        np.random.default_rng(0))
@@ -3050,13 +4186,19 @@ def main() -> int:
     phase_banked(dev, launches, entries, uniform)
     phase_cli(dev, launches)
     ring: dict = {}
-    phase_ring(S16, uniform, dev, ring, info["nvidia_smi"])
+    phase_ring(S16, uniform, dev, ring, card)
     apps: dict = {}
-    phase_apps(S16, uniform, dev, apps, info["nvidia_smi"])
+    apps_out = phase_apps(S16, uniform, ref, dev, apps, card)
     strategies: dict = {}
-    phase_strategies(S16, uniform, dev, strategies, entries, info["nvidia_smi"])
-    del uniform
-    for key, n in (*ring.items(), *apps.items(), *strategies.items()):
+    algs = phase_strategies(S16, uniform, dev, strategies, entries, card).pop("algs")
+    training: dict = {}
+    phase_training(S16, uniform, ref, dev, training, card)
+    apps_strategies: dict = {}
+    phase_apps_strategies(uniform, algs, apps_out["als_full"]["float64_first_step_ratio"],
+                          dev, apps_strategies, card)
+    del uniform, algs
+    for key, n in (*ring.items(), *apps.items(), *strategies.items(), *training.items(),
+                   *apps_strategies.items()):
         launches[key] = launches.get(key, 0) + n
 
     kernels = []
@@ -3071,6 +4213,8 @@ def main() -> int:
             "ring_launches": ring.get((op, prec), 0),
             "apps_launches": apps.get((op, prec), 0),
             "strategies_launches": strategies.get((op, prec), 0),
+            "training_launches": training.get((op, prec), 0),
+            "apps_strategies_launches": apps_strategies.get((op, prec), 0),
             "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
             "max_rel_err": max(r["max_rel_err"] for r in shapes.values()),
             "tol": main_["tol"],

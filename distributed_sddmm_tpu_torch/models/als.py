@@ -5,19 +5,25 @@ Alternating optimization of embeddings A (M x R) and B (N x R) against
 observed sparse entries: each half-step solves the ridge normal equations
 of one factor with a batched (per-row) CG whose matrix-vector product is
 the fused SDDMM->SpMM pair plus ``lambda * X``. The dense operands are the
-strategy's canonical ``(M_pad, R)`` / ``(N_pad, R)`` tensors (a process's
-block under a world of processes); the per-row dots need no collective
-because every rank holds whole rows.
+strategy's canonical tensors (its held rank blocks); the CG's per-row dots
+are the strategy's :meth:`~distributed_sddmm_tpu_torch.parallel.base.
+DistributedSparse.batch_dot`, which on an R-split strategy sums a row's
+partial dots over the blocks that hold its R-slices (the psum XLA inserts
+in the JAX package).
 
-A CG iteration runs as one unit on the strategy's ``fused_program``
-accessor, timed once as the ``cgStep`` op, as the JAX package's
-jit-chained program is; a strategy without that accessor, or with skews
-around its public ops, is refused: the three R-split strategies (the JAX
-package runs them through its R-split psums) are ROADMAP.md, queue A
-item 10b. The CG carries are updated in place (this port's
-counterpart of the JAX program's buffer donation): ``X`` is a copy of the
-factor and ``p`` a copy of ``r``, so the committed factors stay untouched
-until a half-step succeeds.
+Every CG iteration applies the Gram operator through the public ops,
+with ``initial_shift`` / ``de_shift`` around them
+(:meth:`DistributedALS.compute_queries`). The counters follow the JAX
+package's records: on ``DenseShift15D``, where the JAX package runs an
+iteration as one program, one ``cgStep`` times each iteration (the public
+ops inside it run untimed); on the R-split strategies (``SparseShift15D``,
+``CannonDense25D``, ``CannonSparse25D``) the per-op counters show its
+sddmm and spmm.
+
+The CG carries are updated in place (this port's counterpart of the JAX
+program's buffer donation): ``X`` is a copy of the factor and ``p`` a copy
+of ``r``, so the committed factors stay untouched until a half-step
+succeeds. The solver runs under ``torch.no_grad()``.
 
 Resilience:
 
@@ -69,55 +75,38 @@ class CGDivergence(ArithmeticError):
     ill-conditioned for the current ridge."""
 
 
-def _batch_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Per-row dot products."""
-    return torch.sum(x * y, dim=-1)
-
-
 def _scale_rows(scale: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
     return mat * scale.unsqueeze(-1)
 
 
-def _cg_vector_update(X, r, p, rsold, Mp, eps: float = EPS):
-    """One CG iteration's vector algebra given the Gram product ``Mp``;
-    updates ``X``, ``r`` and ``p`` in place and returns ``(X, r, p,
-    rsnew)``."""
-    alpha = (rsold + eps) / (_batch_dot(p, Mp) + eps)
+def _cg_vector_update(X, r, p, rsold, Mp, dot, eps: float = EPS):
+    """One CG iteration's vector algebra given the Gram product ``Mp`` and
+    the per-row dot ``dot(x, y)``; updates ``X``, ``r`` and ``p`` in place
+    and returns ``(X, r, p, rsnew)``."""
+    alpha = (rsold + eps) / (dot(p, Mp) + eps)
     X.add_(_scale_rows(alpha, p))
     r.sub_(_scale_rows(alpha, Mp))
-    rsnew = _batch_dot(r, r)
+    rsnew = dot(r, r)
     p.mul_((rsnew / (rsold + eps)).unsqueeze(-1)).add_(r)
     return X, r, p, rsnew
 
 
-def _supports_programs(d_ops: DistributedSparse) -> bool:
-    """True when the strategy has the raw ``fused_program`` accessor and its
-    public ops need no pre- or post-skew, so that a CG iteration can run
-    as one unit."""
-    return (hasattr(d_ops, "fused_program")
-            and type(d_ops).initial_shift is DistributedSparse.initial_shift
-            and type(d_ops).de_shift is DistributedSparse.de_shift)
-
-
-def _no_mark(part: str) -> None:
+def _no_mark(part: str, value=None) -> None:
     pass
 
 
 class DistributedALS:
-    """Alternating least squares over a distributed strategy that
-    :func:`_supports_programs` accepts (``DenseShift15D``)."""
+    """Alternating least squares over any distributed strategy."""
 
     def __init__(self, d_ops: DistributedSparse, seed: int = 0, ridge_lambda: float = 1e-6,
                  artificial_groundtruth: bool = True,
                  ground_truth_vals: np.ndarray | None = None,
                  ground_truth_vals_transpose: np.ndarray | None = None,
                  S_host=None, guard: str | bool = "auto", damp_factor: float = 1e3):
-        if not _supports_programs(d_ops):
-            raise NotImplementedError(
-                f"{type(d_ops).__name__} has no fused_program or skews its operands; "
-                "ALS runs on DenseShift15D (the apps on the R-split strategies are "
-                "ROADMAP.md, queue A item 10b)")
         self.d_ops = d_ops
+        # One cgStep an iteration where the JAX package runs it as one
+        # program: the strategy whose blocks hold whole rows.
+        self._unit = not d_ops.r_split
         self.seed = seed
         self.ridge_lambda = ridge_lambda
         # ``guard`` "auto" follows guards.enabled(); S_host enables the
@@ -126,7 +115,6 @@ class DistributedALS:
         self._guard = guard
         self.damp_factor = damp_factor
         self.degraded: str | None = None
-        self._cg_programs: dict = {}
         self._ones_vals: dict = {}
 
         if artificial_groundtruth:
@@ -195,61 +183,63 @@ class DistributedALS:
                             KernelMode.SPMM_B)
         return out
 
-    def compute_queries(self, A, B, mode: MatMode, lam: float | None = None) -> torch.Tensor:
+    def compute_queries(self, A, B, mode: MatMode, lam: float | None = None,
+                        mark=_no_mark) -> torch.Tensor:
         """The Gram operator: ``fusedSpMM + lam * X`` (``lam`` overrides
-        the ridge for damped restarts)."""
+        the ridge for damped restarts). ``mark("pair", out)`` is called
+        after the shifted pair is issued (a timing hook; it does nothing
+        by default)."""
         lam = self.ridge_lambda if lam is None else lam
         d = self.d_ops
         if mode == MatMode.A:
             A_s, B_s = d.initial_shift(A, B, KernelMode.SDDMM_A)
             out, _ = d.fused_spmm(A_s, B_s, self._ones(mode), MatMode.A)
             out, _ = d.de_shift(out, None, KernelMode.SPMM_A)
+            mark("pair", out)
             return out + lam * A
         A_s, B_s = d.initial_shift(A, B, KernelMode.SDDMM_B)
         out, _ = d.fused_spmm(A_s, B_s, self._ones(mode), MatMode.B)
         _, out = d.de_shift(None, out, KernelMode.SPMM_B)
+        mark("pair", out)
         return out + lam * B
 
     # ------------------------------ batched CG ----------------------------- #
 
-    def _cg_iter_program(self, mode: MatMode, lam: float):
-        """``f(X, other, r, p, rsold, mark) -> (X, r, p, rsnew)``: one whole
-        CG iteration, the strategy's raw fused pair chained with ``+ lam *
-        p`` and the vector algebra. ``mark("pair")`` is called after the
-        pair is issued (a timing hook; it does nothing by default). Keyed by
-        lambda too, as a damped restart solves with a stiffer ridge."""
-        key = (mode, self.d_ops.R, lam)
-        if key not in self._cg_programs:
-            fused = self.d_ops.fused_program(self._ones(mode), mode)
+    def _cg_step(self, mode: MatMode, lam: float, X, r, p, rsold, mark=_no_mark):
+        """One CG iteration from the carries, the Gram product of ``p`` and
+        the vector algebra; returns ``(X, r, p, rsnew)``. One ``cgStep`` on
+        the dense shift, the public ops' counters elsewhere."""
+        def step():
+            Mp = (self.compute_queries(p, self.B, mode, lam, mark) if mode == MatMode.A
+                  else self.compute_queries(self.A, p, mode, lam, mark))
+            return _cg_vector_update(X, r, p, rsold, Mp, self._dot(mode))
 
-            def one_iter(X, other, r, p, rsold, mark=_no_mark):
-                out, _ = fused(p, other) if mode == MatMode.A else fused(other, p)
-                mark("pair")
-                return _cg_vector_update(X, r, p, rsold, out + lam * p)
+        return self.d_ops._timed("cgStep", step) if self._unit else step()
 
-            self._cg_programs[key] = one_iter
-        return self._cg_programs[key]
+    def _dot(self, mode: MatMode):
+        """The per-row dot over ``mode``'s operand layout."""
+        return lambda x, y: self.d_ops.batch_dot(x, y, mode)
 
     def _guard_active(self) -> bool:
         return guards.enabled() if self._guard == "auto" else bool(self._guard)
 
+    @torch.no_grad()
     def _cg_run(self, mode: MatMode, cg_max_iter: int, lam: float) -> torch.Tensor:
         """One half-step's solve from the current factors; returns the new
         X without committing it. Raises :class:`CGDivergence` when the
         residual guard trips (checked only while guarding: one scalar copy
         to the host an iteration)."""
         cg_guard = CGGuard() if self._guard_active() else None
+        dot = self._dot(mode)
         # The initial residual and every iteration see the same ridge.
         r = self.compute_rhs(mode) - self.compute_queries(self.A, self.B, mode, lam=lam)
-        rsold = _batch_dot(r, r)
+        rsold = dot(r, r)
         # The in-place updates must touch neither the committed factor nor r
         # through p.
         X = (self.A if mode == MatMode.A else self.B).clone()
         p = r.clone()
-        other = self.B if mode == MatMode.A else self.A
-        prog = self._cg_iter_program(mode, lam)
         for _ in range(cg_max_iter):
-            X, r, p, rsold = self.d_ops._timed("cgStep", prog, X, other, r, p, rsold)
+            X, r, p, rsold = self._cg_step(mode, lam, X, r, p, rsold)
             if cg_guard is not None and cg_guard.update(float(rsold.sum())):
                 raise CGDivergence(f"CG residual diverged in {mode.name} half-step "
                                    f"(λ={lam:g})")
@@ -287,12 +277,13 @@ class DistributedALS:
 
     def save_checkpoint(self, store, step: int) -> None:
         """Persist the factors as alternating step ``step``: the whole
-        padded ``(M_pad, R)`` / ``(N_pad, R)`` operands, as the JAX package
-        stores them. Under a world of processes they are gathered, process
-        0 writes, and every process reads the same store on resume (a
-        directory all of them see)."""
+        padded ``(M_pad, R)`` / ``(N_pad, R)`` operands in global row and
+        column order, whatever the strategy's layout (the dense shift's is
+        how the JAX package stores them). Under a world of processes they
+        are gathered, process 0 writes, and every process reads the same
+        store on resume (a directory all of them see)."""
         d = self.d_ops
-        A, B = d._all_blocks(self.A), d._all_blocks(self.B)
+        A, B = d._to_global(self.A, MatMode.A), d._to_global(self.B, MatMode.B)
         if d.world.process_index == 0:
             store.save(step, {"A": A.cpu().numpy(), "B": B.cpu().numpy()},
                        meta={"kind": "als", "R": d.R, "M": d.M, "N": d.N})
@@ -385,6 +376,7 @@ class DistributedALS:
                              "or restore a checkpoint first")
         return self.d_ops.host_b(self.B)
 
+    @torch.no_grad()
     def compute_residual(self) -> float:
         """``||sddmm(A, B) - ground_truth||_2`` over the nonzeros, in float64
         on the host (pad slots never enter)."""

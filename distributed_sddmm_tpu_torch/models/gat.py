@@ -13,13 +13,20 @@ As in the JAX package: the weights are scaled-uniform random
 (``±1/sqrt(input_features)``, from a ``torch.Generator`` seeded with
 ``seed``; the draws cannot equal ``jax.random``'s), the aggregation is a
 fresh ``S_att @ A_h``, and the strategy's R follows each layer's widths
-(``set_r_value``). A whole layer runs as one unit on the strategy's raw
-``sddmm_program`` / ``spmm_program`` accessors, timed once as the
-``gatLayer`` op; a strategy without them, or with skews around its public
-ops, is refused: the three R-split strategies are ROADMAP.md, queue A
-item 10b.
-With guards on (``SDDMM_TORCH_GUARDS``) every layer's output passes
-``guard_output``.
+(``set_r_value``). Each head runs through the public ops with
+``initial_shift`` / ``de_shift`` around them
+(:meth:`GAT.compute_self_attention_head`). The counters follow the JAX
+package's records: on ``DenseShift15D``, where the JAX package runs a
+layer as one program, one ``gatLayer`` times each layer (the public ops
+inside it run untimed); on the R-split strategies the per-op counters
+show its sddmmA and spmmA. With guards on (``SDDMM_TORCH_GUARDS``) every
+layer's output passes ``guard_output``.
+
+The forward pass is differentiable in the weights on every strategy of a
+``LocalWorld``: set ``requires_grad`` on ``layer.weights`` and call
+``backward`` on a loss of the output (the tile ops' backward is
+``ops/autograd.py``). As in the JAX package there is no trainer or
+optimiser here.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import math
 import numpy as np
 import torch
 
-from distributed_sddmm_tpu_torch.common import MatMode
+from distributed_sddmm_tpu_torch.common import KernelMode, MatMode
 from distributed_sddmm_tpu_torch.parallel.base import DistributedSparse
 from distributed_sddmm_tpu_torch.resilience import guards
 
@@ -50,34 +57,20 @@ class GATLayer:
         return self.features_per_head * self.num_heads
 
 
-def _supports_programs(d_ops: DistributedSparse) -> bool:
-    """True when the strategy has the raw SDDMM and SpMM accessors and needs
-    no pre- or post-skew: then a whole layer runs as one unit."""
-    return (hasattr(d_ops, "sddmm_program") and hasattr(d_ops, "spmm_program")
-            and type(d_ops).initial_shift is DistributedSparse.initial_shift
-            and type(d_ops).de_shift is DistributedSparse.de_shift)
-
-
 def _leaky_relu(logits: torch.Tensor, alpha: float) -> torch.Tensor:
     """``max(l, 0) + min(l, 0) * alpha``, the JAX package's expression."""
     return logits.clamp(min=0) + logits.clamp(max=0) * alpha
 
 
-def _no_mark(part: str) -> None:
+def _no_mark(part: str, value=None) -> None:
     pass
 
 
 class GAT:
-    """A GAT over a square adjacency matrix on a strategy that
-    :func:`_supports_programs` accepts (``DenseShift15D``)."""
+    """A GAT over a square adjacency matrix on any strategy."""
 
     def __init__(self, layers: list[GATLayer], d_ops: DistributedSparse,
                  leaky_relu_alpha: float = 0.2, seed: int = 0):
-        if not _supports_programs(d_ops):
-            raise NotImplementedError(
-                f"{type(d_ops).__name__} has no sddmm_program/spmm_program or skews its "
-                "operands; GAT runs on DenseShift15D (the apps on the R-split "
-                "strategies are ROADMAP.md, queue A item 10b)")
         if d_ops.M != d_ops.N:
             raise ValueError("GAT requires a square adjacency matrix")
         if not layers:
@@ -90,7 +83,13 @@ class GAT:
         self.d_ops = d_ops
         self.layers = layers
         self.leaky_relu_alpha = leaky_relu_alpha
-        self._head = None
+        # One gatLayer a layer where the JAX package runs it as one
+        # program: the strategy whose blocks hold whole rows.
+        self._unit = not d_ops.r_split
+        # The SDDMM's unit values and the SpMM's zero base (a width each),
+        # built once: the ops never write into them.
+        self._ones_vals: torch.Tensor | None = None
+        self._zeros: dict = {}
         gen = torch.Generator(device=d_ops.device).manual_seed(seed)
         for layer in layers:
             bound = 1.0 / math.sqrt(layer.input_features)
@@ -99,45 +98,47 @@ class GAT:
                             dtype=d_ops.dtype, device=d_ops.device) * 2 - 1) * bound
                 for _ in range(layer.num_heads)]
 
-    def _head_program(self):
-        """``f(X, w, mark) -> relu(spmm(A, leaky_relu(sddmm(A, A))))`` with
-        ``A = X @ w``: one head on the strategy's raw accessors (A == B, as
-        M == N). ``mark(part)`` is called after each part is issued (a
-        timing hook; it does nothing by default)."""
-        if self._head is None:
-            d, mode, alpha = self.d_ops, MatMode.A, self.leaky_relu_alpha
-            sddmm, spmm = d.sddmm_program(mode), d.spmm_program(mode)
-            ones = d.like_s_values(1.0)
-
-            def head(X, w, mark=_no_mark):
-                A = d.dense_project(X, w, mode)
-                mark("projection")
-                logits = sddmm(A, A, ones)
-                mark("sddmm")
-                att = _leaky_relu(logits, alpha)
-                mark("leaky_relu")
-                h = spmm(A, att)
-                mark("spmm")
-                out = torch.relu(h)
-                mark("relu")
-                return out
-
-            self._head = head
-        return self._head
-
-    def compute_self_attention_head(self, X: torch.Tensor, i: int, j: int) -> torch.Tensor:
-        """Head ``j`` of layer ``i``: projection, SDDMM, LeakyReLU, SpMM,
-        ReLU."""
-        return self._head_program()(X, self.layers[i].weights[j])
+    def compute_self_attention_head(self, X: torch.Tensor, i: int, j: int,
+                                    mark=_no_mark) -> torch.Tensor:
+        """Head ``j`` of layer ``i`` through the public ops: projection,
+        SDDMM, LeakyReLU, SpMM into a fresh output, ReLU. B is A (M == N),
+        and SDDMM_A and SPMM_A share one shift, so the shifted ``B_s``
+        serves the aggregation too; ``de_shift`` comes after the SpMM.
+        ``mark(part, out)`` is called after each part is issued, with its
+        output (a timing hook; it does nothing by default)."""
+        d, alpha = self.d_ops, self.leaky_relu_alpha
+        if self._ones_vals is None:
+            self._ones_vals = d.like_s_values(1.0)
+        d.set_r_value(self.layers[i].input_features)
+        A = d.dense_project(X, self.layers[i].weights[j], MatMode.A)
+        mark("projection", A)
+        A_s, B_s = d.initial_shift(A, A, KernelMode.SDDMM_A)
+        logits = d.sddmm_a(A_s, B_s, self._ones_vals)
+        mark("sddmm", logits)
+        att = _leaky_relu(logits, alpha)
+        mark("leaky_relu", att)
+        if d.R not in self._zeros:
+            self._zeros[d.R] = d.like_a_matrix(0.0)
+        h = d.spmm_a(self._zeros[d.R], B_s, att)
+        h, _ = d.de_shift(h, None, KernelMode.SPMM_A)
+        mark("spmm", h)
+        out = torch.relu(h)
+        mark("relu", out)
+        return out
 
     def layer_forward(self, i: int, X: torch.Tensor, mark=_no_mark) -> torch.Tensor:
-        """Every head of layer ``i`` and their concat (``mark("concat")``
-        after it); the strategy's R becomes the layer's output width."""
-        head = self._head_program()
-        out = self.d_ops.concat_heads([head(X, w, mark) for w in self.layers[i].weights],
-                                      MatMode.A)
-        mark("concat")
-        return out
+        """Every head of layer ``i`` and their concat (``mark("concat",
+        out)`` after it); the strategy's R becomes the layer's output
+        width. One ``gatLayer`` on the dense shift, the public ops'
+        counters elsewhere."""
+        def layer():
+            heads = [self.compute_self_attention_head(X, i, j, mark)
+                     for j in range(len(self.layers[i].weights))]
+            out = self.d_ops.concat_heads(heads, MatMode.A)
+            mark("concat", out)
+            return out
+
+        return self.d_ops._timed("gatLayer", layer) if self._unit else layer()
 
     def default_input(self) -> torch.Tensor:
         """The deterministic dummy fill ``(row * R + col) / (M * R)`` with
@@ -147,14 +148,14 @@ class GAT:
         return d.dummy_initialize(MatMode.A) * (1.0 / (d.M * R))
 
     def forward(self, X: torch.Tensor | None = None) -> torch.Tensor:
-        """The whole forward pass, one ``gatLayer`` a layer. ``X``: node
-        features in A's layout with R = ``layers[0].input_features``; by
-        default :meth:`default_input`."""
+        """The whole forward pass, a :meth:`layer_forward` a layer. ``X``:
+        node features in A's layout with R = ``layers[0].input_features``;
+        by default :meth:`default_input`."""
         if X is None:
             X = self.default_input()
         guarding = guards.enabled()
         for i in range(len(self.layers)):
-            X = self.d_ops._timed("gatLayer", self.layer_forward, i, X)
+            X = self.layer_forward(i, X)
             if guarding:
                 # A poisoned activation raises (naming the layer) or is
                 # repaired, per SDDMM_TORCH_GUARD_MODE; it never feeds the
@@ -164,11 +165,12 @@ class GAT:
 
     def node_embeddings(self, X: torch.Tensor | None = None) -> np.ndarray:
         """The final layer's embeddings ``(M, output_features)`` in global
-        row and column order on the host."""
+        row and column order on the host (``host_a`` puts an R-split
+        layout's columns back in order)."""
         d = self.d_ops
         out = self.forward(X)
         d.set_r_value(self.layers[-1].output_features)
-        return d.host_a(d._unskew_cols(out, MatMode.A))
+        return d.host_a(out)
 
     # -------------------------- parameter checkpoints ---------------------- #
 

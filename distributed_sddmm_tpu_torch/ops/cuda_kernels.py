@@ -80,17 +80,28 @@ LAUNCHES = {"sddmm_tile": 0, "spmm_tile": 0, "fused_tile": 0,
             "attn_stats_rows": 0, "sddmm_split": 0, "spmm_split": 0,
             "fused_split": 0, "split_reduce": 0, "attn_stats_split": 0,
             "attn_stats_merge": 0}
+#: Of those, the launches whose dense operands were bf16 (the attention
+#: kernels and the split's reduce read float32 only).
+BF16_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 
 _DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
-def launch_counts() -> dict:
-    return dict(LAUNCHES)
+def launch_counts(precision: str | None = None) -> dict:
+    """Launches per wrapper: all of them, or those on ``"f32"`` or
+    ``"bf16"`` dense operands."""
+    if precision not in (None, "f32", "bf16"):
+        raise ValueError(f"precision must be 'f32' or 'bf16', got {precision!r}")
+    if precision is None:
+        return dict(LAUNCHES)
+    if precision == "bf16":
+        return dict(BF16_LAUNCHES)
+    return {name: n - BF16_LAUNCHES[name] for name, n in LAUNCHES.items()}
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
-        LAUNCHES[name] = 0
+        LAUNCHES[name] = BF16_LAUNCHES[name] = 0
 
 
 # ------------------------------------------------------------------ #
@@ -362,10 +373,11 @@ def _check_out(t, shape: tuple, dev) -> None:
         raise ValueError(f"output must be float32 {list(shape)}")
 
 
-def _launch(name: str, fn, *args) -> None:
+def _launch(name: str, fn, *args, bf16: bool = False) -> None:
     lib = _build.load()
     _raise_on(lib, getattr(lib, fn)(*args), name)
     LAUNCHES[name] += 1
+    BF16_LAUNCHES[name] += bf16
 
 
 def _ptr(t) -> int:
@@ -381,7 +393,7 @@ def sddmm_tile(tile: TileView, sv, at, bt):
     _launch("sddmm_tile", "sddmm_tile",
             _ptr(tile.row_ptr), None, _ptr(tile.cols), _ptr(sv), _ptr(at), _ptr(bt),
             _ptr(mid), tile.n_rows, tile.n_rows, tile.cap, 1, bt.shape[1], int(bf16),
-            int(vec), _stream(sv.device))
+            int(vec), _stream(sv.device), bf16=bf16)
     return mid
 
 
@@ -394,7 +406,7 @@ def spmm_tile(tile: TileView, sv, bt):
                       device=sv.device)
     _launch("spmm_tile", "spmm_tile",
             _ptr(tile.row_ptr), None, _ptr(tile.cols), _ptr(sv), _ptr(bt), _ptr(out),
-            tile.n_rows, bt.shape[1], int(bf16), int(vec), _stream(sv.device))
+            tile.n_rows, bt.shape[1], int(bf16), int(vec), _stream(sv.device), bf16=bf16)
     return out
 
 
@@ -409,7 +421,7 @@ def fused_tile(tile: TileView, sv, at, bt):
     _launch("fused_tile", "fused_tile",
             _ptr(tile.row_ptr), None, _ptr(tile.cols), _ptr(sv), _ptr(at), _ptr(bt),
             _ptr(out), _ptr(mid), tile.n_rows, tile.n_rows, tile.cap, 1, bt.shape[1],
-            int(bf16), int(vec), _stream(sv.device))
+            int(bf16), int(vec), _stream(sv.device), bf16=bf16)
     return out, mid
 
 
@@ -428,7 +440,7 @@ def sddmm_rows(tile: TileView, band, sv, at, bt, mid, zero_pads: bool) -> None:
     _launch("sddmm_rows", "sddmm_tile",
             _ptr(tile.row_ptr), _ptr(band.rows), _ptr(tile.cols), _ptr(sv), _ptr(at),
             _ptr(bt), _ptr(mid), band.n_rows, tile.n_rows, tile.cap, int(zero_pads),
-            bt.shape[1], int(bf16), int(vec), _stream(sv.device))
+            bt.shape[1], int(bf16), int(vec), _stream(sv.device), bf16=bf16)
 
 
 def spmm_rows(tile: TileView, band, sv, bt, out) -> None:
@@ -440,7 +452,7 @@ def spmm_rows(tile: TileView, band, sv, bt, out) -> None:
     _launch("spmm_rows", "spmm_tile",
             _ptr(tile.row_ptr), _ptr(band.rows), _ptr(tile.cols), _ptr(sv), _ptr(bt),
             _ptr(out), band.n_rows, bt.shape[1], int(bf16), int(vec),
-            _stream(sv.device))
+            _stream(sv.device), bf16=bf16)
 
 
 def fused_rows(tile: TileView, band, sv, at, bt, out, mid, zero_pads: bool) -> None:
@@ -453,7 +465,7 @@ def fused_rows(tile: TileView, band, sv, at, bt, out, mid, zero_pads: bool) -> N
     _launch("fused_rows", "fused_tile",
             _ptr(tile.row_ptr), _ptr(band.rows), _ptr(tile.cols), _ptr(sv), _ptr(at),
             _ptr(bt), _ptr(out), _ptr(mid), band.n_rows, tile.n_rows, tile.cap,
-            int(zero_pads), bt.shape[1], int(bf16), int(vec), _stream(sv.device))
+            int(zero_pads), bt.shape[1], int(bf16), int(vec), _stream(sv.device), bf16=bf16)
 
 
 def _seg_args(band) -> tuple:
@@ -469,7 +481,7 @@ def sddmm_split(tile: TileView, band, sv, at, bt, mid, zero_pads: bool) -> None:
     _launch("sddmm_split", "sddmm_split",
             _ptr(tile.row_ptr), *_seg_args(band), _ptr(tile.cols), _ptr(sv), _ptr(at),
             _ptr(bt), _ptr(mid), band.n_seg, tile.n_rows, tile.cap, int(zero_pads),
-            bt.shape[1], int(bf16), int(vec), _stream(sv.device))
+            bt.shape[1], int(bf16), int(vec), _stream(sv.device), bf16=bf16)
 
 
 def spmm_split(tile: TileView, band, sv, bt):
@@ -481,7 +493,7 @@ def spmm_split(tile: TileView, band, sv, bt):
     work = torch.empty(band.n_seg, bt.shape[1], dtype=torch.float32, device=sv.device)
     _launch("spmm_split", "spmm_split",
             *_seg_args(band), _ptr(tile.cols), _ptr(sv), _ptr(bt), _ptr(work),
-            band.n_seg, bt.shape[1], int(bf16), int(vec), _stream(sv.device))
+            band.n_seg, bt.shape[1], int(bf16), int(vec), _stream(sv.device), bf16=bf16)
     return work
 
 
@@ -496,7 +508,7 @@ def fused_split(tile: TileView, band, sv, at, bt, mid, zero_pads: bool):
     _launch("fused_split", "fused_split",
             _ptr(tile.row_ptr), *_seg_args(band), _ptr(tile.cols), _ptr(sv), _ptr(at),
             _ptr(bt), _ptr(work), _ptr(mid), band.n_seg, tile.n_rows, tile.cap,
-            int(zero_pads), bt.shape[1], int(bf16), int(vec), _stream(sv.device))
+            int(zero_pads), bt.shape[1], int(bf16), int(vec), _stream(sv.device), bf16=bf16)
     return work
 
 

@@ -30,7 +30,9 @@ import torch
 
 from distributed_sddmm_tpu_torch.common import KernelMode, MatMode
 from distributed_sddmm_tpu_torch.device import resolve_device, synchronize
+from distributed_sddmm_tpu_torch.ops.autograd import FusedTile, SddmmTile, SpmmTile
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
+from distributed_sddmm_tpu_torch.parallel.comm import refuse_grad
 from distributed_sddmm_tpu_torch.parallel.loops import ABLATION_MODES, ablation_mode
 from distributed_sddmm_tpu_torch.parallel.mesh import AXES, GridSpec
 from distributed_sddmm_tpu_torch.parallel.sharding import (
@@ -64,6 +66,8 @@ class DistributedSparse(abc.ABC):
     r_split = False
     #: The double-buffered ring build (the shift strategies that have one).
     overlap = False
+    #: True while a timed call runs (``_timed``).
+    _timing = False
 
     #: Type of the dense operands and the sparse values.
     dtype = torch.float32
@@ -153,20 +157,28 @@ class DistributedSparse(abc.ABC):
         return torch.cat([G[:, c0:c0 + w].index_select(0, r)
                           for r, c0 in zip(rows, col0.tolist())])
 
+    def _global_index(self, mode: MatMode, width: int) -> torch.Tensor:
+        """``[n_pad * n_slices]`` int64 on the device: the row of the stacked
+        blocks (every rank's) that holds each (global row, R-slice), row
+        major; every pair is held exactly once."""
+        key = ("global", mode, width)
+        if key not in self._maps:
+            rows, col0 = self._dense_map(mode, width)
+            n = self._n_slices()
+            idx = np.empty((rows.size // n, n), dtype=np.int64)
+            idx[rows, (col0 // (width // n))[:, None]] = np.arange(rows.size).reshape(rows.shape)
+            self._maps[key] = torch.from_numpy(idx.reshape(-1)).to(self.device)
+        return self._maps[key]
+
     def _to_global(self, X: torch.Tensor, mode: MatMode) -> torch.Tensor:
         """Every rank's blocks (gathered under a world of processes) -> the
-        global-order ``(n_pad, width)`` tensor."""
+        global-order ``(n_pad, width)`` tensor: one row gather, so autograd
+        sees it as such."""
         X = self._all_blocks(X)
         if not self.r_split:
             return X
         width = X.shape[-1] * self._n_slices()
-        rows, col0 = (torch.from_numpy(x).to(X.device) for x in self._dense_map(mode, width))
-        out = torch.empty((self.M_pad if mode == MatMode.A else self.N_pad, width),
-                          dtype=X.dtype, device=X.device)
-        blocks = X.reshape(self.p, rows.shape[1], X.shape[-1])
-        for r, c0, x in zip(rows, col0.tolist(), blocks):
-            out[:, c0:c0 + x.shape[-1]].index_copy_(0, r, x)
-        return out
+        return X.index_select(0, self._global_index(mode, width)).reshape(-1, width)
 
     def _put(self, host, mode: MatMode) -> torch.Tensor:
         host = torch.as_tensor(host).to(device=self.device, dtype=self.dtype)
@@ -193,10 +205,10 @@ class DistributedSparse(abc.ABC):
 
     def host_a(self, A: torch.Tensor) -> np.ndarray:
         """A in global ``(M, R)`` row order on the host, padding stripped."""
-        return self._to_global(A, MatMode.A).detach().cpu().numpy()[: self.M]
+        return self._to_global(A.detach(), MatMode.A).cpu().numpy()[: self.M]
 
     def host_b(self, B: torch.Tensor) -> np.ndarray:
-        return self._to_global(B, MatMode.B).detach().cpu().numpy()[: self.N]
+        return self._to_global(B.detach(), MatMode.B).cpu().numpy()[: self.N]
 
     def _blocks(self, X: torch.Tensor, mode: MatMode) -> list:
         """Each held rank's block of a dense operand (contiguous views)."""
@@ -225,22 +237,42 @@ class DistributedSparse(abc.ABC):
                 done[id(x)] = self._prep(x)
         return [done[id(x)] for x in xs]
 
+    def _grad(self, *xs) -> bool:
+        """True when autograd must see this kernel call: grad mode is on and
+        an operand requires grad. A world of processes refuses (its
+        collectives are not differentiable)."""
+        if not (torch.is_grad_enabled() and any(x.requires_grad for x in xs)):
+            return False
+        if not self.comm.in_process:
+            refuse_grad()
+        return True
+
     def _k_sddmm(self, t: TileView, vals, at, bt):
-        """One tile's SDDMM: the tile kernel, or the flat protocol."""
-        if self._tiled:
-            return self.kernel.sddmm_tile(t, vals, at, bt)
-        return self.kernel.sddmm(t.rows, t.cols, vals, at, bt)
+        """One tile's SDDMM: the tile kernel (through :class:`SddmmTile`
+        when a grad is wanted), or the flat protocol."""
+        grad = self._grad(vals, at, bt)
+        if not self._tiled:
+            return self.kernel.sddmm(t.rows, t.cols, vals, at, bt)
+        if grad:
+            return SddmmTile.apply(self.kernel, t, vals, at, bt)
+        return self.kernel.sddmm_tile(t, vals, at, bt)
 
     def _k_spmm(self, t: TileView, vals, bt):
-        if self._tiled:
-            return self.kernel.spmm_tile(t, vals, bt)
-        return self.kernel.spmm(t.rows, t.cols, vals, bt, t.n_rows)
+        grad = self._grad(vals, bt)
+        if not self._tiled:
+            return self.kernel.spmm(t.rows, t.cols, vals, bt, t.n_rows)
+        if grad:
+            return SpmmTile.apply(self.kernel, t, vals, bt)
+        return self.kernel.spmm_tile(t, vals, bt)
 
     def _k_fused(self, t: TileView, vals, at, bt):
-        if self._tiled:
-            return self.kernel.fused_tile(t, vals, at, bt)
-        mid = self.kernel.sddmm(t.rows, t.cols, vals, at, bt)
-        return self.kernel.spmm(t.rows, t.cols, mid, bt, t.n_rows), mid
+        grad = self._grad(vals, at, bt)
+        if not self._tiled:
+            mid = self.kernel.sddmm(t.rows, t.cols, vals, at, bt)
+            return self.kernel.spmm(t.rows, t.cols, mid, bt, t.n_rows), mid
+        if grad:
+            return FusedTile.apply(self.kernel, t, vals, at, bt)
+        return self.kernel.fused_tile(t, vals, at, bt)
 
     # ---------------------------- moving tiles ----------------------------- #
     # The sparse shift and the dense-replicating Cannon strategies send the
@@ -290,13 +322,13 @@ class DistributedSparse(abc.ABC):
         return self.S_tiles.scatter_values(host_vals)
 
     def gather_s_values(self, dev_vals: torch.Tensor) -> np.ndarray:
-        return self.S_tiles.gather_values(self._all_blocks(dev_vals))
+        return self.S_tiles.gather_values(self._all_blocks(dev_vals.detach()))
 
     def scatter_st_values(self, host_vals) -> torch.Tensor:
         return self.ST_tiles.scatter_values(host_vals)
 
     def gather_st_values(self, dev_vals: torch.Tensor) -> np.ndarray:
-        return self.ST_tiles.gather_values(self._all_blocks(dev_vals))
+        return self.ST_tiles.gather_values(self._all_blocks(dev_vals.detach()))
 
     # ------------------------------ public ops ----------------------------- #
 
@@ -371,6 +403,25 @@ class DistributedSparse(abc.ABC):
         """Global column order -> resident layout (the inverse)."""
         return self._from_global(X, mode) if self.r_split else X
 
+    def batch_dot(self, x: torch.Tensor, y: torch.Tensor, mode: MatMode) -> torch.Tensor:
+        """Per-row dot products of two operands in the canonical layout, one
+        a row of the held blocks (``x.shape[:-1]``): the whole row's dot
+        wherever its R-slices lie. The dense shift's blocks hold whole
+        rows; an R-split strategy sums the partial dots of the blocks that
+        hold the same rows (the psum over the R-split axis that XLA
+        inserts in the JAX package): by the dense map in one process, by
+        an all-reduce over ``r_split_axis`` between processes. Each (row,
+        R-slice) is counted once."""
+        part = torch.sum(x * y, dim=-1)
+        if not self.r_split:
+            return part
+        if not self.comm.in_process:
+            return self.comm.all_reduce([part], self.r_split_axis)[0]
+        rows = self._held_map(mode, x.shape[-1] * self._n_slices())[0].reshape(-1)
+        n_pad = self.M_pad if mode == MatMode.A else self.N_pad
+        full = part.new_zeros(n_pad).index_add(0, rows, part)
+        return full.index_select(0, rows)
+
     def dense_project(self, X: torch.Tensor, W: torch.Tensor, mode: MatMode) -> torch.Tensor:
         """The local projection ``X @ W`` in the canonical layout (the GAT
         head's matrix product; ``W`` is ``(R_in, R_out)`` in global column
@@ -382,9 +433,9 @@ class DistributedSparse(abc.ABC):
     def concat_heads(self, heads: list, mode: MatMode) -> torch.Tensor:
         """The per-head outputs side by side on the feature dimension, in
         the canonical layout."""
+        heads = [self._unskew_cols(h, mode) for h in heads]
         self.set_r_value(sum(h.shape[-1] for h in heads))
-        return self._skew_cols(torch.cat([self._unskew_cols(h, mode) for h in heads],
-                                         dim=-1), mode)
+        return self._skew_cols(torch.cat(heads, dim=-1), mode)
 
     @staticmethod
     def fingerprint(x) -> float:
@@ -402,8 +453,19 @@ class DistributedSparse(abc.ABC):
     # ------------------------------- counters ------------------------------ #
 
     def _timed(self, name: str, fn, *args):
+        """Run ``fn(*args)`` as the op ``name``: host clock around the call
+        and a device synchronise, added to ``metrics[name]``. A call inside
+        another timed call (a public op inside an app's unit of work: an
+        ALS CG iteration, a GAT layer) runs untimed, so the unit is what
+        the counters show and it synchronises once."""
+        if self._timing:
+            return fn(*args)
         t0 = time.perf_counter()
-        out = fn(*args)
+        self._timing = True
+        try:
+            out = fn(*args)
+        finally:
+            self._timing = False
         synchronize(self.device)
         rec = self.metrics.setdefault(name, {"calls": 0, "seconds": 0.0})
         rec["calls"] += 1

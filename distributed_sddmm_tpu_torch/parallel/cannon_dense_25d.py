@@ -129,14 +129,14 @@ class CannonDense25D(DistributedSparse):
         return self.ST_tiles.scatter_values(host_vals)
 
     def gather_s_values(self, dev_vals):
-        return self.ST_tiles.gather_values(self._all_blocks(dev_vals))
+        return self.ST_tiles.gather_values(self._all_blocks(dev_vals.detach()))
 
     def scatter_st_values(self, host_vals):
         """Values for the B-ops, in the host order of S's nonzeros."""
         return self.S_tiles.scatter_values(host_vals)
 
     def gather_st_values(self, dev_vals):
-        return self.S_tiles.gather_values(self._all_blocks(dev_vals))
+        return self.S_tiles.gather_values(self._all_blocks(dev_vals.detach()))
 
     # ------------------------ Cannon skew (moving) ------------------------- #
 

@@ -22,11 +22,16 @@ each rank this process holds, in row-major grid order (``comm.coords``,
 * :class:`LocalWorld` -- ``p`` logical ranks in this process, on one
   device. Every collective is a list operation: a hop is a rotation of
   the list and moves no bytes; a gather is ``torch.cat``; a reduction adds
-  (or takes the max of) the blocks in axis order.
+  (or takes the max of) the blocks in axis order. These are torch ops, so
+  autograd differentiates through them.
 * :class:`DistWorld` -- one rank per process over ``torch.distributed``:
   NCCL for CUDA tensors, gloo for CPU tensors, never one in place of the
   other. Each process builds one process group per grid row, column,
   layer and axis pair, all in the same order, when it binds a grid.
+  ``torch.distributed``'s sends, receives and collectives are not
+  differentiable: given a tensor that requires grad under grad mode, every
+  collective here raises (:func:`refuse_grad`) rather than return a
+  result that autograd cannot see past.
 
 :func:`world_from_env` picks the world as the benchmark does: under
 ``torchrun`` (``WORLD_SIZE`` set) a ``DistWorld``, otherwise a
@@ -49,6 +54,19 @@ LOCAL_RANKS_ENV = "SDDMM_TORCH_LOCAL_RANKS"
 
 _REDUCE = {"sum": torch.add, "max": torch.maximum}
 _AXIS_SETS = ((0,), (1,), (2,), (0, 1), (0, 2), (1, 2), (0, 1, 2))
+
+
+def refuse_grad() -> None:
+    """Gradients through a world of processes are not ported."""
+    raise NotImplementedError(
+        "gradients through a DistWorld are not implemented: torch.distributed's "
+        "sends, receives and collectives are not differentiable (ROADMAP.md, "
+        "queue A item 18); take grads on a LocalWorld")
+
+
+def _check_grad(xs: list) -> None:
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        refuse_grad()
 
 
 def _axis_ids(axis) -> tuple:
@@ -221,6 +239,7 @@ class DistComm(_Comm):
     def ppermute_start(self, xs: list, axis, perm, out: list | None = None) -> Callable:
         """``batch_isend_irecv`` within the axis group, into ``out[0]`` (a
         new buffer if None); the wait returns ``[received]``."""
+        _check_grad(xs)
         self.counts["ppermute"] += 1
         (x,) = xs
         pg, ranks, _ = self._group(axis)
@@ -244,6 +263,7 @@ class DistComm(_Comm):
         return wait
 
     def all_gather(self, xs: list, axis) -> list:
+        _check_grad(xs)
         self.counts["all_gather"] += 1
         (x,) = xs
         pg, ranks, order = self._group(axis)
@@ -256,6 +276,7 @@ class DistComm(_Comm):
         return [y]
 
     def reduce_scatter(self, xs: list, axis) -> list:
+        _check_grad(xs)
         self.counts["reduce_scatter"] += 1
         (x,) = xs
         pg, ranks, order = self._group(axis)
@@ -266,6 +287,7 @@ class DistComm(_Comm):
         return [y]
 
     def all_reduce(self, xs: list, axis, op: str = "sum") -> list:
+        _check_grad(xs)
         self.counts["all_reduce"] += 1
         (x,) = xs
         pg, _, _ = self._group(axis)

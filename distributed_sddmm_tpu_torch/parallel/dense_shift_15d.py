@@ -349,27 +349,7 @@ class DenseShift15D(DistributedSparse):
         probs = self.attention_softmax(s_vals, sddmm(A, B, s_vals), mode)
         return spmm(A, B, probs), probs
 
-    # -------------------------- raw op accessors --------------------------- #
-    # The ops without the per-op counters, for the apps that time a larger
-    # unit of work themselves (an ALS CG iteration, a GAT layer).
-
-    def fused_program(self, s_vals, mode: MatMode = MatMode.A):
-        """``f(A, B) -> (out, mid)``: one fused SDDMM->SpMM pair."""
-        if mode == MatMode.A:
-            return lambda A, B: self._fused(False, A, B, s_vals)
-        return lambda A, B: self._fused(True, B, A, s_vals)
-
-    def sddmm_program(self, mode: MatMode = MatMode.A):
-        """``f(A, B, vals) -> tile values``."""
-        if mode == MatMode.A:
-            return lambda A, B, vals: self._sddmm(False, A, B, vals)
-        return lambda A, B, vals: self._sddmm(True, B, A, vals)
-
-    def spmm_program(self, mode: MatMode = MatMode.A):
-        """``f(mov, vals) -> dense``; ``mov`` is the moving operand (B for
-        an A-shaped output, A for a B-shaped one)."""
-        use_st = mode == MatMode.B
-        return lambda mov, vals: self._spmm(use_st, mov, vals)
+    # -------------------------- raw op accessor ---------------------------- #
 
     def attention_program(self, s_vals, mode: MatMode = MatMode.A):
         """``f(A, B) -> (out, probs)``: one fused attention call without

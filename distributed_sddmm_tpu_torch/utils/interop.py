@@ -7,8 +7,12 @@ The JAX package exposes its state in host order: the sparse matrix as
 both packages compute on identical inputs; :func:`als_state_from_reference`
 and :func:`gat_weights_from_reference` do the same for the apps, whose
 random draws (``jax.random`` there, ``torch.Generator`` here) cannot agree.
-Nothing here imports the JAX package: only numpy arrays cross the
-boundary.
+The arrays are in host order (global rows and columns), so they land in
+any strategy's layout through its ``put_a`` / ``put_b`` /
+``scatter_s_values`` (an R-split strategy's blocks, a Cannon strategy's
+skewed slices and transposed values included), and a GAT's weights, in
+global column order, through ``dense_project``. Nothing here imports the
+JAX package: only numpy arrays cross the boundary.
 """
 
 from __future__ import annotations
@@ -55,8 +59,9 @@ class CarriedALS:
     obs_t: np.ndarray  # [nnz] float32, S^T's nonzero order
 
     def model(self, d_ops, **kw):
-        """A port ``DistributedALS`` on ``d_ops`` observing ``obs`` (no
-        artificial ground truth) with the factors set to ``A`` and ``B``."""
+        """A port ``DistributedALS`` on ``d_ops`` (any strategy) observing
+        ``obs`` (no artificial ground truth) with the factors set to ``A``
+        and ``B`` in its layout."""
         from distributed_sddmm_tpu_torch.models.als import DistributedALS
 
         als = DistributedALS(d_ops, artificial_groundtruth=False, ground_truth_vals=self.obs,

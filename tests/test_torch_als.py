@@ -12,6 +12,13 @@ within 1e-3 relative. The JAX side runs on its forced CPU mesh
 (``tests/conftest.py``) with its default kernel, and once through
 ``PallasKernel(interpret=True, precision="f32")``.
 
+The three R-split strategies (``SparseShift15D``, ``CannonDense25D``,
+``CannonSparse25D``) run the per-op CG path (the Gram operator through
+the public ops, with their shifts; the per-row dots summed over the
+R-split blocks by ``batch_dot``) and are held to the JAX package's
+half-steps and trajectory at its ``tests/test_als.py`` grid (8, 2), and to
+its residual protocol.
+
 Also here: the four ``tests/test_als.py`` protocol tests on the port's
 ``DenseShift15D``, the divergence ladder (``SDDMM_TORCH_GUARDS``), and
 checkpoints within the port and across the packages.
@@ -29,7 +36,10 @@ from distributed_sddmm_tpu.common import MatMode as JaxMode
 from distributed_sddmm_tpu.models.als import DistributedALS as JaxALS
 from distributed_sddmm_tpu.models.serial_als import SerialALS as JaxSerialALS
 from distributed_sddmm_tpu.ops.pallas_kernels import PallasKernel
+from distributed_sddmm_tpu.parallel.cannon_dense_25d import CannonDense25D as JaxCD
+from distributed_sddmm_tpu.parallel.cannon_sparse_25d import CannonSparse25D as JaxCS
 from distributed_sddmm_tpu.parallel.dense_shift_15d import DenseShift15D as JaxDS
+from distributed_sddmm_tpu.parallel.sparse_shift_15d import SparseShift15D as JaxSS
 from distributed_sddmm_tpu.resilience import CheckpointStore as JaxStore
 from distributed_sddmm_tpu.utils.coo import HostCOO as JaxCOO
 
@@ -37,14 +47,20 @@ from distributed_sddmm_tpu_torch.common import MatMode
 from distributed_sddmm_tpu_torch.models import als as als_mod
 from distributed_sddmm_tpu_torch.models.als import CGDivergence, DistributedALS
 from distributed_sddmm_tpu_torch.models.serial_als import SerialALS
+from distributed_sddmm_tpu_torch.parallel.cannon_dense_25d import CannonDense25D
+from distributed_sddmm_tpu_torch.parallel.cannon_sparse_25d import CannonSparse25D
 from distributed_sddmm_tpu_torch.parallel.comm import LocalWorld
 from distributed_sddmm_tpu_torch.parallel.dense_shift_15d import DenseShift15D
+from distributed_sddmm_tpu_torch.parallel.sparse_shift_15d import SparseShift15D
 from distributed_sddmm_tpu_torch.resilience import CheckpointStore, NumericalFault, guards
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 from distributed_sddmm_tpu_torch.utils.interop import als_state_from_reference
 
 HALF_STEP_TOL = 1e-4
 RESIDUAL_RTOL = 1e-3
+#: The R-split strategies of ``tests/test_als.py``, both packages' classes.
+R_SPLIT = {"sparse_shift": (JaxSS, SparseShift15D), "cannon_dense": (JaxCD, CannonDense25D),
+           "cannon_sparse": (JaxCS, CannonSparse25D)}
 
 
 def _problem(M=48, N=32, seed=0):
@@ -58,6 +74,11 @@ def _port_coo(S) -> HostCOO:
 def _alg(S, p=1, c=1, fusion=2, R=8):
     return DenseShift15D(_port_coo(S), R=R, c=c, fusion_approach=fusion,
                          world=LocalWorld(p), device="cpu")
+
+
+def _r_split(name, S, p=8, c=2):
+    """The port's R-split strategy ``name`` over ``p`` logical ranks."""
+    return R_SPLIT[name][1](_port_coo(S), R=8, c=c, world=LocalWorld(p), device="cpu")
 
 
 def _carry(jals):
@@ -75,13 +96,28 @@ def _close(got, want, tol=HALF_STEP_TOL):
 # ------------------------------------------------------------------ parity
 
 
-@pytest.mark.parametrize("p,c,fusion", [(1, 1, 2), (8, 1, 1), (8, 2, 2)])
-def test_half_steps_and_trajectory_match_jax(p, c, fusion):
+@pytest.mark.parametrize("strategy,p,c,fusion", [
+    pytest.param("dense_shift", 1, 1, 2, id="1-1-2"),
+    pytest.param("dense_shift", 8, 1, 1, id="8-1-1"),
+    pytest.param("dense_shift", 8, 2, 2, id="8-2-2"),
+    pytest.param("sparse_shift", 8, 2, None, id="sparse_shift-8-2"),
+    pytest.param("cannon_dense", 8, 2, None, id="cannon_dense-8-2"),
+    pytest.param("cannon_sparse", 8, 2, None, id="cannon_sparse-8-2")])
+def test_half_steps_and_trajectory_match_jax(strategy, p, c, fusion):
+    """From the JAX model's state: the A and B half-steps' factors (the CG
+    iterates after 10 iterations) and the residual of 3 further steps. The
+    dense shift runs a CG iteration as one ``cgStep``; the R-split
+    strategies run the per-op path, the public ops' counters as the JAX
+    package's per-op path counts them."""
     S = _problem()
-    ja = JaxDS(S, R=8, c=c, fusion_approach=fusion, devices=jax.devices()[:p])
+    if strategy == "dense_shift":
+        ja = JaxDS(S, R=8, c=c, fusion_approach=fusion, devices=jax.devices()[:p])
+        alg = _alg(S, p, c, fusion)
+    else:
+        ja = R_SPLIT[strategy][0](S, R=8, c=c, devices=jax.devices()[:p])
+        alg = _r_split(strategy, S, p, c)
     jals = JaxALS(ja, seed=0)
     jals.initialize_embeddings()
-    alg = _alg(S, p, c, fusion)
     als = _carry(jals).model(alg)
     assert als.compute_residual() == pytest.approx(jals.compute_residual(), rel=1e-6)
     jals.cg_optimizer(JaxMode.A, 10)
@@ -95,8 +131,15 @@ def test_half_steps_and_trajectory_match_jax(p, c, fusion):
         als.run_cg(1, cg_iters=10)
         assert als.compute_residual() == pytest.approx(jals.compute_residual(),
                                                        rel=RESIDUAL_RTOL)
-    assert set(alg.metrics) == {"spmmA", "spmmB", "fusedSpMM", "cgStep", "sddmmA"}
-    assert alg.metrics["cgStep"]["calls"] == 2 * 10 * 4
+    if strategy == "dense_shift":
+        assert set(alg.metrics) == {"spmmA", "spmmB", "fusedSpMM", "cgStep", "sddmmA"}
+        assert alg.metrics["cgStep"]["calls"] == 2 * 10 * 4
+    else:
+        # Each half-step: a right-hand side and 11 Gram products (each an
+        # sddmm and an spmm); one sddmmA a residual.
+        calls = {k: v["calls"] for k, v in alg.metrics.items()}
+        assert calls == {"spmmA": 4 * 12, "sddmmA": 4 * 11 + 4, "spmmB": 4 * 12,
+                         "sddmmB": 4 * 11}
 
 
 def test_half_step_matches_jax_pallas_interpret():
@@ -115,18 +158,28 @@ def test_half_step_matches_jax_pallas_interpret():
         _close(getattr(alg, host)(als.A if mode == MatMode.A else als.B), want)
 
 
-def test_one_cg_path_and_strategies_without_programs_refused(monkeypatch):
-    """Every CG iteration is one ``cgStep`` on the strategy's
-    ``fused_program``; the public fused pair runs only for each half-step's
-    initial residual. A strategy without the accessor is refused."""
+def test_cg_paths_follow_the_strategy(monkeypatch):
+    """The dense shift times every CG iteration as one ``cgStep``: the
+    public fused pair inside it runs untimed, so its counter shows only
+    each half-step's initial residual. The timing changes nothing
+    computed: with the unit off, the same solve shows the per-op counters
+    (each iteration's Gram product through the public fused pair) and
+    lands on the same factors; an R-split strategy shows the per-op
+    counters by itself."""
     alg = _alg(_problem(), 4, 2)
     als = DistributedALS(alg, seed=3)
     als.run_cg(2, cg_iters=4)
     assert alg.metrics["cgStep"]["calls"] == 2 * 2 * 4
     assert alg.metrics["fusedSpMM"]["calls"] == 2 * 2
-    monkeypatch.delattr(DenseShift15D, "fused_program")
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        DistributedALS(_alg(_problem()), seed=3)
+    per_op = _alg(_problem(), 4, 2)
+    forced = DistributedALS(per_op, seed=3)
+    monkeypatch.setattr(forced, "_unit", False)
+    forced.run_cg(2, cg_iters=4)
+    assert "cgStep" not in per_op.metrics
+    assert per_op.metrics["fusedSpMM"]["calls"] == 2 * 2 * (4 + 1)
+    _close(per_op.host_a(forced.A), alg.host_a(als.A), 1e-6)
+    _close(per_op.host_b(forced.B), alg.host_b(als.B), 1e-6)
+    assert not DistributedALS(_r_split("cannon_sparse", _problem()), seed=3)._unit
 
 
 def test_serial_als_matches_jax_serial():
@@ -178,9 +231,15 @@ def test_residual_counts_nonzeros_only():
 # --------------------------------------------- the protocol of test_als.py
 
 
-@pytest.mark.parametrize("c,fusion", [(2, 2), (1, 1)])
-def test_als_residual_decreases(c, fusion):
-    als = DistributedALS(_alg(_problem(), 8, c, fusion), seed=0)
+@pytest.mark.parametrize("strategy,c,fusion", [
+    pytest.param("dense_shift", 2, 2, id="2-2"), pytest.param("dense_shift", 1, 1, id="1-1"),
+    pytest.param("sparse_shift", 2, None, id="sparse_shift-2"),
+    pytest.param("cannon_dense", 2, None, id="cannon_dense-2"),
+    pytest.param("cannon_sparse", 2, None, id="cannon_sparse-2")])
+def test_als_residual_decreases(strategy, c, fusion):
+    S = _problem()
+    alg = _alg(S, 8, c, fusion) if strategy == "dense_shift" else _r_split(strategy, S, 8, c)
+    als = DistributedALS(alg, seed=0)
     als.initialize_embeddings()
     r0 = als.compute_residual()
     als.run_cg(1, cg_iters=5)
@@ -226,13 +285,14 @@ def test_als_requires_ground_truth_vals():
 
 def _poison(monkeypatch, alg, times: int) -> list:
     """Make the strategy's public fused pair return NaN for its next
-    ``times`` calls (the Gram operator of each half-step's initial
-    residual); returns the list of poisoned calls."""
+    ``times`` calls outside a ``cgStep`` (on the dense shift: the Gram
+    operator of each half-step's initial residual); returns the list of
+    poisoned calls."""
     real, hits = alg.fused_spmm, []
 
     def fused(*args, **kw):
         out, mid = real(*args, **kw)
-        if len(hits) < times:
+        if not alg._timing and len(hits) < times:
             hits.append(1)
             out = torch.full_like(out, float("nan"))
         return out, mid
@@ -414,6 +474,37 @@ def test_jax_checkpoint_resumes_in_the_port_and_back(tmp_path):
     als.run_cg(1, cg_iters=10)  # the port's own step 3
     _close(alg.host_a(als.A), ja.host_a(back.A))
     assert back.compute_residual() == pytest.approx(als.compute_residual(), rel=RESIDUAL_RTOL)
+
+
+def test_r_split_ladder_and_checkpoints(tmp_path, monkeypatch):
+    """On the per-op path (``CannonSparse25D``, whose columns are skewed):
+    a poisoned Gram operator restarts damped and succeeds; a run killed
+    after step 1 and resumed from its store (the factors in global order)
+    ends on the uninterrupted run's factors bit for bit."""
+    monkeypatch.setenv(guards.GUARDS_ENV, "1")
+    S = _problem()
+    alg = _r_split("cannon_sparse", S)
+    als = DistributedALS(alg, seed=0)
+    als.initialize_embeddings()
+    r0 = als.compute_residual()
+    hits = _poison(monkeypatch, alg, 1)
+    als.cg_optimizer(MatMode.A, 10)
+    als.cg_optimizer(MatMode.B, 10)
+    assert hits == [1] and als.compute_residual() < 0.5 * r0
+    monkeypatch.undo()
+
+    whole = DistributedALS(alg, seed=0)
+    whole.run_cg(2, cg_iters=5)
+    store = CheckpointStore(tmp_path)
+    DistributedALS(alg, seed=0).run_cg(1, cg_iters=5, checkpoint=store)
+    _, arrays, _ = store.load_latest()
+    first = DistributedALS(alg, seed=0)
+    first.run_cg(1, cg_iters=5)
+    np.testing.assert_array_equal(arrays["A"][: S.M], alg.host_a(first.A))
+    resumed = DistributedALS(alg, seed=0)
+    resumed.run_cg(2, cg_iters=5, checkpoint=store, resume=True)
+    assert store.steps() == [1, 2]
+    assert torch.equal(resumed.A, whole.A) and torch.equal(resumed.B, whole.B)
 
 
 def test_ladder_logs_under_the_als_logger(caplog, monkeypatch):

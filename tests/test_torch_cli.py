@@ -9,6 +9,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 from distributed_sddmm_tpu_torch.bench import cli
@@ -121,6 +122,12 @@ APP_RECORD_DIFFS = {
 @pytest.mark.parametrize("app,alg,p", [
     pytest.param("als", "15d_fusion2", 4, id="als"),
     pytest.param("gat", "15d_fusion2", 4, id="gat"),
+    pytest.param("als", "15d_sparse", 4, id="als-15d_sparse"),
+    pytest.param("als", "25d_dense_replicate", 8, id="als-25d_dense_replicate"),
+    pytest.param("als", "25d_sparse_replicate", 8, id="als-25d_sparse_replicate"),
+    pytest.param("gat", "15d_sparse", 4, id="gat-15d_sparse"),
+    pytest.param("gat", "25d_dense_replicate", 8, id="gat-25d_dense_replicate"),
+    pytest.param("gat", "25d_sparse_replicate", 8, id="gat-25d_sparse_replicate"),
     pytest.param("vanilla", "15d_sparse", 4, id="vanilla-15d_sparse"),
     pytest.param("vanilla", "25d_dense_replicate", 8, id="vanilla-25d_dense_replicate"),
     pytest.param("vanilla", "25d_sparse_replicate", 8, id="vanilla-25d_sparse_replicate"),
@@ -129,8 +136,9 @@ def test_app_records_match_jax(app, alg, p):
     """Both packages' ``benchmark_algorithm`` on one ER matrix: the same
     record fields but the listed ones, the same configuration values, the
     same app fields and the same per-op counters (``cgStep`` an ALS CG
-    iteration, ``gatLayer`` a GAT layer; the R-split strategies' fused
-    pair is their sddmmA and spmmA) and the same ``alg_info``."""
+    iteration, ``gatLayer`` a GAT layer on the dense shift; the R-split
+    strategies' fused pair is their sddmmA and spmmA, and their apps run
+    the public ops) and the same ``alg_info``."""
     import jax
 
     from distributed_sddmm_tpu.bench import harness as jax_harness
@@ -164,8 +172,8 @@ def test_app_records_match_jax(app, alg, p):
 def test_er_groups_run_each_member_and_skip_what_refuses(tmp_path, capsys, monkeypatch):
     """``er 15d|25d|all``: one record and one summary line a member that
     runs; a member the grid, the app or the fusion build refuses is
-    reported on stderr and skipped, and the group goes on (the JAX sweep
-    driver's rule)."""
+    reported on stderr and skipped, and the group goes on (the JAX
+    sweep's rule). Both apps run on every member."""
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     monkeypatch.setenv("SDDMM_TORCH_LOCAL_RANKS", "4")
     out = tmp_path / "rec.jsonl"
@@ -187,10 +195,12 @@ def test_er_groups_run_each_member_and_skip_what_refuses(tmp_path, capsys, monke
     assert run("all", 1, "--fusion", "overlap") == (every[:3], every[3:])
     assert run("all", 1, "--app", "attention", "--mask", "window:2") == (
         every[:2], every[2:])
-    assert run("all", 1, "--app", "als") == (every[:2], every[2:])
-    assert run("all", 1, "--app", "gat") == (every[:2], every[2:])
+    assert run("all", 1, "--app", "als") == (every, [])
+    assert run("all", 1, "--app", "gat") == (every, [])
     recs = [json.loads(line) for line in out.read_text().splitlines()]
-    assert [r["algorithm"] for r in recs] == every + every[:3] + every[:3] + every[:2] * 3
+    assert [r["algorithm"] for r in recs] == every + every[:3] + every[:3] + every[:2] + every * 2
+    assert all(r["app"] == "gat" and r["gat_heads"] == [4, 4, 6] for r in recs[-5:])
+    assert all(np.isfinite(r["als_residual"]) for r in recs[-10:-5])
     assert {r["alg_info"]["alg_name"] for r in recs[:5]} == {
         "1.5D Block Row Replicated S Striped AB Cyclic Shift",
         "1.5D Sparse Shifting Dense Replicating Algorithm",

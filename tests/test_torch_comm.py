@@ -17,7 +17,10 @@ A third runs the R-split strategies on four processes: ``CannonDense25D``
 bands from the host banding), ``SparseShift15D`` (sequential and
 overlapped) and ``CannonSparse25D`` (2 x 2, and 1 x 1 x 4, whose fiber
 gather and reduce-scatter cross processes): every op on integer operands
-equal to ``LocalWorld``'s bit for bit.
+equal to ``LocalWorld``'s bit for bit. A fourth runs an ALS step on each
+R-split strategy, whose CG dots are all-reduced over the R-split group
+(``batch_dot``), stores it and resumes it, against a ``LocalWorld``
+within float32 rounding (the partial dots add in another order).
 
 This module imports no JAX: the spawned processes import it to find
 their entry point.
@@ -225,6 +228,50 @@ def test_r_split_strategies_over_gloo_equal_local_world(tmp_path):
             assert set(got.files) == set(want)
             for op in want:
                 np.testing.assert_array_equal(got[op], want[op], err_msg=f"{name} {op} {rank}")
+
+
+# R-split ALS at p = 4: (name, class, c).
+ALS_R_SPLIT = (("sparse_shift", SparseShift15D, 1), ("cannon_dense", CannonDense25D, 1),
+               ("cannon_sparse", CannonSparse25D, 1), ("cannon_sparse_fiber", CannonSparse25D, 4))
+
+
+def _als_r_split_worker(rank: int, init: str, out_dir: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=4)
+    try:
+        for name, cls, c in ALS_R_SPLIT:
+            alg = cls(_matrix(), 8, c=c, world=DistWorld(), device="cpu")
+            store = CheckpointStore(f"{out_dir}/{name}")
+            DistributedALS(alg, seed=0).run_cg(1, cg_iters=3, checkpoint=store)
+            resumed = DistributedALS(alg, seed=0)
+            resumed.run_cg(2, cg_iters=3, checkpoint=store, resume=True)
+            np.savez(f"{out_dir}/{name}{rank}.npz", A=alg.host_a(resumed.A),
+                     B=resumed.item_factors(), r=resumed.compute_residual())
+    finally:
+        dist.destroy_process_group()
+
+
+def test_r_split_als_over_gloo_matches_local_world(tmp_path):
+    ctx = mp.spawn(_als_r_split_worker, args=(str(tmp_path / "init"), str(tmp_path)),
+                   nprocs=4, join=False)
+    deadline = time.monotonic() + 240
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            pytest.fail("the gloo processes did not finish in 240 s")
+    for name, cls, c in ALS_R_SPLIT:
+        alg = cls(_matrix(), 8, c=c, world=LocalWorld(4), device="cpu")
+        want = DistributedALS(alg, seed=0)
+        want.run_cg(2, cg_iters=3)
+        wa, wb = alg.host_a(want.A), want.item_factors()
+        assert CheckpointStore(tmp_path / name).steps() == [1, 2]
+        for rank in range(4):
+            got = np.load(tmp_path / f"{name}{rank}.npz")
+            for x, y in ((got["A"], wa), (got["B"], wb)):
+                assert np.abs(x - y).max() <= 1e-5 * np.abs(y).max(), (name, rank)
+            assert float(got["r"]) == pytest.approx(want.compute_residual(), rel=1e-4)
 
 
 # ------------------------------------------------------- LocalWorld alone

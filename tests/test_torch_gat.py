@@ -7,7 +7,8 @@ JAX GAT's weights cross over through
 ``dummy_initialize(A) / (M * R_in)`` is the same in both. The outputs
 agree within 1e-5 of the output's max abs value (float32 sums in another
 order), at (p, c) = (1, 1) and (8, 2), with 2 and 3 layers, one
-``gatLayer`` a layer. Also: the validation of
+``gatLayer`` a layer; and on the three R-split strategies at (8, 2), whose
+heads run through the public ops with their shifts. Also: the validation of
 ``tests/test_gat.py``, the benchmark's layer spec against the float64
 oracle (``utils/oracle.gat_forward``), the guard, and weight checkpoints.
 """
@@ -20,15 +21,21 @@ import jax
 
 from distributed_sddmm_tpu.models.gat import GAT as JaxGAT
 from distributed_sddmm_tpu.models.gat import GATLayer as JaxLayer
+from distributed_sddmm_tpu.parallel.cannon_dense_25d import CannonDense25D as JaxCD
+from distributed_sddmm_tpu.parallel.cannon_sparse_25d import CannonSparse25D as JaxCS
 from distributed_sddmm_tpu.parallel.dense_shift_15d import DenseShift15D as JaxDS
+from distributed_sddmm_tpu.parallel.sparse_shift_15d import SparseShift15D as JaxSS
 from distributed_sddmm_tpu.resilience import CheckpointStore as JaxStore
 from distributed_sddmm_tpu.utils.coo import HostCOO as JaxCOO
 
 from distributed_sddmm_tpu_torch.bench import harness
 from distributed_sddmm_tpu_torch.common import MatMode
 from distributed_sddmm_tpu_torch.models.gat import GAT, GATLayer
+from distributed_sddmm_tpu_torch.parallel.cannon_dense_25d import CannonDense25D
+from distributed_sddmm_tpu_torch.parallel.cannon_sparse_25d import CannonSparse25D
 from distributed_sddmm_tpu_torch.parallel.comm import LocalWorld
 from distributed_sddmm_tpu_torch.parallel.dense_shift_15d import DenseShift15D
+from distributed_sddmm_tpu_torch.parallel.sparse_shift_15d import SparseShift15D
 from distributed_sddmm_tpu_torch.resilience import CheckpointStore, NumericalFault, guards
 from distributed_sddmm_tpu_torch.utils import oracle
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
@@ -36,6 +43,9 @@ from distributed_sddmm_tpu_torch.utils.interop import gat_weights_from_reference
 
 OUT_TOL = 1e-5
 SPECS = {2: [(8, 4, 2), (8, 4, 2)], 3: [(8, 4, 2), (8, 8, 3), (24, 4, 2)]}
+STRATEGIES = {"dense_shift": (JaxDS, DenseShift15D), "sparse_shift": (JaxSS, SparseShift15D),
+              "cannon_dense": (JaxCD, CannonDense25D),
+              "cannon_sparse": (JaxCS, CannonSparse25D)}
 
 
 def _graph(M=32, seed=0):
@@ -53,16 +63,23 @@ def _port_gat(S, spec, p=1, c=1, **kw):
 
 
 @pytest.mark.parametrize("n_layers", [2, 3])
-@pytest.mark.parametrize("p,c", [(1, 1), (8, 2)])
-def test_forward_matches_jax(p, c, n_layers):
+@pytest.mark.parametrize("strategy,p,c", [
+    pytest.param("dense_shift", 1, 1, id="1-1"), pytest.param("dense_shift", 8, 2, id="8-2"),
+    pytest.param("sparse_shift", 8, 2, id="sparse_shift-8-2"),
+    pytest.param("cannon_dense", 8, 2, id="cannon_dense-8-2"),
+    pytest.param("cannon_sparse", 8, 2, id="cannon_sparse-8-2")])
+def test_forward_matches_jax(strategy, p, c, n_layers):
     S = _graph()
     spec = SPECS[n_layers]
-    ja = JaxDS(S, R=spec[0][0], c=c, devices=jax.devices()[:p])
+    jcls, pcls = STRATEGIES[strategy]
+    ja = jcls(S, R=spec[0][0], c=c, devices=jax.devices()[:p])
     jgat = JaxGAT([JaxLayer(*s) for s in spec], ja, seed=3)
     want = ja.host_a(jgat.forward())
     weights = gat_weights_from_reference(
         [[np.asarray(w) for w in layer.weights] for layer in jgat.layers], device="cpu")
-    gat, alg = _port_gat(S, spec, p, c, seed=3)
+    alg = pcls(HostCOO(S.rows, S.cols, S.vals, S.M, S.N), R=spec[0][0], c=c,
+               world=LocalWorld(p), device="cpu")
+    gat = GAT([GATLayer(*s) for s in spec], alg, seed=3)
     for layer, ws in zip(gat.layers, weights):
         layer.weights = ws
     got = alg.host_a(gat.forward())
@@ -70,26 +87,44 @@ def test_forward_matches_jax(p, c, n_layers):
     scale = float(np.abs(want).max())
     assert scale > 0 and np.abs(got - want).max() <= OUT_TOL * scale
     assert alg.R == ja.R == gat.layers[-1].output_features
-    assert set(alg.metrics) == {"gatLayer"}
-    assert alg.metrics["gatLayer"]["calls"] == n_layers
+    if strategy == "dense_shift":
+        assert set(alg.metrics) == {"gatLayer"}
+        assert alg.metrics["gatLayer"]["calls"] == n_layers
+    else:
+        heads = sum(layer.num_heads for layer in gat.layers)
+        assert {k: v["calls"] for k, v in alg.metrics.items()} == {"sddmmA": heads,
+                                                                  "spmmA": heads}
 
 
 def test_layer_parts_and_heads_come_from_the_forward_code(monkeypatch):
     """``layer_forward``'s timing hook sees each part of each head in
-    order, then the concat; a head is its slice of the layer's output; a
-    strategy without the raw accessors is refused."""
+    order with its output, then the concat; a head is its slice of the
+    layer's output; on the dense shift a layer is one ``gatLayer``. The
+    timing changes nothing computed: with the unit off, the same layer
+    shows the public ops' counters, with the same marks and the same
+    output."""
     S = _graph()
     gat, alg = _port_gat(S, SPECS[2], seed=2)
     X = gat.default_input()
-    parts = []
-    out = gat.layer_forward(0, X, mark=parts.append)
+    parts, values = [], {}
+
+    def mark(part, value):
+        parts.append(part)
+        values.setdefault(part, value)
+
+    out = gat.layer_forward(0, X, mark=mark)
     head = ["projection", "sddmm", "leaky_relu", "spmm", "relu"]
-    assert parts == head * 2 + ["concat"] and alg.R == 8 and not alg.metrics
+    assert parts == head * 2 + ["concat"] and alg.R == 8
+    assert {k: v["calls"] for k, v in alg.metrics.items()} == {"gatLayer": 1}
+    assert torch.equal(values["concat"], out) and torch.equal(values["relu"], out[:, :4])
+    assert torch.equal(torch.relu(values["spmm"]), values["relu"])
     assert torch.equal(gat.compute_self_attention_head(X, 0, 1), out[:, 4:])
     assert torch.equal(gat.layer_forward(1, gat.layer_forward(0, X)), gat.forward())
-    monkeypatch.delattr(DenseShift15D, "spmm_program")
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        GAT([GATLayer(8, 4, 2)], _alg(S))
+    monkeypatch.setattr(gat, "_unit", False)
+    alg.reset_performance_timers()
+    marks = []
+    assert torch.equal(gat.layer_forward(0, X, mark=lambda part, _: marks.append(part)), out)
+    assert marks == parts and set(alg.metrics) == {"sddmmA", "spmmA"}
 
 
 def test_node_embeddings_and_comm_profile_follow_the_width():
@@ -152,18 +187,14 @@ def test_weights_are_scaled_uniform_and_seeded():
 def test_guard_checks_every_layer(monkeypatch):
     S = _graph()
     gat, alg = _port_gat(S, SPECS[2], seed=1)
-    real = alg.spmm_program
+    real = alg.spmm_a
 
-    def poisoned(mode):
-        spmm = real(mode)
+    def poisoned(A, B, s_vals):
+        out = real(A, B, s_vals)
+        out[0, 0] = float("nan")
+        return out
 
-        def run(mov, vals):
-            out = spmm(mov, vals)
-            out[0, 0] = float("nan")
-            return out
-        return run
-
-    monkeypatch.setattr(alg, "spmm_program", poisoned)
+    monkeypatch.setattr(alg, "spmm_a", poisoned)
     monkeypatch.delenv(guards.GUARDS_ENV, raising=False)
     assert not bool(torch.isfinite(gat.forward()).all())  # off by default
     monkeypatch.setenv(guards.GUARDS_ENV, "1")

@@ -83,9 +83,9 @@ def test_ast_scan_finds_no_forbidden_import():
     # And every import the port makes is one the card's machine has.
     allowed = {"torch", "numpy", "scipy", "distributed_sddmm_tpu_torch",
                "__future__", "abc", "argparse", "contextlib", "ctypes", "dataclasses", "enum",
-               "functools", "hashlib", "importlib", "io", "json", "logging", "math", "os",
-               "pathlib", "re", "shutil", "subprocess", "sys", "tempfile", "time", "typing",
-               "zipfile"}
+               "functools", "hashlib", "importlib", "inspect", "io", "json", "logging", "math",
+               "multiprocessing", "os", "pathlib", "re", "shutil", "subprocess", "sys",
+               "tempfile", "time", "typing", "zipfile"}
     used = set().union(*(_imported_roots(f) for f in files))
     assert used <= allowed, used - allowed
 

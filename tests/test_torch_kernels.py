@@ -272,8 +272,32 @@ def test_wrappers_run_plain_on_cpu_without_counting():
     torch.testing.assert_close(k.spmm_tile(t, sv, bt), spmm_tile_plain(t, sv, bt),
                                rtol=0, atol=0)
     assert cuda_kernels.launch_counts() == dict.fromkeys(cuda_kernels.LAUNCHES, 0)
+    assert cuda_kernels.launch_counts("bf16") == dict.fromkeys(cuda_kernels.LAUNCHES, 0)
     assert {"sddmm_tile", "spmm_tile", "fused_tile", "attn_stats_tile",
             "attn_norm_tile"} <= set(cuda_kernels.LAUNCHES)
+
+
+def test_launch_counts_split_by_operand_type(monkeypatch):
+    """A launch counts once under its wrapper, and under ``"bf16"`` when
+    its dense operands were bf16 (a library stub stands in for the card's:
+    every entry point returns success)."""
+    class Lib:
+        def __getattr__(self, fn):
+            return lambda *args: 0
+
+    monkeypatch.setattr(cuda_kernels._build, "load", Lib)
+    cuda_kernels.reset_launch_counts()
+    cuda_kernels._launch("spmm_tile", "spmm_tile", bf16=True)
+    cuda_kernels._launch("spmm_tile", "spmm_tile")
+    cuda_kernels._launch("split_reduce", "split_reduce")
+    zero = dict.fromkeys(cuda_kernels.LAUNCHES, 0)
+    assert cuda_kernels.launch_counts() == {**zero, "spmm_tile": 2, "split_reduce": 1}
+    assert cuda_kernels.launch_counts("bf16") == {**zero, "spmm_tile": 1}
+    assert cuda_kernels.launch_counts("f32") == {**zero, "spmm_tile": 1, "split_reduce": 1}
+    with pytest.raises(ValueError, match="precision"):
+        cuda_kernels.launch_counts("f16")
+    cuda_kernels.reset_launch_counts()
+    assert cuda_kernels.launch_counts() == cuda_kernels.launch_counts("bf16") == zero
 
 
 def test_non_cpu_tensor_raises_instead_of_falling_back():

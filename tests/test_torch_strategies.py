@@ -2,8 +2,9 @@
 which the JAX package's 8-device mesh cannot hold) equal, bit for bit on
 integer data, to ``DenseShift15D`` on one rank; the verify fingerprints
 and the communication profiles of the three R-split strategies equal to
-the JAX package's; and the apps, which run on the dense shift only,
-refusing the others by name."""
+the JAX package's; and the apps on 3 x 3 grids (ALS half-steps and the
+GAT forward pass, on their per-op paths) equal to the dense shift's on
+one rank."""
 
 import numpy as np
 import pytest
@@ -109,14 +110,31 @@ def test_comm_profile_equals_jax(name, p, c):
     assert alg.comm_profile("fusedSpMM")[0]["words"] > 0
 
 
-@pytest.mark.parametrize("name", sorted(JAX_CLASSES))
-def test_apps_refuse_the_r_split_strategies(name):
-    """ALS and GAT run on the dense shift; on the other three strategies
-    they raise, naming the ROADMAP item that brings them there."""
-    S = JaxCOO.erdos_renyi(64, 64, 4, seed=1)
-    alg = harness.make_algorithm(name, port_coo(S), 8, c=2, world=LocalWorld(8),
+@pytest.mark.parametrize("name,p,c", [("15d_sparse", 9, 3), ("25d_dense_replicate", 9, 1),
+                                      ("25d_sparse_replicate", 9, 1)])
+def test_apps_on_three_by_three_grids_equal_one_rank(name, p, c):
+    """ALS and GAT run on the other three strategies through the public
+    ops (no ``cgStep`` or ``gatLayer`` unit) with their shifts and, for
+    ALS, the R-split dots: at p = 9, where a wrong skew direction or a
+    row's dot summed once per holder shows, an ALS step from the same
+    state and a two-layer GAT forward from the same weights equal the
+    dense shift's on one rank within float32 rounding (1e-5 of the max
+    abs value)."""
+    S = JaxCOO.erdos_renyi(63, 63, 4, seed=1)
+    one = DenseShift15D(port_coo(S), R, world=LocalWorld(1), device="cpu")
+    alg = harness.make_algorithm(name, port_coo(S), R, c=c, world=LocalWorld(p),
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 10b"):
-        DistributedALS(alg)
-    with pytest.raises(NotImplementedError, match="queue A item 10b"):
-        GAT([GATLayer(8, 4, 2)], alg)
+    factors = []
+    for a in (one, alg):
+        als = DistributedALS(a, seed=2)
+        assert als._unit == (a is one)
+        als.run_cg(1, cg_iters=4)
+        factors.append((a.host_a(als.A), a.host_b(als.B)))
+    for want, got in zip(*factors):
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    outs = []
+    for a in (one, alg):
+        gat = GAT([GATLayer(R, 6, 2), GATLayer(R, 6, 2)], a, seed=4)
+        outs.append(a.host_a(gat.forward()))
+    assert set(alg.metrics) >= {"sddmmA", "spmmA"} and "gatLayer" not in alg.metrics
+    assert np.abs(outs[1] - outs[0]).max() <= 1e-5 * np.abs(outs[0]).max()
