@@ -90,8 +90,11 @@ last line is printed):
    2**16 tokens: phase 6's checks through the banked kernel, the new
    attention-stats kernels against their plain versions (a fully masked
    heavy row gives (ATTN_NEG, 0)), ms per call generic and banked in
-   turns, the banked call's breakdown. The uniform R-mat of phase 5: one
-   band after the degeneration guard, ms per pair generic and banked.
+   turns, the banked call's breakdown. The uniform R-mat of phase 5: its
+   bands as the degeneration guard's rule says (one band when every row
+   lies within twice the median degree; the JAX package's draw has a row
+   of 65 against a median of 32, so two, none heavy), ms per pair generic
+   and banked.
 9. cli -- ``bench.cli.main(["er", "16", "32", "15d_fusion2", "128", "1",
    "--app", "attention", ...])`` on the card, then one ``--kernel-variant``
    run; the records they append.
@@ -106,7 +109,7 @@ last line is printed):
    (the c-axis stats merge) a call. banked: the Graph500 R-mat of phase 8
    at log_m=16, its variant, (4, 2): banked equals generic bit for bit on
    integer data, launches as every rank's bands predict. scaling: phase
-   5's cell at (p, c) = (1, 1), (4, 1), (16, 1), (16, 4), f32 and bf16,
+   5's cell at (p, c) = (1, 1), (4, 1), (16, 4), f32 and bf16,
    through the harness's own loop (3 warmup, 10 timed pairs): ms and
    GFLOP/s a pair, launches a pair, peak memory, the breakdown
    (``measure_breakdown``: full, no_ring, local), and sampled rows of one
@@ -124,9 +127,10 @@ last line is printed):
    5's cell through the harness's ``_run_als`` (one warmup step, 3 timed
    steps of 10 CG iterations a half-step), f32 and bf16: ms a step, the
    residual trajectory a step at a time (the first step's ``r1 / r0``
-   within ``ALS_RATIO_TOL`` of the float64 serial solver's on a uniform
-   R-mat of the same shape at log_m 12, both precisions: 128 unknowns a
-   row against about 32 observations leave far more than half the
+   within ``ALS_RATIO_TOL`` of the float64 serial solver's on the same
+   matrix from the same factors and observations, run on the card as
+   ``Float64ALS`` and held first to the host's ``SerialALS`` at log_m 12,
+   both precisions: 128 unknowns a row against about 32 observations leave far more than half the
    residual after a step of 10 CG iterations; f32: no step raises it by
    1%, and a control whose Gram operator drops one slot in
    ``ALS_CONTROL_GATED`` must miss that tolerance), a CG iteration
@@ -165,8 +169,10 @@ last line is printed):
    bit, launches as every tile's bands predict; Cannon sparse builds
    generic (realized variant None, a ``codegen_generic_fallbacks`` a
    tile set) and launches the generic kernel. full: phase 5's cell at
-   (4, 1), all four, f32 and bf16, the harness's loop (3 warmup, 10 timed
-   pairs): ms and GFLOP/s a pair, launches a pair, peak memory, set-up
+   (4, 1), the three R-split strategies (the dense shift's rows are phase
+   ring's scaling at (4, 1), the same loop), f32 and bf16, the harness's
+   loop (3 warmup, 10 timed pairs): ms and GFLOP/s a pair, launches a
+   pair, peak memory, set-up
    seconds, the breakdown, sampled rows against float64; the SDDMM and
    SpMM kernels at each R-split strategy's shapes against their plain
    versions (``kernels_<strategy>_full``). nccl: ``CannonDense25D`` over
@@ -197,17 +203,44 @@ last line is printed):
    full cell 1 + 3 steps of plain SGD on an MSE
    against an N(0, 0.1) target, f32 and bf16: ms a step, the loss at each
    step (it must fall), peak memory, the backward's launches on float32.
+   dist_grads: one process over NCCL (``init_process_group("nccl",
+   file://...)``, world size 1): the sddmm, spmm and fused grads of
+   ``DenseShift15D`` and ``CannonDense25D`` at the headline through a
+   ``DistWorld``, on operands in {-1, 0, 1}, equal to a ``LocalWorld(1)``'s
+   bit for bit; each collective's grad (its autograd node, NCCL forward
+   and backward) equal to ``LocalComm``'s.
 14. apps_strategies -- ALS and GAT on ``SparseShift15D``,
    ``CannonDense25D`` and ``CannonSparse25D`` (the per-op counters). protocol:
    phase 11's ALS protocol on each. full: phase 5's cell at (4, 1) on the
    tile sets phase 12 built, f32: ALS through ``_run_als`` (ms a step, the
-   first step's ratio within ``ALS_RATIO_TOL`` of the float64 solver's),
+   first step's ratio within ``ALS_RATIO_TOL`` of the float64 solver's
+   from the same start),
    the GAT forward (ms a forward, the output within 1e-4 of the dense
    shift's at p = 1 from the same weights). cli: ``er 12 8 all ... 128 1
    --app als`` and ``--app gat`` over four logical ranks, a record a
    member, none skipped.
-15. kernels line -- ``{"kernels": [...]}``.
-16. last line -- ``{"ok": true, "device": {...}}``.
+15. host_cli -- the host data layer and the rest of the CLI.
+   rmat: the full cell drawn on the card and on the host, equal bit for
+   bit, and its nnz and checksum (``rmat_digest``) and the Graph500 16
+   draw's equal to the JAX package's (``RMAT_PINS``); seconds of each
+   draw. file: the full cell written to a ``.mtx`` file and read back
+   equal (seconds, bytes); ``permute`` on it equal to
+   ``random_permuted(0)``; ``file ... 15d_fusion2 128 1 --permute`` in
+   cuda-f32 and cuda-bf16 (phase full's pairs), ms and GFLOP/s beside
+   phase full's and one pair's sampled rows against float64 (phase full's
+   tolerances); ``file --app attention --mask window:16`` on the headline
+   R-mat's file and ``file --kernel-variant`` on a Graph500 16 file, their
+   launches as predicted. verify: ``verify --log-m 16 --edge-factor 32
+   --R 128 --c 1 --alg all`` over four logical ranks, both precisions,
+   exit 0 and 25 OK lines. kernels: the JAX package's default sweep
+   (log_m 13-16, 8/32/128 a row, R 32/128/512) with cuda-f32, cuda-bf16
+   and torch, then the full cell with the two CUDA kernels, every record
+   to ``_build/host_cli_kernels_sweep.jsonl``, the headline records beside
+   table rows 1-3. heatmap: ``heatmap 16 32 1 --alg 15d_fusion2`` over
+   the seven R, a record an R. baseline: ``baseline 16 32 128`` on the
+   host beside the card's pair at R = 128.
+16. kernels line -- ``{"kernels": [...]}``.
+17. last line -- ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --gat-grad-drift [SEED ...]`` is another mode
 (``gat_grad_drift``): the readings behind GAT_DRIFT["plain"].
@@ -217,6 +250,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import inspect
 import io
 import json
@@ -227,6 +261,7 @@ import pathlib
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -237,6 +272,7 @@ import torch.utils.checkpoint
 from distributed_sddmm_tpu_torch import masks
 from distributed_sddmm_tpu_torch.autotune.fingerprint import Problem
 from distributed_sddmm_tpu_torch.bench import cli, harness
+from distributed_sddmm_tpu_torch.bench import kernels as kernel_bench
 from distributed_sddmm_tpu_torch.bench.harness import make_algorithm
 from distributed_sddmm_tpu_torch.bench.kernel_ab import band_coo
 from distributed_sddmm_tpu_torch.codegen import (
@@ -265,7 +301,7 @@ HEADLINE = {"log_m": 16, "edge_factor": 32, "R": 128}
 FULL = {"log_m": 20, "edge_factor": 32, "R": 128}
 PRECISIONS = ("f32", "bf16")
 KERNEL_TOL = {"f32": 1e-5, "bf16": 1e-2}
-VERIFY_RTOL = {"f32": 1e-4, "bf16": 1e-2}
+VERIFY_RTOL = verify.VERIFY_RTOL
 WARMUP_PAIRS, TIMED_PAIRS = 3, 20
 KERNEL_REPS, PLAIN_REPS = 20, 3
 
@@ -360,7 +396,7 @@ ATTN_CALL = {**dict.fromkeys(cuda_kernels.LAUNCHES, 0), "sddmm_tile": 1,
              "spmm_tile": 1, "attn_stats_tile": 1, "attn_norm_tile": 1}
 # The ring (phase ring): (p, c) grids of logical ranks on this card.
 RING = {"verify": ((2, 1), (4, 1), (4, 2), (8, 4)), "attention": (4, 2),
-        "banked": (4, 2), "scaling": ((1, 1), (4, 1), (16, 1), (16, 4))}
+        "banked": (4, 2), "scaling": ((1, 1), (4, 1), (16, 4))}
 #: (fusion, overlap) builds of the ring verify.
 RING_BUILDS = ((2, False), (1, False), (2, True))
 RING_WARMUP, RING_TRIALS, RING_BREAKDOWN_TRIALS = 3, 10, 3
@@ -392,16 +428,23 @@ ALS = {"cg_iters": 10, "warmup": 1, "steps": 3}
 ALS_PROTOCOL = {"M": 48, "N": 32, "nnz_per_row": 5, "R": 8, "cg_iters": 5, "p": 8, "c": 2}
 #: At the full cell (128 unknowns a row, about 32 observations, 10 CG
 #: iterations) a step cuts the residual far less; its first-step ratio is
-#: held to the float64 serial solver's on a uniform R-mat of the same
-#: shape at this log_m (edge_factor and R of the full cell). The tolerance
-#: lies between the gaps of sound runs (f32, bf16) and those of controls
-#: whose Gram operator drops one nonzero slot in k (k in ALS_CONTROLS):
-#: the control at ALS_CONTROL_GATED must land outside it, or the gate is
-#: blind and the phase fails. Readings on an H100 (PERF.md, section 6): sound
-#: 2.57e-4 (f32); controls (every pair of the step dropping slots) k = 10,
-#: 100, 1000, 10000: 1.71e-2, 1.45e-3, 8.6e-5, 2.40e-4.
-ALS_SHAPE_LOG_M, ALS_RATIO_TOL = 12, 5e-4
-ALS_CONTROLS, ALS_CONTROL_GATED = (10, 100, 1000, 10000), 100
+#: held to the float64 serial solver's on the same matrix, from the same
+#: factors and observations (``Float64ALS``: ``SerialALS`` term for term
+#: in torch float64 on the card, itself held to ``SerialALS`` at
+#: F64_CHECK's size), so the gap is the port's rounding and faults alone.
+#: The tolerance lies between the gaps of sound runs (f32, bf16) and those
+#: of controls whose Gram operator drops one nonzero slot in k (k in
+#: ALS_CONTROLS): the control at ALS_CONTROL_GATED must land outside it, or
+#: the gate is blind and the phase fails. Readings on an H100 (PERF.md,
+#: section 6): sound gaps 5.7e-10 (f32), 8.0e-7 (bf16), 5.8e-10-6.1e-10
+#: (the R-split strategies); controls k = 10, 100, 1000: 1.73e-2, 1.72e-3,
+#: 1.71e-4.
+ALS_RATIO_TOL = 5e-5
+ALS_CONTROLS, ALS_CONTROL_GATED = (10, 100, 1000), 1000
+#: Nonzeros a chunk of Float64ALS's gathers (2^21 x R 128 x 8 B = 2 GiB an
+#: operand); its one step within ``tol`` (relative) of ``SerialALS``'s.
+F64_CHUNK = 1 << 21
+F64_CHECK = {"log_m": 12, "edge_factor": 32, "R": 128, "tol": 1e-10}
 #: The port's residual within ``slack`` of the serial one (both ways) and
 #: its factors within ``factor_tol`` of the serial ones (of their max abs).
 ALS_ORACLE = {"log_m": 12, "edge_factor": 32, "R": 32, "steps": 2, "slack": 1.05,
@@ -464,6 +507,20 @@ GAT_REF = {"threads": 4, "forward_seed": 0, "timeout": 900}
 #: ALS on the R-split strategies at the full cell (phase apps_strategies):
 #: timed steps after ALS["warmup"].
 ALS_STRAT = {"steps": 2}
+#: The host data layer and the rest of the CLI (phase host_cli). The
+#: R-mat draws pinned to the JAX package's ``HostCOO.rmat(log_m, 32,
+#: seed=0)`` (uniform, and the Graph500 initiator at 16): nnz and the
+#: first 16 hex digits of the sha256 of rows then cols (int64, little
+#: endian), computed from the JAX package's native generator on the host.
+RMAT_PINS = {"full": {"log_m": 20, "init": None, "nnz": 33553906,
+                      "digest": "6fa2e09445dd53f4"},
+             "graph500_16": {"log_m": 16, "init": "graph500", "nnz": 1819750,
+                             "digest": "90503317e193c923"}}
+#: ``file`` runs the pairs of phase full (3 warmup, 20 timed); ``kernels``
+#: and ``heatmap`` their own defaults (5 trials after a warmup).
+HOST_CLI = {"warmup": 3, "trials": 20, "kernel_trials": 5, "heatmap_trials": 5}
+#: Where host_cli writes the whole ``kernels`` sweep (too long to print).
+SWEEP_OUT = _build.BUILD_DIR / "host_cli_kernels_sweep.jsonl"
 PLAIN = {
     "sddmm_tile": cuda_kernels.sddmm_tile_plain,
     "spmm_tile": cuda_kernels.spmm_tile_plain,
@@ -1029,9 +1086,11 @@ def sampled_reference(S: HostCOO, alg, out, mid, dev, rng, heaviest: int = 0) ->
     return err
 
 
-def phase_full(dev, launches: dict, entries: dict) -> dict:
+def phase_full(dev, launches: dict, entries: dict, stats: dict | None = None):
+    """Returns ``(S, alg)``; with ``stats`` the emitted result lands there
+    too."""
     t0 = time.perf_counter()
-    S = HostCOO.rmat(FULL["log_m"], FULL["edge_factor"], np.random.default_rng(0))
+    S = HostCOO.rmat(FULL["log_m"], FULL["edge_factor"], device=dev)
     gen_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1082,6 +1141,8 @@ def phase_full(dev, launches: dict, entries: dict) -> dict:
     compare_kernels(alg, dev, "full", entries, PLAIN_REPS)
     result["peak_mem_with_comparisons_bytes"] = torch.cuda.max_memory_allocated()
     emit({"phase": "full", **result})
+    if stats is not None:
+        stats.update(result)
     return S, alg
 
 
@@ -1375,8 +1436,7 @@ def band_info(tiles) -> list:
 
 def graph500(log_m: int) -> HostCOO:
     """R-mat with the Graph500 initiator: skewed rows and columns."""
-    return HostCOO.rmat(log_m, BANKED["edge_factor"], np.random.default_rng(0),
-                        **GRAPH500)
+    return HostCOO.rmat(log_m, BANKED["edge_factor"], **GRAPH500, device="cuda")
 
 
 def banked_verify(S, variant, dev, launches: dict) -> dict:
@@ -1945,7 +2005,7 @@ def phase_banked(dev, launches: dict, entries: dict, uniform) -> dict:
     """The banked launches: Graph500 R-mat at log_m 16 (verify, integer
     bit-equality, kernels against plain) and 20 (pairs, kernels against
     plain), bigbird attention at 2**16, and the uniform R-mat of phase
-    full (one band after the guard)."""
+    full (its bands by the degeneration guard's rule)."""
     t0 = time.perf_counter()
     R = BANKED["R"]
     result = {}
@@ -1975,8 +2035,16 @@ def phase_banked(dev, launches: dict, entries: dict, uniform) -> dict:
     del alg_bb
     S_u, alg_u = uniform
     v_u = select_variant(Problem.from_coo(S_u, R))
-    require(len(alg_u.S_tiles.tile(0, 0).bands) == 1,
-            f"uniform R-mat: {band_info(alg_u.S_tiles)} is not one band")
+    # The degeneration guard (``codegen/banded.py``): rows whose degrees all
+    # lie within twice the median collapse into one band. The uniform R-mat
+    # sits at that edge: its busiest row holds 65 nonzeros against a median
+    # of 32 on the JAX package's draw, so it keeps two bands, none heavy.
+    bands = alg_u.S_tiles.tile(0, 0).bands
+    deg = np.bincount(S_u.rows, minlength=S_u.M)
+    one = deg.max() <= 2 * np.median(deg[deg > 0])
+    require((len(bands) == 1) == one and not any(b.heavy for b in bands),
+            f"uniform R-mat: {band_info(alg_u.S_tiles)} against the guard's rule "
+            f"(max row {deg.max()}, median {np.median(deg[deg > 0])})")
     result["uniform_20"] = banked_pairs(S_u, alg_u, v_u, dev, launches, "uniform_20")
     result["seconds"] = time.perf_counter() - t0
     emit({"phase": "banked", "seconds": result["seconds"],
@@ -1985,6 +2053,7 @@ def phase_banked(dev, launches: dict, entries: dict, uniform) -> dict:
                                       for p in PRECISIONS},
           "uniform_20_ms_per_pair": {p: result["uniform_20"][p]["ms_per_pair"]
                                      for p in PRECISIONS},
+          "uniform_20_bands": band_info(alg_u.S_tiles),
           "bigbird_ms_per_call": {t: result["bigbird"][t]["ms_per_call"]
                                   for t in result["bigbird"] if "/" in t}})
     return result
@@ -2017,7 +2086,7 @@ def phase_cli(dev, launches: dict, log_m: int = 16, edge_factor: int = 32,
 
     # The banked kernel of the matrix's selected variant (vanilla app); the
     # CLI's R-mat row counts predict its launches.
-    S = HostCOO.rmat(log_m, edge_factor, np.random.default_rng(0))
+    S = HostCOO.rmat(log_m, edge_factor, device=dev)
     vid = select_variant(Problem.from_coo(S, R)).variant_id
     row_ptr = np.concatenate([[0], np.cumsum(np.bincount(S.rows, minlength=S.M))])
     bands = build_banded(row_ptr[None], select_variant(Problem.from_coo(S, R))).tiles[0]
@@ -2365,13 +2434,14 @@ def cg_split(als, iters: int) -> dict:
 def als_full(uniform, dev, launches: dict, card: str) -> dict:
     """ALS at the full cell through the harness's ``_run_als`` (one warmup
     step, timed steps), f32 and bf16; the residual trajectory a step at a
-    time from fresh embeddings; a CG iteration split into pair and rest."""
+    time from fresh embeddings, its first step's ratio against the float64
+    solver's from the same start; a CG iteration split into pair and
+    rest."""
     S, alg = uniform
     it, steps = ALS["cg_iters"], ALS["steps"]
-    t0 = time.perf_counter()
-    shape_ratio = serial_first_step_ratio(ALS_SHAPE_LOG_M, alg.R, it)
-    result = {"float64_first_step_ratio": shape_ratio, "float64_log_m": ALS_SHAPE_LOG_M,
-              "float64_seconds": time.perf_counter() - t0}
+    result = {"float64_check": float64_reference_check(dev)}
+    emit({"phase": "apps_als_float64_check", "card": card, **F64_CHECK,
+          **result["float64_check"]})
     for prec in PRECISIONS:
         alg.kernel = CudaTileKernel(prec, device=dev)
         torch.cuda.reset_peak_memory_stats()
@@ -2384,6 +2454,7 @@ def als_full(uniform, dev, launches: dict, card: str) -> dict:
         cg = alg.metrics["cgStep"]
         als = als_mod.DistributedALS(alg, S_host=S)
         als.initialize_embeddings()
+        ref64 = float64_first_step_ratio(S, als, it, dev)
         traj = [als.compute_residual()]
         for _ in range(steps):
             als.run_cg(1, cg_iters=it)
@@ -2394,22 +2465,22 @@ def als_full(uniform, dev, launches: dict, card: str) -> dict:
                "cg_step_host_ms": cg["seconds"] / cg["calls"] * 1e3,
                "cg_iteration": split, "peak_mem_bytes": peak, "launches": counts,
                "gflops": 2.0 * S.nnz * 2.0 * alg.R * steps / elapsed / 1e9}
-        ratio = traj[1] / traj[0]
-        row["first_step_ratio"] = ratio
-        row["ratio_gap"] = abs(ratio - shape_ratio)
+        ratio, ref_ratio = traj[1] / traj[0], ref64["ratio"]
+        row.update(first_step_ratio=ratio, float64_first_step_ratio=ref_ratio,
+                   float64_seconds=ref64["seconds"], ratio_gap=abs(ratio - ref_ratio))
         if prec == "f32":
+            # The controls start from the f32 run's factors and observations.
             row["controls"] = {k: first_step_ratio_with_dropped_slots(S, alg, k, it)
                                for k in ALS_CONTROLS}
             for c in row["controls"].values():
-                c["ratio_gap"] = abs(c["first_step_ratio"] - shape_ratio)
+                c["ratio_gap"] = abs(c["first_step_ratio"] - ref_ratio)
         emit({"phase": "apps_als_full", "card": card, "precision": prec, "nnz": S.nnz,
-              "R": alg.R, "float64_first_step_ratio": shape_ratio,
-              "ratio_tol": ALS_RATIO_TOL, **row})
+              "R": alg.R, "ratio_tol": ALS_RATIO_TOL, **row})
         require(all(np.isfinite(traj)) and np.isfinite(stats["als_residual"])
                 and "als_degraded" not in stats, f"als full/{prec}: {traj}")
         require(ratio < 1 and row["ratio_gap"] <= ALS_RATIO_TOL,
                 f"als full/{prec}: trajectory {traj}, first-step ratio {ratio:.6f} against "
-                f"float64's {shape_ratio:.6f} at log_m {ALS_SHAPE_LOG_M} "
+                f"float64's {ref_ratio:.6f} from the same start "
                 f"(tolerance {ALS_RATIO_TOL})")
         if prec == "f32":
             require(all(b < 1.01 * a for a, b in zip(traj[1:], traj[2:])),
@@ -2450,13 +2521,115 @@ def first_step_ratio_with_dropped_slots(S, alg, every: int, cg_iters: int) -> di
     return {"every": every, "trajectory": [r0, r1], "first_step_ratio": r1 / r0}
 
 
-def serial_first_step_ratio(log_m: int, R: int, cg_iters: int) -> float:
-    """``r1 / r0`` of the float64 serial solver on a uniform R-mat with the
-    full cell's edge factor and R."""
-    serial = SerialALS(HostCOO.rmat(log_m, FULL["edge_factor"], np.random.default_rng(0)), R)
-    r0 = serial.compute_residual()
-    serial.run_cg(1, cg_iters=cg_iters)
-    return serial.compute_residual() / r0
+class Float64ALS:
+    """The float64 serial solver (``models/serial_als.SerialALS``: its Gram
+    operator, right-hand side, CG and residual, term for term) as plain
+    torch float64 operations on ``dev``, for a matrix too large for the
+    host solver in the run's time: the full cell. It starts from given
+    factors and observations (in the host matrix's nonzero order)."""
+
+    def __init__(self, S: HostCOO, ground_truth, A, B, dev, ridge_lambda: float = 1e-6):
+        def f64(x):
+            return torch.as_tensor(np.asarray(x), dtype=torch.float64).to(dev)
+
+        self.rows = torch.as_tensor(S.rows, dtype=torch.long).to(dev)
+        self.cols = torch.as_tensor(S.cols, dtype=torch.long).to(dev)
+        self.ground_truth, self.A, self.B = f64(ground_truth), f64(A), f64(B)
+        self.ridge_lambda = ridge_lambda
+
+    def _chunks(self):
+        n = self.rows.numel()
+        return [slice(lo, min(lo + F64_CHUNK, n)) for lo in range(0, n, F64_CHUNK)]
+
+    def _sddmm(self, A, B):
+        dots = torch.empty(self.rows.numel(), dtype=torch.float64, device=A.device)
+        for k in self._chunks():
+            dots[k] = (A[self.rows[k]] * B[self.cols[k]]).sum(1)
+        return dots
+
+    def _spmm(self, vals, X, mode: str):
+        """``S @ X`` (mode A) or ``S^T @ X`` (mode B) with ``vals`` for S's."""
+        dst, src = (self.rows, self.cols) if mode == "A" else (self.cols, self.rows)
+        n = self.A.shape[0] if mode == "A" else self.B.shape[0]
+        out = torch.zeros((n, X.shape[1]), dtype=torch.float64, device=X.device)
+        for k in self._chunks():
+            out.index_add_(0, dst[k], vals[k, None] * X[src[k]])
+        return out
+
+    def _queries(self, A, B, mode: str):
+        mid = self._sddmm(A, B)
+        if mode == "A":
+            return self._spmm(mid, B, "A") + self.ridge_lambda * A
+        return self._spmm(mid, A, "B") + self.ridge_lambda * B
+
+    def _cg(self, mode: str, iters: int) -> None:
+        eps = 1e-8
+        X = self.A if mode == "A" else self.B
+        r = self._spmm(self.ground_truth, self.B if mode == "A" else self.A, mode)
+        r -= self._queries(self.A, self.B, mode)
+        p = r.clone()
+        rsold = (r * r).sum(1)
+        for _ in range(iters):
+            Mp = (self._queries(p, self.B, mode) if mode == "A"
+                  else self._queries(self.A, p, mode))
+            alpha = (rsold + eps) / ((p * Mp).sum(1) + eps)
+            X = X + alpha[:, None] * p
+            r = r - alpha[:, None] * Mp
+            rsnew = (r * r).sum(1)
+            p = r + (rsnew / (rsold + eps))[:, None] * p
+            rsold = rsnew
+        if mode == "A":
+            self.A = X
+        else:
+            self.B = X
+
+    def run_cg(self, n_alternating_steps: int, cg_iters: int = 10) -> None:
+        for _ in range(n_alternating_steps):
+            self._cg("A", cg_iters)
+            self._cg("B", cg_iters)
+
+    def compute_residual(self) -> float:
+        return float(torch.linalg.vector_norm(
+            self._sddmm(self.A, self.B) - self.ground_truth))
+
+
+def float64_first_step_ratio(S: HostCOO, als, cg_iters: int, dev) -> dict:
+    """``r1 / r0`` of one float64 step (:class:`Float64ALS`) from ``als``'s
+    current factors and observations, before ``als`` takes its own."""
+    t = time.perf_counter()
+    d = als.d_ops
+    ref = Float64ALS(S, d.gather_s_values(als.ground_truth), d.host_a(als.A),
+                     d.host_b(als.B), dev, als.ridge_lambda)
+    r0 = ref.compute_residual()
+    ref.run_cg(1, cg_iters=cg_iters)
+    ratio = ref.compute_residual() / r0
+    del ref
+    torch.cuda.empty_cache()
+    return {"ratio": ratio, "seconds": time.perf_counter() - t}
+
+
+def float64_reference_check(dev) -> dict:
+    """:class:`Float64ALS` against ``SerialALS`` on the host: one step from
+    the same factors and observations at F64_CHECK's size, the residuals
+    before and after within ``tol`` (relative)."""
+    cfg = F64_CHECK
+    S = HostCOO.rmat(cfg["log_m"], cfg["edge_factor"])
+    rng = np.random.default_rng(0)
+    gt = rng.uniform(-1, 1, S.nnz) / cfg["R"]
+    A = rng.uniform(-1, 1, (S.M, cfg["R"])) / cfg["R"]
+    B = rng.uniform(-1, 1, (S.N, cfg["R"])) / cfg["R"]
+    serial = SerialALS(S, cfg["R"], artificial_groundtruth=False, ground_truth_vals=gt)
+    serial.A, serial.B = A, B
+    ref = Float64ALS(S, gt, A, B, dev)
+    want, got = [serial.compute_residual()], [ref.compute_residual()]
+    serial.run_cg(1, cg_iters=ALS["cg_iters"])
+    ref.run_cg(1, cg_iters=ALS["cg_iters"])
+    want.append(serial.compute_residual())
+    got.append(ref.compute_residual())
+    err = max(abs(g - w) / w for g, w in zip(got, want))
+    require(err <= cfg["tol"], f"float64 ALS on the card: residuals {got} against the "
+            f"serial solver's {want} (relative {err:.3e}, tolerance {cfg['tol']})")
+    return {"nnz": S.nnz, "residuals": got, "serial_residuals": want, "rel_err": err}
 
 
 def als_protocol(dev, launches: dict, card: str) -> dict:
@@ -2464,7 +2637,7 @@ def als_protocol(dev, launches: dict, card: str) -> dict:
     (``DenseShift15D``, fusion 2, c = 2 at p = 8, here a ``LocalWorld``),
     its gates, f32."""
     cfg = ALS_PROTOCOL
-    S = HostCOO.erdos_renyi(cfg["M"], cfg["N"], cfg["nnz_per_row"], np.random.default_rng(0))
+    S = HostCOO.erdos_renyi(cfg["M"], cfg["N"], cfg["nnz_per_row"])
     alg = make_algorithm("15d_fusion2", S, cfg["R"], c=cfg["c"], world=LocalWorld(cfg["p"]),
                          kernel=CudaTileKernel("f32", device=dev), device=dev)
     als = als_mod.DistributedALS(alg, seed=0)
@@ -2521,7 +2694,7 @@ def als_oracle(dev, launches: dict, card: str) -> dict:
     """The port's f32 ALS and the float64 serial solver from the same host
     factors and observations."""
     cfg = ALS_ORACLE
-    S = HostCOO.rmat(cfg["log_m"], cfg["edge_factor"], np.random.default_rng(0))
+    S = HostCOO.rmat(cfg["log_m"], cfg["edge_factor"])
     serial = SerialALS(S, cfg["R"], seed=1)
     alg = make_algorithm("15d_fusion2", S, cfg["R"], kernel=CudaTileKernel("f32", device=dev),
                          device=dev)
@@ -2752,7 +2925,8 @@ def cli_apps(dev, launches: dict, card: str) -> dict:
 def phase_apps(S16, uniform, ref, dev, launches: dict, card: str) -> dict:
     t0 = time.perf_counter()
     seconds, out = {}, {}
-    for name, fn, args in (("als_protocol", als_protocol, ()), ("als_full", als_full, (uniform,)),
+    for name, fn, args in (("als_protocol", als_protocol, ()),
+                           ("als_full", als_full, (uniform,)),
                            ("als_oracle", als_oracle, ()),
                            ("als_ring", als_ring, (S16,)),
                            ("gat_headline", gat_headline, (S16, ref)),
@@ -2976,19 +3150,21 @@ def strategy_kernels(alg, name: str, dev, entries: dict) -> None:
         del csr
 
 
-def strategies_full(uniform, dev, launches: dict, entries: dict, card: str,
+def strategies_full(uniform, ring_rows: dict, dev, launches: dict, entries: dict, card: str,
                     keep: dict | None = None) -> dict:
-    """The full cell at STRATEGIES["full"], the four strategies in turn:
+    """The full cell at STRATEGIES["full"], the R-split strategies in turn:
     the harness's own loop (STRAT_WARMUP, then STRAT_TRIALS timed pairs),
     launches a pair against the ring structure, peak memory, the tile
     sets' set-up seconds, the breakdown, one pair's sampled rows against
-    float64, and the R-split strategies' kernels at their shapes."""
+    float64, and their kernels at their shapes. The dense shift's rows are
+    phase ring's scaling at the same grid (``ring_rows``), which measured
+    the same loop."""
     S = uniform[0]
     R = FULL["R"]
     p, c = STRATEGIES["full"]
     rng = np.random.default_rng(7)
-    result = {}
-    for name in STRATEGIES["names"]:
+    result = {f"15d_fusion2/{prec}": ring_rows[f"({p},{c})/{prec}"] for prec in PRECISIONS}
+    for name in STRATEGIES["r_split"]:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -3031,10 +3207,9 @@ def strategies_full(uniform, dev, launches: dict, entries: dict, card: str,
                   "tile_nnz_max": alg.S_tiles.max_nnz, "comm_profile":
                   alg.comm_profile("fusedSpMM"), **row})
             del out, mid, A, B, sv, a, b
-        if name in STRATEGIES["r_split"]:
-            strategy_kernels(alg, name, dev, entries)
-            if keep is not None:  # phase apps_strategies runs on these tiles
-                keep[name] = alg
+        strategy_kernels(alg, name, dev, entries)
+        if keep is not None:  # phase apps_strategies runs on these tiles
+            keep[name] = alg
         del alg
     return result
 
@@ -3123,12 +3298,13 @@ def strategies_cli(dev, launches: dict, card: str) -> dict:
     return result
 
 
-def phase_strategies(S16, uniform, dev, launches: dict, entries: dict, card: str) -> dict:
+def phase_strategies(S16, uniform, ring_rows: dict, dev, launches: dict, entries: dict,
+                     card: str) -> dict:
     t0 = time.perf_counter()
     seconds, out = {}, {}
     for part, fn, args in (("verify", strategies_verify, (S16,)),
                            ("banked", strategies_banked, ()),
-                           ("full", strategies_full, (uniform,)),
+                           ("full", strategies_full, (uniform, ring_rows)),
                            ("nccl", strategies_nccl, (S16,)),
                            ("cli", strategies_cli, ())):
         t = time.perf_counter()
@@ -3381,6 +3557,88 @@ def training_strategies(S16, dev, launches: dict, card: str) -> dict:
     return result
 
 
+def int_grad_operands(S: HostCOO, R: int, seed: int) -> dict:
+    """``grad_operands`` in {-1, 0, 1}: every sum of a forward and a
+    backward an exact integer, whatever its order (the column scatter's
+    float atomics included)."""
+    rng = np.random.default_rng(seed)
+    return {"A": rng.integers(-1, 2, (S.M, R)).astype(np.float32),
+            "B": rng.integers(-1, 2, (S.N, R)).astype(np.float32),
+            "v": rng.integers(-1, 2, S.nnz).astype(np.float32),
+            "g_out": rng.integers(-1, 2, (S.M, R)).astype(np.float32),
+            "g_mid": rng.integers(-1, 2, S.nnz).astype(np.float32)}
+
+
+def training_dist_grads(S16, dev, launches: dict, card: str) -> dict:
+    """Gradients through a ``DistWorld`` over NCCL (one process, world size
+    1; NCCL refuses two ranks on one card): the sddmm, spmm and fused
+    grads of ``DenseShift15D`` and ``CannonDense25D`` at the headline, f32,
+    on integer operands, equal to a ``LocalWorld(1)``'s bit for bit; the
+    collectives' autograd nodes ran (forward and backward counts)."""
+    R = HEADLINE["R"]
+    ops = int_grad_operands(S16, R, seed=15)
+    path = _build.BUILD_DIR / "nccl_grads_init"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    result = {}
+    dist.init_process_group("nccl", init_method=f"file://{path}", rank=0, world_size=1)
+    try:
+        for name in ("15d_fusion2", "25d_dense_replicate"):
+            local = make_algorithm(name, S16, R, world=LocalWorld(1),
+                                   kernel=CudaTileKernel("f32", device=dev), device=dev)
+            alg = make_algorithm(name, S16, R, world=DistWorld(),
+                                 kernel=CudaTileKernel("f32", device=dev), device=dev)
+            require(type(alg.comm).__name__ == "DistComm", f"dist_grads {name}: not NCCL")
+            equal, collectives = {}, {}
+            for op in ("sddmm", "spmm", "fused"):
+                want = op_grads(local, op, ops)
+                alg.comm.reset_counts()
+                cuda_kernels.reset_launch_counts()
+                with plain_calls() as plain:
+                    got = op_grads(alg, op, ops)
+                add_by_type(launches, by_type())
+                require(not plain, f"dist_grads {name}: plain versions ran: {plain}")
+                equal[op] = all(np.array_equal(got[k], want[k]) for k in want)
+                collectives[op] = dict(alg.comm.counts)
+                require(equal[op], f"dist_grads {name}/{op}: grads differ from LocalWorld(1)")
+            require(sum(sum(c.values()) for c in collectives.values()) > 0,
+                    f"dist_grads {name}: no NCCL collective ran")
+            result[name] = {"equal_local": equal, "collectives": collectives}
+            emit({"phase": "training_dist_grads", "card": card, "algorithm": name,
+                  "backend": dist.get_backend(), "world_size": dist.get_world_size(),
+                  **result[name]})
+            del local, alg
+        # At world size 1 every group has one member, so the strategies'
+        # grad paths above carry no grad through a collective; each
+        # collective's autograd node, NCCL forward and backward, runs here.
+        grid = make_grid(1, 1, 1)
+        dc, lc = DistWorld().comm(grid, dev), LocalWorld(1).comm(grid, dev)
+        x = torch.as_tensor(ops["A"][:64], device=dev)
+        w = torch.as_tensor(ops["B"][:64], device=dev)
+        colls = {"all_gather": lambda c, xs: c.all_gather(xs, ("rows", "cols")),
+                 "reduce_scatter": lambda c, xs: c.reduce_scatter(xs, "cols"),
+                 "all_reduce": lambda c, xs: c.all_reduce(xs, "layers", "sum"),
+                 "ppermute": lambda c, xs: c.ppermute(xs, "rows", [(0, 0)])}
+        equal = {}
+        for coll, fn in colls.items():
+            grads = []
+            for comm in (dc, lc):
+                xs = [x.clone().requires_grad_()]
+                (fn(comm, xs)[0] * w).sum().backward()
+                grads.append(xs[0].grad)
+            equal[coll] = bool(torch.equal(*grads))
+        require(all(equal.values()), f"dist_grads collectives: {equal}")
+        require(all(dc.counts[k] >= 2 for k in ("all_gather", "reduce_scatter", "all_reduce")),
+                f"dist_grads collectives: {dc.counts}")
+        result["collectives"] = {"equal_local": equal, "counts": dict(dc.counts)}
+        emit({"phase": "training_dist_grads", "card": card, "backend": dist.get_backend(),
+              **result["collectives"]})
+    finally:
+        dist.destroy_process_group()
+        path.unlink(missing_ok=True)
+    return result
+
+
 def scatter_timing(alg, A, B, g_out, g_mid, sv) -> dict:
     """The fused backward's column scatter alone (``dB[c] += gs * A[r] +
     mid * G[r]``, ``ops/autograd.py``) on the full cell's tile, in float32
@@ -3625,7 +3883,7 @@ def gat_reference_job(paths: dict, log_m: int, edge_factor: int, R: int, scale: 
     atomically."""
     torch.set_num_threads(threads)
     os.nice(10)  # the card's phases' host work comes first
-    S = HostCOO.rmat(log_m, edge_factor, np.random.default_rng(0))
+    S = HostCOO.rmat(log_m, edge_factor)
 
     def save(path, **arrays):
         np.savez(f"{path}.tmp.npz", **arrays)
@@ -3678,7 +3936,7 @@ class HostReference:
     def __init__(self, dev, seed: int = GAT_TRAIN["seed"], drift: bool = False,
                  threads: int = GAT_REF["threads"]):
         R = HEADLINE["R"]
-        S = HostCOO.rmat(HEADLINE["log_m"], HEADLINE["edge_factor"], np.random.default_rng(0))
+        S = HostCOO.rmat(HEADLINE["log_m"], HEADLINE["edge_factor"])
         alg = make_algorithm("15d_fusion2", S, R, kernel=CudaTileKernel("f32", device=dev),
                              device=dev)
         gat = gat_mod.GAT(harness._gat_layers(R), alg)
@@ -3928,6 +4186,7 @@ def phase_training(S16, uniform, ref: HostReference, dev, launches: dict,
     for part, fn, args in (("headline", training_headline, (S16,)),
                            ("banked", training_banked, ()),
                            ("strategies", training_strategies, (S16,)),
+                           ("dist_grads", training_dist_grads, (S16,)),
                            ("timing", training_timing, (uniform,)),
                            ("gat", training_gat, (S16, uniform, ref))):
         t = time.perf_counter()
@@ -3968,7 +4227,7 @@ def apps_strategies_protocol(dev, launches: dict, card: str) -> dict:
     """The JAX package's ALS protocol (``tests/test_als.py``) on each R-split
     strategy on the card, f32."""
     cfg = ALS_PROTOCOL
-    S = HostCOO.erdos_renyi(cfg["M"], cfg["N"], cfg["nnz_per_row"], np.random.default_rng(0))
+    S = HostCOO.erdos_renyi(cfg["M"], cfg["N"], cfg["nnz_per_row"])
     result = {}
     for name in STRATEGIES["r_split"]:
         alg = make_algorithm(name, S, cfg["R"], c=cfg["c"], world=LocalWorld(cfg["p"]),
@@ -3989,12 +4248,11 @@ def apps_strategies_protocol(dev, launches: dict, card: str) -> dict:
     return result
 
 
-def apps_strategies_full(uniform, algs: dict, shape_ratio: float, dev, launches: dict,
-                         card: str) -> dict:
+def apps_strategies_full(uniform, algs: dict, dev, launches: dict, card: str) -> dict:
     """Phase 5's cell at STRATEGIES["full"] on the R-split strategies (the
     tile sets phase strategies built), f32: ALS through the harness's
     ``_run_als`` (ms a step) and the first step's ratio against the float64
-    solver's; the GAT forward (ms a forward) against the dense shift's at
+    solver's from the same start; the GAT forward (ms a forward) against the dense shift's at
     p = 1 from the same weights."""
     S, base = uniform
     R, it = FULL["R"], ALS["cg_iters"]
@@ -4018,6 +4276,8 @@ def apps_strategies_full(uniform, algs: dict, shape_ratio: float, dev, launches:
         add_launches(launches, counts, "f32")
         als = als_mod.DistributedALS(alg, S_host=S)
         als.initialize_embeddings()
+        ref64 = float64_first_step_ratio(S, als, it, dev)
+        ref_ratio = ref64["ratio"]
         r0 = als.compute_residual()
         _, counts1 = run_counted(lambda: als.run_cg(1, cg_iters=it))
         add_launches(launches, counts1, "f32")
@@ -4044,8 +4304,9 @@ def apps_strategies_full(uniform, algs: dict, shape_ratio: float, dev, launches:
         add_launches(launches, scaled(counts2, GAT["forwards"]), "f32")
         row = {"als_ms_per_step": elapsed / ALS_STRAT["steps"] * 1e3,
                "als_steps": ALS_STRAT["steps"], "als_residual": stats["als_residual"],
-               "first_step_ratio": ratio, "float64_first_step_ratio": shape_ratio,
-               "ratio_gap": abs(ratio - shape_ratio), "ratio_tol": ALS_RATIO_TOL,
+               "first_step_ratio": ratio, "float64_first_step_ratio": ref_ratio,
+               "float64_seconds": ref64["seconds"],
+               "ratio_gap": abs(ratio - ref_ratio), "ratio_tol": ALS_RATIO_TOL,
                "als_peak_mem_bytes": als_peak, "gat_ms_per_forward": gat_ms,
                "gat_rel_err_dense_shift": err, "gat_tol": GAT_TOL["f32"],
                "gat_peak_mem_bytes": gat_peak, "width": R // alg._n_slices()}
@@ -4054,7 +4315,7 @@ def apps_strategies_full(uniform, algs: dict, shape_ratio: float, dev, launches:
         require(np.isfinite(stats["als_residual"]) and "als_degraded" not in stats,
                 f"{tag}: ALS {stats}")
         require(row["ratio_gap"] <= ALS_RATIO_TOL,
-                f"{tag}: first-step ratio {ratio:.6f} against float64's {shape_ratio:.6f}")
+                f"{tag}: first-step ratio {ratio:.6f} against float64's {ref_ratio:.6f}")
         require(err <= GAT_TOL["f32"], f"{tag}: GAT output off the dense shift's by {err:.3e}")
         result[name] = row
         del gat, out
@@ -4102,12 +4363,11 @@ def apps_strategies_cli(dev, launches: dict, card: str) -> dict:
     return result
 
 
-def phase_apps_strategies(uniform, algs: dict, shape_ratio: float, dev, launches: dict,
-                          card: str) -> dict:
+def phase_apps_strategies(uniform, algs: dict, dev, launches: dict, card: str) -> dict:
     t0 = time.perf_counter()
     seconds, out = {}, {}
     for part, fn, args in (("protocol", apps_strategies_protocol, ()),
-                           ("full", apps_strategies_full, (uniform, algs, shape_ratio)),
+                           ("full", apps_strategies_full, (uniform, algs)),
                            ("cli", apps_strategies_cli, ())):
         t = time.perf_counter()
         out[part] = fn(*args, dev, launches, card)
@@ -4116,6 +4376,311 @@ def phase_apps_strategies(uniform, algs: dict, shape_ratio: float, dev, launches
           "seconds_by_part": seconds,
           "als_ms_per_step": {k: v["als_ms_per_step"] for k, v in out["full"].items()},
           "gat_ms_per_forward": {k: v["gat_ms_per_forward"] for k, v in out["full"].items()}})
+    return out
+
+
+# ------------------------------------------------------------- host_cli
+
+
+@contextlib.contextmanager
+def local_ranks(n: int):
+    """``SDDMM_TORCH_LOCAL_RANKS=n`` while the block runs."""
+    prev = os.environ.get(comm_mod.LOCAL_RANKS_ENV)
+    os.environ[comm_mod.LOCAL_RANKS_ENV] = str(n)
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop(comm_mod.LOCAL_RANKS_ENV, None)
+        else:
+            os.environ[comm_mod.LOCAL_RANKS_ENV] = prev
+
+
+@contextlib.contextmanager
+def built_algorithms():
+    """Every ``(S, alg)`` the harness builds while the block runs (the
+    strategy a CLI run measured, for a check of its output after)."""
+    real, built = harness.make_algorithm, []
+
+    def keep(name, S, *args, **kw):
+        alg = real(name, S, *args, **kw)
+        built.append((S, alg))
+        return alg
+
+    harness.make_algorithm = keep
+    try:
+        yield built
+    finally:
+        harness.make_algorithm = real
+
+
+def cli_run(argv: list, path: pathlib.Path) -> tuple:
+    """``cli.main(argv + ["-o", path])`` with the launch counters zeroed
+    before and read after; its standard output captured. Returns ``(rc,
+    counts, records, stdout)``."""
+    path.unlink(missing_ok=True)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc, counts = run_counted(lambda: cli.main([*argv, "-o", str(path)]))
+    recs = ([json.loads(line) for line in path.read_text().splitlines()]
+            if path.exists() else [])
+    path.unlink(missing_ok=True)
+    return rc, counts, recs, out.getvalue()
+
+
+def rmat_digest(S: HostCOO) -> str:
+    """Order-sensitive checksum of an R-mat's ``(rows, cols)``."""
+    h = hashlib.sha256(np.ascontiguousarray(S.rows, "<i8").tobytes())
+    h.update(np.ascontiguousarray(S.cols, "<i8").tobytes())
+    return h.hexdigest()[:16]
+
+
+def host_cli_rmat(dev, card: str) -> HostCOO:
+    """The full cell drawn on the card and on the host, equal bit for bit;
+    both pinned draws' nnz and checksums against the JAX package's."""
+    result = {}
+    draws = {}
+    for where, device in (("card", dev), ("host", torch.device("cpu"))):
+        t = time.perf_counter()
+        draws[where] = HostCOO.rmat(FULL["log_m"], FULL["edge_factor"], device=device)
+        torch.cuda.synchronize()
+        result[f"{where}_seconds"] = time.perf_counter() - t
+    S, host = draws["card"], draws["host"]
+    equal = all(np.array_equal(getattr(S, k), getattr(host, k)) for k in ("rows", "cols",
+                                                                         "vals"))
+    require(equal and (S.M, S.N) == (host.M, host.N),
+            "host_cli rmat: the card's draw differs from the host's")
+    del host
+    for name, pin in RMAT_PINS.items():
+        G = S if name == "full" else HostCOO.rmat(
+            pin["log_m"], FULL["edge_factor"], **(GRAPH500 if pin["init"] else {}),
+            device=dev)
+        got = {"nnz": G.nnz, "digest": rmat_digest(G)}
+        result[name] = got
+        require(got == {"nnz": pin["nnz"], "digest": pin["digest"]},
+                f"host_cli rmat {name}: {got} != the JAX package's {pin}")
+    emit({"phase": "host_cli_rmat", "card": card, "equal_card_host": equal, **result})
+    return S
+
+
+def host_cli_file(S: HostCOO, S16: HostCOO, full: dict, tmp: pathlib.Path, dev,
+                  launches: dict, card: str) -> dict:
+    """The full cell through a ``.mtx`` file: written and read back equal,
+    ``permute`` equal to ``random_permuted(0)``, ``file ... --permute`` in
+    both precisions beside phase full's pairs with a sampled pair against
+    float64; then ``file --app attention`` on the headline R-mat's file and
+    ``file --kernel-variant`` on a Graph500 16 file."""
+    path, perm, rec = tmp / "full.mtx", tmp / "full-permuted.mtx", tmp / "rec.jsonl"
+    t = time.perf_counter()
+    S.save_mtx(path)
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    back = HostCOO.load_mtx(path)
+    read_s = time.perf_counter() - t
+    same = all(np.array_equal(getattr(back, k), getattr(S, k)) for k in ("rows", "cols",
+                                                                       "vals"))
+    require(same and (back.M, back.N) == (S.M, S.N), "host_cli mtx: read back differs")
+    del back
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["permute", str(path), "-o", str(perm)])
+    permute_s = time.perf_counter() - t
+    want, got = S.random_permuted(seed=0), HostCOO.load_mtx(perm)
+    require(rc == 0 and all(np.array_equal(getattr(got, k), getattr(want, k))
+                            for k in ("rows", "cols", "vals")),
+            "host_cli permute: output differs from random_permuted(0)")
+    del want, got
+    perm.unlink()
+    result = {"nnz": S.nnz, "mtx_bytes": path.stat().st_size, "write_seconds": write_s,
+              "read_seconds": read_s, "permute_seconds": permute_s,
+              "permute_stdout": out.getvalue().strip()}
+    rng = np.random.default_rng(2)
+    for prec in PRECISIONS:
+        argv = ["file", str(path), "15d_fusion2", str(FULL["R"]), "1", "--permute",
+                "--kernel", f"cuda-{prec}", "--warmup", str(HOST_CLI["warmup"]),
+                "--trials", str(HOST_CLI["trials"])]
+        t = time.perf_counter()
+        with built_algorithms() as built:
+            rc, counts, recs, _ = cli_run(argv, rec)
+        seconds = time.perf_counter() - t
+        pairs = HOST_CLI["warmup"] + HOST_CLI["trials"]
+        require(rc == 0 and len(recs) == 1 and counts["fused_tile"] == pairs,
+                f"host_cli file/{prec}: rc {rc}, {len(recs)} records, launches {counts}")
+        add_launches(launches, counts, prec)
+        (S_file, alg), = built
+        r = recs[0]
+        require(r["alg_info"]["nnz"] == S.nnz and r["kernel"] == f"cuda-{prec}",
+                f"host_cli file/{prec}: record {r['kernel']} nnz {r['alg_info']['nnz']}")
+        A, B = alg.dummy_initialize(MatMode.A), alg.like_b_matrix(0.01)
+        o, mid = alg.fused_spmm(A, B, alg.like_s_values(1.0), MatMode.A)
+        err = sampled_reference(S_file, alg, o, mid, dev, rng)
+        require(err <= VERIFY_RTOL[prec], f"host_cli file/{prec}: sampled rows off by {err:.3e}")
+        ms = r["elapsed"] / HOST_CLI["trials"] * 1e3
+        result[prec] = {"ms_per_pair": ms, "gflops": r["overall_throughput"],
+                        "er_ms_per_pair": full[prec]["ms_per_pair"],
+                        "er_gflops": full[prec]["gflops"],
+                        "ms_over_er": ms / full[prec]["ms_per_pair"],
+                        "sampled_rel_err": err, "seconds": seconds, "launches": counts}
+        del S_file, alg, built, A, B, o, mid
+    path.unlink()
+
+    # The attention kernels (rows 4-5) from a file: the mask replaces the
+    # matrix, over as many tokens as the file's side.
+    p16 = tmp / "headline.mtx"
+    S16.save_mtx(p16)
+    trials = 2
+    argv = ["file", str(p16), "15d_fusion2", str(HEADLINE["R"]), "1", "--app", "attention",
+            "--mask", "window:16", "--trials", str(trials)]
+    rc, counts, recs, _ = cli_run(argv, rec)
+    require(rc == 0 and len(recs) == 1 and recs[0]["mask"] == "window:16"
+            and counts == {op: n * (trials + 1) for op, n in ATTN_CALL.items()},
+            f"host_cli file attention: rc {rc}, launches {counts}")
+    add_launches(launches, counts, "bf16")
+    result["attention"] = {"ms_per_call": recs[0]["elapsed"] / trials * 1e3,
+                           "launches": counts, "attention_hbm": recs[0]["attention_hbm"]}
+    p16.unlink()
+
+    # The banked kernels (rows 6) from a Graph500 16 file.
+    G = graph500(16)
+    pg = tmp / "graph500_16.mtx"
+    G.save_mtx(pg)
+    variant = select_variant(Problem.from_coo(G, HEADLINE["R"]))
+    row_ptr = np.concatenate([[0], np.cumsum(np.bincount(G.rows, minlength=G.M))])
+    bands = build_banded(row_ptr[None], variant).tiles[0]
+    argv = ["file", str(pg), "15d_fusion2", str(HEADLINE["R"]), "1", "--kernel-variant",
+            variant.variant_id, "--trials", str(trials)]
+    rc, counts, recs, _ = cli_run(argv, rec)
+    expect = scaled(band_launches(bands, "fused"), trials + 1)
+    require(rc == 0 and len(recs) == 1 and recs[0]["kernel_variant"] == variant.variant_id
+            and counts == expect,
+            f"host_cli file --kernel-variant: rc {rc}, launches {counts} != {expect}")
+    add_launches(launches, counts, "bf16")
+    result["banked"] = {"variant": variant.variant_id, "nnz": G.nnz,
+                        "ms_per_pair": recs[0]["elapsed"] / trials * 1e3,
+                        "launches": counts}
+    pg.unlink()
+    emit({"phase": "host_cli_file", "card": card, **result})
+    return result
+
+
+def host_cli_verify(dev, launches: dict, card: str) -> dict:
+    """``verify`` at the headline size over four logical ranks, every
+    algorithm, both precisions: exit 0, an OK line an op and algorithm."""
+    result = {}
+    argv = ["verify", "--log-m", str(HEADLINE["log_m"]), "--edge-factor",
+            str(HEADLINE["edge_factor"]), "--R", str(HEADLINE["R"]), "--c", "1",
+            "--alg", "all"]
+    with local_ranks(4):
+        for prec in PRECISIONS:
+            out = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc, counts = run_counted(lambda: cli.main([*argv, "--kernel", f"cuda-{prec}"]))
+            lines = out.getvalue().splitlines()
+            ok = [line for line in lines if line.startswith("OK ")]
+            result[prec] = {"rc": rc, "ok_lines": len(ok), "lines": len(lines),
+                            "seconds": time.perf_counter() - t, "launches": counts}
+            require(rc == 0 and len(ok) == len(lines) == 25,
+                    f"host_cli verify/{prec}: rc {rc}, {lines}")
+            require(all(counts[op] > 0 for op in OPS), f"host_cli verify/{prec}: {counts}")
+            add_launches(launches, counts, prec)
+    emit({"phase": "host_cli_verify", "card": card, "argv": argv, "local_ranks": 4, **result})
+    return result
+
+
+def host_cli_kernels(entries: dict, head_nnz: int, dev, launches: dict, card: str) -> dict:
+    """The JAX package's default sweep with the three kernels, then the
+    full cell with the two CUDA kernels: every record to ``SWEEP_OUT``;
+    the headline records beside table rows 1-3 (phase kernels_headline)."""
+    path = _build.BUILD_DIR / "host_cli_kernels.jsonl"
+    runs = (["kernels", "--kernels", *cli.KERNELS],
+            ["kernels", "--log-m", str(FULL["log_m"]), "--nnz-per-row",
+             str(FULL["edge_factor"]), "--r-values", str(FULL["R"]), "--kernels",
+             "cuda-f32", "cuda-bf16"])
+    recs, seconds = [], {}
+    for argv in runs:
+        t = time.perf_counter()
+        rc, counts, got, _ = cli_run(argv, path)
+        seconds[" ".join(argv[1:3])] = time.perf_counter() - t
+        require(rc == 0 and got and all(counts[op] > 0 for op in OPS),
+                f"host_cli kernels: rc {rc}, {len(got)} records, launches {counts}")
+        add_by_type(launches, by_type())
+        recs += got
+    SWEEP_OUT.parent.mkdir(parents=True, exist_ok=True)
+    SWEEP_OUT.write_text("".join(json.dumps(r) + "\n" for r in recs))
+    n_sweep = (len(kernel_bench.DEFAULT_LOG_M) * len(kernel_bench.DEFAULT_NNZ_PER_ROW)
+               * len(kernel_bench.DEFAULT_R) * len(cli.KERNELS))
+    require(len(recs) == n_sweep + 2, f"host_cli kernels: {len(recs)} records")
+    keys = ("kernel", "nnz", "sddmm_ms", "spmm_ms", "fused_pair_ms", "fused_pair_gflops")
+    head = [{k: r[k] for k in keys} for r in recs
+            if r["M"] == 1 << HEADLINE["log_m"] and r["R"] == HEADLINE["R"]
+            and r["nnz"] == head_nnz]
+    rows = {prec: {op: entries[(op, prec)]["headline"]["ms"] for op in OPS}
+            for prec in PRECISIONS}
+    emit({"phase": "host_cli_kernels", "card": card, "records": len(recs),
+          "written_to": str(SWEEP_OUT), "seconds": seconds, "headline": head,
+          "table_rows_1_3_headline_ms": rows,
+          "full": [{k: r[k] for k in keys} for r in recs[-2:]]})
+    return {"headline": head, "full": recs[-2:]}
+
+
+def host_cli_heatmap(dev, launches: dict, card: str) -> dict:
+    """``heatmap 16 32 1 --alg 15d_fusion2`` over the seven R (cuda-bf16):
+    one record an R."""
+    path = _build.BUILD_DIR / "host_cli_heatmap.jsonl"
+    argv = ["heatmap", str(HEADLINE["log_m"]), str(HEADLINE["edge_factor"]), "1", "--alg",
+            "15d_fusion2"]
+    rc, counts, recs, _ = cli_run(argv, path)
+    Rs = [r["R"] for r in recs]
+    calls = len(cli.HEATMAP_R_VALUES) * (HOST_CLI["heatmap_trials"] + 1)
+    require(rc == 0 and Rs == cli.HEATMAP_R_VALUES and counts["fused_tile"] == calls,
+            f"host_cli heatmap: rc {rc}, R {Rs}, launches {counts}")
+    add_launches(launches, counts, "bf16")
+    by_r = {r["R"]: {"ms_per_pair": r["elapsed"] / r["num_trials"] * 1e3,
+                     "gflops": r["overall_throughput"]} for r in recs}
+    emit({"phase": "host_cli_heatmap", "card": card, "kernel": recs[0]["kernel"],
+          "nnz": recs[0]["alg_info"]["nnz"], "by_R": by_r, "launches": counts})
+    return by_r
+
+
+def host_cli_baseline(card_r128: dict, card: str) -> dict:
+    """``baseline 16 32 128`` on the host beside the card's pair at the same
+    size (heatmap's R = 128): the reference's PETSc-against-HnH table."""
+    path = _build.BUILD_DIR / "host_cli_baseline.jsonl"
+    rc, counts, recs, _ = cli_run(["baseline", str(HEADLINE["log_m"]),
+                                   str(HEADLINE["edge_factor"]), str(HEADLINE["R"])], path)
+    require(rc == 0 and len(recs) == 1 and not any(counts.values()),
+            f"host_cli baseline: rc {rc}, launches {counts}")
+    rec = recs[0]
+    emit({"phase": "host_cli_baseline", "card": card, "host_cpus": os.cpu_count(),
+          "baseline": rec, "card_gflops_fused_pair_bf16": card_r128["gflops"],
+          "card_over_host": card_r128["gflops"] / rec["overall_throughput"]})
+    return rec
+
+
+def phase_host_cli(S16, full: dict, dev, launches: dict, entries: dict, card: str) -> dict:
+    t0 = time.perf_counter()
+    seconds, out = {}, {}
+    t = time.perf_counter()
+    S = host_cli_rmat(dev, card)
+    seconds["rmat"] = time.perf_counter() - t
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        out["file"] = host_cli_file(S, S16, full, pathlib.Path(tmp), dev, launches, card)
+    seconds["file"] = time.perf_counter() - t
+    del S
+    for part, fn, args in (("verify", host_cli_verify, ()),
+                           ("kernels", host_cli_kernels, (entries, S16.nnz)),
+                           ("heatmap", host_cli_heatmap, ())):
+        t = time.perf_counter()
+        out[part] = fn(*args, dev, launches, card)
+        seconds[part] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["baseline"] = host_cli_baseline(out["heatmap"][HEADLINE["R"]], card)
+    seconds["baseline"] = time.perf_counter() - t
+    emit({"phase": "host_cli", "card": card, "seconds": time.perf_counter() - t0,
+          "seconds_by_part": seconds})
     return out
 
 
@@ -4130,7 +4695,7 @@ def gat_grad_drift(seeds: list) -> int:
     info = phase_device()
     dev = torch.device("cuda")
     phase_build()
-    S16 = HostCOO.rmat(HEADLINE["log_m"], HEADLINE["edge_factor"], np.random.default_rng(0))
+    S16 = HostCOO.rmat(HEADLINE["log_m"], HEADLINE["edge_factor"], device=dev)
     threads = max(1, len(os.sched_getaffinity(0)) // len(seeds))
     refs = []
     try:
@@ -4161,18 +4726,19 @@ def main() -> int:
     info = phase_device()
     dev = torch.device("cuda")
     phase_build()
-    ref = HostReference(dev)
+    ref = None
     try:
+        ref = HostReference(dev)
         return drive(info, dev, ref)
     finally:
-        ref.stop()
+        if ref is not None:
+            ref.stop()
 
 
 def drive(info: dict, dev, ref: HostReference) -> int:
     card = info["nvidia_smi"]
     phase_edges(dev)
-    S16 = HostCOO.rmat(HEADLINE["log_m"], HEADLINE["edge_factor"],
-                       np.random.default_rng(0))
+    S16 = HostCOO.rmat(HEADLINE["log_m"], HEADLINE["edge_factor"], device=dev)
     alg16 = make_algorithm("15d_fusion2", S16, HEADLINE["R"],
                            kernel=CudaTileKernel("f32", device=dev), device=dev)
     entries: dict = {}
@@ -4180,25 +4746,28 @@ def drive(info: dict, dev, ref: HostReference) -> int:
     del alg16
     launches: dict = {}
     phase_verify(S16, dev, launches)
-    uniform = phase_full(dev, launches, entries)
+    full: dict = {}
+    uniform = phase_full(dev, launches, entries, full)
     phase_attention_verify(dev, launches, entries)
     phase_attention_full(dev, launches, entries)
     phase_banked(dev, launches, entries, uniform)
     phase_cli(dev, launches)
     ring: dict = {}
-    phase_ring(S16, uniform, dev, ring, card)
+    ring_rows = phase_ring(S16, uniform, dev, ring, card)
     apps: dict = {}
-    apps_out = phase_apps(S16, uniform, ref, dev, apps, card)
+    phase_apps(S16, uniform, ref, dev, apps, card)
     strategies: dict = {}
-    algs = phase_strategies(S16, uniform, dev, strategies, entries, card).pop("algs")
+    algs = phase_strategies(S16, uniform, ring_rows, dev, strategies, entries,
+                            card).pop("algs")
     training: dict = {}
     phase_training(S16, uniform, ref, dev, training, card)
     apps_strategies: dict = {}
-    phase_apps_strategies(uniform, algs, apps_out["als_full"]["float64_first_step_ratio"],
-                          dev, apps_strategies, card)
+    phase_apps_strategies(uniform, algs, dev, apps_strategies, card)
     del uniform, algs
+    host: dict = {}
+    phase_host_cli(S16, full, dev, host, entries, card)
     for key, n in (*ring.items(), *apps.items(), *strategies.items(), *training.items(),
-                   *apps_strategies.items()):
+                   *apps_strategies.items(), *host.items()):
         launches[key] = launches.get(key, 0) + n
 
     kernels = []
@@ -4215,6 +4784,7 @@ def drive(info: dict, dev, ref: HostReference) -> int:
             "strategies_launches": strategies.get((op, prec), 0),
             "training_launches": training.get((op, prec), 0),
             "apps_strategies_launches": apps_strategies.get((op, prec), 0),
+            "host_cli_launches": host.get((op, prec), 0),
             "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
             "max_rel_err": max(r["max_rel_err"] for r in shapes.values()),
             "tol": main_["tol"],

@@ -1,42 +1,68 @@
 """Benchmark command line: ``python -m distributed_sddmm_tpu_torch.bench``
 (counterpart of ``bench/cli.py``).
 
-One subcommand so far, ``er``: an R-mat matrix of ``2**log_m`` rows and
-``edge_factor`` edges a row, one R, one c, and one algorithm or a group of
-them (``ALG_GROUPS``, the reference's ``bench_erdos_renyi.cpp:50-115``:
-``15d``, ``25d``, ``all``), each member run in turn with a record of its
-own. A member that refuses the configuration (a grid or R it cannot split,
-an app or a fusion build it lacks) is reported on stderr and skipped, as
-the JAX sweep driver skips it. With
-``--app attention`` the matrix is replaced by the ``--mask`` pattern over
-as many tokens, and the run times fused block-sparse attention;
-``--app gat`` times the GAT forward pass and ``--app als`` alternating
-ALS-CG steps, whose factors persist under ``--checkpoint-dir`` (every
-``--checkpoint-every`` steps; ``--resume`` starts from the newest valid
-checkpoint there). With
-``--kernel-variant VID`` the local kernel is the banked CUDA kernel of that
-codegen variant (``codegen/``), which refuses ``--kernel torch`` as the
-JAX CLI refuses a kernel other than pallas. ``--fusion overlap`` runs the
-double-buffered ring and ``--breakdown`` the region attribution, as in the
-JAX CLI. The world comes from the environment
-(``parallel/comm.world_from_env``): ``torchrun`` starts one rank a
-process (NCCL on ``cuda``, gloo on ``cpu``), otherwise
-``SDDMM_TORCH_LOCAL_RANKS=P`` runs P logical ranks in this process (default
-1). Each run prints one JSON summary line and appends its full record to
-``-o`` (process 0 only). Flags whose machinery is not ported (tracing,
-faults, wire precision) are not defined, so argparse refuses them.
+Subcommands:
+
+* ``er``       -- R-mat synthetic benchmark (the reference's
+  ``bench_erdos_renyi.cpp``): an R-mat matrix of ``2**log_m`` rows and
+  ``edge_factor`` edges a row (seed 0, the JAX package's draw), one R, one
+  c, and one algorithm or a group of them (``ALG_GROUPS``: ``15d``,
+  ``25d``, ``all``), each member run in turn with a record of its own;
+* ``file``     -- the same on a matrix-market file (``bench_file.cpp``),
+  ``--permute`` applying a random row and column permutation (seed 0)
+  first;
+* ``heatmap``  -- an R sweep on one R-mat (``bench_heatmap.cpp``), one
+  record an R of ``--r-values`` (default ``HEATMAP_R_VALUES``);
+* ``permute``  -- randomly permute a ``.mtx`` file into
+  ``<in>-permuted.mtx`` or ``-o`` (``random_permute.cpp``);
+* ``kernels``  -- the one-device local-kernel sweep (``bench/kernels.py``,
+  ``local_kernel_benchmark.cpp``);
+* ``verify``   -- every algorithm's fingerprints against the float64
+  oracle (``scratch.cpp``); exits 1 on a mismatch;
+* ``baseline`` -- scipy CSR SpMM on the host (``bench/baseline.py``, the
+  reference's PETSc baseline), the one subcommand that uses no card.
+
+``er``, ``file`` and ``heatmap`` share their flags (``_add_common``). A
+member of a group that refuses the configuration (a grid or R it cannot
+split, an app or a fusion build it lacks) is reported on stderr and
+skipped, as the JAX package's sweep skips it. With ``--app attention`` the
+matrix is replaced by the ``--mask`` pattern over as many tokens, and the
+run times fused block-sparse attention; ``--app gat`` times the GAT
+forward pass and ``--app als`` alternating ALS-CG steps, whose factors
+persist under ``--checkpoint-dir`` (every ``--checkpoint-every`` steps;
+``--resume`` starts from the newest valid checkpoint there). With
+``--kernel-variant VID`` the local kernel is the banked CUDA kernel of
+that codegen variant (``codegen/``), which refuses ``--kernel torch`` as
+the JAX CLI refuses a kernel other than pallas. ``--fusion overlap`` runs
+the double-buffered ring and ``--breakdown`` the region attribution, as in
+the JAX CLI.
+
+Every subcommand that uses the card takes ``--device`` (default ``cuda``,
+which raises without one; ``cpu`` runs the plain versions). The world
+comes from the environment (``parallel/comm.world_from_env``):
+``torchrun`` starts one rank a process (NCCL on ``cuda``, gloo on
+``cpu``), otherwise ``SDDMM_TORCH_LOCAL_RANKS=P`` runs P logical ranks in
+this process (default 1). Each run prints one JSON summary line and
+appends its full record to ``-o`` (process 0 only). Flags whose machinery
+is not ported (tracing, profiling, faults, the watchdog, the flight
+recorder, wire precision, the run store, plan modes) and the subcommands
+that are not (``overlap``, ``serve``, ``fleet``, ``tune``, the run-store
+and trace tools, ``top``, ``lint``, ``env``) are not defined, so argparse
+refuses them.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 
-import numpy as np
 import torch.distributed as dist
 
 from distributed_sddmm_tpu_torch import masks
+from distributed_sddmm_tpu_torch.bench import kernels as kernel_bench
+from distributed_sddmm_tpu_torch.bench.baseline import run_baseline
 from distributed_sddmm_tpu_torch.bench.harness import (
     ALGORITHM_FACTORIES, APPS, benchmark_algorithm,
 )
@@ -46,6 +72,7 @@ from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
 from distributed_sddmm_tpu_torch.ops.kernels import TorchKernel
 from distributed_sddmm_tpu_torch.parallel.comm import world_from_env
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
+from distributed_sddmm_tpu_torch.utils.verify import verify_algorithms
 
 KERNELS = ("cuda-f32", "cuda-bf16", "torch")
 
@@ -56,6 +83,9 @@ ALG_GROUPS = {
     "25d": ["25d_dense_replicate", "25d_sparse_replicate"],
     "all": list(ALGORITHM_FACTORIES),
 }
+
+# ``bench_heatmap.cpp:33-35``.
+HEATMAP_R_VALUES = [64, 128, 192, 256, 320, 384, 448]
 
 
 def resolve_algs(name: str) -> list[str]:
@@ -87,27 +117,23 @@ def _kernel(name: str | None, device, variant: str | None = None):
     return CudaTileKernel(name.removeprefix("cuda-"), device=device)
 
 
-def build_parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(prog="distributed_sddmm_tpu_torch.bench",
-                                 description=__doc__)
-    sub = ap.add_subparsers(dest="cmd", required=True)
-    er = sub.add_parser("er", help="synthetic R-mat benchmark")
-    er.add_argument("log_m", type=int, help="log2 of matrix side")
-    er.add_argument("edge_factor", type=int, help="average nnz per row")
-    er.add_argument("alg", help="algorithm name or group (15d | 25d | all)")
-    er.add_argument("R", type=int)
-    er.add_argument("c", type=int)
-    er.add_argument("--app", default="vanilla", choices=APPS)
-    er.add_argument(
+def _add_device(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    """The flags ``er``, ``file`` and ``heatmap`` share."""
+    p.add_argument("--app", default="vanilla", choices=APPS)
+    p.add_argument(
         "--mask", default="window:16", metavar="SPEC",
         help="with --app attention: the mask, window:<w>, "
-        "bigbird:w=..,g=..,r=.. or graph (the R-mat matrix's own pattern); "
+        "bigbird:w=..,g=..,r=.. or graph (the matrix's own pattern); "
         "it replaces the matrix and rides into the record",
     )
-    er.add_argument("--trials", type=int, default=5)
-    er.add_argument("--warmup", type=int, default=1)
-    er.add_argument("--fused", default="yes", choices=["yes", "no", "both"])
-    er.add_argument(
+    p.add_argument("--trials", type=int, default=5)
+    p.add_argument("--warmup", type=int, default=1)
+    p.add_argument("--fused", default="yes", choices=["yes", "no", "both"])
+    p.add_argument(
         "--fusion", default="sequential", choices=["sequential", "overlap"],
         help="ring-loop build for the 1.5D shift strategies: 'sequential' "
         "(kernel then ppermute per tile) or 'overlap' (double-buffered "
@@ -115,27 +141,88 @@ def build_parser() -> argparse.ArgumentParser:
         "the current tile's kernel, the reference's BufferPair strategy); "
         "bit-identical results",
     )
-    er.add_argument(
+    p.add_argument(
         "--breakdown", action="store_true",
         help="add {Replication, Propagation, Computation} region attribution "
         "to perf_stats (collective-ablation timing)",
     )
-    er.add_argument("--kernel", default=None, choices=KERNELS,
-                    help="local kernel (default: cuda-bf16 on cuda, "
-                    "cuda-f32 on cpu)")
-    er.add_argument("--kernel-variant", default=None, metavar="VID",
-                    help="codegen variant id (v1.rb<thr>.<rs|rm|rl>): run the "
-                    "banked CUDA kernel, one launch per row band")
-    er.add_argument("--checkpoint-dir", default=None, metavar="DIR",
-                    help="persist app state (ALS factors) under DIR atomically")
-    er.add_argument("--checkpoint-every", type=int, default=1, metavar="N",
-                    help="checkpoint every N alternating steps (with --checkpoint-dir)")
-    er.add_argument("--resume", action="store_true",
-                    help="resume from the newest valid checkpoint in --checkpoint-dir "
-                    "instead of step 0 (corrupt checkpoints scan back; none = fresh)")
-    er.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    er.add_argument("-o", "--output-file", default=None,
-                    help="append JSON records here")
+    p.add_argument("--kernel", default=None, choices=KERNELS,
+                   help="local kernel (default: cuda-bf16 on cuda, cuda-f32 on cpu)")
+    p.add_argument("--kernel-variant", default=None, metavar="VID",
+                   help="codegen variant id (v1.rb<thr>.<rs|rm|rl>): run the "
+                   "banked CUDA kernel, one launch per row band")
+    p.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                   help="persist app state (ALS factors) under DIR atomically")
+    p.add_argument("--checkpoint-every", type=int, default=1, metavar="N",
+                   help="checkpoint every N alternating steps (with --checkpoint-dir)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the newest valid checkpoint in --checkpoint-dir "
+                   "instead of step 0 (corrupt checkpoints scan back; none = fresh)")
+    _add_device(p)
+    p.add_argument("-o", "--output-file", default=None, help="append JSON records here")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="distributed_sddmm_tpu_torch.bench",
+                                 description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    er = sub.add_parser("er", help="synthetic R-mat benchmark")
+    er.add_argument("log_m", type=int, help="log2 of matrix side")
+    er.add_argument("edge_factor", type=int, help="average nnz per row")
+    er.add_argument("alg", help="algorithm name or group (15d | 25d | all)")
+    er.add_argument("R", type=int)
+    er.add_argument("c", type=int)
+    _add_common(er)
+
+    fi = sub.add_parser("file", help="matrix-market file benchmark")
+    fi.add_argument("path", help=".mtx file")
+    fi.add_argument("alg", help="algorithm name or group (15d | 25d | all)")
+    fi.add_argument("R", type=int)
+    fi.add_argument("c", type=int)
+    fi.add_argument("--permute", action="store_true",
+                    help="random row/col permutation (seed 0) first")
+    _add_common(fi)
+
+    hm = sub.add_parser("heatmap", help="R-value sweep on one synthetic matrix")
+    hm.add_argument("log_m", type=int)
+    hm.add_argument("edge_factor", type=int)
+    hm.add_argument("c", type=int)
+    hm.add_argument("--alg", default="all")
+    hm.add_argument("--r-values", type=int, nargs="+", default=HEATMAP_R_VALUES)
+    _add_common(hm)
+
+    pm = sub.add_parser("permute", help="randomly permute a .mtx file")
+    pm.add_argument("path")
+    pm.add_argument("--seed", type=int, default=0)
+    pm.add_argument("-o", "--output-file", default=None, help="default <in>-permuted.mtx")
+
+    kn = sub.add_parser("kernels", help="one-device local-kernel sweep")
+    kn.add_argument("--log-m", type=int, nargs="+", default=None)
+    kn.add_argument("--nnz-per-row", type=int, nargs="+", default=None)
+    kn.add_argument("--r-values", type=int, nargs="+", default=None)
+    kn.add_argument("--kernels", nargs="+", default=kernel_bench.DEFAULT_KERNELS,
+                    choices=KERNELS)
+    kn.add_argument("--trials", type=int, default=5)
+    _add_device(kn)
+    kn.add_argument("-o", "--output-file", default=None)
+
+    vf = sub.add_parser("verify", help="fingerprint cross-check of algorithms")
+    vf.add_argument("--log-m", type=int, default=8)
+    vf.add_argument("--edge-factor", type=int, default=8)
+    vf.add_argument("--R", type=int, default=16)
+    vf.add_argument("--c", type=int, default=1)
+    vf.add_argument("--alg", default="all")
+    vf.add_argument("--kernel", default="cuda-f32", choices=KERNELS)
+    _add_device(vf)
+
+    bl = sub.add_parser("baseline", help="external host-CPU SpMM baseline (no card)")
+    bl.add_argument("log_m", type=int)
+    bl.add_argument("edge_factor", type=int)
+    bl.add_argument("R", type=int)
+    bl.add_argument("--iters", type=int, default=10)
+    bl.add_argument("-o", "--output-file", default=None)
     return ap
 
 
@@ -148,25 +235,18 @@ def _maybe_mask(S: HostCOO, args) -> HostCOO:
     return masks.from_spec(args.mask, n=max(S.M, S.N), graph=S)
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    if args.breakdown and (args.app != "vanilla" or args.fused != "yes"):
-        raise SystemExit(
-            "--breakdown requires --app vanilla and --fused yes "
-            "(it attributes the fusedSpMM op)"
-        )
-    device = resolve_device(args.device)
-    owns_group = not dist.is_initialized()
-    world = world_from_env(device)
-    try:
-        S = HostCOO.rmat(args.log_m, args.edge_factor, np.random.default_rng(0))
-        S = _maybe_mask(S, args)
-        kernel = _kernel(args.kernel, device, args.kernel_variant)
-        for alg in resolve_algs(args.alg):
+def _run_configs(S: HostCOO, args, device, world, r_values) -> list:
+    """Every member of ``args.alg`` at every R of ``r_values`` and every
+    fused setting: one record and one summary line each; a member that
+    refuses is skipped with a line on stderr."""
+    kernel = _kernel(args.kernel, device, args.kernel_variant)
+    records = []
+    for alg in resolve_algs(args.alg):
+        for R in r_values:
             for fused in [True, False] if args.fused == "both" else [args.fused == "yes"]:
                 try:
                     rec = benchmark_algorithm(
-                        S, alg, args.output_file, fused=fused, R=args.R, c=args.c,
+                        S, alg, args.output_file, fused=fused, R=R, c=args.c,
                         app=args.app, trials=args.trials, warmup=args.warmup,
                         kernel=kernel, device=device,
                         mask=args.mask if args.app == "attention" else None,
@@ -176,16 +256,82 @@ def main(argv=None) -> int:
                     )
                 except (ValueError, NotImplementedError) as e:
                     # A grid, R, app or fusion build the member lacks.
-                    print(f"skip {alg} R={args.R} c={args.c}: {e}", file=sys.stderr,
+                    print(f"skip {alg} R={R} c={args.c}: {e}", file=sys.stderr,
                           flush=True)
                     continue
+                records.append(rec)
                 if world.process_index == 0:
                     print(json.dumps({
-                        "algorithm": alg, "R": args.R, "c": args.c, "fused": fused,
+                        "algorithm": alg, "R": R, "c": args.c, "fused": fused,
                         "elapsed": round(rec["elapsed"], 4),
                         "GFLOPs": round(rec["overall_throughput"], 3),
                     }), flush=True)
+    return records
+
+
+@contextlib.contextmanager
+def _world(device):
+    """The world the environment describes; a process group this opened is
+    destroyed on the way out."""
+    owns_group = not dist.is_initialized()
+    try:
+        yield world_from_env(device)
     finally:
         if owns_group and dist.is_initialized():
             dist.destroy_process_group()
+
+
+def _benchmark(args) -> int:
+    """``er``, ``file`` and ``heatmap``: the matrix, then the runs."""
+    if args.breakdown and (args.app != "vanilla" or args.fused != "yes"):
+        raise SystemExit(
+            "--breakdown requires --app vanilla and --fused yes "
+            "(it attributes the fusedSpMM op)"
+        )
+    device = resolve_device(args.device)
+    with _world(device) as world:
+        if args.cmd == "file":
+            S = HostCOO.load_mtx(args.path)
+            if args.permute:
+                S = S.random_permuted(seed=0)
+        else:
+            S = HostCOO.rmat(args.log_m, args.edge_factor, seed=0, device=device)
+        r_values = args.r_values if args.cmd == "heatmap" else [args.R]
+        _run_configs(_maybe_mask(S, args), args, device, world, r_values)
     return 0
+
+
+def _verify(args) -> int:
+    device = resolve_device(args.device)
+    with _world(device) as world:
+        ok = verify_algorithms(log_m=args.log_m, edge_factor=args.edge_factor, R=args.R,
+                               c=args.c, alg_names=resolve_algs(args.alg),
+                               kernel=_kernel(args.kernel, device), verbose=True,
+                               device=device, world=world)
+    return 0 if ok else 1
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.cmd in ("er", "file", "heatmap"):
+        return _benchmark(args)
+    if args.cmd == "verify":
+        return _verify(args)
+    if args.cmd == "permute":
+        out = args.output_file or args.path.replace(".mtx", "-permuted.mtx")
+        S = HostCOO.load_mtx(args.path).random_permuted(seed=args.seed)
+        S.save_mtx(out)
+        print(f"wrote {out} ({S.M}x{S.N}, nnz={S.nnz})")
+        return 0
+    if args.cmd == "kernels":
+        kernel_bench.run_kernel_benchmark(
+            log_m_values=args.log_m, nnz_per_row_values=args.nnz_per_row,
+            r_values=args.r_values, kernels=args.kernels, trials=args.trials,
+            output_file=args.output_file, device=args.device)
+        return 0
+    if args.cmd == "baseline":
+        S = HostCOO.rmat(args.log_m, args.edge_factor, seed=0)
+        print(json.dumps(run_baseline(S, R=args.R, iters=args.iters,
+                                      output_file=args.output_file)))
+        return 0
+    raise AssertionError(args.cmd)

@@ -506,7 +506,7 @@ def run_cases(trees: dict, dev, emit, chunks=(), pass2_only: bool = False) -> No
 def walk_cases(trees: dict, dev, emit) -> None:
     """The uniform R-mat and window cases."""
     for case, log_m in RMAT:
-        S = HostCOO.rmat(log_m, 32, np.random.default_rng(0))
+        S = HostCOO.rmat(log_m, 32, device=dev)
         alg = make_algorithm("15d_fusion2", S, R_MAIN,
                              kernel=CudaTileKernel("f32", device=dev), device=dev)
         tile = alg.S_tiles.tile(0, 0)
@@ -536,7 +536,7 @@ def walk_cases(trees: dict, dev, emit) -> None:
 def banked_cases(trees: dict, dev, emit, chunks, pass2_only: bool) -> None:
     """The Graph500 and bigbird cases."""
     for log_m in GRAPH500_LOG_MS:
-        S = HostCOO.rmat(log_m, 32, np.random.default_rng(0), **GRAPH500)
+        S = HostCOO.rmat(log_m, 32, **GRAPH500, device=dev)
         variant = select_variant(Problem.from_coo(S, R_MAIN))
         alg = make_algorithm("15d_fusion2", S, R_MAIN,
                              kernel=BankedCudaKernel(variant, "f32", device=dev), device=dev)

@@ -22,11 +22,14 @@ inside it run untimed); on the R-split strategies the per-op counters
 show its sddmmA and spmmA. With guards on (``SDDMM_TORCH_GUARDS``) every
 layer's output passes ``guard_output``.
 
-The forward pass is differentiable in the weights on every strategy of a
-``LocalWorld``: set ``requires_grad`` on ``layer.weights`` and call
-``backward`` on a loss of the output (the tile ops' backward is
-``ops/autograd.py``). As in the JAX package there is no trainer or
-optimiser here.
+The forward pass is differentiable in the weights on every strategy and
+world: set ``requires_grad`` on ``layer.weights`` and call ``backward``
+on a loss of the output (the tile ops' backward is ``ops/autograd.py``,
+the collectives' ``parallel/comm.py``). Under a world of processes each
+process holds its rows of the output and a copy of the weights, so the
+loss is the sum of the processes' terms and the weight grads are summed
+over the processes (an all-reduce, as data-parallel training does). As
+in the JAX package there is no trainer or optimiser here.
 """
 
 from __future__ import annotations

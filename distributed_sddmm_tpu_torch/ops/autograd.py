@@ -28,7 +28,9 @@ to ``dA`` or ``dB``; their ``d_sv`` is whatever the SDDMM gives there (0
 from the card's kernel, ``g * <A[0], B[0]>`` from the plain version and
 from the JAX formulas), which reaches no dense operand. The tile and the
 kernel object ride on ``ctx``: a tile that travels round a ring is
-differentiated with the view its step used.
+differentiated with the view its step used (between processes the ring
+receives each hop into a new buffer, so no later hop overwrites it;
+``parallel/loops.Shifter``).
 """
 
 from __future__ import annotations

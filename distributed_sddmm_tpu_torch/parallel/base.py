@@ -32,7 +32,6 @@ from distributed_sddmm_tpu_torch.common import KernelMode, MatMode
 from distributed_sddmm_tpu_torch.device import resolve_device, synchronize
 from distributed_sddmm_tpu_torch.ops.autograd import FusedTile, SddmmTile, SpmmTile
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
-from distributed_sddmm_tpu_torch.parallel.comm import refuse_grad
 from distributed_sddmm_tpu_torch.parallel.loops import ABLATION_MODES, ablation_mode
 from distributed_sddmm_tpu_torch.parallel.mesh import AXES, GridSpec
 from distributed_sddmm_tpu_torch.parallel.sharding import (
@@ -239,13 +238,8 @@ class DistributedSparse(abc.ABC):
 
     def _grad(self, *xs) -> bool:
         """True when autograd must see this kernel call: grad mode is on and
-        an operand requires grad. A world of processes refuses (its
-        collectives are not differentiable)."""
-        if not (torch.is_grad_enabled() and any(x.requires_grad for x in xs)):
-            return False
-        if not self.comm.in_process:
-            refuse_grad()
-        return True
+        an operand requires grad."""
+        return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
     def _k_sddmm(self, t: TileView, vals, at, bt):
         """One tile's SDDMM: the tile kernel (through :class:`SddmmTile`

@@ -29,9 +29,15 @@ each rank this process holds, in row-major grid order (``comm.coords``,
   other. Each process builds one process group per grid row, column,
   layer and axis pair, all in the same order, when it binds a grid.
   ``torch.distributed``'s sends, receives and collectives are not
-  differentiable: given a tensor that requires grad under grad mode, every
-  collective here raises (:func:`refuse_grad`) rather than return a
-  result that autograd cannot see past.
+  differentiable, so given a tensor that requires grad under grad mode
+  each collective runs inside a ``torch.autograd.Function`` whose backward
+  is its adjoint over the same group, as ``jax.grad`` differentiates
+  ``ppermute``, ``all_gather``, ``psum_scatter`` and ``psum``: a hop's is
+  the hop with the pairs reversed (a rank that sends to nobody gets a zero
+  grad), an all-gather's a reduce-scatter and the reverse, a sum's a sum.
+  Every process builds the same graph, so autograd issues the backward
+  collectives in the same order on each. ``all_reduce("max")`` (the
+  attention stats merge, which no path differentiates) refuses a grad.
 
 :func:`world_from_env` picks the world as the benchmark does: under
 ``torchrun`` (``WORLD_SIZE`` set) a ``DistWorld``, otherwise a
@@ -56,17 +62,8 @@ _REDUCE = {"sum": torch.add, "max": torch.maximum}
 _AXIS_SETS = ((0,), (1,), (2,), (0, 1), (0, 2), (1, 2), (0, 1, 2))
 
 
-def refuse_grad() -> None:
-    """Gradients through a world of processes are not ported."""
-    raise NotImplementedError(
-        "gradients through a DistWorld are not implemented: torch.distributed's "
-        "sends, receives and collectives are not differentiable (ROADMAP.md, "
-        "queue A item 18); take grads on a LocalWorld")
-
-
-def _check_grad(xs: list) -> None:
-    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
-        refuse_grad()
+def _wants_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
 
 
 def _axis_ids(axis) -> tuple:
@@ -131,9 +128,8 @@ class LocalComm(_Comm):
             members.sort(key=lambda h: _axis_pos(self.coords[h], ids, dims))
         return list(groups.values())
 
-    def ppermute_start(self, xs: list, axis, perm, out: list | None = None) -> Callable:
-        """A rotation of the list: no tensor is copied. ``out`` is
-        ignored."""
+    def ppermute_start(self, xs: list, axis, perm) -> Callable:
+        """A rotation of the list: no tensor is copied."""
         self.counts["ppermute"] += 1
         groups = self._groups(axis)
         ys = [None] * len(xs)
@@ -236,19 +232,26 @@ class DistComm(_Comm):
         order = [ranks.index(r) for r in sorted(ranks)]
         return pg, ranks, order
 
-    def ppermute_start(self, xs: list, axis, perm, out: list | None = None) -> Callable:
-        """``batch_isend_irecv`` within the axis group, into ``out[0]`` (a
-        new buffer if None); the wait returns ``[received]``."""
-        _check_grad(xs)
+    def ppermute_start(self, xs: list, axis, perm) -> Callable:
+        """``batch_isend_irecv`` within the axis group, into a new buffer;
+        the wait returns ``[received]``. Under grad the hop completes
+        inside its autograd node before this returns, so an overlapped
+        ring that asks for grads waits on each hop before the next."""
         self.counts["ppermute"] += 1
         (x,) = xs
+        if _wants_grad(x):
+            y = _Hop.apply(x, self, axis, tuple(perm))
+            return lambda: [y]
+        return self._hop(x, axis, perm)
+
+    def _hop(self, x, axis, perm) -> Callable:
         pg, ranks, _ = self._group(axis)
         me = ranks.index(self.ranks[0])
         dst = [d for s, d in perm if s == me]
         src = [s for s, d in perm if d == me]
         if dst == [me] and src == [me]:
             return lambda: [x]
-        recv = out[0] if out is not None else torch.empty_like(x)
+        recv = torch.empty_like(x)
         ops = []
         if dst:
             ops.append(dist.P2POp(dist.isend, x.contiguous(), ranks[dst[0]], pg))
@@ -263,9 +266,11 @@ class DistComm(_Comm):
         return wait
 
     def all_gather(self, xs: list, axis) -> list:
-        _check_grad(xs)
         self.counts["all_gather"] += 1
         (x,) = xs
+        return [_Gather.apply(x, self, axis) if _wants_grad(x) else self._gather(x, axis)]
+
+    def _gather(self, x, axis):
         pg, ranks, order = self._group(axis)
         n = len(ranks)
         y = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
@@ -273,28 +278,101 @@ class DistComm(_Comm):
         if order != sorted(order):  # group-rank order -> axis order
             parts = y.split(x.shape[0])
             y = torch.cat([parts[order.index(a)] for a in range(n)])
-        return [y]
+        return y
 
     def reduce_scatter(self, xs: list, axis) -> list:
-        _check_grad(xs)
         self.counts["reduce_scatter"] += 1
         (x,) = xs
+        return [_Scatter.apply(x, self, axis) if _wants_grad(x) else self._scatter(x, axis)]
+
+    def _scatter(self, x, axis):
         pg, ranks, order = self._group(axis)
         parts = _split(x, len(ranks))
         x = torch.cat([parts[a] for a in order])  # axis order -> group-rank order
         y = torch.empty_like(parts[0])
         _reduce_scatter_single()(y, x, op=dist.ReduceOp.SUM, group=pg)
-        return [y]
+        return y
 
     def all_reduce(self, xs: list, axis, op: str = "sum") -> list:
-        _check_grad(xs)
         self.counts["all_reduce"] += 1
         (x,) = xs
+        if _wants_grad(x):
+            if op != "sum":
+                raise NotImplementedError(
+                    f"all_reduce({op!r}) through a DistWorld has no gradient: only the "
+                    "attention stats merge reaches it, and no path differentiates that")
+            return [_Sum.apply(x, self, axis)]
+        return [self._reduce(x, axis, op)]
+
+    def _reduce(self, x, axis, op: str = "sum"):
         pg, _, _ = self._group(axis)
         y = x.clone()
         dist.all_reduce(y, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX,
                         group=pg)
-        return [y]
+        return y
+
+
+class _Hop(torch.autograd.Function):
+    """A hop between processes; its adjoint is the hop with the pairs
+    reversed (each rank sends its grad back to the rank it received from;
+    a rank that sent to nobody receives zeros)."""
+
+    @staticmethod
+    def forward(ctx, x, comm, axis, perm):
+        ctx.comm, ctx.axis, ctx.perm = comm, axis, perm
+        y = comm._hop(x, axis, perm)()[0]
+        return y.clone() if y is x else y  # a rank that keeps its own block
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.comm.counts["ppermute"] += 1
+        back = tuple((d, s) for s, d in ctx.perm)
+        return ctx.comm._hop(g.contiguous(), ctx.axis, back)()[0], None, None, None
+
+
+class _Gather(torch.autograd.Function):
+    """An all-gather in axis order; its adjoint sums the grads of every
+    rank's copy and hands each rank its own block: a reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, x, comm, axis):
+        ctx.comm, ctx.axis = comm, axis
+        return comm._gather(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.comm.counts["reduce_scatter"] += 1
+        return ctx.comm._scatter(g.contiguous(), ctx.axis), None, None
+
+
+class _Scatter(torch.autograd.Function):
+    """A reduce-scatter in axis order; its adjoint gives every rank's
+    block of the input the grad of the rank that received it: an
+    all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, comm, axis):
+        ctx.comm, ctx.axis = comm, axis
+        return comm._scatter(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.comm.counts["all_gather"] += 1
+        return ctx.comm._gather(g.contiguous(), ctx.axis), None, None
+
+
+class _Sum(torch.autograd.Function):
+    """An all-reduce sum; its adjoint is the all-reduce sum of the grads."""
+
+    @staticmethod
+    def forward(ctx, x, comm, axis):
+        ctx.comm, ctx.axis = comm, axis
+        return comm._reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.comm.counts["all_reduce"] += 1
+        return ctx.comm._reduce(g, ctx.axis), None, None
 
 
 def _all_gather_single():

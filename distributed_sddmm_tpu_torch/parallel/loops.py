@@ -60,13 +60,13 @@ def ablation_mode(mode: str):
         _ABLATION = prev
 
 
-def abl_ppermute(comm, xs: list, axis, perm, out: list | None = None) -> Callable:
+def abl_ppermute(comm, xs: list, axis, perm) -> Callable:
     """Start a ring hop of the per-rank blocks ``xs``; returns the wait,
     which gives the received blocks. The identity under ``no_ring`` and
     ``local`` (Propagation)."""
     if _ABLATION != "full":
         return lambda: xs
-    return comm.ppermute_start(xs, axis, perm, out)
+    return comm.ppermute_start(xs, axis, perm)
 
 
 def abl_all_gather(comm, xs: list, axis, size: int) -> list:
@@ -89,27 +89,19 @@ class Shifter:
     """The hops of one ring pass of per-rank blocks along ``axis``.
 
     Under a world whose ranks live in other processes each hop receives
-    into a buffer of this pass: two at most, allocated on first use and
-    swapped, so a hop never writes into the caller's input or into the
-    block a step is reading. A world of in-process ranks rotates its list
-    and needs none.
+    into a new buffer (the caching allocator hands back the memory of the
+    blocks the ring has let go), so a hop never writes into the caller's
+    input, into the block a step is reading, or into a moving tile a tile
+    op saved for its backward. A world of in-process ranks rotates its
+    list and moves nothing.
     """
 
     def __init__(self, comm, axis, n: int):
         self.comm, self.axis, self.perm = comm, axis, ring_perm(n)
-        self._bufs: list = []
 
     def start(self, xs: list) -> Callable:
         """Issue one hop; the returned wait gives the shifted blocks."""
-        out = None
-        if not self.comm.in_process:
-            x = xs[0]
-            recv = next((b for b in self._bufs if b is not x), None)
-            if recv is None:
-                recv = torch.empty_like(x)
-                self._bufs.append(recv)
-            out = [recv]
-        return abl_ppermute(self.comm, xs, self.axis, self.perm, out)
+        return abl_ppermute(self.comm, xs, self.axis, self.perm)
 
     def __call__(self, xs: list) -> list:
         return self.start(xs)()

@@ -4,15 +4,25 @@ Fill A and B with the deterministic ``row * R + col`` values, run
 sddmmA, spmmA, spmmB and the fused pair on one strategy, and compare the
 squared-norm fingerprints with the float64 oracle's. :func:`op_outputs`
 runs every op on given operands, for comparisons between strategies.
+:func:`verify_algorithms` is the ``verify`` command: every named strategy
+against the oracle, within a tolerance by the kernel's precision.
 """
 
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 
 from distributed_sddmm_tpu_torch.common import KernelMode, MatMode
 from distributed_sddmm_tpu_torch.utils import oracle
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
+
+_log = logging.getLogger("verify")
+
+#: Fingerprint tolerance by the kernel's precision: the JAX package's
+#: 1e-4 for float32 kernels, bf16 rounding for cuda-bf16.
+VERIFY_RTOL = {"f32": 1e-4, "bf16": 1e-2}
 
 
 def fingerprint_algorithm(alg, S: HostCOO) -> dict[str, float]:
@@ -89,3 +99,38 @@ def oracle_fingerprints(S: HostCOO, R: int) -> dict[str, float]:
         "fusedSpMM": oracle.fingerprint(oracle.spmm_a(S1.with_values(mid), B)),
         "fusedSpMM_mid": oracle.fingerprint(mid),
     }
+
+
+def verify_algorithms(log_m: int = 8, edge_factor: int = 8, R: int = 16, c: int = 1,
+                      alg_names=None, kernel=None, rtol: float | None = None,
+                      verbose: bool = False, S: HostCOO | None = None,
+                      device=None, world=None) -> bool:
+    """Every named strategy's fingerprints against the float64 oracle's, on
+    the R-mat of ``(log_m, edge_factor)`` (seed 0) or on ``S``. True iff
+    every strategy that takes the configuration matches within ``rtol``
+    (None: ``VERIFY_RTOL`` of the kernel's precision); a strategy that
+    refuses the grid or R is skipped with a note under the ``"verify"``
+    logger. With ``verbose`` one ``OK``/``FAIL`` line an op."""
+    from distributed_sddmm_tpu_torch.bench.harness import ALGORITHM_FACTORIES, make_algorithm
+
+    if S is None:
+        S = HostCOO.rmat(log_m, edge_factor, seed=0)
+    want = oracle_fingerprints(S, R)
+    all_ok = True
+    for name in alg_names or sorted(ALGORITHM_FACTORIES):
+        try:
+            alg = make_algorithm(name, S, R, c, kernel=kernel, device=device, world=world)
+        except ValueError as e:
+            _log.info("skip %s: %s", name, e)
+            continue
+        tol = rtol if rtol is not None else VERIFY_RTOL[
+            getattr(alg.kernel, "precision", "f32")]
+        got = fingerprint_algorithm(alg, S)
+        for op, v in want.items():
+            ok = bool(np.isclose(got[op], v, rtol=tol))
+            all_ok &= ok
+            if verbose and alg.world.process_index == 0:
+                flag = "OK " if ok else "FAIL"
+                print(f"{flag} {name:22s} {op:14s} got={got[op]:.6e} want={v:.6e}",
+                      flush=True)
+    return all_ok

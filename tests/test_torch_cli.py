@@ -128,6 +128,10 @@ APP_RECORD_DIFFS = {
     pytest.param("gat", "15d_sparse", 4, id="gat-15d_sparse"),
     pytest.param("gat", "25d_dense_replicate", 8, id="gat-25d_dense_replicate"),
     pytest.param("gat", "25d_sparse_replicate", 8, id="gat-25d_sparse_replicate"),
+    pytest.param("vanilla", "15d_fusion1", 4, id="vanilla-15d_fusion1"),
+    pytest.param("vanilla", "15d_fusion2", 4, id="vanilla-15d_fusion2"),
+    pytest.param("attention", "15d_fusion1", 4, id="attention-15d_fusion1"),
+    pytest.param("attention", "15d_fusion2", 4, id="attention-15d_fusion2"),
     pytest.param("vanilla", "15d_sparse", 4, id="vanilla-15d_sparse"),
     pytest.param("vanilla", "25d_dense_replicate", 8, id="vanilla-25d_dense_replicate"),
     pytest.param("vanilla", "25d_sparse_replicate", 8, id="vanilla-25d_sparse_replicate"),
@@ -138,9 +142,12 @@ def test_app_records_match_jax(app, alg, p):
     same app fields and the same per-op counters (``cgStep`` an ALS CG
     iteration, ``gatLayer`` a GAT layer on the dense shift; the R-split
     strategies' fused pair is their sddmmA and spmmA, and their apps run
-    the public ops) and the same ``alg_info``."""
+    the public ops) and the same ``alg_info``. Attention runs on the
+    ``window:4`` mask over as many tokens; its counted ``attention_hbm``
+    counts each package's own tile arrays."""
     import jax
 
+    from distributed_sddmm_tpu import masks as jax_masks
     from distributed_sddmm_tpu.bench import harness as jax_harness
     from distributed_sddmm_tpu.utils.coo import HostCOO as JaxCOO
 
@@ -148,6 +155,9 @@ def test_app_records_match_jax(app, alg, p):
 
     S = JaxCOO.erdos_renyi(32, 32, 4, seed=1)
     kw = dict(R=4, c=2, app=app, trials=2)
+    if app == "attention":
+        S = jax_masks.from_spec("window:4", n=32)
+        kw["mask"] = "window:4"
     want = jax_harness.benchmark_algorithm(S, alg, None, True,
                                            devices=jax.devices()[:p], **kw)
     got = harness.benchmark_algorithm(HostCOO(S.rows, S.cols, S.vals, S.M, S.N),
@@ -165,8 +175,10 @@ def test_app_records_match_jax(app, alg, p):
     assert set(got["perf_stats"]) == set(want["perf_stats"])
     for key in ("m", "n", "nnz", "r", "p", "c", "dim_values", "nnz_procs"):
         assert got["alg_info"][key] == want["alg_info"][key], key
-    if app == "vanilla":
+    if app in ("vanilla", "attention"):
         assert got["alg_info"] == want["alg_info"]
+    if app == "attention":
+        assert set(got["attention_hbm"]) == set(want["attention_hbm"])
 
 
 def test_er_groups_run_each_member_and_skip_what_refuses(tmp_path, capsys, monkeypatch):
@@ -243,3 +255,225 @@ def test_er_breakdown_refuses_what_it_cannot_attribute():
     proc = _run("er", "5", "4", "15d_fusion2", "4", "1", "--device", "cpu",
                 "--fusion", "double")
     assert proc.returncode == 2 and "--fusion" in proc.stderr
+
+
+# ------------------------------------------------- the rest of the command line
+
+
+def _jax_main(argv, monkeypatch, tmp_path, bench: bool = True) -> int:
+    """The JAX package's CLI in this process, on its forced 8-device CPU
+    mesh; a benchmark runs with the XLA kernel and without its run store.
+    Its plan cache is redirected under ``tmp_path`` and its program store
+    is off (re-read from ``DSDDMM_PROGRAMS=0`` whatever an earlier test in
+    this process enabled), so no run writes into the checkout's
+    ``artifacts/``."""
+    from distributed_sddmm_tpu.bench import cli as jax_cli
+    from distributed_sddmm_tpu.programs import store as jax_programs
+
+    monkeypatch.setenv("DSDDMM_PLAN_CACHE", str(tmp_path / "jax_plan_cache"))
+    monkeypatch.setenv("DSDDMM_PROGRAMS", "0")
+    monkeypatch.setattr(jax_programs, "_active", None)
+    monkeypatch.setattr(jax_programs, "_env_checked", False)
+    return jax_cli.main([*argv, "--kernel", "xla", "--no-runstore"] if bench else argv)
+
+
+def test_jax_cli_runs_write_no_store_in_the_checkout(tmp_path, monkeypatch, capsys):
+    """A JAX ``er`` run through ``_jax_main`` writes nothing at the JAX
+    package's default program-store and plan-cache roots (here moved to
+    canaries under ``tmp_path``, so that other processes writing the
+    checkout's ``artifacts/`` cannot touch the check), and leaves the
+    program store off."""
+    from distributed_sddmm_tpu.autotune import cache as jax_cache
+    from distributed_sddmm_tpu.programs import store as jax_programs
+
+    canary = tmp_path / "default_roots"
+    monkeypatch.setattr(jax_programs, "DEFAULT_ROOT", canary / "programs")
+    monkeypatch.setattr(jax_cache, "DEFAULT_CACHE_DIR", canary / "plan_cache")
+    monkeypatch.setattr(jax_programs, "_active", jax_programs.ProgramStore(canary / "stale"))
+    monkeypatch.setattr(jax_programs, "_env_checked", True)
+    out = tmp_path / "jax.jsonl"
+    argv = ["er", "5", "4", "15d_fusion2", "8", "1", "--trials", "1", "-o", str(out)]
+    assert _jax_main(argv, monkeypatch, tmp_path) == 0
+    assert len(_records(out)) == 1
+    assert jax_programs.active() is None
+    assert not (canary / "programs").exists() and not (canary / "plan_cache").exists()
+    assert not any((canary / "stale").rglob("*.prog"))
+    assert jax_cache.default_cache_dir() == tmp_path / "jax_plan_cache"
+
+
+def _records(path) -> list:
+    return [json.loads(line) for line in pathlib.Path(path).read_text().splitlines()]
+
+
+@pytest.mark.parametrize("argv", [
+    pytest.param(["er", "6", "4", "15d_fusion2", "8", "2"], id="er"),
+    pytest.param(["file", "{mtx}", "15d_fusion2", "8", "2"], id="file"),
+    pytest.param(["file", "{mtx}", "15d_fusion1", "8", "1", "--permute"], id="file-permute"),
+    pytest.param(["file", "{mtx}", "all", "8", "2"], id="file-all"),
+    pytest.param(["heatmap", "6", "4", "2", "--alg", "15d_fusion2", "--r-values", "8", "16"],
+                 id="heatmap"),
+])
+def test_records_share_alg_info_with_the_jax_cli(tmp_path, monkeypatch, capsys, argv):
+    """``er``, ``file`` (a Graph500 R-mat written to ``.mtx``, with and
+    without ``--permute``) and ``heatmap`` on both command lines at p = 8
+    (the JAX mesh's devices, the port's ``SDDMM_TORCH_LOCAL_RANKS``): the
+    same members run, in the same order, at the same R, each record's
+    ``alg_info`` equal to the JAX CLI's."""
+    from distributed_sddmm_tpu.utils.coo import HostCOO as JaxCOO
+
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.setenv("SDDMM_TORCH_LOCAL_RANKS", "8")
+    mtx = tmp_path / "g500.mtx"
+    JaxCOO.rmat(log_m=6, edge_factor=4, a=0.57, b=0.19, c=0.19, d=0.05, seed=2).save_mtx(
+        str(mtx))
+    argv = [a.format(mtx=mtx) for a in argv]
+    ours, theirs = tmp_path / "port.jsonl", tmp_path / "jax.jsonl"
+    assert cli.main([*argv, "--device", "cpu", "--trials", "1", "-o", str(ours)]) == 0
+    assert _jax_main([*argv, "--trials", "1", "-o", str(theirs)], monkeypatch, tmp_path) == 0
+    got, want = _records(ours), _records(theirs)
+    assert len(got) == len(want) >= 1
+    for g, w in zip(got, want):
+        assert (g["algorithm"], g["R"], g["c"]) == (w["algorithm"], w["R"], w["c"])
+        assert g["alg_info"] == w["alg_info"], g["algorithm"]
+    if argv[0] == "heatmap":
+        assert [g["R"] for g in got] == [8, 16]
+
+
+def test_permute_writes_the_jax_permutation(tmp_path, monkeypatch, capsys):
+    """``permute`` (default output ``<in>-permuted.mtx``, and ``-o`` with
+    a seed) writes the matrix the JAX ``permute`` writes, and prints the
+    same line."""
+    from distributed_sddmm_tpu.utils.coo import HostCOO as JaxCOO
+
+    src = tmp_path / "m.mtx"
+    J = JaxCOO.erdos_renyi(40, 30, 3, seed=4, values="normal")
+    J.save_mtx(str(src))
+    assert cli.main(["permute", str(src)]) == 0
+    ours_line = capsys.readouterr().out
+    ours = HostCOO.load_mtx(tmp_path / "m-permuted.mtx")
+    assert _jax_main(["permute", str(src), "-o", str(tmp_path / "j.mtx")], monkeypatch,
+                     tmp_path, bench=False) == 0
+    theirs_line = capsys.readouterr().out
+    assert ours_line.split()[2:] == theirs_line.split()[2:]
+    theirs = JaxCOO.load_mtx(str(tmp_path / "j.mtx"))
+    for key in ("rows", "cols", "vals", "M", "N"):
+        np.testing.assert_array_equal(getattr(ours, key), getattr(theirs, key))
+    np.testing.assert_array_equal(ours.rows, J.random_permuted(seed=0).rows)
+    assert cli.main(["permute", str(src), "--seed", "3", "-o", str(tmp_path / "s3.mtx")]) == 0
+    np.testing.assert_array_equal(HostCOO.load_mtx(tmp_path / "s3.mtx").cols,
+                                  J.random_permuted(seed=3).cols)
+
+
+def test_verify_prints_ok_lines_and_matches_the_jax_fingerprints(capsys, monkeypatch):
+    """``verify`` at its defaults (R-mat 8/8, R 16, c 1, every algorithm,
+    cuda-f32): one ``OK`` line an op and algorithm, exit 0; each
+    algorithm's fingerprints within 1e-6 of the JAX package's
+    ``fingerprint_algorithm`` through ``PallasKernel(interpret=True,
+    precision="f32")``; a wrong oracle exits 1 with ``FAIL`` lines."""
+    import jax
+
+    from distributed_sddmm_tpu.bench.harness import make_algorithm as jax_make
+    from distributed_sddmm_tpu.ops.pallas_kernels import PallasKernel
+    from distributed_sddmm_tpu.utils import verify as jax_verify
+    from distributed_sddmm_tpu.utils.coo import HostCOO as JaxCOO
+
+    from distributed_sddmm_tpu_torch.bench.harness import make_algorithm
+    from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
+    from distributed_sddmm_tpu_torch.utils import verify
+
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.delenv("SDDMM_TORCH_LOCAL_RANKS", raising=False)
+    assert cli.main(["verify", "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 5 * 5 and all(line.startswith("OK ") for line in lines)
+    S, J = HostCOO.rmat(8, 8, seed=0), JaxCOO.rmat(log_m=8, edge_factor=8, seed=0)
+    for name in cli.ALG_GROUPS["all"]:
+        got = verify.fingerprint_algorithm(
+            make_algorithm(name, S, 16, 1, kernel=CudaTileKernel("f32", device="cpu"),
+                           device="cpu"), S)
+        want = jax_verify.fingerprint_algorithm(
+            jax_make(name, J, 16, 1, kernel=PallasKernel(interpret=True, precision="f32"),
+                     devices=jax.devices()[:1]), J)
+        for op, v in want.items():
+            assert got[op] == pytest.approx(v, rel=1e-6), (name, op)
+    real = verify.oracle_fingerprints
+    monkeypatch.setattr(verify, "oracle_fingerprints",
+                        lambda S, R: {k: v * 1.01 for k, v in real(S, R).items()})
+    assert cli.main(["verify", "--device", "cpu", "--alg", "15d_fusion2"]) == 1
+    assert all(line.startswith("FAIL") for line in capsys.readouterr().out.splitlines())
+
+
+#: Record fields of ``kernels`` and ``baseline`` that one package has and
+#: the other has not: the port names the device; the JAX sweep's tiling
+#: knobs of its Pallas kernel have no counterpart.
+KERNEL_RECORD_DIFFS = {"port_only": {"device"},
+                       "jax_only": {"bm", "bn", "group", "chunk", "scatter_form",
+                                    "batch_step"}}
+
+
+def test_kernels_and_baseline_records_have_the_jax_keys(tmp_path, capsys):
+    """``kernels`` (its three kernels) and ``baseline`` on the CPU: the JAX
+    records' keys (its XLA record's; its Pallas records add the tiling
+    knobs) plus ``device``; the same sizes and FLOP accounting."""
+    from distributed_sddmm_tpu.bench import baseline as jax_baseline
+    from distributed_sddmm_tpu.bench import kernels as jax_kernels
+    from distributed_sddmm_tpu.utils.coo import HostCOO as JaxCOO
+
+    out = tmp_path / "k.jsonl"
+    assert cli.main(["kernels", "--log-m", "7", "--nnz-per-row", "4", "--r-values", "8",
+                     "--kernels", "cuda-f32", "cuda-bf16", "torch", "--trials", "2",
+                     "--device", "cpu", "-o", str(out)]) == 0
+    recs = _records(out)
+    J = JaxCOO.rmat(log_m=7, edge_factor=4, seed=0)
+    J = J.with_values(np.random.default_rng(1).standard_normal(J.nnz))
+    want = jax_kernels._bench_one(J, 8, "xla", 2)
+    assert [r["kernel"] for r in recs] == ["cuda-f32", "cuda-bf16", "torch"]
+    for rec in recs:
+        assert set(rec) - set(want) == KERNEL_RECORD_DIFFS["port_only"]
+        assert set(want) <= set(rec)
+        assert (rec["M"], rec["N"], rec["nnz"], rec["R"]) == (want["M"], want["N"],
+                                                               want["nnz"], want["R"])
+        assert rec["device"] == "cpu" and rec["fused_pair_ms"] > 0
+        assert rec["sddmm_gflops"] == pytest.approx(2 * rec["nnz"] * 8 / rec["sddmm_ms"] / 1e6)
+    assert cli.main(["baseline", "7", "4", "8", "--iters", "2", "-o", str(out)]) == 0
+    printed = json.loads(capsys.readouterr().out.splitlines()[-1])
+    rec = _records(out)[-1]
+    want = jax_baseline.run_baseline(J, R=8, iters=2)
+    assert printed == rec and rec["device"] == "host"
+    assert set(rec) - set(want) == KERNEL_RECORD_DIFFS["port_only"] and set(want) <= set(rec)
+    for key in ("baseline", "m", "n", "nnz", "r", "num_iterations"):
+        assert rec[key] == want[key], key
+
+
+UNPORTED_FLAGS = (["--trace"], ["--faults", "[]"], ["--wire", "bf16"], ["--profile", "p"],
+                  ["--watchdog", "warn"], ["--flightrec"], ["--no-runstore"],
+                  ["--plan-mode", "model"])
+UNPORTED_COMMANDS = ("overlap", "serve", "fleet", "tune", "history", "compare", "gate",
+                     "backfill", "report-html", "report-trace", "trace-merge",
+                     "trace-export", "top", "lint", "env")
+
+
+@pytest.mark.parametrize("base", [["er", "5", "4", "15d_fusion2", "4", "1"],
+                                  ["file", "m.mtx", "15d_fusion2", "4", "1"],
+                                  ["heatmap", "5", "4", "1"]], ids=["er", "file", "heatmap"])
+def test_unported_flags_and_subcommands_are_refused(base, capsys):
+    for flag in UNPORTED_FLAGS:
+        with pytest.raises(SystemExit) as e:
+            cli.main([*base, "--device", "cpu", *flag])
+        assert e.value.code == 2 and flag[0] in capsys.readouterr().err
+    for cmd in UNPORTED_COMMANDS:
+        with pytest.raises(SystemExit) as e:
+            cli.main([cmd])
+        assert e.value.code == 2 and "invalid choice" in capsys.readouterr().err
+
+
+def test_card_subcommands_default_to_cuda():
+    """Every subcommand that uses the card defaults to ``--device cuda``,
+    and ``baseline`` takes no device (it runs on the host by design)."""
+    parser = cli.build_parser()
+    for argv in (["er", "5", "4", "a", "4", "1"], ["file", "m.mtx", "a", "4", "1"],
+                 ["heatmap", "5", "4", "1"], ["kernels"], ["verify"]):
+        assert parser.parse_args(argv).device == "cuda", argv[0]
+    assert not hasattr(parser.parse_args(["baseline", "5", "4", "8"]), "device")
+    assert parser.parse_args(["kernels"]).kernels == ["torch", "cuda-bf16"]
+    assert parser.parse_args(["heatmap", "5", "4", "1"]).r_values == cli.HEATMAP_R_VALUES

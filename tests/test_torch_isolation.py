@@ -17,12 +17,14 @@ import numpy as np
 import pytest
 import torch
 
-from distributed_sddmm_tpu_torch.bench import harness
+from distributed_sddmm_tpu_torch.bench import cli, harness
+from distributed_sddmm_tpu_torch.bench import kernels as kernel_bench
 from distributed_sddmm_tpu_torch.codegen import BankedCudaKernel
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
 from distributed_sddmm_tpu_torch.parallel.dense_shift_15d import DenseShift15D
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 from distributed_sddmm_tpu_torch.utils.interop import state_from_reference
+from distributed_sddmm_tpu_torch.utils.verify import verify_algorithms
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "distributed_sddmm_tpu_torch"
@@ -61,7 +63,8 @@ def test_port_and_chip_smoke_import_no_jax_in_subprocess():
     assert res == {"bad": [], "n": len(mods)}
     assert len(mods) > 15  # every module of the slice was imported
     for mod in ("parallel.sparse_shift_15d", "parallel.cannon_dense_25d",
-                "parallel.cannon_sparse_25d", "tools.costmodel"):
+                "parallel.cannon_sparse_25d", "tools.costmodel", "bench.kernels",
+                "bench.baseline", "utils.coo", "utils.verify"):
         assert f"distributed_sddmm_tpu_torch.{mod}" in mods
 
 
@@ -80,7 +83,8 @@ def test_ast_scan_finds_no_forbidden_import():
     offenders = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & set(FORBIDDEN))
                  for f in files}
     assert {k: v for k, v in offenders.items() if v} == {}
-    # And every import the port makes is one the card's machine has.
+    # And every import the port makes is one the card's machine has
+    # (matrix-market files go through ``scipy.io``).
     allowed = {"torch", "numpy", "scipy", "distributed_sddmm_tpu_torch",
                "__future__", "abc", "argparse", "contextlib", "ctypes", "dataclasses", "enum",
                "functools", "hashlib", "importlib", "inspect", "io", "json", "logging", "math",
@@ -104,6 +108,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: BankedCudaKernel("v1.rb4.rs"),
         lambda: state_from_reference(S.rows, S.cols, S.vals, 2, 2, np.zeros((2, 4)),
                                      np.zeros((2, 4)), S.vals),
+        lambda: kernel_bench.bench_one(S, 4, "torch", 1, None),
+        lambda: verify_algorithms(S=S, R=4),
+        lambda: cli.main(["verify"]),
+        lambda: cli.main(["er", "4", "2", "15d_fusion2", "4", "1"]),
+        lambda: HostCOO.rmat(4, 2, device="cuda"),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()

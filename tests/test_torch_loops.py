@@ -119,7 +119,7 @@ def test_ring_perm_equals_jax():
 
 
 def test_measure_breakdown_reports_the_regions():
-    S = HostCOO.rmat(6, 4, np.random.default_rng(0))
+    S = HostCOO.rmat(6, 4)
     alg = DenseShift15D(S, 4, c=2, world=LocalWorld(4), device="cpu")
     A, B = alg.dummy_initialize(MatMode.A), alg.dummy_initialize(MatMode.B)
     out = alg.measure_breakdown(A, B, alg.like_s_values(1.0), trials=2)

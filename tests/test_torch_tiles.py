@@ -112,14 +112,14 @@ def test_port_coo_helpers_match_jax():
 
 
 def test_port_rmat_shape_and_dedup():
-    S = torch_coo.HostCOO.rmat(8, 8, np.random.default_rng(0))
+    S = torch_coo.HostCOO.rmat(8, 8, seed=0)
     assert S.M == S.N == 256
     keys = S.rows * S.N + S.cols
     assert np.unique(keys).size == S.nnz
     # Uniform initiator: nearly all edges survive deduplication at this
     # density, and every row index is in range.
     assert 0.9 * 256 * 8 < S.nnz <= 256 * 8
-    again = torch_coo.HostCOO.rmat(8, 8, np.random.default_rng(0))
+    again = torch_coo.HostCOO.rmat(8, 8, seed=0)
     np.testing.assert_array_equal(again.rows, S.rows)
     with pytest.raises(ValueError):
-        torch_coo.HostCOO.rmat(4, 2, np.random.default_rng(0), a=0.5)
+        torch_coo.HostCOO.rmat(4, 2, a=0.5)

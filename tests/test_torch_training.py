@@ -51,6 +51,8 @@ from distributed_sddmm_tpu_torch.parallel.sparse_shift_15d import SparseShift15D
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 from distributed_sddmm_tpu_torch.utils.interop import gat_weights_from_reference
 
+import test_torch_comm as gloo
+
 R = 8
 GRAD_TOL = 1e-5
 LOSS_RTOL = 1e-4
@@ -124,9 +126,9 @@ def jax_grads(name, S, p, c, op="fused", kernel="xla", R=R):
     return _JAX_GRADS[key][1]
 
 
-def port_grads(name, S, p, c, op="fused", kernel=None, R=R):
+def port_grads(name, S, p, c, op="fused", kernel=None, R=R, world=None):
     alg = PAIRS[name][1](HostCOO(S.rows, S.cols, S.vals, S.M, S.N), R=R, c=c,
-                         world=LocalWorld(p), kernel=kernel, device="cpu")
+                         world=world or LocalWorld(p), kernel=kernel, device="cpu")
     A_np, B_np, v_np = _operands(S, R)
     A = alg.put_a(A_np).requires_grad_()
     B = alg.put_b(B_np).requires_grad_()
@@ -261,27 +263,77 @@ def test_backward_runs_the_tile_ops_of_the_design(monkeypatch):
     assert issubclass(tile_autograd.FusedTile, torch.autograd.Function)
 
 
-def test_dist_world_refuses_grads(tmp_path):
-    """A strategy on a ``DistWorld`` asked for a grad raises (its
-    collectives are not differentiable); without one it runs."""
+def test_dist_world_grads_equal_local_world_at_one_process(tmp_path):
+    """A strategy on a ``DistWorld`` of one gloo process gives the grads of
+    a ``LocalWorld(1)``, bit for bit, for each op on each strategy (every
+    collective runs through its autograd node); ``all_reduce("max")``
+    still refuses a grad and runs without one."""
     S = _problem()
     dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'init'}", rank=0,
                             world_size=1)
     try:
-        alg = DenseShift15D(HostCOO(S.rows, S.cols, S.vals, S.M, S.N), R=R,
-                            world=DistWorld(), device="cpu")
-        A_np, B_np, _ = _operands(S)
-        A, B = alg.put_a(A_np), alg.put_b(B_np)
-        out, _ = alg.fused_spmm(A, B, alg.like_s_values(1.0))
-        assert out.shape == A.shape and out.grad_fn is None
-        with pytest.raises(NotImplementedError, match="queue A item 18"):
-            alg.fused_spmm(A.requires_grad_(), B, alg.like_s_values(1.0))
-        with pytest.raises(NotImplementedError, match="DistWorld"):
-            alg.comm.all_reduce([torch.ones(3, requires_grad=True)], AXES)
+        for name in PAIRS:
+            for op in ("sddmm", "spmm", "fused"):
+                alg, got = port_grads(name, S, 1, 1, op=op, world=DistWorld())
+                want = port_grads(name, S, 1, 1, op=op)[1]
+                for g, w in zip(got, want):
+                    np.testing.assert_array_equal(g, w, err_msg=f"{name} {op}")
+                assert sum(alg.comm.counts.values()) > 0
+        with pytest.raises(NotImplementedError, match="attention stats merge"):
+            alg.comm.all_reduce([torch.ones(3, requires_grad=True)], AXES, "max")
         with torch.no_grad():
-            assert alg.comm.all_reduce([torch.ones(3, requires_grad=True)], AXES)[0].sum() == 3
+            assert alg.comm.all_reduce([torch.ones(3, requires_grad=True)], AXES,
+                                       "max")[0].sum() == 3
     finally:
         dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def gloo_normal(tmp_path_factory):
+    """``tests/test_torch_comm.py``'s gradient worker on four gloo
+    processes with N(0, 1) data, and its matrix in the JAX package's type
+    (one object, so ``jax_grads`` computes each case once)."""
+    S = gloo._matrix()
+    return (JaxCOO(S.rows, S.cols, S.vals, S.M, S.N),
+            gloo.spawn_grads(tmp_path_factory.mktemp("gloo"), "normal"))
+
+
+@pytest.mark.parametrize("name", list(PAIRS))
+def test_gloo_grads_match_jax(gloo_normal, name):
+    """The sddmm, spmm and fused grads at (4, 1) over four gloo processes,
+    every process's within the tolerance of ``jax.grad`` at p = 4 (the
+    JAX side runs here, in the parent process)."""
+    S, res = gloo_normal
+    for op in gloo.GRAD_OPS:
+        want = jax_grads(name, S, 4, 1, op=op, R=gloo.GRAD_R)
+        for rank in range(4):
+            got = tuple(res[rank][f"{name}|{op}|{part}"] for part in ("gA", "gB", "g_sv"))
+            _close(got, want, f"gloo {name} {op} rank {rank}")
+
+
+def test_gloo_gat_step_matches_jax(gloo_normal):
+    """One GAT step over four gloo processes (the processes' loss terms and
+    weight grads summed) against ``jax.value_and_grad`` of the same loss
+    on the JAX dense shift at p = 4."""
+    S, res = gloo_normal
+    ja = JaxDS(S, R=8, c=1, devices=jax.devices()[:4])
+    jgat = JaxGAT([JaxLayer(input_features=8, features_per_head=8, num_heads=2)], ja,
+                  leaky_relu_alpha=gloo.GAT_ALPHA["normal"])
+    X_np, T_np, w_np = gloo.gat_data(S.M, "normal")
+    ja.set_r_value(8)
+    jX = ja.put_a(X_np)
+    ja.set_r_value(16)
+    jT = ja.put_a(T_np)
+
+    def jax_loss(weights):
+        jgat.layers[0].weights = list(weights)
+        return jnp.sum((jgat.forward(jX) - jT) ** 2)
+
+    value, g = jax.value_and_grad(jax_loss)(tuple(jnp.asarray(w) for w in w_np))
+    for rank in range(4):
+        assert float(res[rank]["gat|loss"]) == pytest.approx(float(value), rel=GRAD_TOL)
+        _close([res[rank][f"gat|g{h}"] for h in range(2)], [np.asarray(x) for x in g],
+               f"gloo gat rank {rank}")
 
 
 # ----------------------------------------------------------- GAT training
