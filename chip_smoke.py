@@ -270,6 +270,9 @@ import torch.distributed as dist
 import torch.utils.checkpoint
 
 from distributed_sddmm_tpu_torch import masks
+from distributed_sddmm_tpu_torch.autotune import cache as plan_cache
+from distributed_sddmm_tpu_torch.autotune import candidates as plan_candidates
+from distributed_sddmm_tpu_torch.autotune import measure as plan_measure
 from distributed_sddmm_tpu_torch.autotune.fingerprint import Problem
 from distributed_sddmm_tpu_torch.bench import cli, harness
 from distributed_sddmm_tpu_torch.bench import kernels as kernel_bench
@@ -285,15 +288,18 @@ from distributed_sddmm_tpu_torch.models.serial_als import SerialALS
 from distributed_sddmm_tpu_torch.ops import _build, cuda_kernels
 from distributed_sddmm_tpu_torch.ops import autograd as tile_autograd
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
+from distributed_sddmm_tpu_torch.obs import metrics as plan_metrics
 from distributed_sddmm_tpu_torch.ops.kernels import ATTN_NEG
 from distributed_sddmm_tpu_torch.parallel import comm as comm_mod
-from distributed_sddmm_tpu_torch.parallel import sharding
+from distributed_sddmm_tpu_torch.parallel import loops, sharding
 from distributed_sddmm_tpu_torch.parallel.cannon_dense_25d import CannonDense25D
 from distributed_sddmm_tpu_torch.parallel.comm import DistWorld, LocalWorld
 from distributed_sddmm_tpu_torch.parallel.dense_shift_15d import DenseShift15D
 from distributed_sddmm_tpu_torch.parallel.mesh import make_grid
 from distributed_sddmm_tpu_torch.parallel.sharding import BankedTileView, TileView
+from distributed_sddmm_tpu_torch.parallel.wire import wire_policy
 from distributed_sddmm_tpu_torch.resilience import CheckpointStore, NumericalFault
+from distributed_sddmm_tpu_torch.tools import costmodel
 from distributed_sddmm_tpu_torch.utils import oracle, verify
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 
@@ -2262,10 +2268,11 @@ def ring_banked(dev, launches: dict, card: str) -> None:
     add_launches(launches, counts, "f32")
 
 
-def ring_scaling(uniform, dev, launches: dict, card: str) -> dict:
+def ring_scaling(uniform, dev, launches: dict, card: str, keep: dict | None = None) -> dict:
     """The full cell at logical p on this card: the harness's own loop,
     launches a pair, peak memory, the breakdown, and one pair's sampled
-    rows against float64."""
+    rows against float64. With ``keep`` the strategy at PLANS["grid"]
+    lands there (phase plans runs on it)."""
     S, alg1 = uniform
     R = FULL["R"]
     rng = np.random.default_rng(4)
@@ -2319,6 +2326,8 @@ def ring_scaling(uniform, dev, launches: dict, card: str) -> dict:
                   "pairs": RING_TRIALS, "tile_nnz_max": alg.S_tiles.max_nnz,
                   "comm_profile": alg.comm_profile("fusedSpMM"), **row})
             del out, mid, A, B, sv
+        if keep is not None and (p, c) == PLANS["grid"]:
+            keep["15d_fusion2"] = alg
         if alg is not alg1:
             del alg
     return result
@@ -2364,7 +2373,8 @@ def ring_nccl(S, dev, launches: dict, card: str) -> None:
         path.unlink(missing_ok=True)
 
 
-def phase_ring(S16, uniform, dev, launches: dict, card: str) -> dict:
+def phase_ring(S16, uniform, dev, launches: dict, card: str,
+               keep: dict | None = None) -> dict:
     t0 = time.perf_counter()
     seconds = {}
 
@@ -2377,7 +2387,7 @@ def phase_ring(S16, uniform, dev, launches: dict, card: str) -> dict:
     timed("verify", ring_verify, S16, dev, launches, card)
     timed("attention", ring_attention, dev, launches, card)
     timed("banked", ring_banked, dev, launches, card)
-    scaling = timed("scaling", ring_scaling, uniform, dev, launches, card)
+    scaling = timed("scaling", ring_scaling, uniform, dev, launches, card, keep)
     timed("nccl", ring_nccl, S16, dev, launches, card)
     emit({"phase": "ring", "card": card, "seconds": time.perf_counter() - t0,
           "seconds_by_part": seconds,
@@ -4379,6 +4389,456 @@ def phase_apps_strategies(uniform, algs: dict, dev, launches: dict, card: str) -
     return out
 
 
+# ---------------------------------------------------------------- plans
+# The wire-precision policy on the strategies' collectives and the
+# autotuner (``parallel/wire.py``, ``autotune/``): phase plans.
+
+#: Phase plans: the grid of the wire runs (four logical ranks), the
+#: harness loop's pairs, the measured autotune cell, NCCL call repeats.
+PLANS = {"grid": (4, 1), "warmup": 3, "pairs": 10, "cli_trials": 3,
+         "measure": {"log_m": 16, "edge_factor": 32, "R": 128, "p": 4}, "nccl_reps": 200}
+#: The bf16 wire's gate against float64: the bf16 verify tolerance.
+WIRE_RTOL = VERIFY_RTOL["bf16"]
+
+
+@contextlib.contextmanager
+def swapped(module, name: str, value):
+    """``module.name = value`` while the block runs."""
+    real = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield real
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def plan_cache_dir(name: str):
+    """A fresh plan-cache directory under ``_build/`` for the block
+    (``SDDMM_TORCH_PLAN_CACHE``), removed after."""
+    path = _build.BUILD_DIR / name
+    shutil.rmtree(path, ignore_errors=True)
+    prev = os.environ.get(plan_cache.PLAN_CACHE_ENV)
+    os.environ[plan_cache.PLAN_CACHE_ENV] = str(path)
+    try:
+        yield path
+    finally:
+        if prev is None:
+            os.environ.pop(plan_cache.PLAN_CACHE_ENV, None)
+        else:
+            os.environ[plan_cache.PLAN_CACHE_ENV] = prev
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def pair_launches(alg) -> dict:
+    """One fused pair's launches: the bands' when a banked kernel shaped
+    the tiles, else one tile kernel a rank a ring step."""
+    if alg.kernel_variant_realized:
+        return strategy_band_launches(alg, pair_only=True)
+    return strategy_launches(alg, pair_only=True)
+
+
+def fingerprints64(S: HostCOO, ops, dev, chunk: int = 1 << 20) -> dict:
+    """Float64 fingerprints of every output of ``verify.op_outputs`` on
+    ``ops``: the ops term for term in torch float64 on ``dev``, in chunks
+    of ``chunk`` nonzeros."""
+    A, B, v = (torch.as_tensor(x, dtype=torch.float64, device=dev) for x in ops)
+    rows = torch.as_tensor(S.rows, device=dev)
+    cols = torch.as_tensor(S.cols, device=dev)
+
+    def sddmm(r, c, X, Y):
+        return torch.cat([v[k:k + chunk] * (X[r[k:k + chunk]] * Y[c[k:k + chunk]]).sum(1)
+                          for k in range(0, S.nnz, chunk)])
+
+    def spmm(r, c, w, Y, n):
+        out = torch.zeros(n, Y.shape[1], dtype=torch.float64, device=dev)
+        for k in range(0, S.nnz, chunk):
+            out.index_add_(0, r[k:k + chunk], w[k:k + chunk, None] * Y[c[k:k + chunk]])
+        return out
+
+    mid_a, mid_b = sddmm(rows, cols, A, B), sddmm(cols, rows, B, A)
+    out = {"sddmmA": mid_a, "sddmmB": mid_b, "spmmA": spmm(rows, cols, v, B, S.M),
+           "spmmB": spmm(cols, rows, v, A, S.N), "fusedA": spmm(rows, cols, mid_a, B, S.M),
+           "fusedA_mid": mid_a, "fusedB": spmm(cols, rows, mid_b, A, S.N),
+           "fusedB_mid": mid_b}
+    return {op: float((x * x).sum()) for op, x in out.items()}
+
+
+def plans_wire_headline(S16, dev, launches: dict, card: str) -> dict:
+    """The four strategies at PLANS["grid"] on the headline R-mat: on
+    operands in {-1, 0, 1} (exact in bf16) every op under the bf16 wire
+    equal to the f32 wire bit for bit; on N(0, 1) operands the bf16
+    wire's fingerprints, with either CUDA kernel, within WIRE_RTOL of
+    float64 (computed on the card), and different from the f32 wire's
+    with cuda-f32 (the casts ran); with cuda-bf16 each op compared with
+    the f32 wire's (equal where the rings carry only operands the kernel
+    rounds anyway: predicted for the dense shift at c = 1)."""
+    R = HEADLINE["R"]
+    p, c = PLANS["grid"]
+    ints = int_operands(S16, R)
+    rng = np.random.default_rng(8)
+    normal = (rng.standard_normal((S16.M, R)).astype(np.float32),
+              rng.standard_normal((S16.N, R)).astype(np.float32),
+              rng.standard_normal(S16.nnz).astype(np.float32))
+    t = time.perf_counter()
+    want = fingerprints64(S16, normal, dev)
+    oracle_s = time.perf_counter() - t
+    result = {}
+    for name in STRATEGIES["names"]:
+        alg = make_algorithm(name, S16, R, c=c, world=LocalWorld(p),
+                             kernel=CudaTileKernel("f32", device=dev), device=dev)
+        tag = f"plans wire {name} ({p},{c})"
+        out = {}
+        for label, kern, wire, ops in (("int/f32", "f32", "f32", ints),
+                                       ("int/bf16", "f32", "bf16", ints),
+                                       ("normal/f32", "f32", "f32", normal),
+                                       ("normal/bf16", "f32", "bf16", normal),
+                                       ("normal/f32/cuda-bf16", "bf16", "f32", normal),
+                                       ("normal/bf16/cuda-bf16", "bf16", "bf16", normal)):
+            alg.kernel = CudaTileKernel(kern, device=dev)
+            alg.wire = wire_policy(wire)
+            out[label], counts = run_counted(lambda: verify.op_outputs(alg, *ops))
+            add_launches(launches, counts, kern)
+        int_equal = {op: bool(np.array_equal(out["int/bf16"][op], out["int/f32"][op]))
+                     for op in out["int/f32"]}
+        rel = {kern: {op: abs(oracle.fingerprint(x) / want[op] - 1)
+                      for op, x in out[label].items()}
+               for kern, label in (("cuda-f32", "normal/bf16"),
+                                   ("cuda-bf16", "normal/bf16/cuda-bf16"))}
+        moved = [op for op in want
+                 if not np.array_equal(out["normal/bf16"][op], out["normal/f32"][op])]
+        kernel_bf16_equal = {op: bool(np.array_equal(out["normal/bf16/cuda-bf16"][op],
+                                                     out["normal/f32/cuda-bf16"][op]))
+                             for op in want}
+        row = {"int_equal_f32_wire": int_equal, "normal_rel_err": rel,
+               "normal_ops_moved_by_the_wire": moved,
+               "cuda_bf16_wire_equal_f32_wire": kernel_bf16_equal}
+        result[name] = row
+        emit({"phase": "plans_wire_headline", "card": card, "algorithm": name, "p": p,
+              "c": c, "nnz": S16.nnz, "R": R, "rtol": WIRE_RTOL,
+              "oracle_seconds": oracle_s, **row})
+        require(all(int_equal.values()), f"{tag}: bf16 wire differs on integers: {int_equal}")
+        require(all(r <= WIRE_RTOL for k in rel.values() for r in k.values()),
+                f"{tag}: N(0,1) fingerprints {rel}")
+        require(moved, f"{tag}: the bf16 wire changed no output on N(0,1) operands")
+        del alg, out
+    return result
+
+
+def plans_wire_full(uniform, algs: dict, dev, launches: dict, card: str) -> dict:
+    """The full cell at PLANS["grid"] over a ``LocalWorld``: the four
+    strategies (``algs``: the dense shift of phase ring's scaling, the
+    R-split tile sets phase strategies built), f32 and bf16 wire, each
+    CUDA kernel: the harness's
+    loop, ms and GFLOP/s a pair, launches a pair, the wire's label and its
+    modeled or counted bytes a pair; one bf16-wire pair's sampled rows
+    against float64 (within the bf16 verify tolerance with cuda-f32). A
+    ``LocalWorld`` moves no bytes: what the bf16 wire adds here is its
+    casts."""
+    S = uniform[0]
+    R = FULL["R"]
+    p, c = PLANS["grid"]
+    rng = np.random.default_rng(9)
+    warmup, pairs = PLANS["warmup"], PLANS["pairs"]
+    result = {}
+    for name in STRATEGIES["names"]:
+        alg = algs[name]
+        alg.set_r_value(R)
+        for prec in PRECISIONS:
+            alg.kernel = CudaTileKernel(prec, device=dev)
+            for wire in ("f32", "bf16"):
+                alg.wire = wire_policy(wire)
+                tag = f"plans wire full {name}/{prec}/{wire}"
+                elapsed, counts = run_counted(
+                    lambda: harness._run_vanilla(alg, True, pairs, warmup))
+                require(counts == scaled(pair_launches(alg), warmup + pairs),
+                        f"{tag}: launches {counts}")
+                add_launches(launches, counts, prec)
+                profile = alg.comm_profile("fusedSpMM")
+                row = {"ms_per_pair": elapsed / pairs * 1e3,
+                       "gflops": 2.0 * S.nnz * 2.0 * R * pairs / elapsed / 1e9,
+                       "wire": alg.wire.label,
+                       "comm_bytes": sum(e["bytes"] for e in profile),
+                       "comm_words": sum(e["words"] for e in profile)}
+                if wire == "bf16" and prec == "f32":
+                    # With cuda-f32 the wire is the one bf16 rounding. (On
+                    # the dummy fill every slot of a row carries one value,
+                    # so with cuda-bf16 the kernel's roundings and the
+                    # wire's add up with one sign: 0.67-1.04% in the
+                    # first runs, against the 1% tolerance.)
+                    A, B = alg.dummy_initialize(MatMode.A), alg.like_b_matrix(0.01)
+                    sv = alg.like_s_values(1.0)
+                    a, b = alg.initial_shift(A, B, KernelMode.SDDMM_A)
+                    out, mid = alg.fused_spmm(a, b, sv)
+                    out = alg._to_global(alg.de_shift(out, None, KernelMode.SPMM_A)[0],
+                                         MatMode.A)
+                    require(bool(torch.isfinite(out).all()), f"{tag}: output not finite")
+                    row["sampled_rel_err"] = sampled_reference(S, alg, out, mid, dev, rng)
+                    require(row["sampled_rel_err"] <= VERIFY_RTOL["bf16"],
+                            f"{tag}: sampled rows off by {row['sampled_rel_err']:.3e}")
+                    del A, B, sv, a, b, out, mid
+                result[f"{name}/{prec}/{wire}"] = row
+                emit({"phase": "plans_wire_full", "card": card, "algorithm": name, "p": p,
+                      "c": c, "precision": prec, "nnz": S.nnz, "R": R, "warmup": warmup,
+                      "pairs": pairs, **row})
+                require(row["wire"] == wire, f"{tag}: the strategy realized {row['wire']}")
+            alg.wire = wire_policy("f32")
+    return result
+
+
+def plans_wire_nccl(dev, card: str) -> dict:
+    """One process over NCCL (world size 1): bf16 payloads through a
+    ``DistWorld``'s gather, reduce-scatter and hop, each equal to a
+    ``LocalWorld(1)``'s bit for bit (the payload rounded to bf16, back in
+    float32); and the floor under a hop between cards, the time of one
+    NCCL all-reduce of one float32 (``tools/costmodel.DEFAULT_ALPHA_S``)."""
+    path = _build.BUILD_DIR / "nccl_init_plans"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    grid = make_grid(1, 1, 1, adjacency=1)
+    x = torch.randn(4096, HEADLINE["R"], device=dev)
+    local = LocalWorld(1).comm(grid, dev)
+    dist.init_process_group("nccl", init_method=f"file://{path}", rank=0, world_size=1)
+    try:
+        comm = DistWorld().comm(grid, dev)
+        ops = {"all_gather": lambda cm: loops.abl_all_gather(cm, [x], "rows", 1, "bf16"),
+               "reduce_scatter": lambda cm: loops.abl_psum_scatter(cm, [x], "rows", 1, "bf16"),
+               "ppermute": lambda cm: loops.abl_ppermute(cm, [x], "rows",
+                                                        loops.ring_perm(1), "bf16")()}
+        rounded = x.to(torch.bfloat16).float()
+        equal = {}
+        for name, fn in ops.items():
+            got, want = fn(comm)[0], fn(local)[0]
+            equal[name] = bool(torch.equal(got, want) and torch.equal(got, rounded)
+                               and got.dtype == torch.float32)
+        one = torch.ones(1, device=dev)
+        dist.all_reduce(one)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(PLANS["nccl_reps"]):
+            dist.all_reduce(one)
+            torch.cuda.synchronize()
+        call_s = (time.perf_counter() - t) / PLANS["nccl_reps"]
+        counts = dict(comm.counts)
+        row = {"equal_local": equal, "collectives": counts, "backend": dist.get_backend(),
+               "nccl_all_reduce_one_float_us": call_s * 1e6,
+               "costmodel_alpha_us": costmodel.DEFAULT_ALPHA_S * 1e6}
+        emit({"phase": "plans_wire_nccl", "card": card, **row})
+        require(all(equal.values()), f"plans wire nccl: {equal}")
+        require(counts["all_gather"] and counts["reduce_scatter"] and counts["ppermute"],
+                f"plans wire nccl: collectives {counts}")
+    finally:
+        dist.destroy_process_group()
+        path.unlink(missing_ok=True)
+    return row
+
+
+def auto_cli(argv: list) -> dict:
+    """One ``er ... auto`` run through ``cli.main`` with its record
+    (``-o``), its stdout and stderr, the strategies the harness built, the
+    launch counts, the trials it measured (``measure.default_trial``,
+    recorded) and the seconds ``get_plan`` took."""
+    path = _build.BUILD_DIR / "plans_cli.jsonl"
+    path.unlink(missing_ok=True)
+    trials, plan_s = [], []
+
+    def recording_trial(S, problem, cand, n, warmup, **kw):
+        rec = real_trial(S, problem, cand, n, warmup, **kw)
+        trials.append((cand, rec))
+        return rec
+
+    def timed_plan(*args, **kw):
+        t = time.perf_counter()
+        plan = real_plan(*args, **kw)
+        plan_s.append(time.perf_counter() - t)
+        return plan
+
+    out, err = io.StringIO(), io.StringIO()
+    with swapped(plan_measure, "default_trial", recording_trial) as real_trial, \
+            swapped(cli, "get_plan", timed_plan) as real_plan, built_algorithms() as built, \
+            contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        t = time.perf_counter()
+        rc, counts = run_counted(lambda: cli.main([*argv, "-o", str(path)]))
+        seconds = time.perf_counter() - t
+    recs = [json.loads(line) for line in path.read_text().splitlines()] if path.exists() else []
+    path.unlink(missing_ok=True)
+    return {"rc": rc, "counts": counts, "records": recs, "stdout": out.getvalue(),
+            "stderr": err.getvalue(), "built": built, "trials": trials,
+            "plan_seconds": plan_s, "seconds": seconds}
+
+
+def planned_rows(S: HostCOO, alg, dev, prec: str, tag: str) -> float:
+    """One fused pair of a planned strategy (the dummy fill, B = 0.01):
+    finite, of the padded shape, its sampled rows against float64."""
+    A, B = alg.dummy_initialize(MatMode.A), alg.like_b_matrix(0.01)
+    sv = alg.like_s_values(1.0)
+    a, b = alg.initial_shift(A, B, KernelMode.SDDMM_A)
+    out, mid = alg.fused_spmm(a, b, sv)
+    out = alg._to_global(alg.de_shift(out, None, KernelMode.SPMM_A)[0], MatMode.A)
+    require(tuple(out.shape) == (alg.M_pad, alg.R) and bool(torch.isfinite(out).all()),
+            f"{tag}: output not finite or misshapen")
+    err = sampled_reference(S, alg, out, mid, dev, np.random.default_rng(10))
+    require(err <= VERIFY_RTOL[prec], f"{tag}: sampled rows off by {err:.3e}")
+    return err
+
+
+def plans_auto_model(dev, launches: dict, card: str) -> dict:
+    """``er 20 32 auto 128 1 --plan-mode model`` on the card (one rank) in
+    a fresh plan cache: the plan line, the record's plan, the planned
+    strategy's pair against float64; then the same command again, which
+    must recall the plan from the cache with no trial."""
+    argv = ["er", str(FULL["log_m"]), str(FULL["edge_factor"]), "auto", str(FULL["R"]), "1",
+            "--plan-mode", "model", "--trials", str(PLANS["cli_trials"])]
+    result = {}
+    with plan_cache_dir("plans_cache_model") as cache_dir, local_ranks(1):
+        for call_no in (1, 2):
+            hits = plan_metrics.GLOBAL.get("plan_cache_hits")
+            run = auto_cli(argv)
+            tag = f"plans auto model call {call_no}"
+            require(run["rc"] == 0 and len(run["records"]) == 1, f"{tag}: rc {run['rc']}, "
+                    f"{len(run['records'])} records; stderr {run['stderr'][-2000:]}")
+            rec = run["records"][0]
+            plan = rec["plan"]
+            line = [x for x in run["stderr"].splitlines() if x.startswith("plan[")]
+            (S, alg), = run["built"]
+            prec = plan["kernel"].removeprefix("cuda-")
+            require(plan["kernel"].startswith("cuda-"), f"{tag}: a plan named {plan['kernel']}")
+            require(rec["algorithm"] == plan["algorithm"] and rec["c"] == plan["c"]
+                    and rec["wire"] == (plan["wire"] or "f32"),
+                    f"{tag}: record {rec['algorithm']} c={rec['c']} against plan {plan}")
+            expect = scaled(pair_launches(alg), 1 + PLANS["cli_trials"])
+            require(run["counts"] == expect, f"{tag}: launches {run['counts']} != {expect}")
+            add_launches(launches, run["counts"], prec)
+            row = {"plan": plan, "plan_line": line, "trials": len(run["trials"]),
+                   "plan_seconds": run["plan_seconds"], "cli_seconds": run["seconds"],
+                   "cache_hit": plan_metrics.GLOBAL.get("plan_cache_hits") - hits,
+                   "cache_files": sorted(x.name for x in cache_dir.glob("*.json")),
+                   "ms_per_pair": rec["elapsed"] / rec["num_trials"] * 1e3,
+                   "gflops": rec["overall_throughput"], "launches": run["counts"]}
+            if call_no == 1:
+                row["sampled_rel_err"] = planned_rows(S, alg, dev, prec, tag)
+            else:
+                require(row["cache_hit"] == 1 and plan == result[1]["plan"],
+                        f"{tag}: no cache hit ({row['cache_hit']}) or another plan")
+            require(row["trials"] == 0 and line, f"{tag}: {row['trials']} trials, line {line}")
+            result[call_no] = row
+            emit({"phase": "plans_auto_model", "card": card, "call": call_no,
+                  "nnz": S.nnz, "R": FULL["R"], **row})
+            del run, S, alg
+    return result
+
+
+def plans_auto_measure(dev, launches: dict, card: str) -> dict:
+    """``er 16 32 auto 128 1 --plan-mode measure`` over PLANS["measure"]
+    ["p"] logical ranks in a fresh plan cache: the top-3 candidates'
+    measured GFLOP/s beside the model's ``predicted_ms`` for each, and the
+    winner; the winner's record and the planned strategy's pair against
+    float64."""
+    cfg = PLANS["measure"]
+    argv = ["er", str(cfg["log_m"]), str(cfg["edge_factor"]), "auto", str(cfg["R"]), "1",
+            "--plan-mode", "measure", "--trials", str(PLANS["cli_trials"])]
+    with plan_cache_dir("plans_cache_measure"), local_ranks(cfg["p"]):
+        run = auto_cli(argv)
+    tag = "plans auto measure"
+    require(run["rc"] == 0 and len(run["records"]) == 1,
+            f"{tag}: rc {run['rc']}; stderr {run['stderr'][-2000:]}")
+    rec = run["records"][0]
+    plan = rec["plan"]
+    S, alg = run["built"][-1]
+    problem = Problem.from_coo(S, cfg["R"])
+    trials = [{"algorithm": cand.algorithm, "c": cand.c, "kernel": cand.kernel,
+               "variant": cand.variant, "wire": cand.wire,
+               "gflops": r["overall_throughput"],
+               "predicted_ms": plan_candidates.model_cost(problem, cand, cfg["p"]) * 1e3}
+              for cand, r in run["trials"]]
+    best = max(trials, key=lambda x: x["gflops"]) if trials else None
+    prec = plan["kernel"].removeprefix("cuda-")
+    # Each trial runs 1 warmup and 2 timed pairs; the planned run its own.
+    expect = added(*(scaled(pair_launches(a), 3) for _, a in run["built"][:-1]),
+                   scaled(pair_launches(alg), 1 + PLANS["cli_trials"]))
+    require(run["counts"] == expect, f"{tag}: launches {run['counts']} != {expect}")
+    add_launches(launches, run["counts"], prec)
+    err = planned_rows(S, alg, dev, prec, tag)
+    row = {"plan": plan, "trials": trials, "winner": best,
+           "plan_seconds": run["plan_seconds"], "cli_seconds": run["seconds"],
+           "ms_per_pair": rec["elapsed"] / rec["num_trials"] * 1e3,
+           "gflops": rec["overall_throughput"], "sampled_rel_err": err,
+           "launches": run["counts"]}
+    emit({"phase": "plans_auto_measure", "card": card, "p": cfg["p"], "nnz": S.nnz,
+          "R": cfg["R"], **row})
+    require(len(trials) == 3 and plan["source"] == "measured",
+            f"{tag}: {len(trials)} trials, plan source {plan['source']}")
+    require((plan["algorithm"], plan["c"], plan["wire"]) ==
+            (best["algorithm"], best["c"], best["wire"]),
+            f"{tag}: the plan {plan} is not the measured winner {best}")
+    return row
+
+
+def plans_from_plan(S16, ref, dev, launches: dict, card: str) -> dict:
+    """``DistributedALS.from_plan`` and ``GAT.from_plan`` at the headline on
+    one rank (plans from a fresh cache): one ALS step whose residual ratio
+    lies within ALS_RATIO_TOL of the float64 solver's from the same
+    start, and one GAT forward within GAT_TOL of phase apps' float64
+    forward with the same weights."""
+    R, it = HEADLINE["R"], ALS["cg_iters"]
+    with plan_cache_dir("plans_cache_apps"):
+        world = LocalWorld(1)
+        als, counts = run_counted(lambda: als_mod.DistributedALS.from_plan(
+            S16, R, world=world, device=dev))
+        prec = als.plan.kernel.removeprefix("cuda-")
+        add_launches(launches, counts, prec)
+        als.initialize_embeddings()
+        ref64 = float64_first_step_ratio(S16, als, it, dev)
+        r0 = als.compute_residual()
+        _, counts = run_counted(lambda: als.run_cg(1, cg_iters=it))
+        add_launches(launches, counts, prec)
+        ratio = als.compute_residual() / r0
+        gap = abs(ratio - ref64["ratio"])
+        gat = gat_mod.GAT.from_plan(S16, harness._gat_layers(R), world=world, device=dev)
+        for layer, ws in zip(gat.layers, gat_host_weights(R, GAT_REF["forward_seed"])):
+            layer.weights = [w.float().to(dev) for w in ws]
+        out, counts = run_counted(gat.forward)
+        add_launches(launches, counts, prec)
+        want = ref.forward()["forward"][: S16.M]
+        got = gat.d_ops.host_a(out)
+        gat_err = float(np.abs(got - want).max()) / float(np.abs(want).max())
+    row = {"als_plan": als.plan.to_dict(), "gat_plan": gat.plan.to_dict(),
+           "als_first_step_ratio": ratio, "float64_first_step_ratio": ref64["ratio"],
+           "ratio_gap": gap, "ratio_tol": ALS_RATIO_TOL, "gat_rel_err": gat_err,
+           "gat_tol": GAT_TOL[prec]}
+    emit({"phase": "plans_from_plan", "card": card, "nnz": S16.nnz, "R": R, **row})
+    require(ratio < 1 and gap <= ALS_RATIO_TOL,
+            f"plans from_plan: ALS ratio {ratio:.6f} against float64's {ref64['ratio']:.6f}")
+    require(got.shape == want.shape and gat_err <= GAT_TOL[prec],
+            f"plans from_plan: GAT {gat_err:.3e} > {GAT_TOL[prec]}")
+    require(als.plan.kernel.startswith("cuda-") and gat.plan == als.plan,
+            f"plans from_plan: plans {als.plan} / {gat.plan}")
+    del als, gat, out
+    return row
+
+
+def phase_plans(S16, uniform, algs: dict, ref, dev, launches: dict, card: str) -> dict:
+    t0 = time.perf_counter()
+    seconds, out = {}, {}
+    for part, fn, args in (("wire_headline", plans_wire_headline, (S16,)),
+                           ("wire_full", plans_wire_full, (uniform, algs)),
+                           ("auto_model", plans_auto_model, ()),
+                           ("auto_measure", plans_auto_measure, ()),
+                           ("from_plan", plans_from_plan, (S16, ref))):
+        t = time.perf_counter()
+        out[part] = fn(*args, dev, launches, card)
+        seconds[part] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["wire_nccl"] = plans_wire_nccl(dev, card)
+    seconds["wire_nccl"] = time.perf_counter() - t
+    emit({"phase": "plans", "card": card, "seconds": time.perf_counter() - t0,
+          "seconds_by_part": seconds,
+          "wire_full_ms_per_pair": {k: v["ms_per_pair"] for k, v in out["wire_full"].items()},
+          "auto_model_plan": out["auto_model"][1]["plan"],
+          "auto_measure_plan": out["auto_measure"]["plan"]})
+    return out
+
+
 # ------------------------------------------------------------- host_cli
 
 
@@ -4753,7 +5213,8 @@ def drive(info: dict, dev, ref: HostReference) -> int:
     phase_banked(dev, launches, entries, uniform)
     phase_cli(dev, launches)
     ring: dict = {}
-    ring_rows = phase_ring(S16, uniform, dev, ring, card)
+    kept: dict = {}
+    ring_rows = phase_ring(S16, uniform, dev, ring, card, kept)
     apps: dict = {}
     phase_apps(S16, uniform, ref, dev, apps, card)
     strategies: dict = {}
@@ -4763,11 +5224,13 @@ def drive(info: dict, dev, ref: HostReference) -> int:
     phase_training(S16, uniform, ref, dev, training, card)
     apps_strategies: dict = {}
     phase_apps_strategies(uniform, algs, dev, apps_strategies, card)
-    del uniform, algs
+    plans: dict = {}
+    phase_plans(S16, uniform, {**kept, **algs}, ref, dev, plans, card)
+    del uniform, algs, kept
     host: dict = {}
     phase_host_cli(S16, full, dev, host, entries, card)
     for key, n in (*ring.items(), *apps.items(), *strategies.items(), *training.items(),
-                   *apps_strategies.items(), *host.items()):
+                   *apps_strategies.items(), *plans.items(), *host.items()):
         launches[key] = launches.get(key, 0) + n
 
     kernels = []
@@ -4784,6 +5247,7 @@ def drive(info: dict, dev, ref: HostReference) -> int:
             "strategies_launches": strategies.get((op, prec), 0),
             "training_launches": training.get((op, prec), 0),
             "apps_strategies_launches": apps_strategies.get((op, prec), 0),
+            "plans_launches": plans.get((op, prec), 0),
             "host_cli_launches": host.get((op, prec), 0),
             "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
             "max_rel_err": max(r["max_rel_err"] for r in shapes.values()),

@@ -7,7 +7,11 @@ Subcommands:
   ``bench_erdos_renyi.cpp``): an R-mat matrix of ``2**log_m`` rows and
   ``edge_factor`` edges a row (seed 0, the JAX package's draw), one R, one
   c, and one algorithm or a group of them (``ALG_GROUPS``: ``15d``,
-  ``25d``, ``all``), each member run in turn with a record of its own;
+  ``25d``, ``all``), each member run in turn with a record of its own, or
+  ``auto``: the autotuner's plan (``autotune/``) picks the algorithm, c,
+  kernel variant and wire for each (matrix, R) under ``--plan-mode``,
+  prints ``plan[<source>] ...`` on stderr and puts the plan into the
+  record;
 * ``file``     -- the same on a matrix-market file (``bench_file.cpp``),
   ``--permute`` applying a random row and column permutation (seed 0)
   first;
@@ -35,7 +39,11 @@ persist under ``--checkpoint-dir`` (every ``--checkpoint-every`` steps;
 that codegen variant (``codegen/``), which refuses ``--kernel torch`` as
 the JAX CLI refuses a kernel other than pallas. ``--fusion overlap`` runs
 the double-buffered ring and ``--breakdown`` the region attribution, as in
-the JAX CLI.
+the JAX CLI. ``--wire bf16`` casts the collectives' gather and ring
+payloads to bf16 on the wire (``parallel/wire.py``); the record's
+``wire`` names the realized policy. With ``auto`` the plan's wire and c
+supersede ``--wire`` and the positional c, and ``--kernel`` names the
+kernel family (the precision) the plan may use.
 
 Every subcommand that uses the card takes ``--device`` (default ``cuda``,
 which raises without one; ``cpu`` runs the plain versions). The world
@@ -45,10 +53,9 @@ comes from the environment (``parallel/comm.world_from_env``):
 this process (default 1). Each run prints one JSON summary line and
 appends its full record to ``-o`` (process 0 only). Flags whose machinery
 is not ported (tracing, profiling, faults, the watchdog, the flight
-recorder, wire precision, the run store, plan modes) and the subcommands
-that are not (``overlap``, ``serve``, ``fleet``, ``tune``, the run-store
-and trace tools, ``top``, ``lint``, ``env``) are not defined, so argparse
-refuses them.
+recorder, the run store) and the subcommands that are not (``overlap``,
+``serve``, ``fleet``, ``tune``, the run-store and trace tools, ``top``,
+``lint``, ``env``) are not defined, so argparse refuses them.
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ import sys
 import torch.distributed as dist
 
 from distributed_sddmm_tpu_torch import masks
+from distributed_sddmm_tpu_torch.autotune import Problem, get_plan
 from distributed_sddmm_tpu_torch.bench import kernels as kernel_bench
 from distributed_sddmm_tpu_torch.bench.baseline import run_baseline
 from distributed_sddmm_tpu_torch.bench.harness import (
@@ -89,15 +97,17 @@ HEATMAP_R_VALUES = [64, 128, 192, 256, 320, 384, 448]
 
 
 def resolve_algs(name: str) -> list[str]:
-    """The algorithms an ``alg`` argument names: a group's members or the
-    one algorithm."""
+    """The algorithms an ``alg`` argument names: a group's members, the
+    one algorithm, or ``auto`` (a plan a run, ``_run_configs``)."""
+    if name == "auto":
+        return ["auto"]
     if name in ALG_GROUPS:
         return ALG_GROUPS[name]
     if name in ALGORITHM_FACTORIES:
         return [name]
     raise SystemExit(
         f"unknown algorithm {name!r}; expected one of "
-        f"{sorted(ALGORITHM_FACTORIES) + sorted(ALG_GROUPS)}"
+        f"{sorted(ALGORITHM_FACTORIES) + sorted(ALG_GROUPS) + ['auto']}"
     )
 
 
@@ -150,7 +160,22 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="local kernel (default: cuda-bf16 on cuda, cuda-f32 on cpu)")
     p.add_argument("--kernel-variant", default=None, metavar="VID",
                    help="codegen variant id (v1.rb<thr>.<rs|rm|rl>): run the "
-                   "banked CUDA kernel, one launch per row band")
+                   "banked CUDA kernel, one launch per row band; plans select one "
+                   "automatically via the algorithm 'auto'")
+    p.add_argument(
+        "--plan-mode", default="model", choices=["model", "auto", "measure"],
+        help="with the algorithm 'auto': 'model' selects by cost model / "
+        "cache only (fast, no trial runs); 'measure' times the top "
+        "candidates first; 'auto' measures when possible",
+    )
+    p.add_argument(
+        "--wire", default=None, choices=["f32", "bf16"],
+        help="wire-precision policy for the distributed collectives "
+        "(parallel/wire.py): 'bf16' halves gather/ring payload bytes "
+        "with f32 accumulation everywhere; 'f32' (and the default, "
+        "absent SDDMM_TORCH_WIRE) is the bit-identical identity wire. With "
+        "the algorithm 'auto' the plan's comm_dtype axis supersedes this",
+    )
     p.add_argument("--checkpoint-dir", default=None, metavar="DIR",
                    help="persist app state (ALS factors) under DIR atomically")
     p.add_argument("--checkpoint-every", type=int, default=1, metavar="N",
@@ -235,34 +260,60 @@ def _maybe_mask(S: HostCOO, args) -> HostCOO:
     return masks.from_spec(args.mask, n=max(S.M, S.N), graph=S)
 
 
+def _plan(S: HostCOO, R: int, args, device, world):
+    """The autotuner's plan for ``S`` at ``R`` under ``--plan-mode``, its
+    ``plan[...]`` line printed on stderr (process 0)."""
+    mode = args.plan_mode
+    plan = get_plan(Problem.from_coo(S, R), world,
+                    S=S if mode in ("auto", "measure") else None,
+                    device=device, kernel=args.kernel, mode=mode)
+    if world.process_index == 0:
+        print(f"plan[{plan.source}] {plan.algorithm} c={plan.c} kernel={plan.kernel}"
+              + (f" variant={plan.variant}" if plan.variant else "")
+              + (f" wire={plan.wire}" if plan.wire else "")
+              + (" (chunked)" if plan.gather_budget else ""),
+              file=sys.stderr, flush=True)
+    return plan
+
+
 def _run_configs(S: HostCOO, args, device, world, r_values) -> list:
     """Every member of ``args.alg`` at every R of ``r_values`` and every
     fused setting: one record and one summary line each; a member that
-    refuses is skipped with a line on stderr."""
-    kernel = _kernel(args.kernel, device, args.kernel_variant)
+    refuses is skipped with a line on stderr. ``auto`` runs the plan
+    selected for each R, its c, kernel and wire superseding the
+    positional c, ``--kernel-variant`` and ``--wire``."""
     records = []
     for alg in resolve_algs(args.alg):
         for R in r_values:
+            plan = None
+            if alg == "auto":
+                plan = _plan(S, R, args, device, world)
+                run_alg, run_c, kernel, wire = (plan.algorithm, plan.c,
+                                                plan.make_kernel(device), plan.wire)
+            else:
+                run_alg, run_c, wire = alg, args.c, args.wire
+                kernel = _kernel(args.kernel, device, args.kernel_variant)
             for fused in [True, False] if args.fused == "both" else [args.fused == "yes"]:
                 try:
                     rec = benchmark_algorithm(
-                        S, alg, args.output_file, fused=fused, R=R, c=args.c,
+                        S, run_alg, args.output_file, fused=fused, R=R, c=run_c,
                         app=args.app, trials=args.trials, warmup=args.warmup,
                         kernel=kernel, device=device,
                         mask=args.mask if args.app == "attention" else None,
                         world=world, overlap=args.fusion == "overlap",
                         breakdown=args.breakdown, checkpoint_dir=args.checkpoint_dir,
                         checkpoint_every=args.checkpoint_every, resume=args.resume,
+                        wire=wire, extra_info={"plan": plan.to_dict()} if plan else None,
                     )
                 except (ValueError, NotImplementedError) as e:
                     # A grid, R, app or fusion build the member lacks.
-                    print(f"skip {alg} R={R} c={args.c}: {e}", file=sys.stderr,
+                    print(f"skip {run_alg} R={R} c={run_c}: {e}", file=sys.stderr,
                           flush=True)
                     continue
                 records.append(rec)
                 if world.process_index == 0:
                     print(json.dumps({
-                        "algorithm": alg, "R": R, "c": args.c, "fused": fused,
+                        "algorithm": run_alg, "R": R, "c": run_c, "fused": fused,
                         "elapsed": round(rec["elapsed"], 4),
                         "GFLOPs": round(rec["overall_throughput"], 3),
                     }), flush=True)

@@ -66,11 +66,13 @@ APPS_NOT_PORTED = ()
 
 def make_algorithm(name: str, S: HostCOO, R: int, c: int = 1, kernel=None,
                    device=None, attention: bool = False, world=None,
-                   overlap: bool = False, **kw) -> DistributedSparse:
+                   overlap: bool = False, wire=None, **kw) -> DistributedSparse:
     """Instantiate one of the named algorithm configurations on ``world``
     (None: ``parallel/comm.world_from_env``); ``overlap=True`` selects the
     double-buffered ring (shift strategies only); ``attention=True``
-    asserts that it can run fused attention."""
+    asserts that it can run fused attention; ``wire`` is the
+    wire-precision policy (``parallel/wire.py``; None: the environment's,
+    the f32 identity wire when unset)."""
     if attention and name not in ATTENTION_CAPABLE:
         raise ValueError(
             f"fused attention is implemented for the 1.5D dense-shift "
@@ -89,7 +91,7 @@ def make_algorithm(name: str, S: HostCOO, R: int, c: int = 1, kernel=None,
             )
         kw["overlap"] = True
     return ALGORITHM_FACTORIES[name](S, R, c, kernel=kernel, device=device,
-                                     world=world, **kw)
+                                     world=world, wire=wire, **kw)
 
 
 def _run_vanilla(alg: DistributedSparse, fused: bool, trials: int, warmup: int):
@@ -234,14 +236,19 @@ def benchmark_algorithm(
     checkpoint_dir: Optional[str] = None,
     checkpoint_every: int = 1,
     resume: bool = False,
+    wire=None,
+    extra_info: Optional[dict] = None,
 ) -> dict:
     """Run one configuration of an app; append a JSON record to
     ``output_file`` (if given; process 0 of a world of processes) and
     return it. With ``attention`` ``S`` is the mask and ``mask`` its spec,
     which the record carries. ``breakdown`` replaces ``perf_stats`` by the
     fused pair's region attribution (``measure_breakdown``). The
-    checkpoint arguments are ALS's (``run_cg``). Field names follow the
-    JAX package's record for what this port measures."""
+    checkpoint arguments are ALS's (``run_cg``). ``wire`` is the
+    wire-precision policy; the record's ``wire`` is the realized policy's
+    label. ``extra_info`` is merged into the record (the CLI's ``plan``).
+    Field names follow the JAX package's record for what this port
+    measures."""
     if app not in APPS:
         raise ValueError(f"unknown app {app!r}; expected {' | '.join(APPS)}")
     if breakdown and (app != "vanilla" or not fused):
@@ -254,7 +261,7 @@ def benchmark_algorithm(
         )
     alg = make_algorithm(algorithm_name, S, R, c, kernel=kernel, device=device,
                          attention=app == "attention", world=world,
-                         overlap=overlap)
+                         overlap=overlap, wire=wire)
     if app == "attention":
         elapsed, app_stats = _run_attention(alg, fused, trials, warmup)
     elif app == "gat":
@@ -286,6 +293,8 @@ def benchmark_algorithm(
         "overall_throughput": throughput,
         "kernel": getattr(alg.kernel, "name", type(alg.kernel).__name__),
         "kernel_variant": realized_kernel_variant(alg),
+        # The realized wire policy; its label keeps role overrides apart.
+        "wire": alg.wire.label,
         "device": device_label(alg.device),
         "num_processes": alg.world.num_processes,
         "process_index": alg.world.process_index,
@@ -293,6 +302,7 @@ def benchmark_algorithm(
         "perf_stats": perf_stats,
         "metrics": {k: dict(v) for k, v in alg.metrics.items()},
         **app_stats,
+        **(extra_info or {}),
     }
     if output_file and alg.world.process_index == 0:
         with open(output_file, "a") as f:

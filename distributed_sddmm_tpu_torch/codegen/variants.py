@@ -27,6 +27,7 @@ that the port carries and does not use.
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 
 from distributed_sddmm_tpu_torch.utils.buckets import pow2_bucket
@@ -137,3 +138,64 @@ def variant_ids_for(problem) -> tuple[str, ...]:
     if not v.banked and not v.variant_id.endswith(".rl"):
         return ()
     return (v.variant_id,)
+
+
+#: Warps an H100 SXM keeps resident at once (132 SMs x 64 warps): the
+#: width of one wave of lane groups.
+RESIDENT_WARPS = 132 * 64
+
+
+def heaviest_row(problem) -> float:
+    """The problem's heaviest row: its own ``row_max`` when known, else
+    the expected largest of M Poisson rows of the mean degree,
+    ``mean + sqrt(2 * mean * ln M)``."""
+    if getattr(problem, "row_max", 0):
+        return float(problem.row_max)
+    lam = problem.nnz_per_row
+    return lam + math.sqrt(2.0 * lam * math.log(max(problem.M, 2)))
+
+
+def estimated_pad_frac(problem, banked: bool) -> float:
+    """The idle share of a tile walk on the card, against the nonzeros'
+    work: no pad lanes exist in the port's CSR walks, so what a variant
+    saves or costs is imbalance and extra passes. The generic walk gives
+    each row one lane group, so while the heaviest row's group walks its
+    ``h`` slots a wave of :data:`RESIDENT_WARPS` groups idles from the
+    mean: ``W * (h - mean) / nnz``. The banked walk cuts a heavy row into
+    segments of at most ``SPLIT`` slots (the mid band's rows reach
+    ``8 * thr``), so its longest walk is ``min(h, max(8 * thr, SPLIT))``;
+    it pays a wave's ramp at the mean for each launch past the first, and
+    the heavy band's split workspace (written by pass 1 and read back by
+    the second pass, about two slots' work a segment)."""
+    from distributed_sddmm_tpu_torch.codegen.banded import SPLIT
+
+    nnz = max(problem.nnz, 1)
+    lam = problem.nnz_per_row
+    h = heaviest_row(problem)
+    if not banked:
+        return RESIDENT_WARPS * max(h - lam, 0.0) / nnz
+    v = select_variant(problem)
+    thr = v.bands[0].npr_max or 0
+    walk = min(h, max(8 * thr, SPLIT)) if thr else min(h, SPLIT)
+    ramps = (len(v.bands) - 1) * RESIDENT_WARPS * lam
+    workspace = 2.0 * math.ceil(h / SPLIT) if h > 8 * thr else 0.0
+    return (RESIDENT_WARPS * max(walk - lam, 0.0) + ramps + workspace) / nnz
+
+
+def variant_cost_factor(problem, variant_id: str) -> float:
+    """A factor on the modeled pair time for a variant candidate, as the
+    chunked plain kernel is charged 1.1x: ``(1 + banked idle share) / (1
+    + generic idle share)`` of :func:`estimated_pad_frac`, held within
+    [0.6, 1.1]. Near 1 on uniform rows (the banked launches cost a little
+    more), a discount on skewed rows (the heavy rows' split removes the
+    generic walk's tail). Coarse by design: it orders what to measure
+    first; trials are the arbiter."""
+    try:
+        variant = variant_from_id(variant_id)
+    except ValueError:
+        return 1.0
+    if not variant.banked:
+        return 1.0
+    waste_g = estimated_pad_frac(problem, banked=False)
+    waste_b = estimated_pad_frac(problem, banked=True)
+    return min(max((1.0 + waste_b) / (1.0 + waste_g), 0.6), 1.1)

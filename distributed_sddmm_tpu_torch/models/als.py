@@ -104,6 +104,8 @@ class DistributedALS:
                  ground_truth_vals_transpose: np.ndarray | None = None,
                  S_host=None, guard: str | bool = "auto", damp_factor: float = 1e3):
         self.d_ops = d_ops
+        #: The autotune plan the strategy was built on (``from_plan``).
+        self.plan = None
         # One cgStep an iteration where the JAX package runs it as one
         # program: the strategy whose blocks hold whole rows.
         self._unit = not d_ops.r_split
@@ -368,6 +370,25 @@ class DistributedALS:
             if checkpoint is not None and (step % checkpoint_every == 0
                                            or step == n_alternating_steps):
                 self.save_checkpoint(checkpoint, step)
+
+    @classmethod
+    def from_plan(cls, S, R: int, plan=None, world=None, device=None,
+                  plan_mode: str = "model", **kw) -> "DistributedALS":
+        """ALS on an autotune-selected strategy. ``plan=None`` asks the
+        plan cache and the cost model (``autotune.get_plan``); a given
+        :class:`~distributed_sddmm_tpu_torch.autotune.Plan` is reused. The
+        plan is kept on ``self.plan``; ``S`` is the host matrix (also the
+        serial rung's, unless ``S_host`` is given)."""
+        from distributed_sddmm_tpu_torch.autotune import Problem, get_plan
+
+        if plan is None:
+            plan = get_plan(Problem.from_coo(S, R), world, S=S, device=device,
+                            mode=plan_mode)
+        alg = plan.instantiate(S, R=R, world=world, device=device)
+        kw.setdefault("S_host", S)
+        model = cls(alg, **kw)
+        model.plan = plan
+        return model
 
     def item_factors(self) -> np.ndarray:
         """The item factors ``(N, R)`` in global row order on the host."""

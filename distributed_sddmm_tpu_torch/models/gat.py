@@ -86,6 +86,8 @@ class GAT:
         self.d_ops = d_ops
         self.layers = layers
         self.leaky_relu_alpha = leaky_relu_alpha
+        #: The autotune plan the strategy was built on (``from_plan``).
+        self.plan = None
         # One gatLayer a layer where the JAX package runs it as one
         # program: the strategy whose blocks hold whole rows.
         self._unit = not d_ops.r_split
@@ -100,6 +102,23 @@ class GAT:
                 (torch.rand((layer.input_features, layer.features_per_head), generator=gen,
                             dtype=d_ops.dtype, device=d_ops.device) * 2 - 1) * bound
                 for _ in range(layer.num_heads)]
+
+    @classmethod
+    def from_plan(cls, S, layers: list[GATLayer], plan=None, world=None, device=None,
+                  plan_mode: str = "model", **kw) -> "GAT":
+        """A GAT on an autotune-selected strategy, R fingerprinted at the
+        first layer's input width. ``plan=None`` asks the plan cache and
+        the cost model (``autotune.get_plan``); the plan is kept on
+        ``self.plan``."""
+        from distributed_sddmm_tpu_torch.autotune import Problem, get_plan
+
+        R = layers[0].input_features
+        if plan is None:
+            plan = get_plan(Problem.from_coo(S, R), world, S=S, device=device,
+                            mode=plan_mode)
+        model = cls(layers, plan.instantiate(S, R=R, world=world, device=device), **kw)
+        model.plan = plan
+        return model
 
     def compute_self_attention_head(self, X: torch.Tensor, i: int, j: int,
                                     mark=_no_mark) -> torch.Tensor:

@@ -37,6 +37,7 @@ from distributed_sddmm_tpu_torch.parallel.mesh import AXES, GridSpec
 from distributed_sddmm_tpu_torch.parallel.sharding import (
     BankedTileView, TileSet, TileView, packed_structure, unpack_structure,
 )
+from distributed_sddmm_tpu_torch.parallel.wire import wire_policy
 from distributed_sddmm_tpu_torch.tools import costmodel
 
 
@@ -72,11 +73,15 @@ class DistributedSparse(abc.ABC):
     dtype = torch.float32
 
     def __init__(self, M: int, N: int, R: int, c: int, world, grid: GridSpec,
-                 kernel=None, device=None):
+                 kernel=None, device=None, wire=None):
         self.device = resolve_device(device)
         self.M, self.N, self.R, self.c, self.p = M, N, R, c, grid.p
         self.world, self.grid = world, grid
         self.comm = world.comm(grid, self.device)
+        #: The wire-precision policy (``parallel/wire.py``): the type each
+        #: collective role's float32 payloads cross in. The default (None,
+        #: no environment knob) is the f32 identity wire.
+        self.wire = wire_policy(wire)
         #: The grid device (dense block and tile slot) of each rank held,
         #: in slot order: ``(i * nc + j) * nh + k``.
         self.blocks = [(i * grid.nc + j) * grid.nh + k for i, j, k in self.comm.coords]
@@ -512,21 +517,23 @@ class DistributedSparse(abc.ABC):
     def comm_profile(self, op: str, pairs: float = 1.0) -> list[dict]:
         """Per-call collective profile, the JAX base's: one ``modeled``
         entry of the strategy's analytic model (``tools/costmodel.py``),
-        its pair volume scaled by the op's pair fraction, priced at the
-        float32 wire's 4 bytes a word; empty for an op the model does not
-        cover, a strategy without a model or a grid it cannot price. A
-        ``LocalWorld`` moves none of it."""
+        its pair volume scaled by the op's pair fraction; ``words`` count
+        elements whatever the wire, ``bytes`` are ``pair_bytes`` under
+        :attr:`wire`. Empty for an op the model does not cover, a strategy
+        without a model or a grid it cannot price. A ``LocalWorld`` moves
+        none of it."""
         model = self.cost_model_name
         frac = costmodel.OP_PAIRS.get(op)
         if model is None or frac is None or self.S_tiles is None:
             return []
+        args = (model, self.M_pad, self.N_pad, self.R, self.S_tiles.nnz, self.p, self.c)
         try:
-            words = costmodel.pair_words(model, self.M_pad, self.N_pad, self.R,
-                                         self.S_tiles.nnz, self.p, self.c)
+            words = costmodel.pair_words(*args)
+            nbytes = costmodel.pair_bytes(*args, wire=self.wire)
         except ValueError:
             return []
         return [{"collective": "modeled", "axis": None, "count": 0,
-                 "words": words * frac * pairs, "bytes": 4.0 * words * frac * pairs,
+                 "words": words * frac * pairs, "bytes": nbytes * frac * pairs,
                  "in_model": True}]
 
     def json_perf_statistics(self) -> dict:

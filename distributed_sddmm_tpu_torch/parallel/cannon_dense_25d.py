@@ -11,7 +11,11 @@ step the moving operand hops along ``rows`` and the tile with its values
 along ``cols``. SDDMM partial dots (this rank's R-slice) travel with the
 tile and sum to the full dot over a ring trip; SpMM accumulates into the
 moving operand, which is its output (no reduction: the outputs are
-R-split), and completes its ring trip home.
+R-split), and completes its ring trip home. Wire roles
+(``parallel/wire.py``): the fiber gather is ``gather``; the moving input,
+the tile's mask and values are ``ring``; the traveling dots and the
+rotating SpMM output are ``ring_accum``. The one-time skews stay
+float32.
 
 ``initial_shift`` / ``de_shift`` skew and unskew the moving operand, a
 permutation over ``(rows, cols)`` (rank ``(i, j)`` then holds the block of
@@ -68,7 +72,7 @@ class CannonDense25D(DistributedSparse):
     r_split_axis = COLS
 
     def __init__(self, S: HostCOO, R: int, c: int = 1, kernel=None, adjacency: int = 3,
-                 world=None, device=None):
+                 world=None, device=None, wire=None):
         device = resolve_device(device)
         world = world_from_env(device) if world is None else world
         p = world.p
@@ -79,7 +83,7 @@ class CannonDense25D(DistributedSparse):
                 f"(R={R}, sqrt(p/c)={n})"
             )
         super().__init__(S.M, S.N, R, c, world, make_grid(n, n, c, adjacency=adjacency),
-                         kernel=kernel, device=device)
+                         kernel=kernel, device=device, wire=wire)
         self.sqrtpc = n
         self.localArows = divide_round_up(S.M, n * c)
         self.localBrows = divide_round_up(S.N, n * c)
@@ -180,11 +184,14 @@ class CannonDense25D(DistributedSparse):
         slice)``, k-major like the tile's frame, in the kernel's type."""
         blocks = self._blocks(X, mode)
         if self.c > 1:
-            blocks = abl_all_gather(self.comm, blocks, LAYERS, self.c)
+            blocks = abl_all_gather(self.comm, blocks, LAYERS, self.c,
+                                    self.wire.dtype_for("gather"))
         return self._prep_each(blocks)
 
-    def _shifters(self, *axes) -> list:
-        return [Shifter(self.comm, axis, self.sqrtpc) for axis in axes]
+    def _shifters(self, *legs) -> list:
+        """A :class:`Shifter` for each ``(axis, wire role)``."""
+        return [Shifter(self.comm, axis, self.sqrtpc, self.wire.dtype_for(role))
+                for axis, role in legs]
 
     # ------------------------------ programs ------------------------------- #
 
@@ -197,7 +204,8 @@ class CannonDense25D(DistributedSparse):
         masks = [tiles.mask[h, 0] for h in held]
         init = (self._tile_states(tiles), masks, [torch.zeros_like(m) for m in masks],
                 self._prep_each(self._blocks(mov, mm)))
-        sh_t, sh_m, sh_a, sh_d = self._shifters(COLS, COLS, COLS, ROWS)
+        sh_t, sh_m, sh_a, sh_d = self._shifters((COLS, "ring"), (COLS, "ring"),
+                                                (COLS, "ring_accum"), (ROWS, "ring"))
 
         def body(s, state):
             sts, mks, accs, movs = state
@@ -224,7 +232,8 @@ class CannonDense25D(DistributedSparse):
         held = range(len(self.blocks))
         init = (self._tile_states(tiles), [vals[h, 0] for h in held],
                 self._blocks(mov, mm))
-        sh_t, sh_v, sh_d = self._shifters(COLS, COLS, ROWS)
+        sh_t, sh_v, sh_d = self._shifters((COLS, "ring"), (COLS, "ring"),
+                                          (ROWS, "ring_accum"))
 
         def body(s, state):
             sts, vs, outs = state

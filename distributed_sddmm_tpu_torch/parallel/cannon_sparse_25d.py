@@ -17,7 +17,11 @@ up the fiber first, and its rotating A-role output accumulates complete
 results and completes its ring trip home. SDDMM accumulates dots over the
 rank's R-slices, and a fiber reduce-scatter sums the ``c`` layers into each
 layer's owned value slice. The tiles are not bankable (as in the JAX
-package): a banked kernel runs its generic walk here.
+package): a banked kernel runs its generic walk here. Wire roles
+(``parallel/wire.py``): the rotating inputs are ``ring``, the rotating
+SpMM output ``ring_accum``, the fiber value gather ``gather`` and the
+fiber reduce-scatter of the dots ``reduce``; the transpose shifts stay
+float32.
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ class CannonSparse25D(DistributedSparse):
     r_split_axis = (COLS, LAYERS)
 
     def __init__(self, S: HostCOO, R: int, c: int = 1, kernel=None, adjacency: int = 3,
-                 world=None, device=None):
+                 world=None, device=None, wire=None):
         device = resolve_device(device)
         world = world_from_env(device) if world is None else world
         p = world.p
@@ -61,7 +65,7 @@ class CannonSparse25D(DistributedSparse):
                 "25D_cannon_sparse.hpp:142-145)"
             )
         super().__init__(S.M, S.N, R, c, world, make_grid(n, n, c, adjacency=adjacency),
-                         kernel=kernel, device=device)
+                         kernel=kernel, device=device, wire=wire)
         self.sqrtpc = n
         self.localArows = divide_round_up(S.M, n)
         self.localBrows = divide_round_up(S.N, n)
@@ -133,8 +137,8 @@ class CannonSparse25D(DistributedSparse):
         masks = [tiles.mask[tiles.floor_slot[h]] for h in held]
         init = ([torch.zeros_like(m) for m in masks], self._prep_each(self._blocks(a_role, am)),
                 self._prep_each(self._blocks(b_role, bm)))
-        sh_a = Shifter(self.comm, COLS, self.sqrtpc)
-        sh_b = Shifter(self.comm, ROWS, self.sqrtpc)
+        sh_a = Shifter(self.comm, COLS, self.sqrtpc, self.wire.dtype_for("ring"))
+        sh_b = Shifter(self.comm, ROWS, self.sqrtpc, self.wire.dtype_for("ring"))
 
         def body(s, state):
             accs, a, b = state
@@ -147,7 +151,8 @@ class CannonSparse25D(DistributedSparse):
 
         accs = ring_loop(self.sqrtpc, body, init, hop)[0]
         if self.c > 1:
-            accs = abl_psum_scatter(self.comm, accs, LAYERS, self.c)
+            accs = abl_psum_scatter(self.comm, accs, LAYERS, self.c,
+                                    self.wire.dtype_for("reduce"))
         return torch.stack([vals[h] * accs[h] for h in held])
 
     def _spmm(self, use_st: bool, a_role, b_role, vals):
@@ -158,10 +163,11 @@ class CannonSparse25D(DistributedSparse):
         views = [tiles.tile(h) for h in held]
         vs = [vals[h] for h in held]
         if self.c > 1:
-            vs = abl_all_gather(self.comm, vs, LAYERS, self.c)
+            vs = abl_all_gather(self.comm, vs, LAYERS, self.c,
+                                self.wire.dtype_for("gather"))
         init = (self._blocks(a_role, am), self._prep_each(self._blocks(b_role, bm)))
-        sh_a = Shifter(self.comm, COLS, self.sqrtpc)
-        sh_b = Shifter(self.comm, ROWS, self.sqrtpc)
+        sh_a = Shifter(self.comm, COLS, self.sqrtpc, self.wire.dtype_for("ring_accum"))
+        sh_b = Shifter(self.comm, ROWS, self.sqrtpc, self.wire.dtype_for("ring"))
 
         def body(s, state):
             a, b = state

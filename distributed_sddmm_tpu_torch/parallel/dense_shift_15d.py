@@ -17,7 +17,10 @@ Each op runs per rank the process holds (every rank under a
 layer's (``parallel/comm.py``) through the ablation wrappers of
 ``parallel/loops.py``. The moving operand is read-only on every ring: each
 rank's block is cast to the kernel's type once, before the ring, and the
-ring carries what the kernel reads.
+ring carries what the kernel reads. Under a bf16 wire policy
+(``parallel/wire.py``) the stationary gather and a float32 moving block
+cross in bf16, and the SpMM reduce-scatter in its role's type (float32
+by default).
 
 Block-sparse attention (:meth:`DenseShift15D.fused_attention`) runs a
 complete SDDMM rotation over the mask, a row-wise masked softmax over the
@@ -50,10 +53,12 @@ class DenseShift15D(DistributedSparse):
 
     def __init__(self, S: HostCOO, R: int, c: int = 1, fusion_approach: int = 2,
                  kernel=None, adjacency: int = 1, overlap: bool = False,
-                 world=None, device=None):
+                 world=None, device=None, wire=None):
         """``world``: a ``LocalWorld`` or ``DistWorld``
         (``parallel/comm.py``); None takes it from the environment
-        (``world_from_env``). ``p`` is the world's size."""
+        (``world_from_env``). ``p`` is the world's size. ``wire``: the
+        wire-precision policy (``parallel/wire.py``; None: the
+        environment's, the f32 identity wire when unset)."""
         if fusion_approach not in (1, 2):
             raise ValueError("fusion_approach must be 1 or 2")
         device = resolve_device(device)
@@ -63,7 +68,7 @@ class DenseShift15D(DistributedSparse):
             raise ValueError(f"1.5D algorithm requires c | p (p={p}, c={c})")
         super().__init__(S.M, S.N, R, c, world,
                          make_grid(p // c, c, 1, adjacency=adjacency),
-                         kernel=kernel, device=device)
+                         kernel=kernel, device=device, wire=wire)
         self.fusion_approach = fusion_approach
         self.overlap = bool(overlap)
         self.nr = p // c
@@ -92,24 +97,27 @@ class DenseShift15D(DistributedSparse):
         ``localBrows x R`` (hopped around the ``p/c``-long ``rows`` ring),
         and SpMM partials reduce-scatter back over ``cols``; B-output ops
         swap the two. Words are the JAX package's (``in_model`` marks the
-        ones its cost model counts). Bytes: the gather, the reduce-scatter
-        and the attention stats merge move float32; the ring moves the
-        blocks in the type the kernel reads (bf16 for a bf16 tile kernel).
-        A ``LocalWorld`` moves none of it: its collectives are list
+        ones its cost model counts). Bytes: the gather and the
+        reduce-scatter move their role's wire type under :attr:`wire`; the
+        ring moves the blocks in the type the kernel reads (bf16 for a
+        bf16 tile kernel) or the ring role's wire type, whichever is
+        narrower; the attention stats merge moves float32 always. A
+        ``LocalWorld`` moves none of it: its collectives are list
         operations."""
-        R, c, nr = self.R, self.c, self.nr
+        R, c, nr, wire = self.R, self.c, self.nr, self.wire
         n_pass = 1 if self.fusion_approach == 2 else 2
         stat_rows, mov_rows = self.localArows, self.localBrows
         if op.endswith("B"):
             stat_rows, mov_rows = mov_rows, stat_rows
-        ring_bytes = self._prep(torch.empty(0, dtype=self.dtype)).element_size()
+        ring_bytes = min(self._prep(torch.empty(0, dtype=self.dtype)).element_size(),
+                         wire.bytes_for("ring"))
         repl_words = (c - 1) * stat_rows * R * pairs
         repl = {"collective": "all_gather", "axis": COLS,
                 "count": (1 if c > 1 else 0) * pairs, "words": repl_words,
-                "bytes": repl_words * 4, "in_model": True}
+                "bytes": repl_words * wire.bytes_for("gather"), "in_model": True}
         reduce_ = {"collective": "psum_scatter", "axis": COLS,
                    "count": (1 if c > 1 else 0) * pairs, "words": repl_words,
-                   "bytes": repl_words * 4, "in_model": False}
+                   "bytes": repl_words * wire.bytes_for("reduce"), "in_model": False}
 
         def ring(passes):
             words = (nr - 1) * mov_rows * R * passes * pairs
@@ -140,7 +148,8 @@ class DenseShift15D(DistributedSparse):
         row's ``c`` blocks over ``cols``."""
         blocks = self._blocks(stat, mode)
         if self.c > 1:
-            blocks = abl_all_gather(self.comm, blocks, COLS, self.c)
+            blocks = abl_all_gather(self.comm, blocks, COLS, self.c,
+                                    self.wire.dtype_for("gather"))
         return self._prep_each(blocks)
 
     def _moving(self, mov, mode: MatMode) -> list:
@@ -152,14 +161,15 @@ class DenseShift15D(DistributedSparse):
         """Reduce-scatter the SpMM partials over ``cols`` (c > 1) and
         assemble the output blocks."""
         if self.c > 1:
-            accs = abl_psum_scatter(self.comm, accs, COLS, self.c)
+            accs = abl_psum_scatter(self.comm, accs, COLS, self.c,
+                                    self.wire.dtype_for("reduce"))
         return self._assemble(accs).to(dtype)
 
     def _ring(self, body, carry, movs: list, final_shift: bool = False):
         """``carry = body(s, carry, movs)`` over the ring's steps, the
         moving blocks hopping one rank along ``rows`` between steps (and
         after the last with ``final_shift``). Returns ``(carry, movs)``."""
-        shift = Shifter(self.comm, ROWS, self.nr)
+        shift = Shifter(self.comm, ROWS, self.nr, self.wire.dtype_for("ring"))
         if self.overlap:
             return ring_loop_overlap(self.nr, body, carry, movs, shift.start,
                                      final_shift=final_shift)

@@ -23,8 +23,16 @@ base.DistributedSparse.measure_breakdown` sets to attribute time:
 
 Computation ~= t(local); Replication ~= t(no_ring) - t(local);
 Propagation ~= t(full) - t(no_ring). Ablated programs give wrong numbers
-by design: they exist only to be timed. Payloads cross at float32 (the
-JAX package's ``wire="f32"``; other wire precisions are not ported).
+by design: they exist only to be timed.
+
+Each wrapper takes the payload's wire type (``wire=``, one role of a
+``parallel/wire.py`` policy): under ``"bf16"`` every float32 tensor is
+cast to bf16 just before the collective and back to its own type right
+after, so compute and every accumulation stay float32; integer tensors
+(and anything else a ring carries, such as a ``LocalWorld``'s tile
+views) pass through. The casts are torch ops around the comm's autograd
+nodes, so a backward's cotangents cross the wire in bf16 too.
+``wire="f32"`` does nothing at all: no cast, no copy.
 """
 
 from __future__ import annotations
@@ -60,29 +68,71 @@ def ablation_mode(mode: str):
         _ABLATION = prev
 
 
-def abl_ppermute(comm, xs: list, axis, perm) -> Callable:
+def _wire_down(xs: list, wire: str) -> list:
+    """Each float32 tensor of ``xs`` in the wire type (bf16 under
+    ``"bf16"``); everything else as it is."""
+    if wire == "f32":
+        return xs
+    if wire != "bf16":
+        raise ValueError(f"unknown wire dtype {wire!r}")
+    return [x.to(torch.bfloat16) if isinstance(x, torch.Tensor) and x.dtype == torch.float32
+            else x for x in xs]
+
+
+def _wire_up(ys: list, xs: list) -> list:
+    """Each received block back in the type of the payload it replaced
+    (every rank's payload has one type). A block several ranks share (a
+    gather's) is cast once, unless autograd sees it: then each rank casts
+    its own copy, so each rank's cotangent is rounded to the wire type on
+    its own before the adjoint sums them in it, as between processes."""
+    done: dict = {}
+    out = []
+    for y, x in zip(ys, xs):
+        if isinstance(y, torch.Tensor) and y.dtype != x.dtype:
+            if y.requires_grad and torch.is_grad_enabled():
+                y = y.to(x.dtype)
+            else:
+                if id(y) not in done:
+                    done[id(y)] = y.to(x.dtype)
+                y = done[id(y)]
+        out.append(y)
+    return out
+
+
+def abl_ppermute(comm, xs: list, axis, perm, wire: str = "f32") -> Callable:
     """Start a ring hop of the per-rank blocks ``xs``; returns the wait,
     which gives the received blocks. The identity under ``no_ring`` and
-    ``local`` (Propagation)."""
+    ``local`` (Propagation). Rounding is idempotent, so a read-only
+    payload riding k hops at ``wire="bf16"`` is rounded once; a traveling
+    accumulator hops at the policy's ``ring_accum`` type instead."""
     if _ABLATION != "full":
         return lambda: xs
-    return comm.ppermute_start(xs, axis, perm)
+    if wire == "f32":
+        return comm.ppermute_start(xs, axis, perm)
+    wait = comm.ppermute_start(_wire_down(xs, wire), axis, perm)
+    return lambda: _wire_up(wait(), xs)
 
 
-def abl_all_gather(comm, xs: list, axis, size: int) -> list:
+def abl_all_gather(comm, xs: list, axis, size: int, wire: str = "f32") -> list:
     """Replication gather (tiled on dim 0); ``size`` local copies
     concatenated under ``local``."""
     if _ABLATION == "local":
         return [torch.cat([x] * size) for x in xs]
-    return comm.all_gather(xs, axis)
+    if wire == "f32":
+        return comm.all_gather(xs, axis)
+    return _wire_up(comm.all_gather(_wire_down(xs, wire), axis), xs)
 
 
-def abl_psum_scatter(comm, xs: list, axis, size: int) -> list:
+def abl_psum_scatter(comm, xs: list, axis, size: int, wire: str = "f32") -> list:
     """Replication reduce-scatter (sum, tiled on dim 0); the first
-    ``1/size`` of each block under ``local``."""
+    ``1/size`` of each block under ``local``. ``wire="bf16"`` sums on the
+    wire in bf16: the default bf16 policy keeps this role f32, and only
+    an explicit ``reduce=bf16`` override reaches the cast."""
     if _ABLATION == "local":
         return [x[: x.shape[0] // size] for x in xs]
-    return comm.reduce_scatter(xs, axis)
+    if wire == "f32":
+        return comm.reduce_scatter(xs, axis)
+    return _wire_up(comm.reduce_scatter(_wire_down(xs, wire), axis), xs)
 
 
 class Shifter:
@@ -93,15 +143,17 @@ class Shifter:
     blocks the ring has let go), so a hop never writes into the caller's
     input, into the block a step is reading, or into a moving tile a tile
     op saved for its backward. A world of in-process ranks rotates its
-    list and moves nothing.
+    list and moves nothing. ``wire`` is the payload's wire type (the
+    role's under the strategy's policy).
     """
 
-    def __init__(self, comm, axis, n: int):
+    def __init__(self, comm, axis, n: int, wire: str = "f32"):
         self.comm, self.axis, self.perm = comm, axis, ring_perm(n)
+        self.wire = wire
 
     def start(self, xs: list) -> Callable:
         """Issue one hop; the returned wait gives the shifted blocks."""
-        return abl_ppermute(self.comm, xs, self.axis, self.perm)
+        return abl_ppermute(self.comm, xs, self.axis, self.perm, self.wire)
 
     def __call__(self, xs: list) -> list:
         return self.start(xs)()

@@ -14,7 +14,10 @@ writes, at each step, the output stripe of the tile held. ``fused_spmm``
 chains the SDDMM and the SpMM (the base's): a dot is complete only after
 a ring trip, so the fused tile kernel has no place here. ``overlap=True``
 issues each step's hop of the tile before the step's kernel; the SDDMM's
-dots, which the kernel writes, hop after it.
+dots, which the kernel writes, hop after it. Wire roles
+(``parallel/wire.py``): the gather is ``gather``; the tile's mask and
+values are read-only ``ring`` payloads (its integer structure never
+casts); the traveling dots are ``ring_accum``.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ class SparseShift15D(DistributedSparse):
     r_split_axis = ROWS
 
     def __init__(self, S: HostCOO, R: int, c: int = 1, kernel=None, adjacency: int = 1,
-                 overlap: bool = False, world=None, device=None):
+                 overlap: bool = False, world=None, device=None, wire=None):
         device = resolve_device(device)
         world = world_from_env(device) if world is None else world
         p = world.p
@@ -58,7 +61,7 @@ class SparseShift15D(DistributedSparse):
                 "(reference check at 15D_sparse_shift.hpp:145-147)"
             )
         super().__init__(S.M, S.N, R, c, world, make_grid(nr, c, 1, adjacency=adjacency),
-                         kernel=kernel, device=device)
+                         kernel=kernel, device=device, wire=wire)
         self.overlap = bool(overlap)
         self.nr = nr
         self.blockAwidth = divide_round_up(S.M, p)
@@ -126,7 +129,8 @@ class SparseShift15D(DistributedSparse):
         bw = self.blockAwidth if mode == MatMode.A else self.blockBwidth
         done: dict = {}
         out = []
-        for g in abl_all_gather(self.comm, blocks, COLS, self.c):
+        for g in abl_all_gather(self.comm, blocks, COLS, self.c,
+                                self.wire.dtype_for("gather")):
             if id(g) not in done:
                 w = g.shape[-1]
                 done[id(g)] = self._prep(
@@ -139,7 +143,8 @@ class SparseShift15D(DistributedSparse):
         (a tuple of per-rank lists) hopping between steps, ``carry_hop``
         hopping the carry with it; with ``final_shift`` both hop after the
         last step too. Returns the carry."""
-        shifters = [Shifter(self.comm, ROWS, self.nr) for _ in mov]
+        shifters = [Shifter(self.comm, ROWS, self.nr, self.wire.dtype_for("ring"))
+                    for _ in mov]
 
         def start(m):
             waits = [sh.start(x) for sh, x in zip(shifters, m)]
@@ -182,7 +187,7 @@ class SparseShift15D(DistributedSparse):
                                                    bts[h]))
             return out
 
-        acc_shift = Shifter(self.comm, ROWS, self.nr)
+        acc_shift = Shifter(self.comm, ROWS, self.nr, self.wire.dtype_for("ring_accum"))
         accs = self._ring(body, accs, (self._tile_states(tiles), masks), True, acc_shift)
         return torch.stack([vals[h, 0] * accs[h] for h in held])[:, None]
 

@@ -110,12 +110,12 @@ def test_er_unported_app_raises(tmp_path, capsys):
 
 APP_RECORD_DIFFS = {
     # Fields one package has and the other has not, by design: the port
-    # names the device it ran on; the JAX package's program store, wire
-    # precision and dynamic-structure counters are not ported (ROADMAP.md
-    # queue A items 13, 15 and 16), and its XLA cost cross-check has no
-    # torch counterpart (item 14; present only when programs were costed).
+    # names the device it ran on; the JAX package's program store and
+    # dynamic-structure counters are not ported (ROADMAP.md queue A items
+    # 15 and 16), and its XLA cost cross-check has no torch counterpart
+    # (item 14; present only when programs were costed).
     "port_only": {"device"},
-    "jax_only": {"program_store", "wire", "dynstruct", "xla_cost"},
+    "jax_only": {"program_store", "dynstruct", "xla_cost"},
 }
 
 
@@ -166,7 +166,7 @@ def test_app_records_match_jax(app, alg, p):
     assert set(got) - set(want) == APP_RECORD_DIFFS["port_only"]
     assert set(want) - set(got) <= APP_RECORD_DIFFS["jax_only"]
     for key in ("algorithm", "app", "R", "c", "fused", "fusion", "mask", "num_trials",
-                "kernel_variant", "num_processes", "process_index", "cg_iters",
+                "kernel_variant", "wire", "num_processes", "process_index", "cg_iters",
                 "gat_heads", "als_degraded"):
         assert got.get(key) == want.get(key), key
     assert set(got["metrics"]) == set(want["metrics"])
@@ -445,9 +445,8 @@ def test_kernels_and_baseline_records_have_the_jax_keys(tmp_path, capsys):
         assert rec[key] == want[key], key
 
 
-UNPORTED_FLAGS = (["--trace"], ["--faults", "[]"], ["--wire", "bf16"], ["--profile", "p"],
-                  ["--watchdog", "warn"], ["--flightrec"], ["--no-runstore"],
-                  ["--plan-mode", "model"])
+UNPORTED_FLAGS = (["--trace"], ["--faults", "[]"], ["--profile", "p"],
+                  ["--watchdog", "warn"], ["--flightrec"], ["--no-runstore"])
 UNPORTED_COMMANDS = ("overlap", "serve", "fleet", "tune", "history", "compare", "gate",
                      "backfill", "report-html", "report-trace", "trace-merge",
                      "trace-export", "top", "lint", "env")

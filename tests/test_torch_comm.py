@@ -35,6 +35,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from distributed_sddmm_tpu_torch.autotune import PlanCache, Problem, get_plan
 from distributed_sddmm_tpu_torch.codegen import BankedCudaKernel
 from distributed_sddmm_tpu_torch.common import KernelMode, MatMode
 from distributed_sddmm_tpu_torch.models.als import DistributedALS
@@ -48,6 +49,7 @@ from distributed_sddmm_tpu_torch.parallel.cannon_sparse_25d import CannonSparse2
 from distributed_sddmm_tpu_torch.parallel.dense_shift_15d import DenseShift15D
 from distributed_sddmm_tpu_torch.parallel.mesh import make_grid
 from distributed_sddmm_tpu_torch.parallel.sparse_shift_15d import SparseShift15D
+from distributed_sddmm_tpu_torch.parallel.wire import WirePolicy
 from distributed_sddmm_tpu_torch.resilience import CheckpointStore
 from distributed_sddmm_tpu_torch.utils import verify
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
@@ -224,6 +226,33 @@ def test_r_split_strategies_over_gloo_equal_local_world(tmp_path):
             assert set(got.files) == set(want)
             for op in want:
                 np.testing.assert_array_equal(got[op], want[op], err_msg=f"{name} {op} {rank}")
+
+
+# The bf16 wire at p = 4: (name, class, c, policy); the dense shift's
+# reduce-scatter sums two ranks' partials in bf16 under the override.
+WIRE_STRATEGIES = (("dense_shift", DenseShift15D, 2, "bf16"),
+                   ("dense_shift_reduce", DenseShift15D, 2,
+                    WirePolicy("bf16", (("reduce", "bf16"),))),
+                   ("sparse_shift", SparseShift15D, 2, "bf16"),
+                   ("cannon_dense", CannonDense25D, 1, "bf16"),
+                   ("cannon_sparse_fiber", CannonSparse25D, 4, "bf16"))
+
+
+def _wire_worker(rank: int, init: str, out_dir: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=4)
+    try:
+        for name, cls, c, policy in WIRE_STRATEGIES:
+            alg = cls(_matrix(), 8, c=c, world=DistWorld(), device="cpu", wire=policy)
+            np.savez(f"{out_dir}/wire_{name}{rank}.npz", **_int_outputs(alg))
+        # Every process follows process 0's plan; process 0 alone stores it.
+        plan = get_plan(Problem.from_coo(_matrix(), 8), DistWorld(), device="cpu",
+                        mode="model", cache=PlanCache(f"{out_dir}/plans"))
+        with open(f"{out_dir}/plan{rank}.json", "w") as f:
+            json.dump(plan.to_dict(), f)
+    finally:
+        dist.destroy_process_group()
 
 
 # R-split ALS at p = 4: (name, class, c).

@@ -17,9 +17,11 @@ import numpy as np
 import pytest
 import torch
 
+from distributed_sddmm_tpu_torch.autotune import Problem, get_plan
 from distributed_sddmm_tpu_torch.bench import cli, harness
 from distributed_sddmm_tpu_torch.bench import kernels as kernel_bench
 from distributed_sddmm_tpu_torch.codegen import BankedCudaKernel
+from distributed_sddmm_tpu_torch.models.als import DistributedALS
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
 from distributed_sddmm_tpu_torch.parallel.dense_shift_15d import DenseShift15D
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
@@ -64,7 +66,10 @@ def test_port_and_chip_smoke_import_no_jax_in_subprocess():
     assert len(mods) > 15  # every module of the slice was imported
     for mod in ("parallel.sparse_shift_15d", "parallel.cannon_dense_25d",
                 "parallel.cannon_sparse_25d", "tools.costmodel", "bench.kernels",
-                "bench.baseline", "utils.coo", "utils.verify"):
+                "bench.baseline", "utils.coo", "utils.verify", "parallel.wire",
+                "resilience.retry", "obs.metrics", "autotune.fingerprint",
+                "autotune.candidates", "autotune.measure", "autotune.cache",
+                "autotune.plan", "autotune"):
         assert f"distributed_sddmm_tpu_torch.{mod}" in mods
 
 
@@ -88,8 +93,8 @@ def test_ast_scan_finds_no_forbidden_import():
     allowed = {"torch", "numpy", "scipy", "distributed_sddmm_tpu_torch",
                "__future__", "abc", "argparse", "contextlib", "ctypes", "dataclasses", "enum",
                "functools", "hashlib", "importlib", "inspect", "io", "json", "logging", "math",
-               "multiprocessing", "os", "pathlib", "re", "shutil", "subprocess", "sys",
-               "tempfile", "time", "typing", "zipfile"}
+               "multiprocessing", "os", "pathlib", "random", "re", "shutil", "subprocess",
+               "sys", "tempfile", "threading", "time", "typing", "zipfile"}
     used = set().union(*(_imported_roots(f) for f in files))
     assert used <= allowed, used - allowed
 
@@ -113,6 +118,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: cli.main(["verify"]),
         lambda: cli.main(["er", "4", "2", "15d_fusion2", "4", "1"]),
         lambda: HostCOO.rmat(4, 2, device="cuda"),
+        lambda: cli.main(["er", "4", "2", "auto", "4", "1", "--plan-mode", "model"]),
+        lambda: get_plan(Problem.from_coo(S, 4), mode="model"),
+        lambda: DistributedALS.from_plan(S, 4),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()
