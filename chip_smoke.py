@@ -239,11 +239,33 @@ last line is printed):
    table rows 1-3. heatmap: ``heatmap 16 32 1 --alg 15d_fusion2`` over
    the seven R, a record an R. baseline: ``baseline 16 32 128`` on the
    host beside the card's pair at R = 128.
-16. kernels line -- ``{"kernels": [...]}``.
-17. last line -- ``{"ok": true, "device": {...}}``.
+16. obs -- faults, retries and in-run observability through
+   ``bench.cli.main`` (``phase_obs``), cuda-f32. tracing: the full cell, 3
+   warmup + 20 pairs, without flags and with ``--trace --watchdog warn``
+   (ms a pair both ways); the trace's begin record, one ``strategy``
+   event, one ``bench`` span and a ``fusedSpMM`` span a call carrying the
+   record's per-call words and FLOPs; the manifest names the card and its
+   power limit; no anomaly. faults: the headline with a one-shot
+   ``execute:fusedSpMM`` error at call 3 and ``output:fusedSpMM`` NaN at
+   call 5: both fired, two retries, overhead > 0, every pair's
+   fingerprint equal to the clean run's bit for bit. als_retry: ``--app
+   als`` at the headline with an ``output:cgStep`` NaN at call 4: the
+   factors (through ``--checkpoint-dir``) and the residual equal the clean
+   run's bit for bit. watchdog: a ``skew`` of 2.0 at ``comm:fusedSpMM``
+   over 4 logical ranks gives one ``comm_mismatch`` at ratio 2.0 under
+   ``warn``, and ``WatchdogAlarm`` with a flight-recorder dump (ring and
+   counters) under ``strict --flightrec``. profile: ``--profile`` at the
+   headline; the Chrome trace holds CUDA device events and every
+   ``dot_walk_kernel`` launch inside a ``fusedSpMM`` range; the device's
+   busy and idle shares over the ``bench`` range (printed).
+17. kernels line -- ``{"kernels": [...]}``.
+18. last line -- ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --gat-grad-drift [SEED ...]`` is another mode
 (``gat_grad_drift``): the readings behind GAT_DRIFT["plain"].
+``python3 chip_smoke.py --profile-banked-attention`` is a third
+(``profile_banked_attention``): a ``torch.profiler`` look at the banked
+bigbird attention call's host time.
 """
 
 from __future__ import annotations
@@ -2472,7 +2494,7 @@ def als_full(uniform, dev, launches: dict, card: str) -> dict:
         split = cg_split(als, it)
         row = {"ms_per_step": elapsed / steps * 1e3, "steps": steps, "cg_iters": it,
                "residual": stats["als_residual"], "trajectory": traj,
-               "cg_step_host_ms": cg["seconds"] / cg["calls"] * 1e3,
+               "cg_step_host_ms": cg["kernel_s"] / cg["calls"] * 1e3,
                "cg_iteration": split, "peak_mem_bytes": peak, "launches": counts,
                "gflops": 2.0 * S.nnz * 2.0 * alg.R * steps / elapsed / 1e9}
         ratio, ref_ratio = traj[1] / traj[0], ref64["ratio"]
@@ -5144,6 +5166,382 @@ def phase_host_cli(S16, full: dict, dev, launches: dict, entries: dict, card: st
     return out
 
 
+# ---------------------------------------------------------------- obs
+
+#: Phase obs: the full cell's pairs with and without tracing; the
+#: headline's one-shot faults; the ALS retry at ``output:cgStep``; the
+#: watchdog's ``comm:fusedSpMM`` skew over 4 logical ranks; the profile.
+OBS = {"warmup": 3, "pairs": 20, "profile_pairs": 5, "als_steps": 2, "skew_ranks": 4,
+       "faults": {"seed": 0, "specs": [
+           {"site": "execute:fusedSpMM", "kind": "error", "at": [3]},
+           {"site": "output:fusedSpMM", "kind": "nan", "at": [5]}]},
+       "als_fault": {"seed": 0, "specs": [{"site": "output:cgStep", "kind": "nan", "at": [4]}]},
+       "skew": [{"site": "comm:fusedSpMM", "kind": "skew", "prob": 1.0, "param": 2.0}]}
+OBS_DIR = _build.BUILD_DIR / "obs"
+
+
+def obs_argv(cell: dict, trials: int, warmup: int, *extra) -> list:
+    """``er <cell> 15d_fusion2 R 1`` in cuda-f32."""
+    return ["er", str(cell["log_m"]), str(cell["edge_factor"]), "15d_fusion2",
+            str(cell["R"]), "1", "--kernel", "cuda-f32", "--trials", str(trials),
+            "--warmup", str(warmup), *extra]
+
+
+@contextlib.contextmanager
+def recorded_pairs():
+    """The fingerprint (float64 sums of squares of ``out`` and ``mid``, on
+    the card) of every fused pair the harness's strategies return while
+    the block runs, in call order."""
+    real, fps = harness.make_algorithm, []
+
+    def wrap(*args, **kw):
+        alg = real(*args, **kw)
+        fused = alg.fused_spmm
+
+        def recorded(*a, **k):
+            out, mid = fused(*a, **k)
+            fps.append(tuple(float(x.double().square().sum()) for x in (out, mid)))
+            return out, mid
+
+        alg.fused_spmm = recorded
+        return alg
+
+    harness.make_algorithm = wrap
+    try:
+        yield fps
+    finally:
+        harness.make_algorithm = real
+
+
+def fused_only(n: int) -> dict:
+    return {**dict.fromkeys(cuda_kernels.LAUNCHES, 0), "fused_tile": n}
+
+
+def dispatch_cost_us(n: int = 5000) -> dict:
+    """Host microseconds of one timed dispatch of a no-op on a small CPU
+    strategy: the hot path, and traced with the watchdog on (the spans
+    nested in one outer span, as the bench loop's are; the trace under
+    ``OBS_DIR``)."""
+    from distributed_sddmm_tpu_torch.obs import trace as obs_trace
+    from distributed_sddmm_tpu_torch.obs import watchdog as obs_watchdog
+
+    alg = DenseShift15D(HostCOO.rmat(6, 4, seed=0), R=8, device="cpu")
+
+    def per_call() -> float:
+        t = time.perf_counter()
+        for _ in range(n):
+            alg._timed("fusedSpMM", lambda: None)
+        return (time.perf_counter() - t) / n * 1e6
+
+    out = {"hot": per_call()}
+    obs_trace.enable(OBS_DIR / "dispatch.jsonl")
+    obs_watchdog.enable("warn")
+    try:
+        with obs_trace.span("bench"):
+            out["traced"] = per_call()
+    finally:
+        obs_watchdog.disable()
+        obs_trace.disable()
+    return out
+
+
+def obs_tracing(launches: dict, card: str) -> dict:
+    """(a) The full cell, 3 warmup + 20 pairs, without flags and with
+    ``--trace --watchdog warn``: ms a pair both ways; the trace's begin
+    record, strategy event, one bench span and a ``fusedSpMM`` span a
+    call carrying the record's per-call words and FLOPs; the manifest
+    names the card and its power limit; no anomaly."""
+    path, trace_path = OBS_DIR / "full.jsonl", OBS_DIR / "full_trace.jsonl"
+    argv, calls = obs_argv(FULL, OBS["pairs"], OBS["warmup"]), OBS["pairs"] + OBS["warmup"]
+    rows = {}
+    for tag, extra in (("plain", []), ("traced", ["--trace", str(trace_path),
+                                                 "--watchdog", "warn"])):
+        t = time.perf_counter()
+        rc, counts, recs, _ = cli_run([*argv, *extra], path)
+        require(rc == 0 and len(recs) == 1 and counts == fused_only(calls),
+                f"obs tracing/{tag}: rc {rc}, {len(recs)} records, launches {counts}")
+        add_launches(launches, counts, "f32")
+        rows[tag] = {"rec": recs[0], "seconds": time.perf_counter() - t}
+    traced = rows["traced"]["rec"]
+    recs = [json.loads(line) for line in trace_path.read_text().splitlines()]
+    spans = [r for r in recs if r["type"] == "span"]
+    fused = [r for r in spans if r["name"] == "fusedSpMM"]
+    benches = [r for r in spans if r["name"] == "bench"]
+    strategy = [r for r in recs if r["type"] == "event" and r["name"] == "strategy"]
+    require(recs[0]["type"] == "begin" and recs[0]["schema"] == 1 and "t0_epoch" in recs[0],
+            f"obs tracing: first record {recs[0]}")
+    require(len(benches) == 1 and len(strategy) == 1 and len(fused) == calls,
+            f"obs tracing: {len(benches)} bench spans, {len(strategy)} strategy events, "
+            f"{len(fused)} fusedSpMM spans (want 1, 1, {calls})")
+    m = traced["metrics"]["fusedSpMM"]
+    per_call = {k: m[k] / m["calls"] for k in ("comm_words", "flops")}
+    require(all(sp["attrs"][k] == v for sp in fused for k, v in per_call.items()),
+            f"obs tracing: span costs against the record's per call {per_call}")
+    require(all(sp["parent"] == benches[0]["id"] for sp in fused), "obs tracing: span parents")
+    man = json.loads(pathlib.Path(str(trace_path).replace(".jsonl", ".manifest.json"))
+                     .read_text())
+    require(man.get("device_name") == torch.cuda.get_device_name(0)
+            and f"{man.get('smi_name')}, {man.get('power_limit')}" == card,
+            f"obs tracing: manifest {man.get('device_name')} / {man.get('smi_name')} / "
+            f"{man.get('power_limit')} against {card}")
+    require(traced["anomalies"]["total"] == 0, f"obs tracing: anomalies {traced['anomalies']}")
+    ms = {tag: row["rec"]["elapsed"] / OBS["pairs"] * 1e3 for tag, row in rows.items()}
+    out = {"ms_per_pair": ms, "traced_over_plain": ms["traced"] / ms["plain"],
+           "cli_seconds": {tag: row["seconds"] for tag, row in rows.items()},
+           "spans": len(spans), "per_call": per_call,
+           "manifest": {k: man.get(k) for k in ("device_name", "device_capability",
+                                                "smi_name", "power_limit", "torch_version",
+                                                "cuda_version")},
+           "kernel_s_per_pair_ms": {tag: row["rec"]["metrics"]["fusedSpMM"]["kernel_s"]
+                                    / OBS["pairs"] * 1e3 for tag, row in rows.items()},
+           "dispatch_us": dispatch_cost_us()}
+    emit({"phase": "obs_tracing", "card": card, "argv": argv, **out})
+    return out
+
+
+def obs_faults(launches: dict, card: str) -> dict:
+    """(b) The headline with a one-shot ``execute:fusedSpMM`` error at call
+    3 and an ``output:fusedSpMM`` NaN at call 5: exit 0, both fired, two
+    retries with overhead, every pair's fingerprint equal to the clean
+    run's bit for bit."""
+    path = OBS_DIR / "faults.jsonl"
+    argv, calls = obs_argv(HEADLINE, OBS["pairs"], OBS["warmup"]), OBS["pairs"] + OBS["warmup"]
+    with recorded_pairs() as clean_fps:
+        rc, counts, (clean,), _ = cli_run(argv, path)
+    require(rc == 0 and counts == fused_only(calls), f"obs faults/clean: {rc} {counts}")
+    add_launches(launches, counts, "f32")
+    with recorded_pairs() as fps:
+        rc, counts, (rec,), _ = cli_run([*argv, "--faults", json.dumps(OBS["faults"])], path)
+    # The error fires before its attempt launches; the NaN after it.
+    require(rc == 0 and counts == fused_only(calls + 1), f"obs faults: {rc} {counts}")
+    add_launches(launches, counts, "f32")
+    want = [{"site": s["site"], "kind": s["kind"], "call": s["at"][0]}
+            for s in OBS["faults"]["specs"]]
+    m = rec["metrics"]["fusedSpMM"]
+    require(rec.get("faults_fired") == want, f"obs faults: fired {rec.get('faults_fired')}")
+    require(m["retries"] == 2 and m["overhead_s"] > 0, f"obs faults: metrics {m}")
+    require(len(fps) == calls and fps == clean_fps,
+            f"obs faults: {len(fps)} pairs, fingerprints equal: {fps == clean_fps}")
+    out = {"faults_fired": rec["faults_fired"], "retries": m["retries"],
+           "overhead_ms": m["overhead_s"] * 1e3, "kernel_ms_per_pair": m["kernel_s"]
+           / m["calls"] * 1e3, "clean_kernel_ms_per_pair": clean["metrics"]["fusedSpMM"][
+               "kernel_s"] / OBS["pairs"] * 1e3, "pairs_equal": len(fps)}
+    emit({"phase": "obs_faults", "card": card, **out})
+    return out
+
+
+def obs_als_retry(launches: dict, card: str) -> dict:
+    """(c) ALS at the headline (no warmup step, so call 4 falls in the
+    timed steps) with an ``output:cgStep`` NaN at call 4: the retried
+    ``cgStep`` starts from the carries it was given, so the factors
+    (through ``--checkpoint-dir``) and the residual equal the clean run's
+    bit for bit."""
+    path = OBS_DIR / "als.jsonl"
+    argv = obs_argv(HEADLINE, OBS["als_steps"], 0, "--app", "als")
+    runs = {}
+    for tag, extra in (("clean", []), ("faulted", ["--faults", json.dumps(OBS["als_fault"])])):
+        ckpt = OBS_DIR / f"als_{tag}"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        rc, counts, (rec,), _ = cli_run([*argv, "--checkpoint-dir", str(ckpt), *extra], path)
+        step, arrays, _ = CheckpointStore(ckpt).load_latest()
+        shutil.rmtree(ckpt, ignore_errors=True)
+        add_launches(launches, counts, "f32")
+        runs[tag] = (rc, counts, rec, step, arrays)
+    (rc_c, counts_c, clean, step_c, fac_c), (rc_f, counts_f, rec, step_f, fac_f) = (
+        runs["clean"], runs["faulted"])
+    expect = als_launches(OBS["als_steps"], ALS["cg_iters"])
+    require(rc_c == rc_f == 0 and counts_c == expect
+            and counts_f == {**expect, "fused_tile": expect["fused_tile"] + 1},
+            f"obs als: rc {rc_c}/{rc_f}, launches {counts_c} / {counts_f}")
+    require(rec.get("faults_fired") == [{"site": "output:cgStep", "kind": "nan", "call": 4}]
+            and rec["metrics"]["cgStep"]["retries"] == 1,
+            f"obs als: fired {rec.get('faults_fired')}, metrics {rec['metrics']['cgStep']}")
+    same = {k: fac_c[k].dtype == fac_f[k].dtype
+            and np.array_equal(fac_c[k].view(np.uint32), fac_f[k].view(np.uint32))
+            for k in ("A", "B")}
+    require(step_c == step_f == OBS["als_steps"] and all(same.values())
+            and rec["als_residual"] == clean["als_residual"],
+            f"obs als: steps {step_c}/{step_f}, factors equal {same}, residual "
+            f"{rec['als_residual']!r} against {clean['als_residual']!r}")
+    out = {"residual": rec["als_residual"], "factors_equal": same,
+           "faults_fired": rec["faults_fired"], "cg_step": rec["metrics"]["cgStep"]}
+    emit({"phase": "obs_als_retry", "card": card, **out})
+    return out
+
+
+def obs_watchdog(launches: dict, card: str) -> dict:
+    """(d) Over 4 logical ranks, a ``skew`` of 2.0 at ``comm:fusedSpMM``:
+    under ``--watchdog warn`` the record's anomalies are one
+    ``comm_mismatch`` at ratio 2.0; under ``--watchdog strict --flightrec
+    DIR`` the run raises ``WatchdogAlarm`` (the command's process would
+    exit nonzero) and DIR holds the dump, its ring and its counters."""
+    from distributed_sddmm_tpu_torch.obs.watchdog import WatchdogAlarm
+
+    path, frdir = OBS_DIR / "watchdog.jsonl", OBS_DIR / "flightrec"
+    shutil.rmtree(frdir, ignore_errors=True)
+    argv = obs_argv(HEADLINE, 3, 1, "--faults", json.dumps(OBS["skew"]))
+    with local_ranks(OBS["skew_ranks"]):
+        rc, counts, (rec,), _ = cli_run([*argv, "--watchdog", "warn"], path)
+        add_launches(launches, counts, "f32")
+        got = [(a["kind"], a["op"], a["count"], a["first"]["ratio"])
+               for a in rec["anomalies"]["anomalies"]]
+        require(rc == 0 and got == [("comm_mismatch", "fusedSpMM", 1, 2.0)],
+                f"obs watchdog/warn: rc {rc}, anomalies {rec['anomalies']}")
+        try:
+            cli_run([*argv, "--watchdog", "strict", "--flightrec", str(frdir)], path)
+        except WatchdogAlarm as e:
+            alarm = str(e)
+        else:
+            raise SmokeFailure("obs watchdog/strict: no WatchdogAlarm")
+    dumps = sorted(frdir.rglob("*.json"))
+    doc = json.loads(dumps[0].read_text()) if dumps else {}
+    require([d.name for d in dumps] == ["000-comm_mismatch.json"] and doc.get("ring")
+            and doc["metrics"]["global"].get("faults_fired", 0) >= 1,
+            f"obs watchdog/strict: dumps {[str(d) for d in dumps]}")
+    out = {"warn_anomaly": rec["anomalies"]["anomalies"][0], "strict_alarm": alarm,
+           "dump": {"file": dumps[0].name, "ring": len(doc["ring"]),
+                    "ring_names": sorted({r.get("name", r["type"]) for r in doc["ring"]})}}
+    emit({"phase": "obs_watchdog", "card": card, **out})
+    return out
+
+
+def busy_share(events: list, t0: float, t1: float) -> float:
+    """The share of ``[t0, t1]`` (µs) that the union of the device events'
+    intervals covers."""
+    spans = sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1)) for e in events
+                   if e["ts"] < t1 and e["ts"] + e["dur"] > t0)
+    busy, end = 0.0, t0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / max(t1 - t0, 1e-9)
+
+
+def obs_profile(launches: dict, card: str) -> dict:
+    """(e) ``--profile DIR`` at the headline, 1 warmup + 5 pairs: the
+    Chrome trace holds CUDA device events, every ``dot_walk_kernel`` launch
+    of the run inside a ``fusedSpMM`` range (the device range of the
+    op, or the op's host range around the kernel's launch call); the
+    device's busy and idle shares over the ``bench`` range (printed, not
+    gated)."""
+    from distributed_sddmm_tpu_torch.obs import profiler
+
+    path, logdir = OBS_DIR / "profile.jsonl", OBS_DIR / "profile"
+    shutil.rmtree(logdir, ignore_errors=True)
+    calls = OBS["profile_pairs"] + 1
+    rc, counts, (rec,), _ = cli_run(
+        obs_argv(HEADLINE, OBS["profile_pairs"], 1, "--profile", str(logdir)), path)
+    require(rc == 0 and counts == fused_only(calls), f"obs profile: {rc} {counts}")
+    add_launches(launches, counts, "f32")
+    files = sorted(logdir.glob("*.pt.trace.json"))
+    require(len(files) == 1, f"obs profile: trace files {files}")
+    events = [e for e in json.loads(files[0].read_text())["traceEvents"] if "dur" in e]
+    device = [e for e in events if e.get("cat") in profiler.DEVICE_CATEGORIES]
+    require(device, "obs profile: no device events in the trace (CUPTI did not start)")
+    walks = [e for e in device if e["cat"] == "kernel" and "dot_walk_kernel" in e["name"]]
+    ranges = {cat: [e for e in events if e.get("cat") == cat and e["name"] == "fusedSpMM"]
+              for cat in ("user_annotation", "gpu_user_annotation")}
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+
+    def inside(t, rs):
+        return t is not None and any(r["ts"] <= t <= r["ts"] + r["dur"] for r in rs)
+
+    covered = [w for w in walks
+               if inside(w["ts"], ranges["gpu_user_annotation"])
+               or inside(launch_ts.get(w.get("args", {}).get("correlation")),
+                         ranges["user_annotation"])]
+    require(len(walks) == calls and len(covered) == calls,
+            f"obs profile: {len(walks)} dot_walk_kernel events, {len(covered)} inside "
+            f"fusedSpMM ranges (want {calls}); ranges {[len(v) for v in ranges.values()]}")
+    (bench,) = [e for e in events if e.get("cat") == "user_annotation" and e["name"] == "bench"]
+    t0, t1 = bench["ts"], bench["ts"] + bench["dur"]
+    busy = busy_share(device, t0, t1)
+    kernel_us = sum(w["dur"] for w in walks)
+    out = {"trace_bytes": files[0].stat().st_size, "device_events": len(device),
+           "walks": len(walks), "walk_name": walks[0]["name"][:120],
+           "fusedSpMM_ranges": {k: len(v) for k, v in ranges.items()},
+           "bench_ms": (t1 - t0) / 1e3, "busy_share": busy, "idle_share": 1.0 - busy,
+           "walk_ms_mean": kernel_us / len(walks) / 1e3,
+           "elapsed_ms_per_pair": rec["elapsed"] / OBS["profile_pairs"] * 1e3}
+    emit({"phase": "obs_profile", "card": card, **out})
+    return out
+
+
+def phase_obs(dev, launches: dict, card: str) -> dict:
+    """Faults, retries and in-run observability through ``cli.main`` on the
+    card: (a) tracing, (b) faults, (c) the ALS retry, (d) the watchdog and
+    the flight recorder, (e) the profile."""
+    t0 = time.perf_counter()
+    OBS_DIR.mkdir(parents=True, exist_ok=True)
+    out, seconds = {}, {}
+    for part, fn in (("tracing", obs_tracing), ("faults", obs_faults),
+                     ("als_retry", obs_als_retry), ("watchdog", obs_watchdog),
+                     ("profile", obs_profile)):
+        t = time.perf_counter()
+        out[part] = fn(launches, card)
+        seconds[part] = time.perf_counter() - t
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    emit({"phase": "obs", "card": card, "seconds": time.perf_counter() - t0,
+          "seconds_by_part": seconds})
+    return out
+
+
+def profile_banked_attention(calls: int = 20) -> int:
+    """``python3 chip_smoke.py --profile-banked-attention``: the banked
+    bigbird attention call at 2**16 tokens (``BANKED``, its selected
+    variant, cuda-f32, A mode) through ``er ... --app attention
+    --kernel-variant VID --profile``: host ms a call (the record's
+    elapsed), device ms a call (its kernels, memcpys and memsets inside
+    the ``fusedAttn`` ranges), launches a call, the device's busy share
+    over the ``bench`` range, and the host operations with the most time
+    inside the ``fusedAttn`` ranges (inclusive: an operation's time counts
+    in the operations around it too; queue B item 6)."""
+    from distributed_sddmm_tpu_torch.obs import profiler
+
+    info = phase_device()
+    phase_build()
+    n, R, spec = 1 << BANKED["log_n"], BANKED["R"], BANKED["bigbird"]
+    vid = select_variant(Problem.from_coo(masks.from_spec(spec, n), R)).variant_id
+    OBS_DIR.mkdir(parents=True, exist_ok=True)
+    logdir, path = OBS_DIR / "banked_profile", OBS_DIR / "banked_profile.jsonl"
+    shutil.rmtree(logdir, ignore_errors=True)
+    argv = ["er", str(BANKED["log_n"]), "4", "15d_fusion2", str(R), "1", "--app", "attention",
+            "--mask", spec, "--kernel", "cuda-f32", "--kernel-variant", vid, "--trials",
+            str(calls), "--warmup", "2", "--profile", str(logdir)]
+    rc, counts, (rec,), _ = cli_run(argv, path)
+    (trace_file,) = logdir.glob("*.pt.trace.json")
+    events = [e for e in json.loads(trace_file.read_text())["traceEvents"] if "dur" in e]
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    device = [e for e in events if e.get("cat") in profiler.DEVICE_CATEGORIES]
+    require(rc == 0 and device, f"banked profile: rc {rc}, {len(device)} device events")
+    ranges = [e for e in events if e.get("cat") == "gpu_user_annotation"
+              and e["name"] == "fusedAttn"]
+    host_ranges = [e for e in events if e.get("cat") == "user_annotation"
+                   and e["name"] == "fusedAttn"]
+    inside = [e for e in device if any(r["ts"] <= e["ts"] and e["ts"] + e["dur"]
+                                       <= r["ts"] + r["dur"] for r in ranges)]
+    self_us: dict = {}
+    for e in events:
+        if e.get("cat") == "cpu_op" and any(r["ts"] <= e["ts"] <= r["ts"] + r["dur"]
+                                            for r in host_ranges):
+            self_us[e["name"]] = self_us.get(e["name"], 0.0) + e["dur"]
+    (bench,) = [e for e in events if e.get("cat") == "user_annotation" and e["name"] == "bench"]
+    busy = busy_share(device, bench["ts"], bench["ts"] + bench["dur"])
+    top = sorted(self_us.items(), key=lambda kv: -kv[1])[:12]
+    emit({"phase": "profile_banked_attention", "card": info["nvidia_smi"], "variant": vid,
+          "mask": spec, "n": n, "R": R, "calls_profiled": len(host_ranges),
+          "host_ms_per_call": rec["elapsed"] / calls * 1e3,
+          "host_range_ms_per_call": sum(r["dur"] for r in host_ranges) / len(host_ranges) / 1e3,
+          "device_ms_per_call": sum(e["dur"] for e in inside) / len(host_ranges) / 1e3,
+          "device_events_per_call": len(inside) / len(host_ranges),
+          "launches": counts, "busy_share": busy, "idle_share": 1.0 - busy,
+          "top_cpu_ops_ms_per_call": {k: v / len(host_ranges) / 1e3 for k, v in top}})
+    return 0
+
+
 def gat_grad_drift(seeds: list) -> int:
     """``python3 chip_smoke.py --gat-grad-drift [SEED ...]`` (by default
     GAT_DRIFT["seeds"]): for each seed, one step's weight grads of the
@@ -5183,6 +5581,8 @@ def main() -> int:
     if "--gat-grad-drift" in sys.argv:
         seeds = [int(a) for a in sys.argv[sys.argv.index("--gat-grad-drift") + 1:]]
         return gat_grad_drift(seeds or list(GAT_DRIFT["seeds"]))
+    if "--profile-banked-attention" in sys.argv:
+        return profile_banked_attention()
     info = phase_device()
     dev = torch.device("cuda")
     phase_build()
@@ -5229,8 +5629,10 @@ def drive(info: dict, dev, ref: HostReference) -> int:
     del uniform, algs, kept
     host: dict = {}
     phase_host_cli(S16, full, dev, host, entries, card)
+    obs: dict = {}
+    phase_obs(dev, obs, card)
     for key, n in (*ring.items(), *apps.items(), *strategies.items(), *training.items(),
-                   *apps_strategies.items(), *plans.items(), *host.items()):
+                   *apps_strategies.items(), *plans.items(), *host.items(), *obs.items()):
         launches[key] = launches.get(key, 0) + n
 
     kernels = []
@@ -5249,6 +5651,7 @@ def drive(info: dict, dev, ref: HostReference) -> int:
             "apps_strategies_launches": apps_strategies.get((op, prec), 0),
             "plans_launches": plans.get((op, prec), 0),
             "host_cli_launches": host.get((op, prec), 0),
+            "obs_launches": obs.get((op, prec), 0),
             "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
             "max_rel_err": max(r["max_rel_err"] for r in shapes.values()),
             "tol": main_["tol"],

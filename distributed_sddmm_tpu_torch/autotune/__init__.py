@@ -25,7 +25,9 @@ Entry points::
     alg = plan.instantiate(S, R=R)           # a DistributedSparse
 
 or the algorithm name ``auto`` of the benchmark CLI (``--plan-mode``).
-The JAX package's trace spans and events of selection are not ported.
+Selection is traced as in the JAX package: an ``autotune:trial`` span an
+attempt, and the events ``autotune_candidate_dropped``, ``plan_cache_hit``
+and ``plan_selected``.
 """
 
 from distributed_sddmm_tpu_torch.autotune.cache import SCHEMA_VERSION, PlanCache

@@ -30,7 +30,7 @@ from typing import Callable, Optional
 
 from distributed_sddmm_tpu_torch.autotune.candidates import Candidate
 from distributed_sddmm_tpu_torch.autotune.fingerprint import Problem
-from distributed_sddmm_tpu_torch.obs import metrics
+from distributed_sddmm_tpu_torch.obs import metrics, trace
 from distributed_sddmm_tpu_torch.resilience.retry import (
     Backoff, CallTimeout, call_with_timeout,
 )
@@ -125,21 +125,26 @@ def measure_candidates(
         t_start = monotonic()
         last_err = None
         for attempt in range(retries + 1):
-            try:
-                rec = call_with_timeout(
-                    lambda: run(S, problem, cand, trials, warmup),
-                    timeout_s, label=f"trial:{cand.algorithm}",
-                )
-                out.append((cand, rec))
-                last_err = None
-                break
-            except ValueError as e:
-                last_err = e
-                break  # a deterministic refusal: retrying wastes budget
-            except Exception as e:  # noqa: BLE001 -- a failure drops the candidate
-                last_err = e
-                if stop_on_timeout and isinstance(e, TimeoutError):
+            with trace.span("autotune:trial", algorithm=cand.algorithm, c=cand.c,
+                            kernel=cand.kernel, attempt=attempt) as sp:
+                try:
+                    rec = call_with_timeout(
+                        lambda: run(S, problem, cand, trials, warmup),
+                        timeout_s, label=f"trial:{cand.algorithm}",
+                    )
+                    sp.set(gflops=rec.get("overall_throughput"))
+                    out.append((cand, rec))
+                    last_err = None
                     break
+                except ValueError as e:
+                    sp.set(failed=type(e).__name__)
+                    last_err = e
+                    break  # a deterministic refusal: retrying wastes budget
+                except Exception as e:  # noqa: BLE001 -- a failure drops the candidate
+                    sp.set(failed=type(e).__name__)
+                    last_err = e
+                    if stop_on_timeout and isinstance(e, TimeoutError):
+                        break
             if attempt < retries:
                 d = backoff.delay(attempt)
                 if not backoff.budget_left(monotonic() - t_start, d):
@@ -148,6 +153,8 @@ def measure_candidates(
                 sleep(d)
         if last_err is not None:
             metrics.GLOBAL.add("autotune_candidates_dropped")
+            trace.event("autotune_candidate_dropped", algorithm=cand.algorithm, c=cand.c,
+                        kernel=cand.kernel, error=type(last_err).__name__)
             _LOG.warning("autotune dropped %s c=%s kernel=%s: %s: %s", cand.algorithm,
                          cand.c, cand.kernel, type(last_err).__name__, last_err)
             if stop_on_timeout and isinstance(last_err, TimeoutError):

@@ -34,7 +34,7 @@ from distributed_sddmm_tpu_torch.autotune.candidates import Candidate
 from distributed_sddmm_tpu_torch.autotune.fingerprint import (
     Problem, machine_signature, make_fingerprint,
 )
-from distributed_sddmm_tpu_torch.obs import metrics
+from distributed_sddmm_tpu_torch.obs import metrics, trace
 
 MODES = ("auto", "model", "measure")
 
@@ -189,6 +189,8 @@ def get_plan(
     # a measured plan always serves.
     if hit is not None and not (mode == "measure" and hit.get("source") != "measured"):
         metrics.GLOBAL.add("plan_cache_hits")
+        trace.event("plan_cache_hit", key=fp.key, algorithm=hit.get("algorithm"),
+                    c=hit.get("c"), source=hit.get("source"))
         return Plan.from_dict(hit)
     metrics.GLOBAL.add("plan_cache_misses")
 
@@ -234,6 +236,8 @@ def get_plan(
                     source="seed" if seed is not None and best == seed else "model",
                     predicted_ms=cost * 1e3, fingerprint_key=fp.key)
     plan = Plan.from_dict(_from_process_zero(world, plan.to_dict()))
+    trace.event("plan_selected", key=fp.key, algorithm=plan.algorithm, c=plan.c,
+                kernel=plan.kernel, source=plan.source, measured=len(measured))
     if lead:
         cache.store(fp.key, plan.to_dict())
     return plan

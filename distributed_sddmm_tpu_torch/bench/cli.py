@@ -45,6 +45,19 @@ payloads to bf16 on the wire (``parallel/wire.py``); the record's
 supersede ``--wire`` and the positional c, and ``--kernel`` names the
 kernel family (the precision) the plan may use.
 
+Faults and in-run observability (``er``, ``file``, ``heatmap``), as in the
+JAX CLI: ``--faults SPEC`` installs a fault plan (``resilience/faults.py``;
+the record lists ``faults_fired``), ``--trace [PATH]`` writes a JSONL trace
+and its manifest (default ``artifacts/traces_torch/<run_id>.jsonl``),
+``--profile DIR`` a ``torch.profiler`` Chrome trace of the whole run,
+``--watchdog warn|strict`` watches for anomalies (the record's
+``anomalies``; ``strict`` raises), and ``--flightrec [DIR]`` dumps the
+recent spans on every anomaly (default ``artifacts/flightrec_torch/``);
+with ``--flightrec`` armed, ``--profile`` means a short window an anomaly
+instead of the whole run. Each has its ``SDDMM_TORCH_*`` environment
+knob (``FAULTS``, ``TRACE``, ``PROFILE``, ``WATCHDOG``, ``FLIGHTREC``).
+What a command turned on is turned off again when it returns.
+
 Every subcommand that uses the card takes ``--device`` (default ``cuda``,
 which raises without one; ``cpu`` runs the plain versions). The world
 comes from the environment (``parallel/comm.world_from_env``):
@@ -52,10 +65,10 @@ comes from the environment (``parallel/comm.world_from_env``):
 ``cpu``), otherwise ``SDDMM_TORCH_LOCAL_RANKS=P`` runs P logical ranks in
 this process (default 1). Each run prints one JSON summary line and
 appends its full record to ``-o`` (process 0 only). Flags whose machinery
-is not ported (tracing, profiling, faults, the watchdog, the flight
-recorder, the run store) and the subcommands that are not (``overlap``,
-``serve``, ``fleet``, ``tune``, the run-store and trace tools, ``top``,
-``lint``, ``env``) are not defined, so argparse refuses them.
+is not ported (the run store: ``--no-runstore``) and the subcommands that
+are not (``overlap``, ``serve``, ``fleet``, ``tune``, the run-store and
+trace tools, ``top``, ``lint``, ``env``) are not defined, so argparse
+refuses them.
 """
 
 from __future__ import annotations
@@ -63,6 +76,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import sys
 
 import torch.distributed as dist
@@ -183,6 +197,38 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--resume", action="store_true",
                    help="resume from the newest valid checkpoint in --checkpoint-dir "
                    "instead of step 0 (corrupt checkpoints scan back; none = fresh)")
+    p.add_argument(
+        "--faults", default=None, metavar="SPEC",
+        help="activate a fault-injection plan: inline JSON spec list (or "
+        "{'seed','specs'} dict), @/path/to/plan.json, or the kind shorthand "
+        "'delay,nan'; equivalent to SDDMM_TORCH_FAULTS (resilience/faults.py)",
+    )
+    p.add_argument(
+        "--trace", nargs="?", const="1", default=None, metavar="PATH",
+        help="emit a structured JSONL trace (spans, comm counters, resilience "
+        "events) and its run manifest; PATH is a .jsonl file or a directory, "
+        "default artifacts/traces_torch/<run_id>.jsonl (SDDMM_TORCH_TRACE)",
+    )
+    p.add_argument(
+        "--profile", default=None, metavar="LOGDIR",
+        help="capture a torch.profiler trace (CPU, and CUDA on the card) of the "
+        "run into LOGDIR as a Chrome trace, a named range per timed op "
+        "(SDDMM_TORCH_PROFILE)",
+    )
+    p.add_argument(
+        "--watchdog", default=None, choices=["warn", "strict"],
+        help="in-run anomaly monitor: step-time spikes and drift, repair "
+        "storms, comm against the cost model; 'warn' reports (anomaly trace "
+        "events and the record's 'anomalies'), 'strict' raises "
+        "(SDDMM_TORCH_WATCHDOG)",
+    )
+    p.add_argument(
+        "--flightrec", nargs="?", const="1", default=None, metavar="DIR",
+        help="arm the anomaly flight recorder: every watchdog anomaly dumps the "
+        "recent spans and the counters (and a short profiler window with "
+        "--profile) to artifacts/flightrec_torch/<run_id>/; DIR relocates "
+        "(SDDMM_TORCH_FLIGHTREC)",
+    )
     _add_device(p)
     p.add_argument("-o", "--output-file", default=None, help="append JSON records here")
 
@@ -362,10 +408,52 @@ def _verify(args) -> int:
     return 0 if ok else 1
 
 
+@contextlib.contextmanager
+def _observed(args):
+    """The faults and observability the flags ask for, on around the run
+    and off after it, in the JAX CLI's order: the watchdog, the fault
+    plan, the tracer, then the flight recorder (its ring taps the file
+    tracer), then the profiler. With the flight recorder armed,
+    ``--profile`` means a window an anomaly: one profiler session at a
+    time, so a whole-run capture would refuse every window."""
+    from distributed_sddmm_tpu_torch.obs import flightrec as obs_flightrec
+    from distributed_sddmm_tpu_torch.obs import profiler as obs_profiler
+    from distributed_sddmm_tpu_torch.obs import trace as obs_trace
+    from distributed_sddmm_tpu_torch.obs import watchdog as obs_watchdog
+    from distributed_sddmm_tpu_torch.resilience import faults
+
+    profile = args.profile or os.environ.get(obs_profiler.PROFILE_ENV)
+    with contextlib.ExitStack() as stack:
+        if args.watchdog:
+            obs_watchdog.enable(args.watchdog)
+            stack.callback(obs_watchdog.disable)
+            print(f"[watchdog] {args.watchdog} mode", file=sys.stderr)
+        if args.faults:
+            faults.install(faults.FaultPlan.from_spec(args.faults))
+            stack.callback(faults.clear)
+            print("[faults] plan installed from --faults", file=sys.stderr)
+        if args.trace:
+            tr = obs_trace.enable(None if args.trace == "1" else args.trace)
+            stack.callback(obs_trace.disable)
+            print(f"[trace] writing {tr.path}", file=sys.stderr)
+        if args.flightrec:
+            fr = obs_flightrec.enable(None if args.flightrec == "1" else args.flightrec,
+                                      profile_window_s=0.25 if profile else 0.0)
+            stack.callback(obs_flightrec.disable)
+            print(f"[flightrec] armed -> {fr.out_dir}", file=sys.stderr)
+        if profile and args.flightrec:
+            print("[profile] flight recorder armed: capturing short per-anomaly "
+                  "windows instead of the whole run", file=sys.stderr)
+        elif profile:
+            stack.enter_context(obs_profiler.capture(profile))
+        yield
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.cmd in ("er", "file", "heatmap"):
-        return _benchmark(args)
+        with _observed(args):
+            return _benchmark(args)
     if args.cmd == "verify":
         return _verify(args)
     if args.cmd == "permute":

@@ -15,6 +15,13 @@ for ALS a trial is an alternating step, which runs about
 ``2 * (cg_iters + 2)`` pairs, and for GAT a forward pass, at the last
 layer's R). The elapsed time is the host clock around the trials, which
 end in a device synchronise.
+
+The run sits in a ``bench`` trace span (and a ``bench`` profiler range
+while capturing). The record's ``metrics`` is the strategy's
+``OpMetrics.to_dict()``, the JAX record's fields; while tracing it carries
+``run_id`` and ``trace_path`` (and the manifest is refreshed with the
+device's facts), under a fault plan ``faults_fired`` (the firings of this
+run), and under the watchdog ``anomalies`` (its summary of this run).
 """
 
 from __future__ import annotations
@@ -27,6 +34,10 @@ from distributed_sddmm_tpu_torch.common import MatMode
 from distributed_sddmm_tpu_torch.device import device_label, synchronize
 from distributed_sddmm_tpu_torch.models.als import DistributedALS
 from distributed_sddmm_tpu_torch.models.gat import GAT, GATLayer
+from distributed_sddmm_tpu_torch.obs import manifest as obs_manifest
+from distributed_sddmm_tpu_torch.obs import profiler as obs_profiler
+from distributed_sddmm_tpu_torch.obs import trace as obs_trace
+from distributed_sddmm_tpu_torch.obs import watchdog as obs_watchdog
 from distributed_sddmm_tpu_torch.parallel.base import (
     DistributedSparse, realized_kernel_variant,
 )
@@ -34,7 +45,7 @@ from distributed_sddmm_tpu_torch.parallel.cannon_dense_25d import CannonDense25D
 from distributed_sddmm_tpu_torch.parallel.cannon_sparse_25d import CannonSparse25D
 from distributed_sddmm_tpu_torch.parallel.dense_shift_15d import DenseShift15D
 from distributed_sddmm_tpu_torch.parallel.sparse_shift_15d import SparseShift15D
-from distributed_sddmm_tpu_torch.resilience import CheckpointStore
+from distributed_sddmm_tpu_torch.resilience import CheckpointStore, faults
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 
 ALGORITHM_FACTORIES = {
@@ -259,19 +270,27 @@ def benchmark_algorithm(
             "--breakdown requires app='vanilla' and fused=True (it "
             "attributes the fusedSpMM op)"
         )
+    # Cursors: the plan's and the watchdog's lists are process-wide, and a
+    # record carries only what fired during its own run.
+    fault_plan = faults.active()
+    events_before = len(fault_plan.events) if fault_plan is not None else 0
+    watchdog = obs_watchdog.active()
+    anomalies_before = len(watchdog.events) if watchdog is not None else 0
     alg = make_algorithm(algorithm_name, S, R, c, kernel=kernel, device=device,
                          attention=app == "attention", world=world,
                          overlap=overlap, wire=wire)
-    if app == "attention":
-        elapsed, app_stats = _run_attention(alg, fused, trials, warmup)
-    elif app == "gat":
-        elapsed, app_stats = _run_gat(alg, trials, warmup)
-    elif app == "als":
-        elapsed, app_stats = _run_als(alg, trials, warmup, S=S,
-                                      checkpoint_dir=checkpoint_dir,
-                                      checkpoint_every=checkpoint_every, resume=resume)
-    else:
-        elapsed, app_stats = _run_vanilla(alg, fused, trials, warmup), {}
+    with obs_trace.span("bench", algorithm=algorithm_name, app=app, R=R, c=c,
+                        fused=bool(fused), trials=trials), obs_profiler.annotate("bench"):
+        if app == "attention":
+            elapsed, app_stats = _run_attention(alg, fused, trials, warmup)
+        elif app == "gat":
+            elapsed, app_stats = _run_gat(alg, trials, warmup)
+        elif app == "als":
+            elapsed, app_stats = _run_als(alg, trials, warmup, S=S,
+                                          checkpoint_dir=checkpoint_dir,
+                                          checkpoint_every=checkpoint_every, resume=resume)
+        else:
+            elapsed, app_stats = _run_vanilla(alg, fused, trials, warmup), {}
     throughput = 2.0 * S.nnz * 2.0 * alg.R * trials / max(elapsed, 1e-12) / 1e9
     perf_stats = alg.json_perf_statistics()
     if breakdown:
@@ -300,10 +319,19 @@ def benchmark_algorithm(
         "process_index": alg.world.process_index,
         "alg_info": alg.json_algorithm_info(),
         "perf_stats": perf_stats,
-        "metrics": {k: dict(v) for k, v in alg.metrics.items()},
+        "metrics": alg.metrics.to_dict(),
         **app_stats,
         **(extra_info or {}),
     }
+    if obs_trace.enabled():
+        record["run_id"] = obs_trace.run_id()
+        record["trace_path"] = obs_trace.trace_path()
+        obs_manifest.write_for_trace(obs_trace.tracer(), device=alg.device)
+    if fault_plan is not None:
+        record["faults_fired"] = [{"site": site, "kind": kind, "call": n}
+                                  for site, kind, n in fault_plan.events[events_before:]]
+    if watchdog is not None:
+        record["anomalies"] = watchdog.summary(since=anomalies_before)
     if output_file and alg.world.process_index == 0:
         with open(output_file, "a") as f:
             f.write(json.dumps(record) + "\n")

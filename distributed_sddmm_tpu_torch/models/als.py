@@ -23,7 +23,11 @@ sddmm and spmm.
 The CG carries are updated in place (this port's counterpart of the JAX
 program's buffer donation): ``X`` is a copy of the factor and ``p`` a copy
 of ``r``, so the committed factors stay untouched until a half-step
-succeeds. The solver runs under ``torch.no_grad()``.
+succeeds. When a timed op may be run again (a fault plan or the guards
+are on: ``DistributedSparse.resilient``) the update is out of place, the
+same arithmetic to the bit, so a retried ``cgStep`` starts from the
+carries the failed attempt was given (the JAX programs are functional and
+never meet this). The solver runs under ``torch.no_grad()``.
 
 Resilience:
 
@@ -43,24 +47,30 @@ Resilience:
   :class:`~distributed_sddmm_tpu_torch.resilience.guards.NumericalFault`:
   a kernel that writes NaN is never hidden behind a host answer.
 
-The fault-injection hooks of the JAX package (``als:step``,
-``als:cg_iter``), its watchdog and ``from_plan`` are not ported (ROADMAP.md,
-queue A items 11 and 14); its trace spans and log lines are Python
-``logging`` under the logger ``"als"``. Random draws come from a
-``torch.Generator`` seeded with ``seed`` and cannot equal ``jax.random``'s.
+Observability and faults, the JAX package's: the spans ``als:step`` and
+``als:half_step``, the events ``als_damped_restart`` and ``als_degraded``,
+the fault sites ``als:step`` (before each alternating step) and
+``als:cg_iter`` (before each CG iteration), and the watchdog's step
+cadence (``als:step``; a strict alarm there enters the ladder as a
+divergence). The ladder's log lines are Python ``logging`` under the
+logger ``"als"``. Random draws come from a ``torch.Generator`` seeded with
+``seed`` and cannot equal ``jax.random``'s.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 
 import numpy as np
 import torch
 
 from distributed_sddmm_tpu_torch.common import KernelMode, MatMode
+from distributed_sddmm_tpu_torch.obs import trace as obs_trace
+from distributed_sddmm_tpu_torch.obs import watchdog as obs_watchdog
 from distributed_sddmm_tpu_torch.parallel.base import DistributedSparse
 from distributed_sddmm_tpu_torch.parallel.mesh import AXES
-from distributed_sddmm_tpu_torch.resilience import guards
+from distributed_sddmm_tpu_torch.resilience import faults, guards
 from distributed_sddmm_tpu_torch.resilience.guards import CGGuard, NumericalFault
 
 _log = logging.getLogger("als")
@@ -79,11 +89,17 @@ def _scale_rows(scale: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
     return mat * scale.unsqueeze(-1)
 
 
-def _cg_vector_update(X, r, p, rsold, Mp, dot, eps: float = EPS):
+def _cg_vector_update(X, r, p, rsold, Mp, dot, eps: float = EPS, inplace: bool = True):
     """One CG iteration's vector algebra given the Gram product ``Mp`` and
-    the per-row dot ``dot(x, y)``; updates ``X``, ``r`` and ``p`` in place
-    and returns ``(X, r, p, rsnew)``."""
+    the per-row dot ``dot(x, y)``; returns ``(X, r, p, rsnew)``, updating
+    ``X``, ``r`` and ``p`` in place, or into new tensors with
+    ``inplace=False`` (the same bits)."""
     alpha = (rsold + eps) / (dot(p, Mp) + eps)
+    if not inplace:
+        X = X + _scale_rows(alpha, p)
+        r = r - _scale_rows(alpha, Mp)
+        rsnew = dot(r, r)
+        return X, r, p * (rsnew / (rsold + eps)).unsqueeze(-1) + r, rsnew
     X.add_(_scale_rows(alpha, p))
     r.sub_(_scale_rows(alpha, Mp))
     rsnew = dot(r, r)
@@ -210,13 +226,20 @@ class DistributedALS:
     def _cg_step(self, mode: MatMode, lam: float, X, r, p, rsold, mark=_no_mark):
         """One CG iteration from the carries, the Gram product of ``p`` and
         the vector algebra; returns ``(X, r, p, rsnew)``. One ``cgStep`` on
-        the dense shift, the public ops' counters elsewhere."""
+        the dense shift (charged the transposed layout in B mode), the
+        public ops' counters elsewhere. A ``cgStep`` that may be retried
+        writes none of its carries."""
+        inplace = not (self._unit and self.d_ops.resilient())
+
         def step():
             Mp = (self.compute_queries(p, self.B, mode, lam, mark) if mode == MatMode.A
                   else self.compute_queries(self.A, p, mode, lam, mark))
-            return _cg_vector_update(X, r, p, rsold, Mp, self._dot(mode))
+            return _cg_vector_update(X, r, p, rsold, Mp, self._dot(mode), inplace=inplace)
 
-        return self.d_ops._timed("cgStep", step) if self._unit else step()
+        if not self._unit:
+            return step()
+        return self.d_ops._timed("cgStep", step,
+                                 _comm_op="cgStep" if mode == MatMode.A else "cgStepB")
 
     def _dot(self, mode: MatMode):
         """The per-row dot over ``mode``'s operand layout."""
@@ -233,18 +256,20 @@ class DistributedALS:
         to the host an iteration)."""
         cg_guard = CGGuard() if self._guard_active() else None
         dot = self._dot(mode)
-        # The initial residual and every iteration see the same ridge.
-        r = self.compute_rhs(mode) - self.compute_queries(self.A, self.B, mode, lam=lam)
-        rsold = dot(r, r)
-        # The in-place updates must touch neither the committed factor nor r
-        # through p.
-        X = (self.A if mode == MatMode.A else self.B).clone()
-        p = r.clone()
-        for _ in range(cg_max_iter):
-            X, r, p, rsold = self._cg_step(mode, lam, X, r, p, rsold)
-            if cg_guard is not None and cg_guard.update(float(rsold.sum())):
-                raise CGDivergence(f"CG residual diverged in {mode.name} half-step "
-                                   f"(λ={lam:g})")
+        with obs_trace.span("als:half_step", mode=mode.name, lam=lam, cg_iters=cg_max_iter):
+            # The initial residual and every iteration see the same ridge.
+            r = self.compute_rhs(mode) - self.compute_queries(self.A, self.B, mode, lam=lam)
+            rsold = dot(r, r)
+            # The in-place updates must touch neither the committed factor
+            # nor r through p.
+            X = (self.A if mode == MatMode.A else self.B).clone()
+            p = r.clone()
+            for _ in range(cg_max_iter):
+                faults.maybe_raise("als:cg_iter")
+                X, r, p, rsold = self._cg_step(mode, lam, X, r, p, rsold)
+                if cg_guard is not None and cg_guard.update(float(rsold.sum())):
+                    raise CGDivergence(f"CG residual diverged in {mode.name} half-step "
+                                       f"(λ={lam:g})")
         return X
 
     def cg_optimizer(self, mode: MatMode, cg_max_iter: int = 10) -> None:
@@ -258,6 +283,8 @@ class DistributedALS:
             if not self._guard_active():
                 raise
             damped = self.ridge_lambda * self.damp_factor
+            obs_trace.event("als_damped_restart", mode=mode.name, lam=damped,
+                            cause=type(first).__name__)
             _log.warning("%s in %s half-step; damped-λ restart at λ=%g",
                          type(first).__name__, mode.name, damped)
             try:
@@ -343,6 +370,7 @@ class DistributedALS:
         self.A = d.put_a(serial.A.astype(np.float32))
         self.B = d.put_b(serial.B.astype(np.float32))
         self.degraded = "serial"
+        obs_trace.event("als_degraded", to="serial", remaining_steps=n_steps)
         _log.warning("degraded to the serial solver for %d remaining steps", n_steps)
 
     def run_cg(self, n_alternating_steps: int, cg_iters: int = 10, *, checkpoint=None,
@@ -358,10 +386,23 @@ class DistributedALS:
             step = self.restore_checkpoint(checkpoint)
         if self.A is None:
             self.initialize_embeddings()
+        wd = obs_watchdog.active()
         while step < n_alternating_steps:
+            faults.maybe_raise("als:step")
             try:
-                self.cg_optimizer(MatMode.A, cg_iters)
-                self.cg_optimizer(MatMode.B, cg_iters)
+                t_step = time.perf_counter()
+                with obs_trace.span("als:step", step=step):
+                    self.cg_optimizer(MatMode.A, cg_iters)
+                    self.cg_optimizer(MatMode.B, cg_iters)
+                if wd is not None:
+                    # The whole step's cadence: creep across steps shows
+                    # here when each cgStep stays under its own spike bar.
+                    # A strict alarm enters the ladder at the divergence
+                    # rung (degrade, not abort).
+                    try:
+                        wd.observe("als:step", time.perf_counter() - t_step)
+                    except obs_watchdog.WatchdogAlarm as alarm:
+                        raise CGDivergence(str(alarm)) from alarm
             except CGDivergence as e:
                 _log.error("%s", e)
                 self.degrade_to_serial(n_alternating_steps - step, cg_iters, cause=e)

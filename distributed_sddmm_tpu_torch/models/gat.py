@@ -19,8 +19,14 @@ fresh ``S_att @ A_h``, and the strategy's R follows each layer's widths
 package's records: on ``DenseShift15D``, where the JAX package runs a
 layer as one program, one ``gatLayer`` times each layer (the public ops
 inside it run untimed); on the R-split strategies the per-op counters
-show its sddmmA and spmmA. With guards on (``SDDMM_TORCH_GUARDS``) every
-layer's output passes ``guard_output``.
+show its sddmmA and spmmA. A ``gatLayer`` is charged one fused pair a
+head at the layer's output width, as in the JAX package. With guards on
+(``SDDMM_TORCH_GUARDS``, or a fault plan) every layer's output passes
+``guard_output`` inside the layer, so on the dense shift a poisoned layer
+is retried as a whole. The R-split path runs each layer under a
+``gat:layer`` span, and the watchdog watches every layer's time
+(``gat:layer<i>``); a strict alarm propagates out of ``forward``: GAT has
+no cheaper rung to fall to.
 
 The forward pass is differentiable in the weights on every strategy and
 world: set ``requires_grad`` on ``layer.weights`` and call ``backward``
@@ -36,11 +42,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 
 import numpy as np
 import torch
 
 from distributed_sddmm_tpu_torch.common import KernelMode, MatMode
+from distributed_sddmm_tpu_torch.obs import trace as obs_trace
+from distributed_sddmm_tpu_torch.obs import watchdog as obs_watchdog
 from distributed_sddmm_tpu_torch.parallel.base import DistributedSparse
 from distributed_sddmm_tpu_torch.resilience import guards
 
@@ -152,15 +161,25 @@ class GAT:
         """Every head of layer ``i`` and their concat (``mark("concat",
         out)`` after it); the strategy's R becomes the layer's output
         width. One ``gatLayer`` on the dense shift, the public ops'
-        counters elsewhere."""
+        counters elsewhere. With guards on, the output passes the
+        ``gat:layer<i>`` sentinel (raise or repair)."""
+        d, layer_spec = self.d_ops, self.layers[i]
+        guarding = guards.enabled()
+
         def layer():
             heads = [self.compute_self_attention_head(X, i, j, mark)
-                     for j in range(len(self.layers[i].weights))]
-            out = self.d_ops.concat_heads(heads, MatMode.A)
+                     for j in range(len(layer_spec.weights))]
+            out = d.concat_heads(heads, MatMode.A)
             mark("concat", out)
-            return out
+            # A poisoned activation raises (naming the layer) or is
+            # repaired; it never feeds the next layer silently.
+            return guards.guard_output(f"gat:layer{i}", out) if guarding else out
 
-        return self.d_ops._timed("gatLayer", layer) if self._unit else layer()
+        if self._unit:
+            d.set_r_value(layer_spec.output_features)
+            return d._timed("gatLayer", layer, _pairs=float(layer_spec.num_heads))
+        with obs_trace.span("gat:layer", layer=i, heads=layer_spec.num_heads):
+            return layer()
 
     def default_input(self) -> torch.Tensor:
         """The deterministic dummy fill ``(row * R + col) / (M * R)`` with
@@ -175,14 +194,13 @@ class GAT:
         by default :meth:`default_input`."""
         if X is None:
             X = self.default_input()
-        guarding = guards.enabled()
+        wd = obs_watchdog.active()
         for i in range(len(self.layers)):
+            t_layer = time.perf_counter()
             X = self.layer_forward(i, X)
-            if guarding:
-                # A poisoned activation raises (naming the layer) or is
-                # repaired, per SDDMM_TORCH_GUARD_MODE; it never feeds the
-                # next layer silently.
-                X = guards.guard_output(f"gat:layer{i}", X)
+            if wd is not None:
+                # Keyed a layer: layers differ in width and heads.
+                wd.observe(f"gat:layer{i}", time.perf_counter() - t_layer)
         return X
 
     def node_embeddings(self, X: torch.Tensor | None = None) -> np.ndarray:

@@ -14,15 +14,27 @@ operand is one tensor of the ``p`` blocks stacked in rank order,
 ``(p * block_rows, width)``, and each rank's block is a contiguous view of
 it; under a ``DistWorld`` it is the process's own block. Sparse values live
 in the tile layout of ``parallel/sharding.py``, one slot a rank held. Ops
-return new tensors. In place of the JAX package's observability and
-resilience machinery, every public op adds its call count and seconds
-(host clock around the op, ending in a device synchronise) to a plain
-per-op counter.
+return new tensors.
+
+Every public op runs through :meth:`DistributedSparse._timed`, the
+dispatch choke point of the JAX package's base: with nothing active it
+reads the clock twice around the op and a device synchronise and adds one
+record to :attr:`DistributedSparse.metrics` (an ``obs/metrics.py``
+``OpMetrics``: kernel seconds, words, bytes, FLOPs). Under tracing, a
+profiler capture, a fault plan or the guards it also opens a span, a
+``record_function`` range, and runs the op through the retrying, fault-
+hooked, guarded :meth:`DistributedSparse._resilient_call`, keeping the
+failed attempts' time apart as ``overhead_s``. A unit that updates state
+in place (the ALS CG step) asks :meth:`DistributedSparse.resilient`
+first and, when a retry could happen, updates out of place instead, so
+every attempt starts from the same values.
 """
 
 from __future__ import annotations
 
 import abc
+import os
+import threading
 import time
 
 import numpy as np
@@ -30,6 +42,10 @@ import torch
 
 from distributed_sddmm_tpu_torch.common import KernelMode, MatMode
 from distributed_sddmm_tpu_torch.device import resolve_device, synchronize
+from distributed_sddmm_tpu_torch.obs import metrics as obs_metrics
+from distributed_sddmm_tpu_torch.obs import profiler as obs_profiler
+from distributed_sddmm_tpu_torch.obs import trace as obs_trace
+from distributed_sddmm_tpu_torch.obs import watchdog as obs_watchdog
 from distributed_sddmm_tpu_torch.ops.autograd import FusedTile, SddmmTile, SpmmTile
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
 from distributed_sddmm_tpu_torch.parallel.loops import ABLATION_MODES, ablation_mode
@@ -38,7 +54,14 @@ from distributed_sddmm_tpu_torch.parallel.sharding import (
     BankedTileView, TileSet, TileView, packed_structure, unpack_structure,
 )
 from distributed_sddmm_tpu_torch.parallel.wire import wire_policy
+from distributed_sddmm_tpu_torch.resilience import faults, guards
+from distributed_sddmm_tpu_torch.resilience.retry import Backoff, CallTimeout, retry_call
 from distributed_sddmm_tpu_torch.tools import costmodel
+
+#: Environment knobs of the resilient path: retries a timed op gets
+#: (default 1) and its per-attempt wall-clock bound in seconds (0: none).
+EXEC_RETRIES_ENV = "SDDMM_TORCH_EXEC_RETRIES"
+EXEC_TIMEOUT_ENV = "SDDMM_TORCH_EXEC_TIMEOUT"
 
 
 def realized_kernel_variant(alg):
@@ -59,15 +82,12 @@ class DistributedSparse(abc.ABC):
     algorithm_name: str = ""
     proc_grid_names: tuple = ()
     #: The ``tools/costmodel.py`` model of the strategy's layout (None: no
-    #: analytic model, as for the dense shift, whose ``comm_profile``
-    #: counts each collective itself).
+    #: analytic model; the record's comm counters then stay zero).
     cost_model_name: str | None = None
     #: True for the strategies that split the dense operands' R dimension.
     r_split = False
     #: The double-buffered ring build (the shift strategies that have one).
     overlap = False
-    #: True while a timed call runs (``_timed``).
-    _timing = False
 
     #: Type of the dense operands and the sparse values.
     dtype = torch.float32
@@ -86,8 +106,13 @@ class DistributedSparse(abc.ABC):
         #: in slot order: ``(i * nc + j) * nh + k``.
         self.blocks = [(i * grid.nc + j) * grid.nh + k for i, j, k in self.comm.coords]
         self.kernel = kernel if kernel is not None else CudaTileKernel(device=self.device)
-        #: ``{op: {"calls": n, "seconds": s}}`` over the public ops.
-        self.metrics: dict[str, dict] = {}
+        #: Per-op attribution of the public ops (``obs/metrics.py``).
+        self.metrics = obs_metrics.OpMetrics()
+        #: Per thread: whether a timed unit runs (an attempt that timed
+        #: out keeps running on its own thread, outside this one's units).
+        self._unit_state = threading.local()
+        self._op_cost_cache: dict = {}
+        self._trace_meta_emitted = False
         self._maps: dict = {}
         #: Moving tiles between processes: each tile set's packed
         #: structure, and the device bands of the tiles a ring brings.
@@ -451,28 +476,180 @@ class DistributedSparse(abc.ABC):
 
     # ------------------------------- counters ------------------------------ #
 
-    def _timed(self, name: str, fn, *args):
-        """Run ``fn(*args)`` as the op ``name``: host clock around the call
-        and a device synchronise, added to ``metrics[name]``. A call inside
-        another timed call (a public op inside an app's unit of work: an
-        ALS CG iteration, a GAT layer) runs untimed, so the unit is what
-        the counters show and it synchronises once."""
+    @property
+    def total_time(self):
+        """``{op: kernel seconds}`` (a snapshot; retry and fault overhead
+        is ``metrics.to_dict()[op]["overhead_s"]``)."""
+        return self.metrics.time_view()
+
+    @property
+    def call_count(self):
+        return self.metrics.calls_view()
+
+    def _op_cost(self, op: str, pairs: float) -> tuple:
+        """``(comm words, comm bytes, folded-out words, global FLOPs)`` of
+        one call of ``op`` at the current R, cached, so a dispatch pays
+        one dict lookup. The ``comm:<op>`` fault site (a ``skew``) scales
+        the counted words and bytes when the cache entry is made, and the
+        firing sticks until :meth:`reset_performance_timers`: the shape
+        of a layout-math regression, which the watchdog's comm check must
+        notice."""
+        key = (op, self.R, pairs)
+        hit = self._op_cost_cache.get(key)
+        if hit is None:
+            profile = self.comm_profile(op, pairs)
+            in_model = [e for e in profile if e.get("in_model")]
+            words = sum(e["words"] for e in in_model)
+            nbytes = sum(e.get("bytes", e["words"] * 4) for e in in_model)
+            extra = sum(e["words"] for e in profile if not e.get("in_model"))
+            scaled = faults.scale_value(f"comm:{op}", words)
+            if words and scaled != words:
+                nbytes *= scaled / words
+            words = scaled
+            nnz = self.S_tiles.nnz if self.S_tiles is not None else 0
+            flops = obs_metrics.op_flops(op, nnz, self.R, pairs)
+            hit = self._op_cost_cache[key] = (words, nbytes, extra, flops)
+        return hit
+
+    def _emit_strategy_meta(self) -> None:
+        """One ``strategy`` trace event an instance: the layout facts the
+        trace report recomputes the model's words from."""
+        if self._trace_meta_emitted or not obs_trace.enabled():
+            return
+        self._trace_meta_emitted = True
+        obs_trace.event(
+            "strategy", algorithm=self.algorithm_name, cost_model=self.cost_model_name,
+            M=self.M, N=self.N, M_pad=self.M_pad, N_pad=self.N_pad, R=self.R,
+            nnz=self.S_tiles.nnz if self.S_tiles else 0, p=self.p, c=self.c,
+            kernel=getattr(self.kernel, "name", type(self.kernel).__name__),
+            wire=self.wire.label)
+
+    @staticmethod
+    def resilient() -> bool:
+        """True when a timed op runs through :meth:`_resilient_call` (a
+        fault plan or the guards are on), so a unit may be run again."""
+        return faults.active() is not None or guards.enabled()
+
+    def _timed(self, name: str, fn, *args, _pairs: float = 1.0, _comm_op: str | None = None):
+        """Run ``fn(*args)`` as the op ``name`` with full attribution.
+
+        A call inside another timed call (a public op inside an app's unit:
+        an ALS CG iteration, a GAT layer) runs untimed: the unit is what the
+        counters show, it synchronises once, and only the unit fires the
+        ``execute:``/``output:`` fault sites, so the sites count as the JAX
+        package's one program dispatch does.
+
+        With nothing active (no tracer, capture, fault plan or guard) the
+        hot path is two clock reads, one device synchronise and one
+        counter update. Otherwise the call runs under a span and a
+        profiler range, through :meth:`_resilient_call` when resilient.
+        ``_pairs`` scales the comm and FLOP charge (a GAT layer runs a
+        fused pair a head); ``_comm_op`` names the cost op where the
+        counter name does not fix the layout (B-mode calls)."""
         if self._timing:
             return fn(*args)
-        t0 = time.perf_counter()
-        self._timing = True
-        try:
-            out = fn(*args)
-        finally:
-            self._timing = False
-        synchronize(self.device)
-        rec = self.metrics.setdefault(name, {"calls": 0, "seconds": 0.0})
-        rec["calls"] += 1
-        rec["seconds"] += time.perf_counter() - t0
+        cost_op = _comm_op or name
+        resilient = self.resilient()
+        wd = obs_watchdog.active()
+        if not (resilient or obs_trace.enabled() or obs_profiler.active()):
+            t0 = time.perf_counter()
+            out = self._run_unit(fn, args)
+            synchronize(self.device)
+            kernel_s = time.perf_counter() - t0
+            words, nbytes, extra, flops = self._op_cost(cost_op, _pairs)
+            self.metrics.record(name, kernel_s, comm_words=words, comm_bytes=nbytes,
+                                comm_words_extra=extra, flops=flops)
+            if wd is not None:
+                # After the record: a strict alarm keeps the observation.
+                wd.observe_dispatch(self, name, kernel_s, counted_words=words,
+                                    pairs=_pairs, cost_op=cost_op)
+            return out
+
+        self._emit_strategy_meta()
+        words, nbytes, extra, flops = self._op_cost(cost_op, _pairs)
+        with obs_trace.span(name, R=self.R, pairs=_pairs) as sp:
+            t0 = time.perf_counter()
+            if resilient:
+                out, kernel_s, attempts = self._resilient_call(name, fn, *args)
+            else:
+                with obs_profiler.annotate(name):
+                    out = self._run_unit(fn, args)
+                    synchronize(self.device)
+                kernel_s = time.perf_counter() - t0
+                attempts = 1
+            overhead_s = max(time.perf_counter() - t0 - kernel_s, 0.0)
+            self.metrics.record(name, kernel_s, overhead_s=overhead_s, retries=attempts - 1,
+                                comm_words=words, comm_bytes=nbytes, comm_words_extra=extra,
+                                flops=flops)
+            sp.set(kernel_s=round(kernel_s, 9), overhead_s=round(overhead_s, 9),
+                   retries=attempts - 1, comm_words=words, comm_bytes=nbytes, flops=flops)
+        if wd is not None:
+            # Outside the span: a strict alarm cannot leave it open.
+            wd.observe_dispatch(self, name, kernel_s, counted_words=words, pairs=_pairs,
+                                cost_op=cost_op)
         return out
+
+    @property
+    def _timing(self) -> bool:
+        """True while this thread runs a timed unit (``_timed``)."""
+        return getattr(self._unit_state, "timing", False)
+
+    def _run_unit(self, fn, args):
+        """``fn(*args)`` with the timed ops it calls running untimed."""
+        self._unit_state.timing = True
+        try:
+            return fn(*args)
+        finally:
+            self._unit_state.timing = False
+
+    def _resilient_call(self, name: str, fn, *args):
+        """One timed op, hardened: the ``execute:<op>`` fault hook fires
+        first, the op runs, ``output:<op>`` corrupts its outputs, the
+        device synchronises and, with guards on, the outputs pass the
+        NaN/Inf sentinel, all inside the attempt, so a CUDA error or a
+        poisoned tensor surfaces before the attempt counts. Timeouts,
+        OOMs, tripped sentinels and injected faults retry up to
+        ``SDDMM_TORCH_EXEC_RETRIES`` times (default 1) under
+        ``SDDMM_TORCH_EXEC_TIMEOUT`` seconds an attempt (default 0, no
+        bound). A real timeout on the card is not retried: its thread
+        still owns the stream and cannot be stopped. An injected timeout
+        is raised before the op runs and retries as any fault.
+
+        Returns ``(out, kernel_s, attempts)``; ``kernel_s`` times the
+        attempt that succeeded."""
+        attempts = [0]
+
+        def attempt():
+            attempts[0] += 1
+            t0 = time.perf_counter()
+            faults.maybe_raise(f"execute:{name}")
+            with obs_profiler.annotate(name):
+                out = faults.corrupt_outputs(f"output:{name}", self._run_unit(fn, args))
+                synchronize(self.device)
+            if guards.enabled():
+                # raise mode trips the retry; repair mode degrades in place.
+                out = guards.guard_output(name, out)
+            return out, time.perf_counter() - t0
+
+        def on_retry(i: int, err: BaseException) -> None:
+            obs_metrics.GLOBAL.add("exec_retries")
+            obs_trace.event("retry", op=name, attempt=i, error=type(err).__name__)
+
+        out, kernel_s = retry_call(
+            attempt,
+            retries=int(os.environ.get(EXEC_RETRIES_ENV, "1")),
+            timeout_s=float(os.environ.get(EXEC_TIMEOUT_ENV, "0")),
+            backoff=Backoff(base_s=0.05, max_delay_s=2.0),
+            retry_on=(TimeoutError, MemoryError, guards.NumericalFault, faults.FaultError),
+            give_up_on=(CallTimeout,) if self.device.type == "cuda" else (),
+            label=f"execute:{name}",
+            on_retry=on_retry,
+        )
+        return out, kernel_s, attempts[0]
 
     def reset_performance_timers(self) -> None:
         self.metrics.clear()
+        self._op_cost_cache.clear()
 
     def measure_breakdown(self, A, B, s_vals, op: str = "fusedSpMM",
                           trials: int = 3) -> dict:
@@ -523,7 +700,7 @@ class DistributedSparse(abc.ABC):
         without a model or a grid it cannot price. A ``LocalWorld`` moves
         none of it."""
         model = self.cost_model_name
-        frac = costmodel.OP_PAIRS.get(op)
+        frac = obs_metrics.OP_PAIRS.get(op)
         if model is None or frac is None or self.S_tiles is None:
             return []
         args = (model, self.M_pad, self.N_pad, self.R, self.S_tiles.nnz, self.p, self.c)
@@ -537,8 +714,10 @@ class DistributedSparse(abc.ABC):
                  "in_model": True}]
 
     def json_perf_statistics(self) -> dict:
-        """Per-op seconds, sorted by op name."""
-        return {k: self.metrics[k]["seconds"] for k in sorted(self.metrics)}
+        """Per-op kernel seconds, sorted by op name (the retry and fault
+        overhead is in the record's ``metrics``)."""
+        view = self.metrics.time_view()
+        return {k: view[k] for k in sorted(view)}
 
     def json_algorithm_info(self) -> dict:
         return {

@@ -70,6 +70,7 @@ class DenseShift15D(DistributedSparse):
                          make_grid(p // c, c, 1, adjacency=adjacency),
                          kernel=kernel, device=device, wire=wire)
         self.fusion_approach = fusion_approach
+        self.cost_model_name = "15d_fusion2" if fusion_approach == 2 else "15d_fusion1"
         self.overlap = bool(overlap)
         self.nr = p // c
         self.localArows = divide_round_up(S.M, p)
@@ -109,8 +110,10 @@ class DenseShift15D(DistributedSparse):
         stat_rows, mov_rows = self.localArows, self.localBrows
         if op.endswith("B"):
             stat_rows, mov_rows = mov_rows, stat_rows
-        ring_bytes = min(self._prep(torch.empty(0, dtype=self.dtype)).element_size(),
-                         wire.bytes_for("ring"))
+        # The kernel's operand type, read without a prep call (the ring
+        # tests count preps).
+        kernel_bytes = 2 if self._tiled and getattr(self.kernel, "precision", "") == "bf16" else 4
+        ring_bytes = min(kernel_bytes, wire.bytes_for("ring"))
         repl_words = (c - 1) * stat_rows * R * pairs
         repl = {"collective": "all_gather", "axis": COLS,
                 "count": (1 if c > 1 else 0) * pairs, "words": repl_words,
@@ -125,7 +128,7 @@ class DenseShift15D(DistributedSparse):
                     "count": (nr - 1) * passes * pairs, "words": words,
                     "bytes": words * ring_bytes, "in_model": True}
 
-        if op in ("fusedSpMM", "fusedSpMMB"):
+        if op in ("fusedSpMM", "cgStep", "gatLayer", "fusedSpMMB", "cgStepB"):
             return [repl, ring(n_pass), reduce_]
         if op in ("fusedAttn", "fusedAttnB"):
             merge_words = 2 * (c - 1) * stat_rows * pairs
@@ -331,7 +334,8 @@ class DenseShift15D(DistributedSparse):
         S^T's tile layout and the output has B's shape."""
         if mode == MatMode.A:
             return self._timed("fusedSpMM", self._fused, False, A, B, s_vals)
-        return self._timed("fusedSpMM", self._fused, True, B, A, s_vals)
+        return self._timed("fusedSpMM", self._fused, True, B, A, s_vals,
+                           _comm_op="fusedSpMMB")
 
     # ------------------- block-sparse attention (softmax) ------------------ #
 
@@ -343,7 +347,8 @@ class DenseShift15D(DistributedSparse):
         softmax runs over rows of S^T and the output has B's shape."""
         if mode == MatMode.A:
             return self._timed("fusedAttn", self._attention, False, A, B, s_vals)
-        return self._timed("fusedAttn", self._attention, True, B, A, s_vals)
+        return self._timed("fusedAttn", self._attention, True, B, A, s_vals,
+                           _comm_op="fusedAttnB")
 
     def attention_softmax(self, s_vals, logits, mode: MatMode = MatMode.A):
         """The masked softmax alone, over tile-layout logits: the middle

@@ -32,6 +32,7 @@ import zipfile
 
 import numpy as np
 
+from distributed_sddmm_tpu_torch.obs import metrics, trace
 from distributed_sddmm_tpu_torch.utils.atomic import atomic_write_bytes, atomic_write_json
 
 _REPO = pathlib.Path(__file__).resolve().parents[2]
@@ -75,7 +76,11 @@ class CheckpointStore:
         payload = buf.getvalue()
         path = self._step_path(step)
         atomic_write_bytes(path, payload)
+        metrics.GLOBAL.add("checkpoints_saved")
+        trace.event("checkpoint_save", step=int(step), file=path.name, bytes=len(payload))
         _log.debug("saved step %d to %s (%d bytes)", step, path.name, len(payload))
+        # The digest of what was meant to be written: a write fault that
+        # garbled the file on disk fails it at resume.
         atomic_write_json(self.root / "latest.json", {
             "schema_version": SCHEMA_VERSION,
             "step": int(step),
@@ -139,11 +144,17 @@ class CheckpointStore:
             if payload is not None and hashlib.sha256(payload).hexdigest() == rec.get("digest"):
                 arrays = self._read_npz(path)
                 if arrays is not None:
+                    metrics.GLOBAL.add("checkpoints_loaded")
+                    trace.event("checkpoint_load", step=int(rec["step"]), file=path.name,
+                                source="pointer")
                     _log.debug("loaded step %s from the pointer", rec["step"])
                     return int(rec["step"]), arrays, rec.get("meta", {})
         for step in reversed(self.steps()):
             arrays = self._read_npz(self._step_path(step))
             if arrays is not None:
+                metrics.GLOBAL.add("checkpoints_loaded")
+                trace.event("checkpoint_load", step=step, file=self._step_path(step).name,
+                            source="scan_back")
                 _log.debug("loaded step %d by scan-back", step)
                 return step, arrays, {}
         return None

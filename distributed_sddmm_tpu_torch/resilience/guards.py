@@ -2,10 +2,11 @@
 (counterpart of ``resilience/guards.py``).
 
 Guards are off by default: a finite check is one device reduction and a
-scalar copy to the host per guarded output. ``SDDMM_TORCH_GUARDS=1`` turns
-them on, as do the apps' own ``guard`` knobs. (The JAX package also turns
-them on under an active fault plan; fault plans are not ported, ROADMAP.md
-queue A item 14.)
+scalar copy to the host per guarded output. They turn on under an active
+fault plan (a fault run that cannot detect the NaN it injects proves
+nothing), with ``SDDMM_TORCH_GUARDS=1``, or through the apps' own
+``guard`` knobs; ``SDDMM_TORCH_GUARDS=0`` keeps them off even under a
+plan.
 
 ``SDDMM_TORCH_GUARD_MODE`` selects what a tripped sentinel does: ``raise``
 (the default: a :class:`NumericalFault` naming the op) or ``repair``
@@ -20,6 +21,8 @@ import os
 
 import torch
 
+from distributed_sddmm_tpu_torch.resilience import faults
+
 GUARDS_ENV = "SDDMM_TORCH_GUARDS"
 GUARD_MODE_ENV = "SDDMM_TORCH_GUARD_MODE"
 
@@ -31,8 +34,14 @@ class NumericalFault(ArithmeticError):
 
 
 def enabled() -> bool:
-    """True when ``SDDMM_TORCH_GUARDS`` is 1, on, true or yes."""
-    return os.environ.get(GUARDS_ENV, "").lower() in ("1", "on", "true", "yes")
+    """True when ``SDDMM_TORCH_GUARDS`` is 1, on, true or yes, or, unless
+    it is 0, off, false or no, when a fault plan is active."""
+    env = os.environ.get(GUARDS_ENV, "").lower()
+    if env in ("1", "on", "true", "yes"):
+        return True
+    if env in ("0", "off", "false", "no"):
+        return False
+    return faults.active() is not None
 
 
 def guard_mode() -> str:
@@ -81,6 +90,10 @@ def guard_output(name: str, tree, mode: str | None = None):
         return tree
     if (mode or guard_mode()) == "raise":
         raise NumericalFault(f"non-finite values in output of {name}")
+    from distributed_sddmm_tpu_torch.obs import metrics, trace
+
+    metrics.GLOBAL.add("guard_repairs")
+    trace.event("guard_repair", op=name)
     _log.warning("repaired non-finite output of %s", name)
     return _map(torch.nan_to_num, tree)
 

@@ -46,12 +46,6 @@ from distributed_sddmm_tpu_torch.utils.buckets import pow2_bucket
 
 _REPO = pathlib.Path(__file__).resolve().parents[2]
 
-#: The fraction of one fused pair each op is (``obs/metrics.py``).
-OP_PAIRS = {
-    "fusedSpMM": 1.0, "fusedSpMMB": 1.0, "fusedAttn": 1.0, "fusedAttnB": 1.0,
-    "cgStep": 1.0, "cgStepB": 1.0, "gatLayer": 1.0,
-    "sddmmA": 0.5, "sddmmB": 0.5, "spmmA": 0.5, "spmmB": 0.5,
-}
 
 #: NVLink 4 on an H100 SXM: 450 GB/s a direction (900 GB/s both ways; the
 #: NVIDIA H100 datasheet, spec, not measured), in float32 words a second.

@@ -2,9 +2,11 @@
 ``utils/atomic.py``).
 
 One implementation of the temp-file + ``os.replace`` dance: a reader sees
-the old content or the new content, never a prefix. The JAX package
-threads a write-fault hook through here; the fault plans are not ported
-(ROADMAP.md, queue A item 14), so the payload is written as given.
+the old content or the new content, never a prefix. The write-fault hook
+runs here: an active fault plan can garble or truncate the payload at
+site ``write:<file name>`` (``resilience/faults.py::garble_text``), which
+lands a corrupt final file, the state a process killed mid-write leaves;
+readers treat it as a miss.
 """
 
 from __future__ import annotations
@@ -35,7 +37,11 @@ def _replace_atomically(path: pathlib.Path, data: bytes) -> None:
 
 def atomic_write_text(path: str | os.PathLike, text: str) -> None:
     """Write ``text`` to ``path`` atomically (parents created)."""
-    _replace_atomically(pathlib.Path(path), text.encode())
+    # Imported per call: resilience/ builds on this module.
+    from distributed_sddmm_tpu_torch.resilience import faults
+
+    path = pathlib.Path(path)
+    _replace_atomically(path, faults.garble_text(f"write:{path.name}", text).encode())
 
 
 def atomic_write_json(path: str | os.PathLike, obj, **json_kw) -> None:
@@ -45,5 +51,11 @@ def atomic_write_json(path: str | os.PathLike, obj, **json_kw) -> None:
 
 
 def atomic_write_bytes(path: str | os.PathLike, data: bytes) -> None:
-    """Bytes variant (checkpoint ``.npz`` payloads)."""
-    _replace_atomically(pathlib.Path(path), data)
+    """Bytes variant (checkpoint ``.npz`` payloads): the write-fault hook
+    works on a latin-1 round trip, so it garbles or cuts bytewise."""
+    from distributed_sddmm_tpu_torch.resilience import faults
+
+    path = pathlib.Path(path)
+    if faults.active() is not None:
+        data = faults.garble_text(f"write:{path.name}", data.decode("latin-1")).encode("latin-1")
+    _replace_atomically(path, data)

@@ -48,9 +48,11 @@ def test_er_attention_subprocess_prints_one_json_line(tmp_path):
 
 
 def test_er_refuses_flags_that_are_not_ported():
+    """``--no-runstore`` waits for the run store (ROADMAP.md queue A item
+    19); argparse refuses it."""
     proc = _run("er", "6", "4", "15d_fusion2", "8", "1", "--device", "cpu",
-                "--trace")
-    assert proc.returncode == 2 and "--trace" in proc.stderr
+                "--no-runstore")
+    assert proc.returncode == 2 and "--no-runstore" in proc.stderr
 
 
 @pytest.mark.parametrize("kernel,name", [("cuda-f32", "cuda-f32"),
@@ -112,8 +114,9 @@ APP_RECORD_DIFFS = {
     # Fields one package has and the other has not, by design: the port
     # names the device it ran on; the JAX package's program store and
     # dynamic-structure counters are not ported (ROADMAP.md queue A items
-    # 15 and 16), and its XLA cost cross-check has no torch counterpart
-    # (item 14; present only when programs were costed).
+    # 15 and 16), and its XLA cost cross-check (present only when
+    # programs were costed) has no counterpart: eager PyTorch compiles no
+    # program to cost.
     "port_only": {"device"},
     "jax_only": {"program_store", "dynstruct", "xla_cost"},
 }
@@ -172,6 +175,11 @@ def test_app_records_match_jax(app, alg, p):
     assert set(got["metrics"]) == set(want["metrics"])
     assert {k: v["calls"] for k, v in got["metrics"].items()} == {
         k: v["calls"] for k, v in want["metrics"].items()}
+    # The same metric fields, and the same counted words, bytes and FLOPs.
+    for op, m in want["metrics"].items():
+        assert set(got["metrics"][op]) == set(m), op
+        for key in ("retries", "comm_words", "comm_bytes", "comm_words_extra", "flops"):
+            assert got["metrics"][op][key] == m[key], (op, key)
     assert set(got["perf_stats"]) == set(want["perf_stats"])
     for key in ("m", "n", "nnz", "r", "p", "c", "dim_values", "nnz_procs"):
         assert got["alg_info"][key] == want["alg_info"][key], key
@@ -445,8 +453,7 @@ def test_kernels_and_baseline_records_have_the_jax_keys(tmp_path, capsys):
         assert rec[key] == want[key], key
 
 
-UNPORTED_FLAGS = (["--trace"], ["--faults", "[]"], ["--profile", "p"],
-                  ["--watchdog", "warn"], ["--flightrec"], ["--no-runstore"])
+UNPORTED_FLAGS = (["--no-runstore"],)
 UNPORTED_COMMANDS = ("overlap", "serve", "fleet", "tune", "history", "compare", "gate",
                      "backfill", "report-html", "report-trace", "trace-merge",
                      "trace-export", "top", "lint", "env")
@@ -464,6 +471,85 @@ def test_unported_flags_and_subcommands_are_refused(base, capsys):
         with pytest.raises(SystemExit) as e:
             cli.main([cmd])
         assert e.value.code == 2 and "invalid choice" in capsys.readouterr().err
+
+
+OBS_FLAGS = {
+    "faults": ["--faults", '[{"site": "execute:fusedSpMM", "kind": "error", "at": [1]}]'],
+    "trace": ["--trace", "{tmp}/t.jsonl"],
+    "profile": ["--profile", "{tmp}/prof"],
+    "watchdog": ["--watchdog", "warn"],
+    "flightrec": ["--flightrec", "{tmp}/fr"],
+}
+
+
+@pytest.mark.parametrize("flag", list(OBS_FLAGS))
+@pytest.mark.parametrize("base", [["er", "5", "4", "15d_fusion2", "4", "1"],
+                                  ["file", "{tmp}/m.mtx", "15d_fusion2", "4", "1"],
+                                  ["heatmap", "5", "4", "1", "--alg", "15d_fusion2",
+                                   "--r-values", "4"]], ids=["er", "file", "heatmap"])
+def test_observability_flags_run_and_land_in_the_record(base, flag, tmp_path, capsys):
+    """Each flag of the JAX CLI's ``er``, ``file`` and ``heatmap``: the run
+    exits 0, the record carries what the flag adds (``faults_fired`` and a
+    retry, ``run_id``/``trace_path``, ``anomalies``), the profile and the
+    trace land where asked, and nothing stays on after the command."""
+    from distributed_sddmm_tpu_torch.obs import flightrec, profiler, trace, watchdog
+    from distributed_sddmm_tpu_torch.resilience import faults
+
+    HostCOO.rmat(5, 4, seed=0).save_mtx(tmp_path / "m.mtx")
+    out = tmp_path / "rec.jsonl"
+    argv = [a.replace("{tmp}", str(tmp_path)) for a in [*base, *OBS_FLAGS[flag]]]
+    assert cli.main([*argv, "--device", "cpu", "--trials", "2", "-o", str(out)]) == 0
+    (rec,) = _records(out)
+    if flag == "faults":
+        assert rec["faults_fired"] == [{"site": "execute:fusedSpMM", "kind": "error",
+                                        "call": 1}]
+        assert rec["metrics"]["fusedSpMM"]["retries"] == 1
+    elif flag == "trace":
+        assert rec["trace_path"] == str(tmp_path / "t.jsonl") and rec["run_id"]
+        assert (tmp_path / "t.manifest.json").exists()
+    elif flag == "profile":
+        assert len(list((tmp_path / "prof").glob("*.pt.trace.json"))) == 1
+    elif flag == "watchdog":
+        assert rec["anomalies"] == {"mode": "warn", "total": 0, "anomalies": []}
+    else:  # armed, but no watchdog: nothing fires, nothing is dumped
+        assert "anomalies" not in rec and not list(tmp_path.glob("fr/*/*.json"))
+    assert faults.active() is None and not trace.enabled() and not profiler.active()
+    assert watchdog.active() is None and flightrec.active() is None
+
+
+def test_fault_and_watchdog_records_match_the_jax_cli(tmp_path, monkeypatch, capsys):
+    """``er ... --faults PLAN --watchdog warn`` on both command lines at p =
+    8, c = 2: the same ``faults_fired``, the same retries a op and the same
+    anomalies (a ``comm:fusedSpMM`` skew's ``comm_mismatch``; four calls,
+    fewer than the watchdog's warmup, so no timing anomaly can fire). The
+    JAX CLI leaves its plan and watchdog on, so they are turned off
+    here."""
+    from distributed_sddmm_tpu.obs import watchdog as jax_watchdog
+    from distributed_sddmm_tpu.resilience import faults as jax_faults
+
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.setenv("SDDMM_TORCH_LOCAL_RANKS", "8")
+    plan = json.dumps({"seed": 3, "specs": [
+        {"site": "execute:fusedSpMM", "kind": "error", "at": [1]},
+        {"site": "output:fusedSpMM", "kind": "nan", "at": [2], "param": 0.1},
+        {"site": "comm:fusedSpMM", "kind": "skew", "prob": 1.0, "param": 2.0}]})
+    argv = ["er", "6", "4", "15d_fusion2", "8", "2", "--trials", "3", "--faults", plan,
+            "--watchdog", "warn"]
+    ours, theirs = tmp_path / "port.jsonl", tmp_path / "jax.jsonl"
+    try:
+        assert cli.main([*argv, "--device", "cpu", "-o", str(ours)]) == 0
+        assert _jax_main([*argv, "-o", str(theirs)], monkeypatch, tmp_path) == 0
+    finally:
+        jax_faults.clear()
+        jax_watchdog.disable()
+    (got,), (want,) = _records(ours), _records(theirs)
+    assert got["faults_fired"] == want["faults_fired"]
+    assert [f["kind"] for f in got["faults_fired"]] == ["skew", "skew", "error", "nan"]
+    assert ({op: m["retries"] for op, m in got["metrics"].items()}
+            == {op: m["retries"] for op, m in want["metrics"].items()} == {"fusedSpMM": 2})
+    assert got["anomalies"] == want["anomalies"]
+    assert [(a["kind"], a["first"]["ratio"]) for a in got["anomalies"]["anomalies"]] == [
+        ("comm_mismatch", 2.0)]
 
 
 def test_card_subcommands_default_to_cuda():

@@ -69,7 +69,9 @@ def test_port_and_chip_smoke_import_no_jax_in_subprocess():
                 "bench.baseline", "utils.coo", "utils.verify", "parallel.wire",
                 "resilience.retry", "obs.metrics", "autotune.fingerprint",
                 "autotune.candidates", "autotune.measure", "autotune.cache",
-                "autotune.plan", "autotune"):
+                "autotune.plan", "autotune", "obs.clock", "obs.trace", "obs.log",
+                "obs.manifest", "obs.profiler", "obs.watchdog", "obs.flightrec",
+                "resilience.faults"):
         assert f"distributed_sddmm_tpu_torch.{mod}" in mods
 
 
@@ -91,10 +93,11 @@ def test_ast_scan_finds_no_forbidden_import():
     # And every import the port makes is one the card's machine has
     # (matrix-market files go through ``scipy.io``).
     allowed = {"torch", "numpy", "scipy", "distributed_sddmm_tpu_torch",
-               "__future__", "abc", "argparse", "contextlib", "ctypes", "dataclasses", "enum",
-               "functools", "hashlib", "importlib", "inspect", "io", "json", "logging", "math",
-               "multiprocessing", "os", "pathlib", "random", "re", "shutil", "subprocess",
-               "sys", "tempfile", "threading", "time", "typing", "zipfile"}
+               "__future__", "abc", "argparse", "collections", "contextlib", "ctypes",
+               "dataclasses", "enum", "errno", "fnmatch", "functools", "hashlib", "importlib",
+               "inspect", "io", "json", "logging", "math", "multiprocessing", "os", "pathlib",
+               "random", "re", "shutil", "statistics", "subprocess", "sys", "tempfile",
+               "threading", "time", "typing", "zipfile"}
     used = set().union(*(_imported_roots(f) for f in files))
     assert used <= allowed, used - allowed
 
