@@ -258,8 +258,27 @@ last line is printed):
    headline; the Chrome trace holds CUDA device events and every
    ``dot_walk_kernel`` launch inside a ``fusedSpMM`` range; the device's
    busy and idle shares over the ``bench`` range (printed).
-17. kernels line -- ``{"kernels": [...]}``.
-18. last line -- ``{"ok": true, "device": {...}}``.
+17. runstore -- the run store, the regression gate and the trace tools
+   through ``bench.cli.main`` and subprocesses (``phase_runstore``),
+   cuda-f32, into fresh stores under ``_build/`` (the earlier phases run
+   with ``SDDMM_TORCH_RUNSTORE=0``). full: the full cell twice, 3 warmup +
+   20 pairs, the second with ``--trace``: one document each, one key, a
+   backend naming the card both ways (manifest and live probe);
+   ``history`` lists both, ``compare latest~1 latest`` prints the phase
+   table, ``gate latest`` exits 0, a copy with every op's ``kernel_s`` and
+   ``overhead_s`` doubled exits 2, ``gate --min-runs 5`` exits 3 (ms a
+   pair, and the seconds of each ingest, printed). report-trace: the
+   trace's ``fusedSpMM`` row counts the record's calls with the warmup
+   and carries the comm and FLOP columns. trace-export: a B and an E for
+   every span. trace-merge: two headline processes with one ``--trace
+   P.jsonl`` at once, the second rerouted into ``P.shards/``; the merge
+   validates strictly and holds both ``bench`` spans. report-html: the
+   history and compare tables (whether charts were drawn is printed).
+   backfill: into a second store holding one card run, the TPU rounds
+   listed and the card run's gate exits 3. ``--no-runstore`` leaves the
+   store unchanged.
+18. kernels line -- ``{"kernels": [...]}``.
+19. last line -- ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --gat-grad-drift [SEED ...]`` is another mode
 (``gat_grad_drift``): the readings behind GAT_DRIFT["plain"].
@@ -311,6 +330,8 @@ from distributed_sddmm_tpu_torch.ops import _build, cuda_kernels
 from distributed_sddmm_tpu_torch.ops import autograd as tile_autograd
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
 from distributed_sddmm_tpu_torch.obs import metrics as plan_metrics
+from distributed_sddmm_tpu_torch.obs import store as obs_store
+from distributed_sddmm_tpu_torch.obs import trace as obs_trace
 from distributed_sddmm_tpu_torch.ops.kernels import ATTN_NEG
 from distributed_sddmm_tpu_torch.parallel import comm as comm_mod
 from distributed_sddmm_tpu_torch.parallel import loops, sharding
@@ -321,7 +342,7 @@ from distributed_sddmm_tpu_torch.parallel.mesh import make_grid
 from distributed_sddmm_tpu_torch.parallel.sharding import BankedTileView, TileView
 from distributed_sddmm_tpu_torch.parallel.wire import wire_policy
 from distributed_sddmm_tpu_torch.resilience import CheckpointStore, NumericalFault
-from distributed_sddmm_tpu_torch.tools import costmodel
+from distributed_sddmm_tpu_torch.tools import costmodel, tracereport
 from distributed_sddmm_tpu_torch.utils import oracle, verify
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 
@@ -5222,7 +5243,6 @@ def dispatch_cost_us(n: int = 5000) -> dict:
     strategy: the hot path, and traced with the watchdog on (the spans
     nested in one outer span, as the bench loop's are; the trace under
     ``OBS_DIR``)."""
-    from distributed_sddmm_tpu_torch.obs import trace as obs_trace
     from distributed_sddmm_tpu_torch.obs import watchdog as obs_watchdog
 
     alg = DenseShift15D(HostCOO.rmat(6, 4, seed=0), R=8, device="cpu")
@@ -5489,6 +5509,246 @@ def phase_obs(dev, launches: dict, card: str) -> dict:
     return out
 
 
+RUNSTORE = {"warmup": 3, "pairs": 20, "merge_trials": 5, "no_store_trials": 2}
+RUNSTORE_DIR = _build.BUILD_DIR / "runstore"
+
+
+@contextlib.contextmanager
+def environ(name: str, value: str):
+    """``os.environ[name] = value`` while the block runs."""
+    prev = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = prev
+
+
+def tool(argv: list) -> tuple:
+    """A store or trace subcommand through ``cli.main``: ``(exit code,
+    stdout)``; a run spec that names nothing exits through SystemExit."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        try:
+            rc = cli.main([str(a) for a in argv])
+        except SystemExit as e:
+            rc = e.code
+    return rc, out.getvalue()
+
+
+@contextlib.contextmanager
+def timed_ingests():
+    """The seconds of every ``RunStore.ingest_record`` while the block
+    runs."""
+    real, seconds = obs_store.RunStore.ingest_record, []
+
+    def timed(self, record, source="bench"):
+        t = time.perf_counter()
+        try:
+            return real(self, record, source)
+        finally:
+            seconds.append(time.perf_counter() - t)
+
+    obs_store.RunStore.ingest_record = timed
+    try:
+        yield seconds
+    finally:
+        obs_store.RunStore.ingest_record = real
+
+
+def runstore_full(full: dict, launches: dict, card: str) -> dict:
+    """The full cell twice into a fresh store, the second traced, then
+    ``history``, ``compare``, ``gate`` (0), a doubled copy (2), ``gate
+    --min-runs 5`` (3), ``report-trace``, ``trace-export`` and
+    ``report-html`` on them."""
+    root, trace_path, rec_path = (RUNSTORE_DIR / "store", RUNSTORE_DIR / "T.jsonl",
+                                  RUNSTORE_DIR / "rec.jsonl")
+    argv = obs_argv(FULL, RUNSTORE["pairs"], RUNSTORE["warmup"])
+    calls = RUNSTORE["pairs"] + RUNSTORE["warmup"]
+    store = obs_store.RunStore(root)
+    runs = {}
+    with environ(obs_store.RUNSTORE_ENV, str(root)), timed_ingests() as ingest_s:
+        for tag, extra in (("plain", []), ("traced", ["--trace", trace_path])):
+            before = {r["run_id"] for r in store.index()}
+            rc, counts, recs, _ = cli_run([*argv, *map(str, extra)], rec_path)
+            require(rc == 0 and len(recs) == 1 and counts == fused_only(calls),
+                    f"runstore full/{tag}: rc {rc}, {len(recs)} records, launches {counts}")
+            add_launches(launches, counts, "f32")
+            new = [r for r in store.index() if r["run_id"] not in before]
+            require(len(new) == 1, f"runstore full/{tag}: {len(new)} new documents")
+            runs[tag] = {"rec": recs[0], "doc": store.get(new[0]["run_id"])}
+    require(len(ingest_s) == 2, f"runstore full: {len(ingest_s)} ingests")
+    plain, traced = runs["plain"]["doc"], runs["traced"]["doc"]
+    name = torch.cuda.get_device_name(0)
+    require(plain["key"] == traced["key"] and plain["backend"] == traced["backend"]
+            and plain["backend"].startswith(f"cuda:{name}:"),
+            f"runstore full: keys {plain['key']} / {traced['key']}, backends "
+            f"{plain['backend']} / {traced['backend']} (card {name})")
+    require("manifest" not in plain and traced["manifest"]["backend"] == traced["backend"]
+            and traced["manifest"]["power_limit"] == card.rsplit(", ", 1)[-1],
+            f"runstore full: manifest {traced.get('manifest')}")
+    rc, out = tool(["history", "--store", root])
+    require(rc == 0 and all(d["run_id"][:28] in out for d in (plain, traced)),
+            f"runstore history: rc {rc}\n{out}")
+    rc, compare_out = tool(["compare", "latest~1", "latest", "--store", root])
+    require(rc == 0 and "fusedSpMM" in compare_out and "verdict:" in compare_out,
+            f"runstore compare: rc {rc}\n{compare_out}")
+    gate = {}
+    gate["latest"], gate_out = tool(["gate", "latest", "--min-runs", "1", "--store", root])
+    require(gate["latest"] == 0, f"runstore gate latest: exit {gate['latest']}\n{gate_out}")
+    doubled = json.loads(json.dumps(traced))
+    doubled["run_id"] = traced["run_id"] + "-doubled"
+    for m in doubled["record"]["metrics"].values():
+        m["kernel_s"] *= 2
+        m["overhead_s"] *= 2
+    store.ingest_prebuilt(doubled)
+    gate["doubled"], out = tool(["gate", doubled["run_id"], "--min-runs", "1", "--store", root])
+    require(gate["doubled"] == 2, f"runstore gate doubled: exit {gate['doubled']}\n{out}")
+    gate["min_runs_5"], out = tool(["gate", "latest", "--min-runs", "5", "--store", root])
+    require(gate["min_runs_5"] == 3, f"runstore gate --min-runs 5: exit {gate['min_runs_5']}")
+
+    rc, out = tool(["report-trace", trace_path, "--json"])
+    require(rc == 0, f"runstore report-trace: exit {rc}")
+    row = json.loads(out)["phases"]["fusedSpMM"]
+    m = runs["traced"]["rec"]["metrics"]["fusedSpMM"]
+    require(row["calls"] == m["calls"] + RUNSTORE["warmup"] == calls
+            and math.isclose(row["flops"], m["flops"] / m["calls"] * calls, rel_tol=1e-9)
+            and all(k in row for k in ("comm_words", "comm_bytes", "model_words")),
+            f"runstore report-trace: fusedSpMM row {row} against the record's {m}")
+    chrome_path = RUNSTORE_DIR / "T.chrome.json"
+    rc, _ = tool(["trace-export", trace_path, "-o", chrome_path])
+    phs = [e["ph"] for e in json.loads(chrome_path.read_text())["traceEvents"]]
+    n_spans = len(tracereport.load_trace(trace_path)["spans"])
+    require(rc == 0 and phs.count("B") == phs.count("E") == n_spans,
+            f"runstore trace-export: exit {rc}, {phs.count('B')} B, {phs.count('E')} E, "
+            f"{n_spans} spans")
+    html_path = RUNSTORE_DIR / "report.html"
+    rc, _ = tool(["report-html", "--store", root, "-o", html_path])
+    html = html_path.read_text() if html_path.exists() else ""
+    require(rc == 0 and "<h2>Runs</h2>" in html and "Latest compare" in html
+            and plain["run_id"] in html and traced["run_id"] in html,
+            f"runstore report-html: exit {rc}")
+    try:
+        import matplotlib  # noqa: F401
+
+        has_matplotlib = True
+    except ImportError:
+        has_matplotlib = False
+    ms = {tag: run["rec"]["elapsed"] / RUNSTORE["pairs"] * 1e3 for tag, run in runs.items()}
+    out = {"ms_per_pair": ms, "ms_over_phase_full": ms["plain"] / full["f32"]["ms_per_pair"],
+           "ingest_seconds": dict(zip(runs, ingest_s)), "gate_exit": gate,
+           "backend": plain["backend"], "key": plain["key"],
+           "report_trace_fusedSpMM": {k: row[k] for k in (
+               "calls", "total_s", "kernel_s", "comm_words", "flops", "model_words")},
+           "chrome_events": len(phs), "html_bytes": len(html),
+           "charts_drawn": "<img" in html, "matplotlib": has_matplotlib,
+           "compare": compare_out.splitlines()}
+    emit({"phase": "runstore_full", "card": card, "argv": argv, **out})
+    return {"out": out, "plain": plain}
+
+
+def runstore_merge(card: str) -> dict:
+    """Two headline ``er`` processes at once with one ``--trace P.jsonl``:
+    the first owns the file and stays alive until the second has run, so
+    the second reroutes into ``P.shards/``; ``trace-merge P.jsonl``."""
+    stem, merged = RUNSTORE_DIR / "P.jsonl", RUNSTORE_DIR / "merged.jsonl"
+    argv = [*obs_argv(HEADLINE, RUNSTORE["merge_trials"], 1), "--trace", str(stem)]
+    env = {**os.environ, obs_store.RUNSTORE_ENV: "0"}
+    env.pop("SDDMM_TORCH_TRACE", None)
+    root = pathlib.Path(__file__).resolve().parent
+    first = subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys\nfrom distributed_sddmm_tpu_torch.bench import cli\n"
+         "rc = cli.main(sys.argv[1:])\nsys.stdin.readline()\nsys.exit(rc)\n", *argv],
+        cwd=root, env=env, stdin=subprocess.PIPE, stdout=subprocess.DEVNULL, text=True)
+    try:
+        deadline = time.perf_counter() + 180
+        while first.poll() is None and time.perf_counter() < deadline:
+            if stem.exists() and f'"pid": {first.pid}' in stem.read_text().split("\n", 1)[0]:
+                break
+            time.sleep(0.2)
+        require(first.poll() is None, f"runstore merge: the first process exited "
+                f"{first.returncode} before the second started")
+        second = subprocess.run([sys.executable, "-m", "distributed_sddmm_tpu_torch.bench",
+                                 *argv], cwd=root, env=env, capture_output=True, text=True,
+                                timeout=300)
+        require(second.returncode == 0, f"runstore merge: second process exited "
+                f"{second.returncode}: {second.stderr[-2000:]}")
+        first.stdin.write("\n")
+        first.stdin.flush()
+        require(first.wait(timeout=300) == 0, f"runstore merge: first process exited "
+                f"{first.returncode}")
+    finally:
+        if first.poll() is None:
+            first.kill()
+            first.wait()
+    shards = sorted(obs_trace.shard_dir_for(stem).glob("*.jsonl"))
+    rc, out = tool(["trace-merge", stem, "-o", merged])
+    require(rc == 0 and len(shards) == 1, f"runstore trace-merge: exit {rc}, shards {shards}")
+    trace = tracereport.load_trace(merged, strict=True)
+    benches = [sp for sp in trace["spans"] if sp["name"] == "bench"]
+    require(len(trace["begin"]["shards"]) == 2 and len(benches) == 2
+            and {sp["shard"] for sp in benches} == {s["run_id"] for s in trace["begin"]["shards"]},
+            f"runstore trace-merge: {len(trace['begin']['shards'])} shards, "
+            f"{len(benches)} bench spans")
+    result = {"merge": json.loads(out), "offsets_s": [s["offset_s"] for s in
+                                                      trace["begin"]["shards"]]}
+    emit({"phase": "runstore_merge", "card": card, "argv": argv, **result})
+    return result
+
+
+def runstore_backfill(plain: dict, launches: dict, card: str) -> dict:
+    """``backfill`` into a second store holding one card run: the TPU
+    rounds list, and the card run gates with no baseline (exit 3); then a
+    headline run with ``--no-runstore`` and the store named by the
+    environment leaves it unchanged."""
+    root = RUNSTORE_DIR / "store2"
+    store = obs_store.RunStore(root)
+    store.ingest_prebuilt(json.loads(json.dumps(plain)))
+    rc, out = tool(["backfill", "--store", root])
+    tpu = store.history(backend="tpu")
+    require(rc == 0 and tpu and "backfill-bench_r05" in out,
+            f"runstore backfill: exit {rc}, {len(tpu)} TPU rounds\n{out}")
+    code, _ = tool(["gate", plain["run_id"], "--store", root])
+    require(code == 3, f"runstore backfill: the card run's gate exits {code}")
+    before = store.index()
+    with environ(obs_store.RUNSTORE_ENV, str(root)):
+        rc, counts, recs, _ = cli_run(
+            [*obs_argv(HEADLINE, RUNSTORE["no_store_trials"], 1), "--no-runstore"],
+            RUNSTORE_DIR / "rec.jsonl")
+    require(rc == 0 and len(recs) == 1 and store.index() == before,
+            f"runstore --no-runstore: rc {rc}, {len(store.index()) - len(before)} new docs")
+    add_launches(launches, counts, "f32")
+    out = {"docs": len(before), "tpu_rounds": len(tpu), "card_gate_exit": code}
+    emit({"phase": "runstore_backfill", "card": card, **out})
+    return out
+
+
+def phase_runstore(full: dict, launches: dict, card: str) -> dict:
+    """The run store, the gate and the trace tools on the card (a)
+    full-cell runs and the tools on them, (b) the trace merge of two
+    processes, (c) backfill and ``--no-runstore``."""
+    t0 = time.perf_counter()
+    shutil.rmtree(RUNSTORE_DIR, ignore_errors=True)
+    RUNSTORE_DIR.mkdir(parents=True)
+    seconds, out = {}, {}
+    t = time.perf_counter()
+    res = runstore_full(full, launches, card)
+    out["full"], seconds["full"] = res["out"], time.perf_counter() - t
+    t = time.perf_counter()
+    out["merge"], seconds["merge"] = runstore_merge(card), time.perf_counter() - t
+    t = time.perf_counter()
+    out["backfill"] = runstore_backfill(res["plain"], launches, card)
+    seconds["backfill"] = time.perf_counter() - t
+    shutil.rmtree(RUNSTORE_DIR, ignore_errors=True)
+    emit({"phase": "runstore", "card": card, "seconds": time.perf_counter() - t0,
+          "seconds_by_part": seconds})
+    return out
+
+
 def profile_banked_attention(calls: int = 20) -> int:
     """``python3 chip_smoke.py --profile-banked-attention``: the banked
     bigbird attention call at 2**16 tokens (``BANKED``, its selected
@@ -5597,6 +5857,8 @@ def main() -> int:
 
 def drive(info: dict, dev, ref: HostReference) -> int:
     card = info["nvidia_smi"]
+    # Only phase runstore keeps run documents, in stores of its own.
+    os.environ[obs_store.RUNSTORE_ENV] = "0"
     phase_edges(dev)
     S16 = HostCOO.rmat(HEADLINE["log_m"], HEADLINE["edge_factor"], device=dev)
     alg16 = make_algorithm("15d_fusion2", S16, HEADLINE["R"],
@@ -5631,8 +5893,11 @@ def drive(info: dict, dev, ref: HostReference) -> int:
     phase_host_cli(S16, full, dev, host, entries, card)
     obs: dict = {}
     phase_obs(dev, obs, card)
+    runstore: dict = {}
+    phase_runstore(full, runstore, card)
     for key, n in (*ring.items(), *apps.items(), *strategies.items(), *training.items(),
-                   *apps_strategies.items(), *plans.items(), *host.items(), *obs.items()):
+                   *apps_strategies.items(), *plans.items(), *host.items(), *obs.items(),
+                   *runstore.items()):
         launches[key] = launches.get(key, 0) + n
 
     kernels = []
@@ -5652,6 +5917,7 @@ def drive(info: dict, dev, ref: HostReference) -> int:
             "plans_launches": plans.get((op, prec), 0),
             "host_cli_launches": host.get((op, prec), 0),
             "obs_launches": obs.get((op, prec), 0),
+            "runstore_launches": runstore.get((op, prec), 0),
             "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
             "max_rel_err": max(r["max_rel_err"] for r in shapes.values()),
             "tol": main_["tol"],

@@ -135,15 +135,9 @@ def machine_signature(world, device, kernel: str | None = None) -> tuple:
     ``cuda:NVIDIA H100 80GB HBM3:nccl`` or ``cpu:gloo``: a plan measured
     over logical ranks never answers for processes, nor for another
     card."""
-    import torch
-    import torch.distributed as dist
+    from distributed_sddmm_tpu_torch.obs.manifest import backend_name
 
-    from distributed_sddmm_tpu_torch.parallel.comm import LocalWorld
-
-    dev = torch.device(device)
-    kind = "local" if isinstance(world, LocalWorld) else str(dist.get_backend())
-    name = f"cuda:{torch.cuda.get_device_name(dev)}" if dev.type == "cuda" else "cpu"
-    return world.p, f"{name}:{kind}", kernel_families(dev, kernel)
+    return world.p, backend_name(device, world), kernel_families(device, kernel)
 
 
 def make_fingerprint(problem: Problem, p: int, backend: str,

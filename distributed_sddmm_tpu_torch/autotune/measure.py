@@ -9,7 +9,8 @@ exponential backoff under an elapsed cap; a candidate whose attempts all
 fail is dropped, and when every candidate drops the caller
 (``plan.get_plan``) falls back to the cost model's ranking. The trial
 function is injectable (``trial_fn``), so tests simulate timeouts and
-count attempts without a device.
+count attempts without a device. Trials run with the run store hidden
+(``obs/store.py::suppressed``): they are probes, not runs.
 
 **A timed-out trial on the card.** ``call_with_timeout`` abandons the
 trial's thread, and nothing can cancel the kernels and allocations that
@@ -31,6 +32,7 @@ from typing import Callable, Optional
 from distributed_sddmm_tpu_torch.autotune.candidates import Candidate
 from distributed_sddmm_tpu_torch.autotune.fingerprint import Problem
 from distributed_sddmm_tpu_torch.obs import metrics, trace
+from distributed_sddmm_tpu_torch.obs import store as obs_store
 from distributed_sddmm_tpu_torch.resilience.retry import (
     Backoff, CallTimeout, call_with_timeout,
 )
@@ -118,46 +120,49 @@ def measure_candidates(
     if stop_on_timeout is None:
         stop_on_timeout = on_card
     run = trial_fn or functools.partial(default_trial, device=device, world=world)
-    out = []
-    for cand in cands:
-        backoff = Backoff(base_s=backoff_s, jitter=jitter, max_delay_s=float("inf"),
-                          max_elapsed_s=max_elapsed_s, rng=rng)
-        t_start = monotonic()
-        last_err = None
-        for attempt in range(retries + 1):
-            with trace.span("autotune:trial", algorithm=cand.algorithm, c=cand.c,
-                            kernel=cand.kernel, attempt=attempt) as sp:
-                try:
-                    rec = call_with_timeout(
-                        lambda: run(S, problem, cand, trials, warmup),
-                        timeout_s, label=f"trial:{cand.algorithm}",
-                    )
-                    sp.set(gflops=rec.get("overall_throughput"))
-                    out.append((cand, rec))
-                    last_err = None
-                    break
-                except ValueError as e:
-                    sp.set(failed=type(e).__name__)
-                    last_err = e
-                    break  # a deterministic refusal: retrying wastes budget
-                except Exception as e:  # noqa: BLE001 -- a failure drops the candidate
-                    sp.set(failed=type(e).__name__)
-                    last_err = e
-                    if stop_on_timeout and isinstance(e, TimeoutError):
+    # A trial is a probe, not a run: kept in the run store it would share
+    # the real run's key and axes and skew the gate's rolling baseline.
+    with obs_store.suppressed():
+        out = []
+        for cand in cands:
+            backoff = Backoff(base_s=backoff_s, jitter=jitter, max_delay_s=float("inf"),
+                              max_elapsed_s=max_elapsed_s, rng=rng)
+            t_start = monotonic()
+            last_err = None
+            for attempt in range(retries + 1):
+                with trace.span("autotune:trial", algorithm=cand.algorithm, c=cand.c,
+                                kernel=cand.kernel, attempt=attempt) as sp:
+                    try:
+                        rec = call_with_timeout(
+                            lambda: run(S, problem, cand, trials, warmup),
+                            timeout_s, label=f"trial:{cand.algorithm}",
+                        )
+                        sp.set(gflops=rec.get("overall_throughput"))
+                        out.append((cand, rec))
+                        last_err = None
                         break
-            if attempt < retries:
-                d = backoff.delay(attempt)
-                if not backoff.budget_left(monotonic() - t_start, d):
+                    except ValueError as e:
+                        sp.set(failed=type(e).__name__)
+                        last_err = e
+                        break  # a deterministic refusal: retrying wastes budget
+                    except Exception as e:  # noqa: BLE001 -- a failure drops the candidate
+                        sp.set(failed=type(e).__name__)
+                        last_err = e
+                        if stop_on_timeout and isinstance(e, TimeoutError):
+                            break
+                if attempt < retries:
+                    d = backoff.delay(attempt)
+                    if not backoff.budget_left(monotonic() - t_start, d):
+                        break
+                    metrics.GLOBAL.add("autotune_trial_retries")
+                    sleep(d)
+            if last_err is not None:
+                metrics.GLOBAL.add("autotune_candidates_dropped")
+                trace.event("autotune_candidate_dropped", algorithm=cand.algorithm, c=cand.c,
+                            kernel=cand.kernel, error=type(last_err).__name__)
+                _LOG.warning("autotune dropped %s c=%s kernel=%s: %s: %s", cand.algorithm,
+                             cand.c, cand.kernel, type(last_err).__name__, last_err)
+                if stop_on_timeout and isinstance(last_err, TimeoutError):
                     break
-                metrics.GLOBAL.add("autotune_trial_retries")
-                sleep(d)
-        if last_err is not None:
-            metrics.GLOBAL.add("autotune_candidates_dropped")
-            trace.event("autotune_candidate_dropped", algorithm=cand.algorithm, c=cand.c,
-                        kernel=cand.kernel, error=type(last_err).__name__)
-            _LOG.warning("autotune dropped %s c=%s kernel=%s: %s: %s", cand.algorithm,
-                         cand.c, cand.kernel, type(last_err).__name__, last_err)
-            if stop_on_timeout and isinstance(last_err, TimeoutError):
-                break
     out.sort(key=lambda cr: cr[1].get("overall_throughput", 0.0), reverse=True)
     return out

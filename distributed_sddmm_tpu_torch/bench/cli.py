@@ -24,7 +24,21 @@ Subcommands:
 * ``verify``   -- every algorithm's fingerprints against the float64
   oracle (``scratch.cpp``); exits 1 on a mismatch;
 * ``baseline`` -- scipy CSR SpMM on the host (``bench/baseline.py``, the
-  reference's PETSc baseline), the one subcommand that uses no card.
+  reference's PETSc baseline), the one subcommand that uses no card;
+* ``history``, ``compare``, ``gate``, ``backfill``, ``report-html`` -- the
+  run store (``obs/store.py``): list the stored runs, compare two of them
+  phase by phase, gate a run against the rolling baseline of its matching
+  runs (exit 0 pass, 2 regression, 3 too few baseline runs; ``obs/
+  regress.py``), ingest the repository's committed headline records, and
+  write a self-contained HTML report (``obs/report.py``); a run is a run
+  id, a unique prefix, ``latest`` or ``latest~N``, and ``--store DIR``
+  names the store;
+* ``report-trace``, ``trace-merge``, ``trace-export`` -- a trace's
+  per-phase table (``tools/tracereport.py``), the merge of per-process
+  shards into one trace (``obs/tracemerge.py``) and its Chrome export
+  (``obs/traceexport.py``); each exits 2 on a trace that fails the schema.
+
+The store and trace tools run nothing on a device.
 
 ``er``, ``file`` and ``heatmap`` share their flags (``_add_common``). A
 member of a group that refuses the configuration (a grid or R it cannot
@@ -58,17 +72,21 @@ instead of the whole run. Each has its ``SDDMM_TORCH_*`` environment
 knob (``FAULTS``, ``TRACE``, ``PROFILE``, ``WATCHDOG``, ``FLIGHTREC``).
 What a command turned on is turned off again when it returns.
 
+Every record of ``er``, ``file`` and ``heatmap`` is persisted as one run
+document into the run store (default ``artifacts/runstore_torch/``;
+process 0 only), after the timed loop and after ``-o``.
+``SDDMM_TORCH_RUNSTORE`` relocates the store (a path) or vetoes it
+(``0``/``off``), and ``--no-runstore`` beats the environment.
+
 Every subcommand that uses the card takes ``--device`` (default ``cuda``,
 which raises without one; ``cpu`` runs the plain versions). The world
 comes from the environment (``parallel/comm.world_from_env``):
 ``torchrun`` starts one rank a process (NCCL on ``cuda``, gloo on
 ``cpu``), otherwise ``SDDMM_TORCH_LOCAL_RANKS=P`` runs P logical ranks in
 this process (default 1). Each run prints one JSON summary line and
-appends its full record to ``-o`` (process 0 only). Flags whose machinery
-is not ported (the run store: ``--no-runstore``) and the subcommands that
-are not (``overlap``, ``serve``, ``fleet``, ``tune``, the run-store and
-trace tools, ``top``, ``lint``, ``env``) are not defined, so argparse
-refuses them.
+appends its full record to ``-o`` (process 0 only). The subcommands that
+are not ported (``overlap``, ``serve``, ``fleet``, ``tune``, ``top``,
+``lint``, ``env``) are not defined, so argparse refuses them.
 """
 
 from __future__ import annotations
@@ -229,6 +247,12 @@ def _add_common(p: argparse.ArgumentParser) -> None:
         "--profile) to artifacts/flightrec_torch/<run_id>/; DIR relocates "
         "(SDDMM_TORCH_FLIGHTREC)",
     )
+    p.add_argument(
+        "--no-runstore", action="store_true",
+        help="do not persist records into the run store (default "
+        "artifacts/runstore_torch/, or SDDMM_TORCH_RUNSTORE); beats the "
+        "environment",
+    )
     _add_device(p)
     p.add_argument("-o", "--output-file", default=None, help="append JSON records here")
 
@@ -294,6 +318,102 @@ def build_parser() -> argparse.ArgumentParser:
     bl.add_argument("R", type=int)
     bl.add_argument("--iters", type=int, default=10)
     bl.add_argument("-o", "--output-file", default=None)
+
+    rt = sub.add_parser(
+        "report-trace",
+        help="aggregate a JSONL trace into a per-phase table and the comm "
+        "volume against the cost model (tools/tracereport.py); exits 2 on "
+        "schema violations unless --no-strict",
+    )
+    rt.add_argument("trace", help="path to a <run_id>.jsonl trace")
+    rt.add_argument("--json", action="store_true")
+    rt.add_argument("--no-strict", action="store_true")
+
+    tm = sub.add_parser(
+        "trace-merge",
+        help="merge per-process trace shards into one schema-valid trace, "
+        "aligned on each shard's clock origin (the earliest is the merged "
+        "zero); exits 2 on unmergeable or invalid shards",
+    )
+    tm.add_argument("shards", nargs="+",
+                    help="shard files, shard directories, or a PATH.jsonl "
+                    "(merged with its sibling PATH.shards/ directory)")
+    tm.add_argument("-o", "--output-file", default=None,
+                    help="default <first shard dir>/<merged id>.jsonl")
+    tm.add_argument("--no-strict", action="store_true",
+                    help="tolerate (and drop) malformed shard lines")
+
+    te = sub.add_parser(
+        "trace-export",
+        help="convert a schema-valid trace (merged ones included) to Chrome "
+        "trace-event JSON for Perfetto / chrome://tracing: a process lane a "
+        "shard, a thread lane a thread, spans as B/E pairs, request flows; "
+        "exits 2 on an invalid trace",
+    )
+    te.add_argument("trace", help="path to a <run_id>.jsonl trace")
+    te.add_argument("-o", "--output-file", default=None,
+                    help="default <trace stem>.chrome.json")
+    te.add_argument("--no-strict", action="store_true",
+                    help="tolerate (and drop) malformed trace lines")
+
+    def _store_arg(p):
+        p.add_argument("--store", default=None, metavar="DIR",
+                       help="run-store root (default artifacts/runstore_torch, "
+                       "or SDDMM_TORCH_RUNSTORE)")
+
+    hi = sub.add_parser("history", help="list the persistent run store")
+    _store_arg(hi)
+    hi.add_argument("--key", default=None, help="filter to one fingerprint key")
+    hi.add_argument("--backend", default=None)
+    hi.add_argument("--limit", type=int, default=None, metavar="N", help="newest N runs")
+    hi.add_argument("--json", action="store_true")
+
+    cp = sub.add_parser("compare", help="per-phase delta table between two stored "
+                        "runs (run ids, unique prefixes, or latest / latest~N)")
+    _store_arg(cp)
+    cp.add_argument("run_a")
+    cp.add_argument("run_b")
+    cp.add_argument("--threshold", type=float, default=0.15,
+                    help="relative noise band (default 0.15)")
+    cp.add_argument("--json", action="store_true")
+
+    ga = sub.add_parser(
+        "gate",
+        help="regression gate: compare a run against a rolling baseline of the "
+        "last K matching runs; exit 0 pass, 2 regression, 3 insufficient "
+        "baseline data",
+    )
+    _store_arg(ga)
+    ga.add_argument("run", help="run id / prefix / latest[~N] to judge")
+    ga.add_argument("--against", default=None, metavar="RUN",
+                    help="explicit baseline run instead of the rolling baseline")
+    ga.add_argument("--last", type=int, default=5, metavar="K",
+                    help="rolling-baseline population (default 5)")
+    ga.add_argument("--min-runs", type=int, default=1,
+                    help="fewer matching baseline runs than this exits 3")
+    ga.add_argument("--threshold", type=float, default=0.15)
+    ga.add_argument("--json", action="store_true")
+
+    bf = sub.add_parser(
+        "backfill",
+        help="ingest the committed headline records (BENCH_r0*.json, "
+        "MULTICHIP_r0*.json, artifacts/bench_midround) into the run store; "
+        "they keep their own backend and no key, so they never enter a live "
+        "run's baseline",
+    )
+    _store_arg(bf)
+    bf.add_argument("--root", default=None, metavar="DIR",
+                    help="repo root to scan (default: this checkout)")
+
+    rh = sub.add_parser("report-html", help="self-contained HTML report: run "
+                        "history, per-phase trends, latest compare")
+    _store_arg(rh)
+    rh.add_argument("-o", "--output-file", default=None,
+                    help="default <store>/report.html")
+    rh.add_argument("--limit", type=int, default=100)
+    rh.add_argument("--key", default=None, help="focus fingerprint key for trends "
+                    "and compare (default: the newest run's)")
+    rh.add_argument("--threshold", type=float, default=0.15)
     return ap
 
 
@@ -410,14 +530,15 @@ def _verify(args) -> int:
 
 @contextlib.contextmanager
 def _observed(args):
-    """The faults and observability the flags ask for, on around the run
-    and off after it, in the JAX CLI's order: the watchdog, the fault
-    plan, the tracer, then the flight recorder (its ring taps the file
+    """The run store, faults and observability the flags ask for, on around
+    the run and off after it, in the JAX CLI's order: the watchdog, the run
+    store, the fault plan, the tracer, then the flight recorder (its ring taps the file
     tracer), then the profiler. With the flight recorder armed,
     ``--profile`` means a window an anomaly: one profiler session at a
     time, so a whole-run capture would refuse every window."""
     from distributed_sddmm_tpu_torch.obs import flightrec as obs_flightrec
     from distributed_sddmm_tpu_torch.obs import profiler as obs_profiler
+    from distributed_sddmm_tpu_torch.obs import store as obs_store
     from distributed_sddmm_tpu_torch.obs import trace as obs_trace
     from distributed_sddmm_tpu_torch.obs import watchdog as obs_watchdog
     from distributed_sddmm_tpu_torch.resilience import faults
@@ -428,6 +549,15 @@ def _observed(args):
             obs_watchdog.enable(args.watchdog)
             stack.callback(obs_watchdog.disable)
             print(f"[watchdog] {args.watchdog} mode", file=sys.stderr)
+        if args.no_runstore:
+            # The flag beats the environment: ``active()`` would otherwise
+            # turn the store on from a non-empty SDDMM_TORCH_RUNSTORE.
+            stack.enter_context(obs_store.scoped(False))
+        else:
+            # On by default; SDDMM_TORCH_RUNSTORE relocates (a path) or
+            # vetoes (0/off) it, in ``store.active()``'s grammar.
+            enabled, root = obs_store.parse_env_spec(os.environ.get(obs_store.RUNSTORE_ENV))
+            stack.enter_context(obs_store.scoped(enabled, root))
         if args.faults:
             faults.install(faults.FaultPlan.from_spec(args.faults))
             stack.callback(faults.clear)
@@ -449,8 +579,128 @@ def _observed(args):
         yield
 
 
+def _run_store(args):
+    from distributed_sddmm_tpu_torch.obs import store as obs_store
+
+    if args.store:
+        return obs_store.RunStore(args.store)
+    return obs_store.active() or obs_store.RunStore()
+
+
+def _resolve_run(store, spec: str):
+    try:
+        doc = store.resolve(spec)
+    except ValueError as e:  # an ambiguous prefix: say so, with candidates
+        raise SystemExit(str(e))
+    if doc is None:
+        raise SystemExit(f"no stored run matches {spec!r} (try 'history'; specs are "
+                         "run ids, unique prefixes, or latest / latest~N)")
+    return doc
+
+
+def _dispatch_store(args) -> int:
+    """The run-store subcommands (no benchmark, no device)."""
+    from distributed_sddmm_tpu_torch.obs import regress
+
+    store = _run_store(args)
+    if args.cmd == "history":
+        rows = store.history(key=args.key, backend=args.backend, limit=args.limit)
+        print(json.dumps(rows, indent=1) if args.json else regress.render_history(rows))
+        return 0
+    if args.cmd == "compare":
+        a = _resolve_run(store, args.run_a)
+        b = _resolve_run(store, args.run_b)
+        report = regress.compare(b, doc_a=a, threshold=args.threshold)
+        print(json.dumps(report, indent=1) if args.json else regress.render_compare(report))
+        return 0
+    if args.cmd == "gate":
+        doc = _resolve_run(store, args.run)
+        baseline = _resolve_run(store, args.against) if args.against else None
+        code, report = regress.gate(store, doc, k=args.last, threshold=args.threshold,
+                                    min_runs=args.min_runs, baseline_doc=baseline)
+        if args.json:
+            print(json.dumps(report, indent=1))
+        else:
+            if report.get("phases"):
+                print(regress.render_compare(report))
+            print(f"gate: {report['verdict']} (exit {code})")
+        return code
+    if args.cmd == "backfill":
+        from distributed_sddmm_tpu_torch.obs.store import backfill_historical
+
+        docs = backfill_historical(store, root=args.root)
+        print(f"backfilled {len(docs)} historical record(s) into {store.root}")
+        for d in docs:
+            print(f"  {d['run_id']:<32} <- {d.get('source')}")
+        return 0
+    if args.cmd == "report-html":
+        from distributed_sddmm_tpu_torch.obs import report as obs_report
+
+        path = obs_report.build_html(store, out_path=args.output_file, limit=args.limit,
+                                     key=args.key, threshold=args.threshold)
+        print(f"wrote {path}")
+        return 0
+    raise AssertionError(args.cmd)
+
+
+def _dispatch_trace_merge(args) -> int:
+    """``trace-merge``: discover the shards, merge them aligned, write one
+    trace and read it back strictly. Exit 0 valid, 2 unmergeable."""
+    from distributed_sddmm_tpu_torch.obs import tracemerge
+    from distributed_sddmm_tpu_torch.tools import tracereport
+
+    paths: list = []
+    try:
+        for spec in args.shards:
+            for p in tracemerge.discover(spec):
+                if p not in paths:
+                    paths.append(p)
+        out, merged = tracemerge.write_merged(paths, args.output_file,
+                                              strict=not args.no_strict)
+        # The merged file meets the reader contract of any one-process trace.
+        tracereport.load_trace(out, strict=True)
+    except (FileNotFoundError, ValueError) as e:
+        print(f"trace-merge failed: {e}", file=sys.stderr)
+        return 2
+    print(json.dumps({
+        "merged": str(out),
+        "run_id": merged["begin"]["run_id"],
+        "shards": len(merged["begin"]["shards"]),
+        "spans": len(merged["spans"]),
+        "events": len(merged["events"]),
+        "skipped_lines": len(merged["errors"]),
+    }))
+    return 0
+
+
+def _dispatch_trace_export(args) -> int:
+    """``trace-export``: a schema-valid trace to Chrome trace-event JSON.
+    Exit 0 written, 2 invalid or unreadable."""
+    from distributed_sddmm_tpu_torch.obs import traceexport
+
+    try:
+        out, chrome = traceexport.write_chrome(args.trace, args.output_file,
+                                               strict=not args.no_strict)
+    except (OSError, ValueError) as e:
+        print(f"trace-export failed: {e}", file=sys.stderr)
+        return 2
+    print(json.dumps({"exported": str(out), **chrome["metadata"]}))
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.cmd == "report-trace":
+        from distributed_sddmm_tpu_torch.tools import tracereport
+
+        return tracereport.main([args.trace] + (["--json"] if args.json else [])
+                                + (["--no-strict"] if args.no_strict else []))
+    if args.cmd == "trace-merge":
+        return _dispatch_trace_merge(args)
+    if args.cmd == "trace-export":
+        return _dispatch_trace_export(args)
+    if args.cmd in ("history", "compare", "gate", "backfill", "report-html"):
+        return _dispatch_store(args)
     if args.cmd in ("er", "file", "heatmap"):
         with _observed(args):
             return _benchmark(args)

@@ -22,6 +22,9 @@ while capturing). The record's ``metrics`` is the strategy's
 ``run_id`` and ``trace_path`` (and the manifest is refreshed with the
 device's facts), under a fault plan ``faults_fired`` (the firings of this
 run), and under the watchdog ``anomalies`` (its summary of this run).
+With a run store active (``obs/store.py``; the CLI's default) process 0
+ingests the finished record as one run document after ``-o`` is written; a
+failed ingest logs a warning and never fails the run.
 """
 
 from __future__ import annotations
@@ -34,8 +37,10 @@ from distributed_sddmm_tpu_torch.common import MatMode
 from distributed_sddmm_tpu_torch.device import device_label, synchronize
 from distributed_sddmm_tpu_torch.models.als import DistributedALS
 from distributed_sddmm_tpu_torch.models.gat import GAT, GATLayer
+from distributed_sddmm_tpu_torch.obs import log as obs_log
 from distributed_sddmm_tpu_torch.obs import manifest as obs_manifest
 from distributed_sddmm_tpu_torch.obs import profiler as obs_profiler
+from distributed_sddmm_tpu_torch.obs import store as obs_store
 from distributed_sddmm_tpu_torch.obs import trace as obs_trace
 from distributed_sddmm_tpu_torch.obs import watchdog as obs_watchdog
 from distributed_sddmm_tpu_torch.parallel.base import (
@@ -326,7 +331,7 @@ def benchmark_algorithm(
     if obs_trace.enabled():
         record["run_id"] = obs_trace.run_id()
         record["trace_path"] = obs_trace.trace_path()
-        obs_manifest.write_for_trace(obs_trace.tracer(), device=alg.device)
+        obs_manifest.write_for_trace(obs_trace.tracer(), device=alg.device, world=alg.world)
     if fault_plan is not None:
         record["faults_fired"] = [{"site": site, "kind": kind, "call": n}
                                   for site, kind, n in fault_plan.events[events_before:]]
@@ -335,4 +340,13 @@ def benchmark_algorithm(
     if output_file and alg.world.process_index == 0:
         with open(output_file, "a") as f:
             f.write(json.dumps(record) + "\n")
+    run_store = obs_store.active()
+    if run_store is not None and alg.world.process_index == 0:
+        # Best-effort: a full disk or a torn index costs the history entry,
+        # never the benchmark.
+        try:
+            run_store.ingest_record(record)
+        except Exception as e:  # noqa: BLE001
+            obs_log.warn("store", "run-store ingest failed",
+                         error=f"{type(e).__name__}: {e}")
     return record

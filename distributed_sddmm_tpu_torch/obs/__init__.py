@@ -1,4 +1,4 @@
-"""Observability (counterpart of ``obs/``), the in-run half:
+"""Observability (counterpart of ``obs/``). In the run:
 
 * :mod:`.clock` -- the monotonic / wall clock pair;
 * :mod:`.trace` -- nested spans and events as JSONL (``--trace``), the
@@ -13,7 +13,17 @@
 * :mod:`.watchdog` -- in-run anomalies (``--watchdog``);
 * :mod:`.flightrec` -- the ring dumped on an anomaly (``--flightrec``).
 
-The run store, the regression gate, the reports and the trace readers are
-ROADMAP.md queue A item 19; telemetry and its HTTP export come with
-serving.
+Across runs:
+
+* :mod:`.store` -- the run store: a benchmark record becomes one run
+  document under ``artifacts/runstore_torch/`` (``SDDMM_TORCH_RUNSTORE``),
+  indexed by problem fingerprint, code hash and backend;
+* :mod:`.regress` -- per-phase comparison of stored runs and the gate
+  (exit 0 / 2 / 3);
+* :mod:`.report` -- the self-contained HTML report over a store;
+* :mod:`.tracemerge` -- per-process trace shards merged into one trace;
+* :mod:`.traceexport` -- a trace as Chrome trace-event JSON.
+
+``tools/tracereport.py`` reads and aggregates traces, ``tools/charts.py``
+draws records. Telemetry and its HTTP export come with serving.
 """

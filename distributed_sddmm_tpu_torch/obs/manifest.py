@@ -5,7 +5,8 @@ Written atomically beside the trace as ``<run_id>.manifest.json``: the
 Python, torch and CUDA versions, the device (on a card its name, compute
 capability and count, and the name and power limit ``nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader`` reports; on the CPU
-every device field says ``cpu``), the git revision, the port's
+every device field says ``cpu``), the ``backend`` the run store keys on
+(:func:`backend_name`), the git revision, the port's
 ``SDDMM_TORCH_*`` knobs and the caller's extras. Collection never starts
 CUDA: device facts are read once CUDA is up (or the caller names the
 device), and :func:`write_for_trace` refreshes the file then. Where
@@ -104,7 +105,31 @@ def _device_info(device=None) -> dict:
     return info
 
 
-def build(run_id: str, extra: dict | None = None, device=None) -> dict:
+def backend_name(device=None, world=None) -> str:
+    """The device kind and world kind a run ran on, e.g. ``cuda:NVIDIA H100
+    80GB HBM3:local`` (logical ranks on one card), ``...:nccl`` or
+    ``cpu:gloo``: the ``backend`` of the autotuner's machine signature and of
+    the run store's key. ``device`` None is the current card once CUDA is
+    up, else the CPU (CUDA is never started here); ``world`` None is read
+    from the process: ``local`` unless a process group is up."""
+    import torch.distributed as dist
+
+    if device is None:
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if torch.cuda.is_initialized() else torch.device("cpu"))
+    dev = torch.device(device)
+    name = f"cuda:{torch.cuda.get_device_name(dev)}" if dev.type == "cuda" else "cpu"
+    if world is None:
+        kind = str(dist.get_backend()) if dist.is_available() and dist.is_initialized() \
+            else "local"
+    else:
+        from distributed_sddmm_tpu_torch.parallel.comm import LocalWorld
+
+        kind = "local" if isinstance(world, LocalWorld) else str(dist.get_backend())
+    return f"{name}:{kind}"
+
+
+def build(run_id: str, extra: dict | None = None, device=None, world=None) -> dict:
     m = {
         "schema": SCHEMA_VERSION,
         "run_id": run_id,
@@ -117,6 +142,8 @@ def build(run_id: str, extra: dict | None = None, device=None) -> dict:
                 if k.startswith(_ENV_PREFIXES) or k in _ENV_KEYS},
         **_device_info(device),
     }
+    if "device" in m:
+        m["backend"] = backend_name(device, world)
     if extra:
         m["extra"] = extra
     return m
@@ -127,16 +154,18 @@ def manifest_path_for(trace_path) -> pathlib.Path:
     return p.with_name(p.stem + ".manifest.json")
 
 
-def write_for_trace(tracer, extra: dict | None = None, device=None) -> pathlib.Path | None:
-    """Write (or refresh) the manifest beside ``tracer``'s file. Once a
-    manifest holds card facts, refreshes without extras are skipped; a
-    memory-only tracer has nowhere to write (None)."""
+def write_for_trace(tracer, extra: dict | None = None, device=None,
+                    world=None) -> pathlib.Path | None:
+    """Write (or refresh) the manifest beside ``tracer``'s file; ``world``
+    names the world kind of its ``backend``. Once a manifest holds card
+    facts, refreshes without extras are skipped; a memory-only tracer has
+    nowhere to write (None)."""
     if tracer is None or tracer.path is None:
         return None
     path = manifest_path_for(tracer.path)
     if extra is None and tracer._manifest_final:
         return path
-    m = build(tracer.run_id, extra, device)
+    m = build(tracer.run_id, extra, device, world)
     atomic_write_json(path, m)
     if m.get("device") == "cuda":
         tracer._manifest_final = True

@@ -1,5 +1,5 @@
-"""Atomic file writes for the checkpoint store (counterpart of
-``utils/atomic.py``).
+"""Atomic file writes for the checkpoint store, the run store and the trace
+tools (counterpart of ``utils/atomic.py``).
 
 One implementation of the temp-file + ``os.replace`` dance: a reader sees
 the old content or the new content, never a prefix. The write-fault hook
@@ -48,6 +48,34 @@ def atomic_write_json(path: str | os.PathLike, obj, **json_kw) -> None:
     json_kw.setdefault("indent", 1)
     json_kw.setdefault("sort_keys", True)
     atomic_write_text(path, json.dumps(obj, **json_kw))
+
+
+def atomic_write_lines(path: str | os.PathLike, lines) -> None:
+    """Streaming variant for large line-oriented files (merged traces): each
+    line goes to the temp file as it is produced, so the payload is never
+    one string in memory, and ``os.replace`` keeps the all-or-nothing
+    contract. Under an active fault plan the lines are joined first, so the
+    ``write:`` hook can garble or cut the payload as in the other writers."""
+    from distributed_sddmm_tpu_torch.resilience import faults
+
+    path = pathlib.Path(path)
+    if faults.active() is not None:
+        text = "".join(line + "\n" for line in lines)
+        _replace_atomically(path, faults.garble_text(f"write:{path.name}", text).encode())
+        return
+    path.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=path.parent, prefix=f".{path.name}.", suffix=".tmp")
+    try:
+        with os.fdopen(fd, "w") as f:
+            for line in lines:
+                f.write(line + "\n")
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
 
 
 def atomic_write_bytes(path: str | os.PathLike, data: bytes) -> None:

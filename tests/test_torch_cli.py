@@ -19,11 +19,16 @@ from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
+# Benchmarks here write no run document into the checkout's default store.
+os.environ["SDDMM_TORCH_RUNSTORE"] = "0"
 
-def _run(*args):
+
+def _run(*args, env=None):
+    extra = env or {}
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
     env["PYTHONPATH"] = str(ROOT)
     env["CUDA_VISIBLE_DEVICES"] = ""
+    env.update(extra)
     return subprocess.run([sys.executable, "-m", "distributed_sddmm_tpu_torch.bench",
                            *args], cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=120)
@@ -47,12 +52,18 @@ def test_er_attention_subprocess_prints_one_json_line(tmp_path):
     assert rec["overall_throughput"] > 0 and rec["elapsed"] > 0
 
 
-def test_er_refuses_flags_that_are_not_ported():
-    """``--no-runstore`` waits for the run store (ROADMAP.md queue A item
-    19); argparse refuses it."""
-    proc = _run("er", "6", "4", "15d_fusion2", "8", "1", "--device", "cpu",
-                "--no-runstore")
-    assert proc.returncode == 2 and "--no-runstore" in proc.stderr
+def test_er_accepts_no_runstore_and_writes_nothing(tmp_path):
+    """``--no-runstore`` beats ``SDDMM_TORCH_RUNSTORE``: a subprocess run
+    with the knob naming a store writes no document there; without the flag
+    the same run writes one."""
+    env_store = tmp_path / "store"
+    base = ("er", "6", "4", "15d_fusion2", "8", "1", "--device", "cpu", "--kernel", "torch")
+    proc = _run(*base, "--no-runstore", env={"SDDMM_TORCH_RUNSTORE": str(env_store)})
+    assert proc.returncode == 0, proc.stderr
+    assert not env_store.exists()
+    proc = _run(*base, env={"SDDMM_TORCH_RUNSTORE": str(env_store)})
+    assert proc.returncode == 0, proc.stderr
+    assert len(list((env_store / "runs").glob("*.json"))) == 1
 
 
 @pytest.mark.parametrize("kernel,name", [("cuda-f32", "cuda-f32"),
@@ -453,20 +464,17 @@ def test_kernels_and_baseline_records_have_the_jax_keys(tmp_path, capsys):
         assert rec[key] == want[key], key
 
 
-UNPORTED_FLAGS = (["--no-runstore"],)
-UNPORTED_COMMANDS = ("overlap", "serve", "fleet", "tune", "history", "compare", "gate",
-                     "backfill", "report-html", "report-trace", "trace-merge",
-                     "trace-export", "top", "lint", "env")
+UNPORTED_COMMANDS = ("overlap", "serve", "fleet", "tune", "top", "lint", "env")
 
 
 @pytest.mark.parametrize("base", [["er", "5", "4", "15d_fusion2", "4", "1"],
                                   ["file", "m.mtx", "15d_fusion2", "4", "1"],
                                   ["heatmap", "5", "4", "1"]], ids=["er", "file", "heatmap"])
 def test_unported_flags_and_subcommands_are_refused(base, capsys):
-    for flag in UNPORTED_FLAGS:
-        with pytest.raises(SystemExit) as e:
-            cli.main([*base, "--device", "cpu", *flag])
-        assert e.value.code == 2 and flag[0] in capsys.readouterr().err
+    """Every flag of the JAX benchmark subcommands is ported (the last,
+    ``--no-runstore``, parses on each); the subcommands that are not are
+    refused."""
+    assert cli.build_parser().parse_args([*base, "--no-runstore"]).no_runstore
     for cmd in UNPORTED_COMMANDS:
         with pytest.raises(SystemExit) as e:
             cli.main([cmd])
@@ -562,3 +570,79 @@ def test_card_subcommands_default_to_cuda():
     assert not hasattr(parser.parse_args(["baseline", "5", "4", "8"]), "device")
     assert parser.parse_args(["kernels"]).kernels == ["torch", "cuda-bf16"]
     assert parser.parse_args(["heatmap", "5", "4", "1"]).r_values == cli.HEATMAP_R_VALUES
+
+
+def _seeded_store_and_traces(root: pathlib.Path) -> dict:
+    """A store of the JAX tests' synthetic documents (three close runs, a
+    slow one, one of another key) and their traces: a valid one, an invalid
+    one, two shards of one run."""
+    from test_obs_regress import make_doc
+    from test_trace_export import _synthetic_trace
+    from test_trace_merge import _shard
+
+    from distributed_sddmm_tpu_torch.obs.store import RunStore
+
+    store = RunStore(root / "store")
+    for i, scale in enumerate([1.0, 1.02, 0.98]):
+        store.put(dict(make_doc(f"run-{i}", scale), created_epoch=100.0 + i))
+    store.put(dict(make_doc("other", key="key-z"), created_epoch=110.0))
+    store.put(dict(make_doc("slow", 2.0), created_epoch=120.0))
+    bad = root / "bad.jsonl"
+    bad.write_text('{"type": "span", "name": "x"}\n')
+    _shard(root / "P.jsonl", "ra", 1000.0, 11, spans=[("bench", 0.0, 2.0)])
+    _shard(root / "P.shards" / "rb.jsonl", "rb", 1000.5, 22, spans=[("bench", 0.0, 1.0)])
+    return {"store": str(root / "store"), "good": str(_synthetic_trace(root)),
+            "bad": str(bad), "absent": str(root / "absent.jsonl"), "stem": str(root / "P.jsonl"),
+            "root": str(ROOT), "out": str(root / "out")}
+
+
+STORE_AND_TRACE_ARGVS = {
+    "history": [["history", "--store", "{store}"], ["history", "--store", "{store}", "--key",
+                                                    "key-z", "--json"],
+                ["history", "--store", "{store}", "--limit", "2"]],
+    "compare": [["compare", "run-0", "slow", "--store", "{store}"],
+                ["compare", "latest~1", "latest", "--store", "{store}", "--json"],
+                ["compare", "run-0", "nope", "--store", "{store}"],
+                ["compare", "run", "slow", "--store", "{store}"]],
+    "gate": [["gate", "slow", "--store", "{store}"],
+             ["gate", "run-2", "--store", "{store}", "--threshold", "0.5"],
+             ["gate", "other", "--store", "{store}"],
+             ["gate", "slow", "--store", "{store}", "--min-runs", "5"],
+             ["gate", "slow", "--store", "{store}", "--against", "run-1", "--json"],
+             ["gate", "nope", "--store", "{store}"]],
+    "backfill": [["backfill", "--store", "{out}/bf", "--root", "{root}"]],
+    "report-html": [["report-html", "--store", "{store}", "-o", "{out}/r.html"]],
+    "report-trace": [["report-trace", "{good}"], ["report-trace", "{bad}"],
+                     ["report-trace", "{absent}"]],
+    "trace-merge": [["trace-merge", "{stem}", "-o", "{out}/m.jsonl"],
+                    ["trace-merge", "{bad}"], ["trace-merge", "{absent}"]],
+    "trace-export": [["trace-export", "{good}", "-o", "{out}/c.json"],
+                     ["trace-export", "{bad}"], ["trace-export", "{absent}"]],
+}
+
+
+@pytest.mark.parametrize("cmd", sorted(STORE_AND_TRACE_ARGVS))
+def test_store_and_trace_subcommands_exit_like_the_jax_cli(cmd, tmp_path, capsys):
+    """The eight run-store and trace subcommands take the JAX CLI's
+    arguments and exit with its codes (0, 2 on a regression or an invalid
+    trace, 3 without enough baseline runs, ``SystemExit`` on a run spec
+    that names nothing); where the output holds no path or package name it
+    is the JAX CLI's too."""
+    from distributed_sddmm_tpu.bench import cli as jax_cli
+
+    paths = _seeded_store_and_traces(tmp_path)
+    for argv in STORE_AND_TRACE_ARGVS[cmd]:
+        argv = [a.format(**paths) for a in argv]
+        results = []
+        for main in (cli.main, jax_cli.main):
+            try:
+                code = main(argv)
+            except SystemExit as e:
+                code = ("SystemExit", str(e.code)[:20])
+            results.append((code, capsys.readouterr()))
+        (got, ours), (want, theirs) = results
+        assert got == want, argv
+        if cmd in ("history", "compare", "gate"):
+            assert ours.out == theirs.out, argv
+    if cmd == "backfill":
+        assert "backfilled" in ours.out and "backfill-bench_r05" in ours.out

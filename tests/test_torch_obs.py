@@ -41,6 +41,9 @@ from distributed_sddmm_tpu_torch.parallel.comm import LocalWorld
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 from distributed_sddmm_tpu_torch.utils.verify import fingerprint_algorithm
 
+# Benchmarks here write no run document into the checkout's default store.
+os.environ["SDDMM_TORCH_RUNSTORE"] = "0"
+
 
 @pytest.fixture(autouse=True)
 def _tracers_off(monkeypatch):

@@ -10,6 +10,7 @@ same files with the same keys. ``strict`` raises ``WatchdogAlarm``, a
 ``NumericalFault``, through the CLI as well.
 """
 
+import os
 import json
 
 import numpy as np
@@ -36,6 +37,9 @@ from distributed_sddmm_tpu_torch.parallel.dense_shift_15d import DenseShift15D
 from distributed_sddmm_tpu_torch.resilience import faults
 from distributed_sddmm_tpu_torch.resilience.guards import NumericalFault
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
+
+# Benchmarks here write no run document into the checkout's default store.
+os.environ["SDDMM_TORCH_RUNSTORE"] = "0"
 
 SKEW = [{"site": "comm:fusedSpMM", "kind": "skew", "prob": 1.0, "param": 2.0}]
 
