@@ -277,8 +277,36 @@ last line is printed):
    backfill: into a second store holding one card run, the TPU rounds
    listed and the card run's gate exits 3. ``--no-runstore`` leaves the
    store unchanged.
-18. kernels line -- ``{"kernels": [...]}``.
-19. last line -- ``{"ok": true, "device": {...}}``.
+18. programs -- the program store (``programs/``) in fresh processes
+   (``python3 -c "import chip_smoke; chip_smoke.programs_child(...)"``)
+   over a store and a plan cache under ``_build/``, removed after (the
+   earlier phases run with ``SDDMM_TORCH_PROGRAMS=0``). full: ``er 20 32
+   auto 128 1 --plan-mode model`` twice: the first record shows
+   ``program_store.live_compiles >= 1`` and no hit, the second no live
+   build and a hit; the verify fingerprints of the two strategies equal;
+   the set-up seconds cold (and where they go) and warm, and the entry's
+   bytes. headline: ``er 16 32 auto ...`` writes its entry, a second
+   process warm-starts ``DistributedALS.from_plan`` from it (one ALS step
+   lowers the residual), then the entry is truncated and a third process
+   records a miss, an eviction and a rebuild with the first's fingerprints.
+19. dynstruct -- ``dynstruct.build`` and ``rebind`` on the card. headline:
+   the headline R-mat over a ``LocalWorld`` at (4, 1) and (8, 2), the four
+   strategies with cuda-f32, and the banked ``15d_fusion2`` on Graph500 16
+   at (4, 1); each rebinds a zero-change pattern, then 1,024 appended rows
+   of 32 nonzeros, then edge churn inside the rungs (fits: every tile
+   tensor keeps its ``data_ptr``), then growth past the row rung (a
+   spill); after each, every op on integer operands equal bit for bit to a
+   cold ``dynstruct.build`` of the new pattern, and the counters as the
+   cases say. full: ``dynstruct.build`` of ``15d_fusion2`` on phase 5's
+   cell, 1,024 rows of 32 nonzeros appended and rebound (a fit), the
+   rebound fused pair's sampled rows against float64 (phase 5's check);
+   the build and rebind seconds.
+20. kernels line -- ``{"kernels": [...]}``.
+21. last line -- ``{"ok": true, "device": {...}}``.
+
+Phase training (13) runs after phase dynstruct: its GAT checks wait for
+the float64 references a host process computes while the card's phases
+run, and the phases before it cover that wait.
 
 ``python3 chip_smoke.py --gat-grad-drift [SEED ...]`` is another mode
 (``gat_grad_drift``): the readings behind GAT_DRIFT["plain"].
@@ -310,7 +338,7 @@ import torch
 import torch.distributed as dist
 import torch.utils.checkpoint
 
-from distributed_sddmm_tpu_torch import masks
+from distributed_sddmm_tpu_torch import dynstruct, masks
 from distributed_sddmm_tpu_torch.autotune import cache as plan_cache
 from distributed_sddmm_tpu_torch.autotune import candidates as plan_candidates
 from distributed_sddmm_tpu_torch.autotune import measure as plan_measure
@@ -341,6 +369,7 @@ from distributed_sddmm_tpu_torch.parallel.dense_shift_15d import DenseShift15D
 from distributed_sddmm_tpu_torch.parallel.mesh import make_grid
 from distributed_sddmm_tpu_torch.parallel.sharding import BankedTileView, TileView
 from distributed_sddmm_tpu_torch.parallel.wire import wire_policy
+from distributed_sddmm_tpu_torch.programs import store as programs_store
 from distributed_sddmm_tpu_torch.resilience import CheckpointStore, NumericalFault
 from distributed_sddmm_tpu_torch.tools import costmodel, tracereport
 from distributed_sddmm_tpu_torch.utils import oracle, verify
@@ -1109,13 +1138,15 @@ def phase_verify(S, dev, launches: dict) -> None:
             add_launches(launches, counts, prec)
 
 
-def sampled_reference(S: HostCOO, alg, out, mid, dev, rng, heaviest: int = 0) -> float:
+def sampled_reference(S: HostCOO, alg, out, mid, dev, rng, heaviest: int = 0,
+                      include=()) -> float:
     """Relative error of 64 sampled output rows (and the ``heaviest`` rows
-    by degree) and their ``mid`` values against float64 on the host (A =
-    the dummy fill, B = 0.01)."""
+    by degree, and the rows ``include``) and their ``mid`` values against
+    float64 on the host (A = the dummy fill, B = 0.01)."""
     deg = np.bincount(S.rows, minlength=S.M)
     rows = rng.choice(np.flatnonzero(deg), 64, replace=False)
     rows = np.union1d(rows, np.argsort(deg)[len(deg) - heaviest:])
+    rows = np.union1d(rows, np.asarray(include, dtype=np.int64))
     R = alg.R
     out_h = out[torch.as_tensor(rows, device=dev)].double().cpu().numpy()
     mid_h = alg.gather_s_values(mid)
@@ -5749,6 +5780,394 @@ def phase_runstore(full: dict, launches: dict, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------- programs
+
+PROGRAMS_DIR = _build.BUILD_DIR / "programs"
+PROGRAMS = {"trials": 3, "warmup": 1, "timeout_s": 600}
+
+
+@contextlib.contextmanager
+def setup_timers():
+    """Seconds spent in each step of the tile set-up while the block runs
+    (the set-up's breakdown): the layout's coordinates, the bucket sort
+    and CSR, the bands, the transpose of S and the copies to the card."""
+    from distributed_sddmm_tpu_torch.codegen import banded
+
+    seconds: dict = {}
+    patched = [(sharding, "_layout", "layout"), (sharding, "_bucket_csr", "bucket_csr"),
+               (banded, "build_banded", "bands"), (sharding, "_device_bands", "band_copies"),
+               (HostCOO, "transpose", "transpose")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+
+    def timing(fn, label):
+        def wrapped(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                seconds[label] = seconds.get(label, 0.0) + time.perf_counter() - t
+        return wrapped
+
+    for (mod, name, label), (_, _, fn) in zip(patched, saved):
+        setattr(mod, name, timing(fn, label))
+    try:
+        yield seconds
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def counted_by_type(fn):
+    """``fn()`` with the launch counters zeroed before and read after, by
+    operand type."""
+    cuda_kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, by_type()
+
+
+def programs_child(spec_json: str) -> int:
+    """One fresh process of phase programs: its runs in turn, each an
+    ``er`` run (its record, the trace's program-store events, the set-up's
+    breakdown, the store's entries and the strategy's verify
+    fingerprints) or an ALS step on a plan (``DistributedALS.from_plan``).
+    Prints one JSON line, the results by tag."""
+    spec = json.loads(spec_json)
+    dev = torch.device(spec.get("device", "cuda"))
+    results = {}
+    for run in spec["runs"]:
+        before = plan_metrics.GLOBAL.snapshot()
+        t0 = time.perf_counter()
+        out: dict = {}
+        if run["mode"] == "er":
+            rec_path, trace_path = pathlib.Path(run["rec"]), pathlib.Path(run["trace"])
+            with built_algorithms() as built, setup_timers() as timers:
+                rc, counts = counted_by_type(lambda: cli.main(
+                    [*run["argv"], "-o", str(rec_path), "--trace", str(trace_path)]))
+            S, alg = built[-1]
+            fps, fp_counts = counted_by_type(lambda: verify.fingerprint_algorithm(alg, S))
+            events = [{"name": e["name"], **e["attrs"]}
+                      for e in tracereport.load_trace(trace_path, strict=False)["events"]
+                      if e["name"].startswith("program_store")]
+            store = programs_store.active()
+            out.update(rc=rc, record=json.loads(rec_path.read_text().splitlines()[-1]),
+                       events=events, setup_breakdown_s=timers, fingerprints=fps,
+                       counts={k: added(counts[k], fp_counts[k]) for k in counts},
+                       entries=store.index() if store is not None else [])
+            del S, alg, built
+        else:
+            S = HostCOO.rmat(HEADLINE["log_m"], HEADLINE["edge_factor"], device=dev)
+
+            def step():
+                als = als_mod.DistributedALS.from_plan(S, HEADLINE["R"], world=LocalWorld(1),
+                                                       device=dev)
+                als.initialize_embeddings()
+                r0 = als.compute_residual()
+                als.run_cg(1, cg_iters=ALS["cg_iters"])
+                return als.plan.to_dict(), r0, als.compute_residual()
+
+            (plan, r0, r1), counts = counted_by_type(step)
+            out.update(rc=0, plan=plan, r0=r0, r1=r1, counts=counts)
+        after = plan_metrics.GLOBAL.snapshot()
+        out["global"] = {k: after.get(k, 0.0) - before.get(k, 0.0)
+                         for k in harness.PROGRAM_STORE_COUNTERS}
+        out["seconds"] = time.perf_counter() - t0
+        results[run["tag"]] = out
+    print(json.dumps(results), flush=True)
+    return 0
+
+
+def programs_run(runs: list, env: dict) -> dict:
+    """:func:`programs_child` over ``runs`` in a process of its own: its
+    results by tag, each with the process's standard error."""
+    root = pathlib.Path(__file__).resolve().parent
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke\n"
+         "sys.exit(chip_smoke.programs_child(sys.argv[1]))", json.dumps({"runs": runs})],
+        cwd=root, env=env, capture_output=True, text=True, timeout=PROGRAMS["timeout_s"])
+    require(proc.returncode == 0, f"programs child {[r['tag'] for r in runs]}: exit "
+            f"{proc.returncode}: {proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    for res in out.values():
+        res["stderr"] = proc.stderr
+        require(res["rc"] == 0, f"programs: rc {res['rc']}")
+    return out
+
+
+def programs_er(cell: dict, tag: str) -> dict:
+    """An ``er <cell> auto R 1 --plan-mode model`` run of a child."""
+    argv = ["er", str(cell["log_m"]), str(cell["edge_factor"]), "auto", str(cell["R"]), "1",
+            "--plan-mode", "model", "--trials", str(PROGRAMS["trials"]), "--warmup",
+            str(PROGRAMS["warmup"])]
+    return {"mode": "er", "tag": tag, "argv": argv, "rec": str(PROGRAMS_DIR / f"{tag}.jsonl"),
+            "trace": str(PROGRAMS_DIR / f"{tag}.trace.jsonl")}
+
+
+def setup_seconds(run: dict) -> float | None:
+    """The set-up's seconds as the trace's program-store event says: the
+    build on a live compile, the load (read and restore) on a hit."""
+    for e in run["events"]:
+        if e["name"] == "program_store_compile":
+            return e["compile_s"]
+        if e["name"] == "program_store_hit":
+            return e["load_s"]
+    return None
+
+
+def phase_programs(launches: dict, card: str) -> dict:
+    """The program store across fresh processes: the full cell cold and
+    warm, the headline's ALS warm start and a truncated entry."""
+    t0 = time.perf_counter()
+    shutil.rmtree(PROGRAMS_DIR, ignore_errors=True)
+    PROGRAMS_DIR.mkdir(parents=True)
+    root = PROGRAMS_DIR / "store"
+    env = {**os.environ, programs_store.PROGRAMS_ENV: str(root),
+           plan_cache.PLAN_CACHE_ENV: str(PROGRAMS_DIR / "plan_cache"),
+           obs_store.RUNSTORE_ENV: "0", comm_mod.LOCAL_RANKS_ENV: "1"}
+    env.pop("SDDMM_TORCH_TRACE", None)
+    result: dict = {}
+    try:
+        # Four processes: the full cell cold; the full cell warm, then the
+        # headline's first run; an ALS warm start at the headline; after
+        # the headline's entry is cut in half, the headline again.
+        runs = programs_run([programs_er(FULL, "full_cold")], env)
+        runs.update(programs_run([programs_er(FULL, "full_warm"),
+                                  programs_er(HEADLINE, "headline_cold")], env))
+        runs.update(programs_run([{"mode": "als", "tag": "als_warm"}], env))
+        store = programs_store.ProgramStore(root)
+        entries = {r["key"]: r for r in store.index()}
+        head_key = [r for r in runs["headline_cold"]["entries"]
+                    if r["key"] not in {x["key"] for x in runs["full_cold"]["entries"]}]
+        require(len(head_key) == 1, f"programs: headline entries {head_key}")
+        head_path = store.path(head_key[0]["key"])
+        size = head_path.stat().st_size
+        head_path.write_bytes(head_path.read_bytes()[: size // 2])
+        runs.update(programs_run([programs_er(HEADLINE, "headline_truncated")], env))
+        for run in runs.values():
+            add_by_type(launches, run["counts"])
+        cold, warm = runs["full_cold"], runs["full_warm"]
+        g = {tag: run["global"] for tag, run in runs.items()}
+        rec = {tag: run["record"]["program_store"] for tag, run in runs.items()
+               if "record" in run}
+        full_entry = [r for r in cold["entries"]][0]
+        result = {
+            "record_program_store": rec, "global": g,
+            "setup_s": {tag: setup_seconds(run) for tag, run in runs.items() if "events" in run},
+            "cold_breakdown_s": cold["setup_breakdown_s"],
+            "process_s": {tag: run["seconds"] for tag, run in runs.items()},
+            "full_entry_bytes": full_entry["bytes"], "full_key": full_entry["key"],
+            "headline_entry_bytes": size, "entries": len(entries),
+            "ms_per_pair": {tag: run["record"]["elapsed"] / run["record"]["num_trials"] * 1e3
+                            for tag, run in runs.items() if "record" in run},
+            "plan": cold["record"]["plan"], "als": {k: runs["als_warm"][k]
+                                                    for k in ("plan", "r0", "r1")},
+            "evicted_log": "evicting" in runs["headline_truncated"]["stderr"],
+            "rebuilt_entry_bytes": head_path.stat().st_size,
+        }
+        emit({"phase": "programs", "card": card, **result,
+              "seconds": time.perf_counter() - t0})
+        require(rec["full_cold"]["live_compiles"] >= 1
+                and rec["full_cold"]["program_store_hits"] == 0,
+                f"programs: the cold full-cell record {rec['full_cold']}")
+        require(rec["full_warm"]["live_compiles"] == 0
+                and rec["full_warm"]["program_store_hits"] >= 1,
+                f"programs: the warm full-cell record {rec['full_warm']}")
+        require(cold["fingerprints"] == warm["fingerprints"],
+                f"programs: warm fingerprints {warm['fingerprints']} != cold "
+                f"{cold['fingerprints']}")
+        als = runs["als_warm"]
+        require(als["global"]["live_compiles"] == 0 and als["global"]["program_store_hits"] >= 1
+                and 0 < als["r1"] < als["r0"],
+                f"programs: ALS warm start {als['global']}, residual {als['r0']} -> {als['r1']}")
+        bad = runs["headline_truncated"]
+        require(rec["headline_truncated"]["program_store_misses"] >= 1
+                and rec["headline_truncated"]["live_compiles"] == 1
+                and rec["headline_truncated"]["program_store_hits"] == 0
+                and result["evicted_log"] and result["rebuilt_entry_bytes"] == size,
+                f"programs: the truncated entry {rec['headline_truncated']}, evicted "
+                f"{result['evicted_log']}, rebuilt {result['rebuilt_entry_bytes']} of {size} B")
+        require(bad["fingerprints"] == runs["headline_cold"]["fingerprints"],
+                "programs: the rebuilt headline's fingerprints differ from the first run's")
+    finally:
+        shutil.rmtree(PROGRAMS_DIR, ignore_errors=True)
+    return result
+
+
+# ------------------------------------------------------------ dynstruct
+
+DYNSTRUCT = {"grids": ((4, 1), (8, 2)), "banked_grid": (4, 1), "rows": 1024, "row_nnz": 32,
+             "churn": 4096, "seed": 16, "full_headroom": 1.25}
+#: Each case of phase dynstruct at the headline and whether it fits.
+DYN_CASES = (("zero_change", True), ("append_rows", True), ("edge_churn", True),
+             ("row_spill", False))
+
+
+def appended(S: HostCOO, n_rows: int, per_row: int, rng) -> HostCOO:
+    """A copy of ``S`` with ``n_rows`` rows of ``per_row`` distinct random
+    columns appended (values 1), through ``HostCOO.append_rows``."""
+    out = HostCOO(S.rows.copy(), S.cols.copy(), S.vals.copy(), S.M, S.N)
+    cols = [rng.choice(S.N, per_row, replace=False) for _ in range(n_rows)] if per_row > 1 \
+        else list(rng.integers(0, S.N, (n_rows, 1)))
+    out.append_rows(cols, [np.ones(len(c)) for c in cols])
+    return out
+
+
+def churned(S: HostCOO, n: int, rng) -> HostCOO:
+    """``S`` with ``n`` nonzeros moved to random columns of their rows (the
+    row degrees stay)."""
+    cols = S.cols.copy()
+    pick = rng.choice(S.nnz, n, replace=False)
+    cols[pick] = rng.integers(0, S.N, n)
+    return HostCOO(S.rows.copy(), cols, S.vals.copy(), S.M, S.N)
+
+
+def tile_ptrs(alg) -> list:
+    """The ``data_ptr`` of every tile tensor of a strategy's set-up."""
+    ptrs = []
+    for name in alg.SETUP_TILE_SETS:
+        tiles = getattr(alg, name)
+        ptrs += [getattr(tiles, f).data_ptr()
+                 for f in sharding.DEVICE_FIELDS[type(tiles).__name__]]
+        ptrs += [v.data_ptr() for _, v in sorted((getattr(tiles, "band_arrays", None)
+                                                  or {}).items())]
+    return ptrs
+
+
+def dyn_outputs(alg, S: HostCOO, rng_seed: int) -> tuple:
+    """Every op of ``verify.op_outputs`` on integer operands (in [-3, 3],
+    values in [1, 3]) at the strategy's declared height, and the
+    launches."""
+    rng = np.random.default_rng(rng_seed)
+    A = rng.integers(-3, 4, (alg.M, alg.R)).astype(np.float32)
+    B = rng.integers(-3, 4, (S.N, alg.R)).astype(np.float32)
+    v = rng.integers(1, 4, S.nnz).astype(np.float64)
+    return run_counted(lambda: verify.op_outputs(alg, A, B, v))
+
+
+def dyn_case_rows(name: str, grid: tuple, S: HostCOO, kernel_fn, dev, launches: dict) -> dict:
+    """One configuration through the cases of :data:`DYN_CASES`, chained:
+    each rebinds the strategy the previous one left."""
+    p, c = grid
+    R = HEADLINE["R"]
+    rng = np.random.default_rng(DYNSTRUCT["seed"])
+
+    def cold(S_):
+        return dynstruct.build(name, S_, R, c, kernel=kernel_fn(), world=LocalWorld(p),
+                               device=dev)
+
+    t = time.perf_counter()
+    alg = cold(S)
+    rows = {"build_s": time.perf_counter() - t, "caps": list(alg.S_tiles.dyn_cap)}
+    want, counts = dyn_outputs(alg, S, 0)
+    add_launches(launches, counts, "f32")
+    cur = S
+    for case, fits in DYN_CASES:
+        if case == "zero_change":
+            new = HostCOO(cur.rows.copy(), cur.cols.copy(), cur.vals.copy(), cur.M, cur.N)
+        elif case == "append_rows":
+            new = appended(cur, DYNSTRUCT["rows"], DYNSTRUCT["row_nnz"], rng)
+        elif case == "edge_churn":
+            new = churned(cur, DYNSTRUCT["churn"], rng)
+        else:
+            new = appended(cur, alg._dynstruct.row_cap - cur.M + 1, 1, rng)
+        ptrs = tile_ptrs(alg)
+        before = plan_metrics.GLOBAL.snapshot()
+        t = time.perf_counter()
+        up = dynstruct.rebind(alg, new)
+        rebind_s = time.perf_counter() - t
+        after = plan_metrics.GLOBAL.snapshot()
+        delta = {k: after.get(k, 0.0) - before.get(k, 0.0) for k in harness.DYNSTRUCT_COUNTERS}
+        got, counts = dyn_outputs(up.alg, new, 0)
+        add_launches(launches, counts, "f32")
+        if case != "zero_change":
+            want, counts = dyn_outputs(cold(new), new, 0)
+            add_launches(launches, counts, "f32")
+        equal = {op: bool(np.array_equal(got[op], want[op])) for op in want}
+        row = {"fit": up.fit, "reason": up.reason, "nnz": new.nnz, "M": new.M,
+               "rebind_s": rebind_s, "counters": delta, "equal": equal,
+               "ptrs_kept": tile_ptrs(up.alg) == ptrs}
+        rows[case] = row
+        tag = f"dynstruct {name} {grid} {case}"
+        require(up.fit == fits, f"{tag}: fit {up.fit} ({up.reason})")
+        require(all(equal.values()), f"{tag}: outputs differ from a cold build: {equal}")
+        want_counts = ({"dynstruct_rebinds": 1.0, "dynstruct_bucket_spills": 0.0,
+                        "structure_retraces": 0.0} if fits else
+                       {"dynstruct_rebinds": 0.0, "dynstruct_bucket_spills": 1.0,
+                        "structure_retraces": 1.0})
+        require(delta == want_counts, f"{tag}: counters {delta}")
+        require(row["ptrs_kept"] == fits and (up.alg is alg) == fits,
+                f"{tag}: data_ptrs kept {row['ptrs_kept']}, same strategy {up.alg is alg}")
+        alg, cur = up.alg, new
+    return rows
+
+
+def dyn_full(dev, launches: dict, card: str) -> dict:
+    """Phase 5's cell built for dynamic structure, 1,024 rows of 32
+    nonzeros appended and rebound: a fit, the tile tensors kept, the
+    rebound pair's sampled rows against float64."""
+    S = HostCOO.rmat(FULL["log_m"], FULL["edge_factor"], device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    alg = dynstruct.build("15d_fusion2", S, FULL["R"], 1, headroom=DYNSTRUCT["full_headroom"],
+                          kernel=CudaTileKernel("f32", device=dev), world=LocalWorld(1),
+                          device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    new = appended(S, DYNSTRUCT["rows"], DYNSTRUCT["row_nnz"],
+                   np.random.default_rng(DYNSTRUCT["seed"]))
+    ptrs = tile_ptrs(alg)
+    t = time.perf_counter()
+    up = dynstruct.rebind(alg, new)
+    torch.cuda.synchronize()
+    rebind_s = time.perf_counter() - t
+    require(up.fit and up.alg is alg and tile_ptrs(alg) == ptrs,
+            f"dynstruct full: fit {up.fit} ({up.reason}), tile tensors kept "
+            f"{tile_ptrs(alg) == ptrs}")
+    A, B, sv = alg.dummy_initialize(MatMode.A), alg.like_b_matrix(0.01), alg.like_s_values(1.0)
+    (out, mid), counts = run_counted(lambda: alg.fused_spmm(A, B, sv, MatMode.A))
+    add_launches(launches, counts, "f32")
+    require(counts["fused_tile"] == 1 and tuple(out.shape) == (alg.M_pad, alg.R)
+            and bool(torch.isfinite(out).all()), f"dynstruct full: launches {counts}")
+    # 64 sampled rows, and 64 of the appended rows.
+    rng = np.random.default_rng(1)
+    err = sampled_reference(new, alg, out, mid, dev, rng,
+                            include=S.M + rng.choice(DYNSTRUCT["rows"], 64, replace=False))
+    row = {"nnz": S.nnz, "nnz_after": new.nnz, "M": S.M, "row_cap": up.row_cap,
+           "caps": list(up.caps), "headroom": DYNSTRUCT["full_headroom"],
+           "build_s": build_s, "rebind_s": rebind_s, "sampled_rel_err": err,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts}
+    emit({"phase": "dynstruct_full", "card": card, **row})
+    require(err <= VERIFY_RTOL["f32"], f"dynstruct full: sampled rows off by {err:.3e}")
+    del alg, up, A, B, sv, out, mid
+    return row
+
+
+def phase_dynstruct(dev, launches: dict, card: str) -> dict:
+    t0 = time.perf_counter()
+    S16 = HostCOO.rmat(HEADLINE["log_m"], HEADLINE["edge_factor"], device=dev)
+    out: dict = {}
+    for grid in DYNSTRUCT["grids"]:
+        for name in ("15d_fusion2", "15d_sparse", "25d_dense_replicate",
+                     "25d_sparse_replicate"):
+            out[f"{name}_{grid[0]}x{grid[1]}"] = dyn_case_rows(
+                name, grid, S16, lambda: CudaTileKernel("f32", device=dev), dev, launches)
+    G16 = graph500(HEADLINE["log_m"])
+    variant = select_variant(Problem.from_coo(G16, HEADLINE["R"]))
+    out["banked_15d_fusion2"] = dyn_case_rows(
+        "15d_fusion2", DYNSTRUCT["banked_grid"], G16,
+        lambda: BankedCudaKernel(variant, "f32", device=dev), dev, launches)
+    out["banked_variant"] = variant.variant_id
+    emit({"phase": "dynstruct_headline", "card": card,
+          **{k: v if isinstance(v, str) else {case: (row if case not in dict(DYN_CASES) else
+                                                     {x: row[x] for x in ("fit", "rebind_s",
+                                                                          "nnz", "M")})
+                                              for case, row in v.items()}
+             for k, v in out.items()}})
+    out["full"] = dyn_full(dev, launches, card)
+    emit({"phase": "dynstruct", "card": card, "seconds": time.perf_counter() - t0})
+    return out
+
+
 def profile_banked_attention(calls: int = 20) -> int:
     """``python3 chip_smoke.py --profile-banked-attention``: the banked
     bigbird attention call at 2**16 tokens (``BANKED``, its selected
@@ -5857,8 +6276,11 @@ def main() -> int:
 
 def drive(info: dict, dev, ref: HostReference) -> int:
     card = info["nvidia_smi"]
-    # Only phase runstore keeps run documents, in stores of its own.
+    # Only phase runstore keeps run documents, and phase programs set-ups,
+    # in stores of their own.
     os.environ[obs_store.RUNSTORE_ENV] = "0"
+    os.environ[programs_store.PROGRAMS_ENV] = "0"
+    programs_store.disable()
     phase_edges(dev)
     S16 = HostCOO.rmat(HEADLINE["log_m"], HEADLINE["edge_factor"], device=dev)
     alg16 = make_algorithm("15d_fusion2", S16, HEADLINE["R"],
@@ -5882,22 +6304,29 @@ def drive(info: dict, dev, ref: HostReference) -> int:
     strategies: dict = {}
     algs = phase_strategies(S16, uniform, ring_rows, dev, strategies, entries,
                             card).pop("algs")
-    training: dict = {}
-    phase_training(S16, uniform, ref, dev, training, card)
     apps_strategies: dict = {}
     phase_apps_strategies(uniform, algs, dev, apps_strategies, card)
     plans: dict = {}
     phase_plans(S16, uniform, {**kept, **algs}, ref, dev, plans, card)
-    del uniform, algs, kept
+    del algs, kept
     host: dict = {}
     phase_host_cli(S16, full, dev, host, entries, card)
     obs: dict = {}
     phase_obs(dev, obs, card)
     runstore: dict = {}
     phase_runstore(full, runstore, card)
+    programs: dict = {}
+    phase_programs(programs, card)
+    dyn: dict = {}
+    phase_dynstruct(dev, dyn, card)
+    # Last: its GAT checks wait for the host float64 references, which the
+    # phases above overlap.
+    training: dict = {}
+    phase_training(S16, uniform, ref, dev, training, card)
+    del uniform
     for key, n in (*ring.items(), *apps.items(), *strategies.items(), *training.items(),
                    *apps_strategies.items(), *plans.items(), *host.items(), *obs.items(),
-                   *runstore.items()):
+                   *runstore.items(), *programs.items(), *dyn.items()):
         launches[key] = launches.get(key, 0) + n
 
     kernels = []
@@ -5918,6 +6347,8 @@ def drive(info: dict, dev, ref: HostReference) -> int:
             "host_cli_launches": host.get((op, prec), 0),
             "obs_launches": obs.get((op, prec), 0),
             "runstore_launches": runstore.get((op, prec), 0),
+            "programs_launches": programs.get((op, prec), 0),
+            "dynstruct_launches": dyn.get((op, prec), 0),
             "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
             "max_rel_err": max(r["max_rel_err"] for r in shapes.values()),
             "tol": main_["tol"],

@@ -28,7 +28,7 @@ import pathlib
 
 import numpy as np
 
-from distributed_sddmm_tpu_torch.utils.buckets import pow2_bucket
+from distributed_sddmm_tpu_torch.utils.buckets import pow2_at_least, pow2_bucket
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 
@@ -96,6 +96,29 @@ def _hash_tree(base: pathlib.Path) -> str:
     return h.hexdigest()[:12]
 
 
+@functools.lru_cache(maxsize=1)
+def models_code_hash() -> str:
+    """Hash of the ``models/`` sources: what an app's step adds on top of
+    a strategy, which :func:`code_hash` leaves out on purpose."""
+    return _hash_globs(("models/*.py",))
+
+
+@functools.lru_cache(maxsize=1)
+def serve_code_hash() -> str:
+    """Hash of the ``serve/`` sources, the code generation of a serving
+    key (``programs/keys.py::serve_program_key``)."""
+    return _hash_globs(("serve/*.py",))
+
+
+def _hash_globs(patterns: tuple) -> str:
+    h = hashlib.sha256()
+    for pattern in patterns:
+        for f in sorted(_PKG.glob(pattern)):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    return h.hexdigest()[:12]
+
+
 @dataclasses.dataclass(frozen=True)
 class Fingerprint:
     """Canonical signature and stable key. ``fields`` is the exact tuple
@@ -142,13 +165,20 @@ def machine_signature(world, device, kernel: str | None = None) -> tuple:
 
 def make_fingerprint(problem: Problem, p: int, backend: str,
                      kernels: tuple = ("cuda-f32", "torch"),
-                     code: str | None = None) -> Fingerprint:
-    """The canonical fingerprint of (problem, machine, code)."""
+                     code: str | None = None,
+                     capacity_bucket: bool = False) -> Fingerprint:
+    """The canonical fingerprint of (problem, machine, code).
+
+    ``capacity_bucket=True`` fingerprints the problem at its nnz's pow2
+    capacity rung and adds a ``capacity_mode`` marker: every pattern whose
+    nnz lands in one rung shares the plan of a capacity-sized build
+    (``dynstruct/``), and such a fingerprint never collides with an exact
+    one. Off, every field and key is as before."""
     fields = (
         ("fingerprint_version", FINGERPRINT_VERSION),
         ("M", problem.M),
         ("N", problem.N),
-        ("nnz", problem.nnz),
+        ("nnz", pow2_at_least(problem.nnz) if capacity_bucket else problem.nnz),
         ("npr_bucket", problem.npr_bucket),
         ("row_max_bucket", pow2_bucket(problem.row_max) if problem.row_max else 0),
         ("R", problem.R),
@@ -158,6 +188,8 @@ def make_fingerprint(problem: Problem, p: int, backend: str,
         ("kernels", tuple(sorted(kernels))),
         ("code_hash", code if code is not None else code_hash()),
     )
+    if capacity_bucket:
+        fields += (("capacity_mode", "pow2"),)
     blob = json.dumps(
         [[k, list(v) if isinstance(v, tuple) else v] for k, v in fields],
         separators=(",", ":"),

@@ -84,15 +84,36 @@ class Plan:
     def make_kernel(self, device=None):
         return measure_mod._build_kernel(self.candidate(), device)
 
-    def instantiate(self, S, R: int, world=None, device=None, **kw):
+    def instantiate(self, S, R: int, world=None, device=None, program_store=None, **kw):
         """The planned strategy for a concrete sparse matrix, through the
         harness factory. ``R`` is explicit: a plan is selected for a
-        problem and does not carry it."""
-        from distributed_sddmm_tpu_torch.bench.harness import make_algorithm
+        problem and does not carry it.
 
-        return make_algorithm(self.algorithm, S, R=R, c=self.c,
-                              kernel=self.make_kernel(device), device=device,
-                              world=world, wire=self.wire, **kw)
+        With the program store active (``programs/``; ``program_store``
+        overrides it, ``SDDMM_TORCH_PROGRAMS=0`` turns it off) and a
+        fingerprint on the plan, the strategy's set-up is looked up first
+        under this plan's fingerprint key: a hit builds the strategy from
+        the stored tile sets, a miss builds them, saves them and counts a
+        ``live_compiles``. Either way the strategy is bound to the store."""
+        from distributed_sddmm_tpu_torch.bench.harness import (
+            ALGORITHM_CLASSES, make_algorithm,
+        )
+        from distributed_sddmm_tpu_torch.device import resolve_device
+        from distributed_sddmm_tpu_torch.parallel.comm import world_from_env
+        from distributed_sddmm_tpu_torch.programs import store as programs
+
+        device = resolve_device(device)
+        world = world_from_env(device) if world is None else world
+        kernel = self.make_kernel(device)
+
+        def build():
+            return make_algorithm(self.algorithm, S, R=R, c=self.c, kernel=kernel,
+                                  device=device, world=world, wire=self.wire, **kw)
+
+        config = programs.SetupConfig(ALGORITHM_CLASSES[self.algorithm], self.c, kernel,
+                                      self.wire, overlap=kw.get("overlap", False))
+        return programs.build_bound(build, config, S, self.fingerprint_key, world=world,
+                                    device=device, store=program_store)
 
 
 def _seed_candidate(problem: Problem, p: int, backend: str, kernels: tuple,

@@ -454,8 +454,8 @@ def _run_configs(S: HostCOO, args, device, world, r_values) -> list:
             plan = None
             if alg == "auto":
                 plan = _plan(S, R, args, device, world)
-                run_alg, run_c, kernel, wire = (plan.algorithm, plan.c,
-                                                plan.make_kernel(device), plan.wire)
+                # ``plan.instantiate`` builds the kernel and the strategy.
+                run_alg, run_c, kernel, wire = plan.algorithm, plan.c, None, plan.wire
             else:
                 run_alg, run_c, wire = alg, args.c, args.wire
                 kernel = _kernel(args.kernel, device, args.kernel_variant)
@@ -470,6 +470,7 @@ def _run_configs(S: HostCOO, args, device, world, r_values) -> list:
                         breakdown=args.breakdown, checkpoint_dir=args.checkpoint_dir,
                         checkpoint_every=args.checkpoint_every, resume=args.resume,
                         wire=wire, extra_info={"plan": plan.to_dict()} if plan else None,
+                        plan=plan,
                     )
                 except (ValueError, NotImplementedError) as e:
                     # A grid, R, app or fusion build the member lacks.

@@ -39,6 +39,7 @@ from distributed_sddmm_tpu_torch.models.als import DistributedALS
 from distributed_sddmm_tpu_torch.models.gat import GAT, GATLayer
 from distributed_sddmm_tpu_torch.obs import log as obs_log
 from distributed_sddmm_tpu_torch.obs import manifest as obs_manifest
+from distributed_sddmm_tpu_torch.obs import metrics as obs_metrics
 from distributed_sddmm_tpu_torch.obs import profiler as obs_profiler
 from distributed_sddmm_tpu_torch.obs import store as obs_store
 from distributed_sddmm_tpu_torch.obs import trace as obs_trace
@@ -62,6 +63,15 @@ ALGORITHM_FACTORIES = {
     "25d_dense_replicate": lambda S, R, c, **kw: CannonDense25D(S, R=R, c=c, **kw),
     "25d_sparse_replicate": lambda S, R, c, **kw: CannonSparse25D(S, R=R, c=c, **kw),
 }
+#: The strategy class of each name (what the program store keys and
+#: restores a set-up by).
+ALGORITHM_CLASSES = {
+    "15d_fusion1": DenseShift15D,
+    "15d_fusion2": DenseShift15D,
+    "15d_sparse": SparseShift15D,
+    "25d_dense_replicate": CannonDense25D,
+    "25d_sparse_replicate": CannonSparse25D,
+}
 #: The JAX package's strategies the port lacks: none.
 NOT_PORTED = ()
 
@@ -77,6 +87,10 @@ OVERLAP_CAPABLE = ("15d_fusion1", "15d_fusion2", "15d_sparse")
 #: with the ring.
 ATTENTION_CAPABLE = ("15d_fusion1", "15d_fusion2")
 APPS = ("vanilla", "attention", "gat", "als")
+#: The ``obs.metrics.GLOBAL`` counters of a record's ``program_store`` and
+#: ``dynstruct`` sections (the JAX package's).
+PROGRAM_STORE_COUNTERS = ("program_store_hits", "program_store_misses", "live_compiles")
+DYNSTRUCT_COUNTERS = ("dynstruct_rebinds", "dynstruct_bucket_spills", "structure_retraces")
 APPS_NOT_PORTED = ()
 
 
@@ -254,6 +268,7 @@ def benchmark_algorithm(
     resume: bool = False,
     wire=None,
     extra_info: Optional[dict] = None,
+    plan=None,
 ) -> dict:
     """Run one configuration of an app; append a JSON record to
     ``output_file`` (if given; process 0 of a world of processes) and
@@ -263,6 +278,10 @@ def benchmark_algorithm(
     checkpoint arguments are ALS's (``run_cg``). ``wire`` is the
     wire-precision policy; the record's ``wire`` is the realized policy's
     label. ``extra_info`` is merged into the record (the CLI's ``plan``).
+    With ``plan`` (``autotune.Plan``, whose algorithm and c the caller
+    passes) the strategy is built by ``plan.instantiate``, through the
+    program store. The record's ``program_store`` and ``dynstruct``
+    sections are the run's deltas of the ``obs.metrics.GLOBAL`` counters.
     Field names follow the JAX package's record for what this port
     measures."""
     if app not in APPS:
@@ -281,9 +300,15 @@ def benchmark_algorithm(
     events_before = len(fault_plan.events) if fault_plan is not None else 0
     watchdog = obs_watchdog.active()
     anomalies_before = len(watchdog.events) if watchdog is not None else 0
-    alg = make_algorithm(algorithm_name, S, R, c, kernel=kernel, device=device,
-                         attention=app == "attention", world=world,
-                         overlap=overlap, wire=wire)
+    counters_before = {k: obs_metrics.GLOBAL.get(k) for k in PROGRAM_STORE_COUNTERS
+                       + DYNSTRUCT_COUNTERS}
+    if plan is not None:
+        alg = plan.instantiate(S, R, world=world, device=device,
+                               attention=app == "attention", overlap=overlap)
+    else:
+        alg = make_algorithm(algorithm_name, S, R, c, kernel=kernel, device=device,
+                             attention=app == "attention", world=world,
+                             overlap=overlap, wire=wire)
     with obs_trace.span("bench", algorithm=algorithm_name, app=app, R=R, c=c,
                         fused=bool(fused), trials=trials), obs_profiler.annotate("bench"):
         if app == "attention":
@@ -325,6 +350,10 @@ def benchmark_algorithm(
         "alg_info": alg.json_algorithm_info(),
         "perf_stats": perf_stats,
         "metrics": alg.metrics.to_dict(),
+        "program_store": {k: obs_metrics.GLOBAL.get(k) - counters_before[k]
+                          for k in PROGRAM_STORE_COUNTERS},
+        "dynstruct": {k: obs_metrics.GLOBAL.get(k) - counters_before[k]
+                      for k in DYNSTRUCT_COUNTERS},
         **app_stats,
         **(extra_info or {}),
     }

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from distributed_sddmm_tpu_torch.codegen.variants import BandSpec, KernelVariant
+from distributed_sddmm_tpu_torch.utils import buckets
 
 #: Most slots a heavy-row segment holds: at most that many nonzeros a warp
 #: walks in a heavy row. ``chip_smoke.py``'s split sweep on an H100 put the
@@ -120,14 +121,64 @@ class RowBand:
             counters=put(self.counters))
 
 
+#: The per-band arrays a :class:`Banding` stacks, by band kind: a row
+#: list band has its rows; the heavy band its segment and unit tables and
+#: one zero counter a row.
+LIST_FIELDS = ("rows",)
+HEAVY_FIELDS = ("rows", "seg_ptr", "seg_row", "seg_beg", "seg_end", "unit_row",
+                "unit_beg", "unit_end", "counters")
+#: Columns of :attr:`Banding.counts`: a band's live rows, segments, units,
+#: short units and slots in one bucket.
+COUNTS = ("rows", "segs", "units", "short", "slots")
+
+
 @dataclasses.dataclass(frozen=True)
 class Banding:
-    """The bands of a tile set: the live specs, the band of every tile row
-    of every bucket and each bucket's :class:`RowBand` s (numpy)."""
+    """The bands of a tile set: the live specs (``live``: their indices in
+    the variant's bands), the band of every tile row of every bucket, and
+    each band's arrays of every bucket stacked (``stacks["<j>.<field>"]``,
+    ``[n_buckets, cap]`` int32 numpy, the live prefix of each row used;
+    ``counts [n_buckets, n_bands, 5]``). A band's ``cap`` is the most any
+    bucket needs, or under a ``utils/buckets.dyn_capacity`` scope a
+    capacity rung (one a band and table, :data:`caps` in build order)."""
 
     specs: tuple[BandSpec, ...]
     band_of_row: np.ndarray            # [n_buckets, tile_rows] int64
-    tiles: tuple[tuple[RowBand, ...], ...]
+    stacks: dict
+    counts: np.ndarray
+    chunk: int
+    live: tuple = ()
+
+    def bucket(self, b: int) -> tuple["RowBand", ...]:
+        """Bucket ``b``'s :class:`RowBand` s, views of the host stacks."""
+        return band_views(self.stacks, self.counts[b], self.specs, self.chunk, (b,))
+
+    @property
+    def tiles(self) -> tuple[tuple["RowBand", ...], ...]:
+        return tuple(self.bucket(b) for b in range(self.counts.shape[0]))
+
+
+def band_views(stacks: dict, counts, specs, chunk: int, index: tuple) -> tuple:
+    """The :class:`RowBand` s of one bucket: views of the live prefixes of
+    ``stacks[k][index]`` (numpy or tensors; a view shares its stack's
+    memory, so copying new content into the stacks rebinds the bands)."""
+    out = []
+    for j, spec in enumerate(specs):
+        n_rows, n_seg, n_units, n_short, n_slots = (int(x) for x in counts[j])
+
+        def arr(name, n):
+            return stacks[f"{j}.{name}"][index][:n]
+
+        if spec.npr_max is not None:
+            out.append(RowBand(spec, arr("rows", n_rows), n_slots))
+            continue
+        out.append(RowBand(
+            spec, arr("rows", n_rows), n_slots, seg_ptr=arr("seg_ptr", n_rows + 1),
+            seg_row=arr("seg_row", n_seg), seg_beg=arr("seg_beg", n_seg),
+            seg_end=arr("seg_end", n_seg), chunk=chunk, n_short=n_short,
+            unit_row=arr("unit_row", n_units), unit_beg=arr("unit_beg", n_units),
+            unit_end=arr("unit_end", n_units), counters=arr("counters", n_rows)))
+    return tuple(out)
 
 
 def _segments(starts: np.ndarray, ends: np.ndarray, split: int):
@@ -215,22 +266,55 @@ def build_banded(row_ptr, variant: KernelVariant, split: int | None = None,
     band = np.where(populated, lut[band], 0)
     specs = tuple(specs[i] for i in live)
 
-    tiles = []
-    for b in range(deg.shape[0]):
-        per = []
+    chunk = REDUCE_CHUNK if chunk is None else int(chunk)
+    n_b = deg.shape[0]
+    counts = np.zeros((n_b, len(specs), len(COUNTS)), dtype=np.int64)
+    parts = [[None] * len(specs) for _ in range(n_b)]
+    for b in range(n_b):
         for j, spec in enumerate(specs):
             rows = np.flatnonzero(band[b] == j)
-            n_slots = int(deg[b, rows].sum())
+            counts[b, j, 0] = rows.size
+            counts[b, j, 4] = int(deg[b, rows].sum())
             if spec.npr_max is not None:
-                per.append(RowBand(spec, rows.astype(np.int32), n_slots))
+                parts[b][j] = {"rows": rows}
                 continue
             seg_ptr, owner, beg, end = _segments(row_ptr[b, rows], row_ptr[b, rows + 1],
                                                  split)
-            per.append(RowBand(spec, rows.astype(np.int32), n_slots,
-                               seg_ptr=seg_ptr.astype(np.int32),
-                               seg_row=rows[owner].astype(np.int32),
-                               seg_beg=beg.astype(np.int32),
-                               seg_end=end.astype(np.int32),
-                               chunk=REDUCE_CHUNK if chunk is None else int(chunk)))
-        tiles.append(tuple(per))
-    return Banding(specs=specs, band_of_row=band, tiles=tuple(tiles))
+            n_short, unit_row, unit_beg, unit_end = reduce_units(seg_ptr, chunk)
+            counts[b, j, 1:4] = beg.size, unit_row.size, n_short
+            parts[b][j] = {"rows": rows, "seg_ptr": seg_ptr, "seg_row": rows[owner],
+                           "seg_beg": beg, "seg_end": end, "unit_row": unit_row,
+                           "unit_beg": unit_beg, "unit_end": unit_end}
+    return Banding(specs=specs, band_of_row=band, stacks=_stack(parts, counts, specs),
+                   counts=counts, chunk=chunk, live=tuple(live))
+
+
+def _stack(parts, counts, specs) -> dict:
+    """Each band's arrays of every bucket in one ``[n_buckets, cap]`` int32
+    array a field, the live prefix of each row filled and the rest 0. The
+    capacities, in build order (a band's rows, then the heavy band's
+    segments and units), are the most any bucket needs, each a rung of the
+    active ``dyn_capacity`` scope when one is."""
+    stacks = {}
+    n_b = counts.shape[0]
+    for j, spec in enumerate(specs):
+        caps = {"rows": int(counts[:, j, 0].max(initial=0))}
+        if spec.npr_max is None:
+            caps["segs"] = int(counts[:, j, 1].max(initial=0))
+            caps["units"] = int(counts[:, j, 2].max(initial=0))
+        for k, raw in caps.items():
+            rung = buckets.dyn_rung(raw)
+            caps[k] = raw if rung is None else rung
+        width = {"rows": caps["rows"], "seg_ptr": caps["rows"] + 1,
+                 "counters": caps["rows"]}
+        for name in HEAVY_FIELDS[2:8]:
+            width[name] = caps.get("segs") if name.startswith("seg") else caps.get("units")
+        fields = LIST_FIELDS if spec.npr_max is not None else HEAVY_FIELDS
+        for name in fields:
+            st = np.zeros((n_b, width[name]), dtype=np.int32)
+            if name != "counters":
+                for b in range(n_b):
+                    a = parts[b][j][name]
+                    st[b, :a.size] = a
+            stacks[f"{j}.{name}"] = st
+    return stacks

@@ -11,9 +11,10 @@ the mask is the sparse matrix: ``vals == 1`` at attended positions, the
 * :func:`graph_mask` -- the pattern of an existing sparse matrix.
 
 :func:`from_spec` parses the ``--mask`` grammar (``window:8``,
-``bigbird:w=8,g=2,r=2``, ``graph``) with the JAX package's errors. The
-request-time dynamic specs (``topk``, per-request window narrowing) belong
-to dynamic-structure serving and are not ported yet.
+``bigbird:w=8,g=2,r=2``, ``graph``) with the JAX package's errors;
+:func:`parse_dynamic_spec` and :func:`format_dynamic_spec` the
+request-time dynamic specs (``window:<w>`` narrowing, ``topk:<k>``) a
+dynamic-mask workload resolves per request.
 
 numpy and the port's ``HostCOO`` only: the same arguments give the same
 arrays as the JAX package's generators.
@@ -125,3 +126,54 @@ def _int_param(spec: str, fam: str, rest: str, key: str, default) -> int:
         raise ValueError(
             f"mask spec {spec!r}: {key} must be an integer, got {rest!r}"
         ) from None
+
+
+# --------------------------------------------------------------------- #
+# Request-time dynamic mask specs
+# --------------------------------------------------------------------- #
+
+#: The families a dynamic-mask workload resolves per request: window
+#: narrowing and score top-k. Both are run-time inputs of a capacity-sized
+#: structure, never part of the structure itself.
+DYNAMIC_FAMILIES = ("window", "topk")
+
+
+def parse_dynamic_spec(spec: str, w_max: int | None = None,
+                       k_max: int | None = None) -> tuple[str, int]:
+    """One per-request dynamic mask spec as ``(kind, param)``.
+
+    ``window:<w>`` / ``window:w=<w>`` attends to the +-w neighbourhood
+    (``w >= 0``); ``topk:<k>`` / ``topk:k=<k>`` keeps the k highest-scoring
+    positions within capacity (``k >= 1``; ties at the threshold all
+    kept). ``w_max`` / ``k_max`` bound the parameter to the serving
+    structure's capacity: a request may narrow its mask, never widen it."""
+    fam, _, rest = spec.partition(":")
+    if fam == "window":
+        w = _int_param(spec, "window", rest, "w", None)
+        if w < 0:
+            raise ValueError(f"mask spec {spec!r}: w must be >= 0")
+        if w_max is not None and w > w_max:
+            raise ValueError(
+                f"mask spec {spec!r}: w exceeds the serving capacity w_max={w_max}")
+        return "window", w
+    if fam == "topk":
+        k = _int_param(spec, "topk", rest, "k", None)
+        if k < 1:
+            raise ValueError(f"mask spec {spec!r}: k must be >= 1")
+        if k_max is not None and k > k_max:
+            raise ValueError(
+                f"mask spec {spec!r}: k exceeds the serving capacity k_max={k_max}")
+        return "topk", k
+    raise ValueError(
+        f"unknown dynamic mask spec {spec!r}; expected one of "
+        f"{[f + ':<n>' for f in DYNAMIC_FAMILIES]}"
+    )
+
+
+def format_dynamic_spec(kind: str, param: int) -> str:
+    """The printable form of a dynamic mask, which round-trips through
+    :func:`parse_dynamic_spec`."""
+    if kind not in DYNAMIC_FAMILIES:
+        raise ValueError(
+            f"unknown dynamic mask kind {kind!r}; expected one of {DYNAMIC_FAMILIES}")
+    return f"{kind}:{int(param)}"

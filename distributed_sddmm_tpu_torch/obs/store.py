@@ -150,25 +150,10 @@ class RunStore:
             atomic_write_json(self.index_path, index)
         return path
 
-    @contextlib.contextmanager
     def _flock(self):
         """Advisory lock across processes around the index's
-        read-modify-write: two benchmark processes ingesting into one store
-        would otherwise each drop the other's row. Without ``fcntl`` only
-        the in-process lock holds."""
-        try:
-            import fcntl
-        except ImportError:
-            yield
-            return
-        self.root.mkdir(parents=True, exist_ok=True)
-        # The lock file's content is never read.
-        with open(self.root / ".lock", "w") as fh:
-            fcntl.flock(fh, fcntl.LOCK_EX)
-            try:
-                yield
-            finally:
-                fcntl.flock(fh, fcntl.LOCK_UN)
+        read-modify-write (:func:`root_flock`)."""
+        return root_flock(self.root)
 
     def get(self, run_id: str) -> dict | None:
         """One document (None when absent or unreadable)."""
@@ -302,6 +287,29 @@ class RunStore:
 
 #: Tells "no index yet" from "index unreadable".
 _CORRUPT = object()
+
+
+@contextlib.contextmanager
+def root_flock(root: pathlib.Path):
+    """The advisory lock of a store directory (``<root>/.lock``) across
+    processes, around an index's read-modify-write: two processes writing
+    one store would otherwise each drop the other's row. Without ``fcntl``
+    nothing is locked. The run store and the program store
+    (``programs/store.py``) take it alike."""
+    try:
+        import fcntl
+    except ImportError:
+        yield
+        return
+    root = pathlib.Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    # The lock file's content is never read.
+    with open(root / ".lock", "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
 
 
 def _safe_id(run_id: str) -> str:

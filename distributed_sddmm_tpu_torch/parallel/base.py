@@ -51,7 +51,8 @@ from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
 from distributed_sddmm_tpu_torch.parallel.loops import ABLATION_MODES, ablation_mode
 from distributed_sddmm_tpu_torch.parallel.mesh import AXES, GridSpec
 from distributed_sddmm_tpu_torch.parallel.sharding import (
-    BankedTileView, TileSet, TileView, packed_structure, unpack_structure,
+    BankedTileView, TileSet, TileView, packed_structure, replaying, setup_tensors,
+    unpack_structure,
 )
 from distributed_sddmm_tpu_torch.parallel.wire import wire_policy
 from distributed_sddmm_tpu_torch.resilience import faults, guards
@@ -88,6 +89,12 @@ class DistributedSparse(abc.ABC):
     r_split = False
     #: The double-buffered ring build (the shift strategies that have one).
     overlap = False
+    #: False where a banked kernel variant cannot band the strategy's tiles
+    #: (they build generic): the realized variant is then None.
+    bankable = True
+    #: The tile sets the strategy's set-up builds, in build order: what
+    #: :meth:`export_setup` saves and :meth:`from_setup` hands back.
+    SETUP_TILE_SETS = ("S_tiles", "ST_tiles")
 
     #: Type of the dense operands and the sparse values.
     dtype = torch.float32
@@ -118,6 +125,8 @@ class DistributedSparse(abc.ABC):
         #: structure, and the device bands of the tiles a ring brings.
         self._packed: dict = {}
         self._bands: dict = {}
+        #: The program store's binder (``programs/store.py::bind_strategy``).
+        self._program_binder = None
         # Subclasses set these before use:
         self.M_pad: int = -1
         self.N_pad: int = -1
@@ -330,7 +339,7 @@ class DistributedSparse(abc.ABC):
         key = (id(tiles), src)
         if key not in self._bands:
             self._bands[key] = tuple(b.to(self.device) for b in
-                                     tiles.banding.tiles[src * tiles.n_tiles])
+                                     tiles.banding.bucket(src * tiles.n_tiles))
         return BankedTileView(view.row_ptr, view.rows, view.cols, view.n_rows,
                               view.n_cols, bands=self._bands[key])
 
@@ -473,6 +482,66 @@ class DistributedSparse(abc.ABC):
         set carrying it labels the run."""
         return (getattr(self.S_tiles, "blk_variant", None)
                 or getattr(self.ST_tiles, "blk_variant", None))
+
+    # ----------------------------- program store ---------------------------- #
+    # The port compiles no program: what a process rebuilds is the host
+    # set-up of the constructor, the tile sets (CSR, band tables, host
+    # maps). The program store keeps it as named tensors.
+
+    def bind_program_store(self, binder) -> None:
+        """Attach the program store's binder (``programs/store.py::
+        bind_strategy``): a spilled rebind (``dynstruct/rebind.py``) builds
+        the replacement strategy through it. The set-up itself is loaded
+        or built before the strategy exists (``autotune/plan.py::
+        Plan.instantiate``)."""
+        self._program_binder = binder
+
+    def _program_cache_key(self, op: str, use_st: bool) -> tuple:
+        """The key of one op's program in the JAX package's grammar: the op,
+        the tile set, the ablation mode, the realized variant, the wire's
+        segment (the f32 identity wire appends nothing) and the capacity
+        segment of a ``dyn_capacity`` build (an exact build appends
+        nothing, so a bucketed key never aliases an exact one)."""
+        from distributed_sddmm_tpu_torch.parallel.loops import ablation
+
+        key = (op, use_st, ablation())
+        tiles = self.ST_tiles if use_st else self.S_tiles
+        vid = getattr(tiles, "blk_variant", None)
+        if vid and getattr(self.kernel, "variant_id", None):
+            key += (f"variant={vid}",)
+        wseg = self.wire.key_segment()
+        if wseg:
+            key += (wseg,)
+        cap = getattr(tiles, "dyn_cap", None)
+        if cap:
+            key += ("cap=" + "x".join(str(c) for c in cap),)
+        return key
+
+    def export_setup(self) -> dict:
+        """The set-up as named host tensors and plain values, one entry a
+        tile set of :data:`SETUP_TILE_SETS` (``parallel/sharding.py::
+        setup_tensors``): what ``torch.load(weights_only=True)`` reads back."""
+        return {name: setup_tensors(getattr(self, name)) for name in self.SETUP_TILE_SETS}
+
+    def _structure_changed(self) -> None:
+        """The tile sets took new structure in place (a fit rebind,
+        ``dynstruct/rebind.py``): the packed structure a ring between
+        processes sends is rewritten in place, and the caches derived from
+        the old structure are dropped."""
+        for tiles in (self.S_tiles, self.ST_tiles):
+            for h, buf in enumerate(self._packed.get(id(tiles), ())):
+                buf.copy_(packed_structure(tiles.tile(h, 0)))
+        self._bands.clear()
+        self._op_cost_cache.clear()
+
+    @classmethod
+    def from_setup(cls, build, setup: dict, device):
+        """``build()`` (the strategy's construction) with its tile sets
+        taken from ``setup`` (an :meth:`export_setup` dict) instead of
+        built. A build that asks for other tile sets raises
+        ``parallel.sharding.SetupMismatch``."""
+        with replaying([setup[name] for name in cls.SETUP_TILE_SETS], device):
+            return build()
 
     # ------------------------------- counters ------------------------------ #
 

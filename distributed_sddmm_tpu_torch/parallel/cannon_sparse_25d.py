@@ -51,6 +51,8 @@ class CannonSparse25D(DistributedSparse):
     proc_grid_names = ("# Rows", "# Cols", "# Layers")
     r_split = True
     r_split_axis = (COLS, LAYERS)
+    #: Replicated tiles are never banked (``build_replicated_tiles``).
+    bankable = False
 
     def __init__(self, S: HostCOO, R: int, c: int = 1, kernel=None, adjacency: int = 3,
                  world=None, device=None, wire=None):

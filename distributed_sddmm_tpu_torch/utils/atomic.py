@@ -79,11 +79,13 @@ def atomic_write_lines(path: str | os.PathLike, lines) -> None:
 
 
 def atomic_write_bytes(path: str | os.PathLike, data: bytes) -> None:
-    """Bytes variant (checkpoint ``.npz`` payloads): the write-fault hook
-    works on a latin-1 round trip, so it garbles or cuts bytewise."""
+    """Bytes variant (checkpoint ``.npz`` payloads, program-store entries;
+    any bytes-like ``data``): the write-fault hook works on a latin-1 round
+    trip, so it garbles or cuts bytewise."""
     from distributed_sddmm_tpu_torch.resilience import faults
 
     path = pathlib.Path(path)
     if faults.active() is not None:
-        data = faults.garble_text(f"write:{path.name}", data.decode("latin-1")).encode("latin-1")
+        data = faults.garble_text(f"write:{path.name}",
+                                  bytes(data).decode("latin-1")).encode("latin-1")
     _replace_atomically(path, data)

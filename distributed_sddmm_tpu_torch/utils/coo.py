@@ -193,6 +193,40 @@ class HostCOO:
         (:func:`sanitize_coo`)."""
         return sanitize_coo(rows, cols, vals, M, N, mode=mode)[0]
 
+    def append_rows(self, cols_per_row, vals_per_row, *,
+                    mode: str = "strict") -> tuple[int, dict]:
+        """Append new rows in place (online fold-in growth).
+
+        ``cols_per_row[i]`` / ``vals_per_row[i]`` are the column indices and
+        values of new row ``M + i``; the matrix grows by
+        ``len(cols_per_row)`` rows and its triplets by one concatenate. The
+        block passes :func:`sanitize_coo` first: ``mode="strict"`` rejects a
+        corrupt block before the matrix is touched (all or nothing),
+        ``mode="repair"`` drops and deduplicates bad entries of the block.
+        New rows cannot collide with existing entries, so only the block is
+        checked. Returns ``(first new row, the block's sanitize report)``;
+        appending no row changes nothing."""
+        if len(cols_per_row) != len(vals_per_row):
+            raise ValueError("cols_per_row and vals_per_row length mismatch")
+        k = len(cols_per_row)
+        first = self.M
+        if k == 0:
+            return first, {"out_of_range": 0, "non_finite": 0, "duplicates": 0,
+                           "dropped": 0}
+        counts = [len(c) for c in cols_per_row]
+        rows = np.repeat(np.arange(first, first + k, dtype=np.int64), counts)
+        if sum(counts):
+            cols = np.concatenate([np.asarray(c, dtype=np.int64) for c in cols_per_row])
+            vals = np.concatenate([np.asarray(v, dtype=np.float64) for v in vals_per_row])
+        else:
+            cols, vals = np.empty(0, dtype=np.int64), np.empty(0, dtype=np.float64)
+        block, report = sanitize_coo(rows, cols, vals, first + k, self.N, mode=mode)
+        self.rows = np.concatenate([self.rows, block.rows])
+        self.cols = np.concatenate([self.cols, block.cols])
+        self.vals = np.concatenate([self.vals, block.vals])
+        self.M = first + k
+        return first, report
+
     # ------------------------------------------------------------ conversions
 
     @classmethod

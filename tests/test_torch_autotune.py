@@ -48,6 +48,7 @@ from distributed_sddmm_tpu_torch.utils.verify import fingerprint_algorithm, orac
 
 # Benchmarks here write no run document into the checkout's default store.
 os.environ["SDDMM_TORCH_RUNSTORE"] = "0"
+os.environ["SDDMM_TORCH_PROGRAMS"] = "0"
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = Problem(M=256, N=256, nnz=2048, R=32)

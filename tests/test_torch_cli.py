@@ -21,6 +21,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 # Benchmarks here write no run document into the checkout's default store.
 os.environ["SDDMM_TORCH_RUNSTORE"] = "0"
+os.environ["SDDMM_TORCH_PROGRAMS"] = "0"
 
 
 def _run(*args, env=None):
@@ -123,13 +124,11 @@ def test_er_unported_app_raises(tmp_path, capsys):
 
 APP_RECORD_DIFFS = {
     # Fields one package has and the other has not, by design: the port
-    # names the device it ran on; the JAX package's program store and
-    # dynamic-structure counters are not ported (ROADMAP.md queue A items
-    # 15 and 16), and its XLA cost cross-check (present only when
-    # programs were costed) has no counterpart: eager PyTorch compiles no
-    # program to cost.
+    # names the device it ran on; the JAX package's XLA cost cross-check
+    # (present only when programs were costed) has no counterpart: eager
+    # PyTorch compiles no program to cost.
     "port_only": {"device"},
-    "jax_only": {"program_store", "dynstruct", "xla_cost"},
+    "jax_only": {"xla_cost"},
 }
 
 
@@ -181,7 +180,7 @@ def test_app_records_match_jax(app, alg, p):
     assert set(want) - set(got) <= APP_RECORD_DIFFS["jax_only"]
     for key in ("algorithm", "app", "R", "c", "fused", "fusion", "mask", "num_trials",
                 "kernel_variant", "wire", "num_processes", "process_index", "cg_iters",
-                "gat_heads", "als_degraded"):
+                "gat_heads", "als_degraded", "program_store", "dynstruct"):
         assert got.get(key) == want.get(key), key
     assert set(got["metrics"]) == set(want["metrics"])
     assert {k: v["calls"] for k, v in got["metrics"].items()} == {

@@ -73,6 +73,7 @@ from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 
 # Benchmarks here write no run document into the checkout's default store.
 os.environ["SDDMM_TORCH_RUNSTORE"] = "0"
+os.environ["SDDMM_TORCH_PROGRAMS"] = "0"
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")

@@ -30,6 +30,7 @@ from distributed_sddmm_tpu_torch.utils.verify import verify_algorithms
 
 # Benchmarks here write no run document into the checkout's default store.
 os.environ["SDDMM_TORCH_RUNSTORE"] = "0"
+os.environ["SDDMM_TORCH_PROGRAMS"] = "0"
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "distributed_sddmm_tpu_torch"
@@ -75,7 +76,9 @@ def test_port_and_chip_smoke_import_no_jax_in_subprocess():
                 "autotune.plan", "autotune", "obs.clock", "obs.trace", "obs.log",
                 "obs.manifest", "obs.profiler", "obs.watchdog", "obs.flightrec",
                 "resilience.faults", "obs.store", "obs.regress", "obs.report",
-                "obs.tracemerge", "obs.traceexport", "tools.tracereport", "tools.charts"):
+                "obs.tracemerge", "obs.traceexport", "tools.tracereport", "tools.charts",
+                "utils.buckets", "programs", "programs.keys", "programs.store",
+                "dynstruct", "dynstruct.capacity", "dynstruct.rebind"):
         assert f"distributed_sddmm_tpu_torch.{mod}" in mods
 
 

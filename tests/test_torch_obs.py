@@ -43,6 +43,7 @@ from distributed_sddmm_tpu_torch.utils.verify import fingerprint_algorithm
 
 # Benchmarks here write no run document into the checkout's default store.
 os.environ["SDDMM_TORCH_RUNSTORE"] = "0"
+os.environ["SDDMM_TORCH_PROGRAMS"] = "0"
 
 
 @pytest.fixture(autouse=True)

@@ -31,6 +31,7 @@ from distributed_sddmm_tpu_torch.obs import regress, report
 from distributed_sddmm_tpu_torch.obs.store import RunStore
 
 os.environ["SDDMM_TORCH_RUNSTORE"] = "0"
+os.environ["SDDMM_TORCH_PROGRAMS"] = "0"
 
 
 def _serve_doc(run_id, p99=12.0, burn=0.5, shed=0.01, tenant_burn=0.2):

@@ -40,17 +40,16 @@ from distributed_sddmm_tpu_torch.obs.store import RunStore
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 
 os.environ["SDDMM_TORCH_RUNSTORE"] = "0"
+os.environ["SDDMM_TORCH_PROGRAMS"] = "0"
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 #: Index fields whose values differ between the packages by design: the
 #: run's identity and time, the key and backend (the port's name the card
 #: or the CPU and the world kind, and hash the port's kernel families and
-#: sources), the kernel name, the timings, and the program-store and
-#: dynamic-structure counters (0 in a JAX record, None in a port record
-#: until those layers are ported: ROADMAP.md queue A items 15 and 16).
+#: sources), the kernel name and the timings.
 BY_DESIGN = {"run_id", "created_epoch", "key", "backend", "code_hash", "kernel",
-             "elapsed", "overall_throughput", "live_compiles", "dynstruct_rebinds"}
+             "elapsed", "overall_throughput"}
 
 CARD = "cuda:NVIDIA H100 80GB HBM3:local"
 
@@ -268,7 +267,9 @@ def test_slice_index_rows_equal_the_jax_clis(tmp_path, monkeypatch, capsys):
     assert (got["kernel"], want["kernel"]) == ("cuda-f32", "xla")
     assert (got["backend"], want["backend"]) == ("cpu:local", "cpu")
     assert got["key"] != want["key"] and got["elapsed"] > 0 and got["overall_throughput"] > 0
-    assert (got["live_compiles"], got["dynstruct_rebinds"]) == (None, None)
+    # The record's program-store and dynamic-structure sections fill them.
+    assert (got["live_compiles"], got["dynstruct_rebinds"]) == (0, 0) == (
+        want["live_compiles"], want["dynstruct_rebinds"])
     # Both packages' documents in one directory: the port's gate of the port
     # run finds the JAX run of the same problem in no baseline.
     mixed = RunStore(tmp_path / "port")

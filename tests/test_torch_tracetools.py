@@ -46,6 +46,7 @@ from distributed_sddmm_tpu_torch.tools import charts, tracereport
 from distributed_sddmm_tpu_torch.utils.atomic import atomic_write_lines
 
 os.environ["SDDMM_TORCH_RUNSTORE"] = "0"
+os.environ["SDDMM_TORCH_PROGRAMS"] = "0"
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 

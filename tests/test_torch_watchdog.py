@@ -40,6 +40,7 @@ from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 
 # Benchmarks here write no run document into the checkout's default store.
 os.environ["SDDMM_TORCH_RUNSTORE"] = "0"
+os.environ["SDDMM_TORCH_PROGRAMS"] = "0"
 
 SKEW = [{"site": "comm:fusedSpMM", "kind": "skew", "prob": 1.0, "param": 2.0}]
 
