@@ -301,18 +301,43 @@ last line is printed):
    cell, 1,024 rows of 32 nonzeros appended and rebound (a fit), the
    rebound fused pair's sampled rows against float64 (phase 5's check);
    the build and rebind seconds.
-20. kernels line -- ``{"kernels": [...]}``.
-21. last line -- ``{"ok": true, "device": {...}}``.
+20. serve -- online serving (``serve/``) through ``bench.cli.main``
+   (``phase_serve``), each run's run store and plan cache in a temporary
+   directory: ``serve --app als`` and ``--app gat`` at the ALS full cell
+   (R-mat log_m=20, edge_factor=32, R=128; ALS with 2 training steps),
+   ``--app attention --mask window:16`` at 2**16 tokens (a request's work
+   is a +-w gather that does not grow with the context: a cut of depth),
+   10 s of Poisson arrivals at 100 Hz, micro-batches of up to 8, every
+   16th reply against the float64 oracle. Each run: exit 0, no oracle
+   failure with at least 32 replies checked, no error, no degraded batch,
+   p50 / p99 and throughput in its record, one run-store document, its
+   serve kernels launched (``fold_in_solve`` and ``score_rows``;
+   ``score_rows``; ``window_score``). On each run's warm engine, and on a
+   dynamic attention engine over the same context with a mix of window:
+   and topk: requests: 16 sampled payloads give equal bytes one at a time,
+   in batches of 8, in reverse order and padded into the largest inner
+   bucket, and pass the float64 oracle. Then each serve kernel against its
+   plain version at the phase's shapes (a batch of 8 at the largest inner
+   bucket): x and the scores within 1e-4 of the plain version's max abs
+   value, the top-k ids equal wherever the plain scores' gap at k exceeds
+   that, attention within 1e-5, two launches bit-equal; each timed with
+   CUDA events beside its bound and the torch composition it replaces
+   (``torch.linalg.cholesky`` with ``cholesky_solve``; ``x @ B.T`` with
+   ``topk``), which the port never calls.
+21. kernels line -- ``{"kernels": [...]}``, the three serve kernels after
+   the tile kernels.
+22. last line -- ``{"ok": true, "device": {...}}``.
 
-Phase training (13) runs after phase dynstruct: its GAT checks wait for
-the float64 references a host process computes while the card's phases
-run, and the phases before it cover that wait.
+Phase training (13) runs after phases dynstruct and serve: its GAT checks
+wait for the float64 references a host process computes while the card's
+phases run, and the phases before it cover that wait.
 
 ``python3 chip_smoke.py --gat-grad-drift [SEED ...]`` is another mode
 (``gat_grad_drift``): the readings behind GAT_DRIFT["plain"].
 ``python3 chip_smoke.py --profile-banked-attention`` is a third
 (``profile_banked_attention``): a ``torch.profiler`` look at the banked
-bigbird attention call's host time.
+bigbird attention call's host time. ``python3 chip_smoke.py --serve`` runs
+phase serve alone (``serve_only``).
 """
 
 from __future__ import annotations
@@ -6168,6 +6193,307 @@ def phase_dynstruct(dev, launches: dict, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- serve
+
+SERVE_SOURCE = "distributed_sddmm_tpu_torch/ops/csrc/serve_kernels.cu"
+SERVE_PY = "distributed_sddmm_tpu/serve/workloads.py"
+#: The JAX per-request programs each serve kernel replaces (jnp under
+#: jax.jit: they reach no Pallas kernel): the fold-in solve of
+#: ``fold_in_topk`` (l.317, ``_chol_solve`` l.92), its scores (l.329; the
+#: GAT head, l.923, is the same kernel), the window scorer (l.617).
+SERVE_REPLACES = {"fold_in_solve": f"{SERVE_PY}:317", "score_rows": f"{SERVE_PY}:329",
+                  "window_score": f"{SERVE_PY}:617"}
+#: Phase serve: ``bench serve`` at the ALS full cell (ALS and GAT) and at
+#: the attention headline (a request's work, a +-w gather, does not grow
+#: with the context, so 2**16 tokens only shortens the build: a cut of
+#: depth), 10 s of Poisson arrivals at 100 Hz each.
+SERVE_LOAD = ["--duration", "10", "--rate", "100", "--max-batch", "8", "--oracle-every", "16"]
+SERVE_RUNS = {
+    "als": ["--log-m", "20", "--edge-factor", "32", "--R", "128", "--train-steps", "2"],
+    "gat": ["--log-m", "20", "--edge-factor", "32", "--R", "128"],
+    "attention": ["--log-m", "16", "--mask", "window:16", "--R", "128"],
+}
+#: The serve kernels each run must launch.
+SERVE_KERNELS = {"als": ("fold_in_solve", "score_rows"), "gat": ("score_rows",),
+                 "attention": ("window_score",)}
+#: Gates: replies checked against the float64 oracle a run; payloads of
+#: the batching checks; each kernel against its plain version, of the plain
+#: version's max abs value (f32: a fold-in Gram with the 0.1 ridge can
+#: amplify a last-bit difference a few hundred times; the scores follow
+#: x; the attention replies within 1e-5, the parity tests' tolerance).
+SERVE = {"min_checked": 32, "samples": 16, "batch": 8, "reps": 20, "plain_reps": 1,
+         "tol": {"fold_in_solve": 1e-4, "score_rows": 1e-4, "window_score": 1e-5}}
+
+
+def reply_bytes(reply: dict) -> dict:
+    return {k: (np.asarray(v).dtype.str, np.asarray(v).shape, np.asarray(v).tobytes())
+            for k, v in reply.items()}
+
+
+def serve_batching(eng, payloads: list, tag: str) -> dict:
+    """The replies of ``payloads`` one at a time, in batches of
+    SERVE["batch"], in reverse order, and padded into the largest inner
+    bucket: equal bytes, or the phase fails."""
+    from distributed_sddmm_tpu_torch.serve.workloads import bucket_for
+
+    b = SERVE["batch"]
+    chunks = lambda ps: [ps[i:i + b] for i in range(0, len(ps), b)]  # noqa: E731
+    solo = [eng.execute_now([p])[0] for p in payloads]
+    batched = [r for c in chunks(payloads) for r in eng.execute_now(c)]
+    reverse = [r for c in chunks(payloads[::-1]) for r in eng.execute_now(c)][::-1]
+    top = max(eng.workload.inner_buckets)
+    with eng._on_device():
+        padded = [r for c in chunks(payloads)
+                  for r in eng._dispatch(c, bucket_for(len(c), eng.batch_buckets), top)]
+    want = [reply_bytes(r) for r in solo]
+    for name, got in (("batched", batched), ("reverse", reverse), ("padded", padded)):
+        diff = [i for i, r in enumerate(got) if reply_bytes(r) != want[i]]
+        require(not diff, f"serve {tag}: replies {diff} differ {name} from one at a time")
+    checked = sum(bool(eng.workload.check_reply(p, r)) for p, r in zip(payloads, solo))
+    require(checked == len(payloads), f"serve {tag}: {len(payloads) - checked} replies "
+            "fail the float64 oracle")
+    inner = sorted({bucket_for(eng.workload.inner_size(p), eng.workload.inner_buckets)
+                    for p in payloads})
+    return {"payloads": len(payloads), "inner_buckets": inner, "padded_to": top,
+            "equal_bytes": True}
+
+
+def serve_entry(name: str, label: str, got, again, want, tol: float, kern, plain,
+                bnd: dict, lib, torch_ms=None, **extra) -> dict:
+    """One serve kernel against its plain version (of the plain version's
+    max abs value), two launches bit-equal, both timed."""
+    abs_err, rel = rel_err(got, want)
+    require(rel <= tol, f"{name} at {label}: error {rel:.3e} > {tol}")
+    require(torch.equal(got, again), f"{name} at {label}: two launches differ")
+    row = {"max_abs_err": abs_err, "max_rel_err": rel, "tol": tol,
+           "ms": time_ms(kern, SERVE["reps"]), "plain_ms": time_ms(plain, SERVE["plain_reps"]),
+           "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"], "library_ms": lib,
+           "torch_ms": torch_ms, **extra}
+    emit({"phase": f"serve_kernel_{label}", "kernel": name, **row})
+    return row
+
+
+def serve_bound(moved: float, ops: float) -> dict:
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def serve_kernels_als(eng, dev) -> dict:
+    """fold_in_solve and score_rows at the ALS cell's shapes (a full batch
+    of 8 at the largest item bucket): against their plain versions, two
+    launches equal, the top-k ids equal wherever the plain scores' gap at
+    k exceeds the tolerance; each timed beside its bound and the torch
+    composition it replaces (``cholesky`` + ``cholesky_solve``; ``x @ B.T``
+    + ``topk``), which the port never calls."""
+    from distributed_sddmm_tpu_torch.ops import serve_kernels
+
+    wl = eng.workload
+    rng = np.random.default_rng(11)
+    b, L = SERVE["batch"], max(wl.inner_buckets)
+    payloads = [wl.sample_payload(rng) for _ in range(b)]
+    B, *host = wl.pad_batch(payloads, b, L)
+    idx, rt, mk = (torch.from_numpy(a).to(dev) for a in host)
+    lam, (N, R), k = wl.ridge_lambda, B.shape, wl.k
+    fold = lambda: serve_kernels.fold_in_solve(B, idx, rt, mk, lam)  # noqa: E731
+    fold_plain = lambda: serve_kernels.fold_in_solve_plain(B, idx, rt, mk, lam)  # noqa: E731
+
+    def fold_torch():
+        rows = B[idx.long()] * mk[..., None]
+        gram = rows.transpose(1, 2) @ rows + lam * torch.eye(R, device=dev)
+        rhs = (rows * (rt * mk)[..., None]).sum(1)
+        return torch.cholesky_solve(rhs[..., None], torch.linalg.cholesky(gram))[..., 0]
+
+    x, x2, x_plain = fold(), fold(), fold_plain()
+    real = int(mk.sum())
+    out = {"fold_in_solve": serve_entry(
+        "fold_in_solve", "als", x, x2, x_plain, SERVE["tol"]["fold_in_solve"], fold, fold_plain,
+        serve_bound(real * R * 4 + b * L * 12 + b * R * 4,
+                    real * R * (R + 1) + 2 * real * R + b * (R ** 3 / 3 + 2 * R * R)),
+        None, time_ms(fold_torch, SERVE["reps"]), b=b, L=L, R=R, rated=real,
+        torch_rel_err=rel_err(fold_torch(), x_plain)[1])}
+
+    def scored(scores):
+        ext = torch.full((b, N + 1), 0.0, device=dev)
+        ext[:, :N] = scores
+        cols = torch.where(mk > 0, idx.long(), torch.full_like(idx, N, dtype=torch.long))
+        ext[torch.arange(b, device=dev)[:, None].expand(b, L), cols] = float("-inf")
+        return torch.sort(ext[:, :N], dim=1, descending=True, stable=True)
+
+    score = lambda: serve_kernels.score_rows(x_plain, B)  # noqa: E731
+    score_plain = lambda: serve_kernels.score_rows_plain(x_plain, B)  # noqa: E731
+    s, s2, s_plain = score(), score(), score_plain()
+    tol = SERVE["tol"]["score_rows"]
+    (_, ids), (vals_p, ids_p) = scored(s), scored(s_plain)
+    gap = vals_p[:, k - 1] - vals_p[:, k]
+    sure = gap > tol * float(s_plain.abs().max())
+    require(bool(torch.equal(ids[sure, :k], ids_p[sure, :k])),
+            f"score_rows: top-{k} ids differ from the plain scores' where the gap exceeds {tol}")
+    out["score_rows"] = serve_entry(
+        "score_rows", "als", s, s2, s_plain, tol, score, score_plain,
+        serve_bound(N * R * 4 + b * R * 4 + b * N * 4, 2 * b * N * R),
+        time_ms(lambda: x_plain @ B.T, SERVE["reps"]),
+        time_ms(lambda: torch.topk(x_plain @ B.T, k), SERVE["reps"]), n_i=b, n_j=N, R=R,
+        topk_rows_checked=int(sure.sum()))
+    return out
+
+
+def serve_kernels_gat(eng, dev) -> dict:
+    """score_rows at the GAT head's shape (a batch of 8 at the largest node
+    bucket, 512 features), against its plain version."""
+    from distributed_sddmm_tpu_torch.ops import serve_kernels
+
+    wl = eng.workload
+    rng = np.random.default_rng(12)
+    b, L = SERVE["batch"], max(wl.inner_buckets)
+    X, w, nodes, _ = wl.pad_batch([wl.sample_payload(rng) for _ in range(b)], b, L)
+    tidx = torch.from_numpy(nodes).to(dev).view(-1)
+    score = lambda: serve_kernels.score_rows(w, X, tidx)  # noqa: E731
+    score_plain = lambda: serve_kernels.score_rows_plain(w, X, tidx)  # noqa: E731
+    F = X.shape[1]
+    return serve_entry("score_rows", "gat", score(), score(), score_plain(),
+                       SERVE["tol"]["score_rows"], score, score_plain,
+                       serve_bound(b * L * F * 4 + F * 4 + b * L * 4, 2 * b * L * F),
+                       time_ms(lambda: X[tidx.long()] @ w[0], SERVE["reps"]), n_i=1,
+                       n_j=b * L, R=F)
+
+
+def serve_kernels_attention(eng, dyn, dev) -> dict:
+    """window_score at the attention cell's shapes (a batch of 8 at the
+    largest token bucket, w = 16), static and with a mix of window: and
+    topk: masks, against its plain version (within 1e-5)."""
+    from distributed_sddmm_tpu_torch.ops import serve_kernels
+
+    out = {}
+    for tag, e in (("attention", eng), ("attention_dynamic", dyn)):
+        wl = e.workload
+        rng = np.random.default_rng(13)
+        b, L = SERVE["batch"], max(wl.inner_buckets)
+        payloads = [wl.sample_payload(rng) for _ in range(b)]
+        args = wl.pad_batch(payloads, b, L)
+        if wl.dynamic:
+            K, n_valid, head, *host = args
+            tokens, mask, kind, param = (torch.from_numpy(a).to(dev) for a in host)
+        else:
+            K, head, *host = args
+            n_valid, (tokens, mask), kind, param = wl.n_ctx, (
+                torch.from_numpy(a).to(dev) for a in host), None, None
+        call = lambda: serve_kernels.window_score(  # noqa: E731
+            K, head, tokens, mask, n_valid, wl.window, kind, param)
+        plain = lambda: serve_kernels.window_score_plain(  # noqa: E731
+            K, head, tokens, mask, n_valid, wl.window, kind, param)
+        got, again, want = call(), call(), plain()
+        t, W, R = int(mask.sum()), 2 * wl.window + 1, K.shape[1]
+        out[tag] = serve_entry(
+            "window_score", tag, got, again, want, SERVE["tol"]["window_score"], call, plain,
+            serve_bound(t * (W + 1) * R * 4 + R * 4 + b * L * 12, t * W * (4 * R + 6)), None,
+            b=b, L=L, R=R, window=wl.window, tokens=t)
+    return out
+
+
+def phase_serve(dev, launches: dict, card: str) -> dict:
+    """``bench serve --app als|gat|attention`` through ``cli.main`` on the
+    card (SERVE_RUNS), each with its run store and plan cache in a
+    temporary directory: exit 0, no oracle failure (at least
+    SERVE["min_checked"] replies checked), no error, no degraded batch,
+    p50 / p99 and throughput printed, each run's serve kernels launched.
+    Then on each run's warm engine, and on a dynamic attention engine over
+    the same context with a mix of window: and topk: requests: 16 sampled
+    payloads give equal bytes one at a time, in batches of 8, in reverse
+    order and padded into the largest inner bucket. Then each serve kernel
+    against its plain version at the phase's shapes."""
+    from distributed_sddmm_tpu_torch import serve as serve_mod
+    from distributed_sddmm_tpu_torch.ops import serve_kernels
+    from distributed_sddmm_tpu_torch.serve import AttentionTokenScore, ServingEngine
+
+    t0 = time.perf_counter()
+    rows: dict = {}
+    kernel_rows: dict = {}
+    engines: dict = {}
+
+    def capture(app, build):
+        def built(*a, **kw):
+            engines[app] = build(*a, **kw)
+            return engines[app]
+        return built
+
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp, \
+            environ(obs_store.RUNSTORE_ENV, str(pathlib.Path(tmp) / "runstore")), \
+            environ(plan_cache.PLAN_CACHE_ENV, str(pathlib.Path(tmp) / "plans")):
+        for app, extra in SERVE_RUNS.items():
+            argv = ["serve", "--app", app, *extra, *SERVE_LOAD]
+            path = pathlib.Path(tmp) / f"serve_{app}.jsonl"
+            builder = f"build_{app}_engine"
+            t = time.perf_counter()
+            with swapped(serve_mod, builder, capture(app, getattr(serve_mod, builder))):
+                serve_kernels.reset_launch_counts()
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    rc, counts = counted_by_type(lambda: cli.main([*argv, "-o", str(path)]))
+            seconds = time.perf_counter() - t
+            served = serve_kernels.launch_counts()
+            rec = json.loads(path.read_text().splitlines()[-1])
+            docs = [r for r in obs_store.RunStore(pathlib.Path(tmp) / "runstore").index()
+                    if r.get("app") == f"serve-{app}"]
+            lat = rec["latency_ms"]
+            row = {"app": app, "argv": argv, "rc": rc, "seconds": seconds,
+                   **{key: rec[key] for key in (
+                       "algorithm", "kernel", "c", "requests", "completed", "throughput_rps",
+                       "latency_ms", "queue_ms", "execute_ms", "batch_occupancy",
+                       "shed_count", "errors", "degraded_count", "oracle_checked",
+                       "oracle_failures", "engine")},
+                   "run_store_docs": len(docs), "launches": counts, "serve_launches": served}
+            emit({"phase": f"serve_{app}", "card": card, **row})
+            require(rc == 0 and rec["oracle_failures"] == 0
+                    and rec["oracle_checked"] >= SERVE["min_checked"] and rec["errors"] == 0
+                    and rec["degraded_count"] == 0 and rec["engine"]["error_batches"] == 0
+                    and all(f"p{q}" in lat for q in (50, 99)) and rec["throughput_rps"] > 0,
+                    f"serve {app}: rc {rc}, oracle {rec['oracle_failures']} of "
+                    f"{rec['oracle_checked']}, errors {rec['errors']}, degraded "
+                    f"{rec['degraded_count']}, latency {lat}")
+            require(len(docs) == 1, f"serve {app}: {len(docs)} run-store documents")
+            require(all(served[name] > 0 for name in SERVE_KERNELS[app]),
+                    f"serve {app}: serve kernels launched {served}")
+            add_by_type(launches, counts)
+            add_launches(launches, served, "f32")
+            rows[app] = row
+            eng = engines[app]
+            rng = np.random.default_rng(7)
+            payloads = [eng.workload.sample_payload(rng) for _ in range(SERVE["samples"])]
+            rows[app]["batching"] = serve_batching(eng, payloads, app)
+            if app == "als":
+                kernel_rows.update(serve_kernels_als(eng, dev))
+            elif app == "gat":
+                kernel_rows["score_rows"]["gat"] = serve_kernels_gat(eng, dev)
+            else:
+                wl = eng.workload
+                dyn = ServingEngine(AttentionTokenScore(wl._K_host, d_ops=wl.d_ops,
+                                                        window=wl.window, dynamic=True),
+                                    max_batch=SERVE["batch"])
+                dyn.warmup()
+                rng = np.random.default_rng(8)
+                mixed = [dyn.workload.sample_payload(rng) for _ in range(SERVE["samples"])]
+                W = 2 * wl.window + 1
+                for i, p in enumerate(mixed):
+                    p["mask"] = (f"window:{i % (wl.window + 1)}" if i % 2
+                                 else f"topk:{1 + (5 * i) % W}")
+                rows["attention_dynamic"] = serve_batching(dyn, mixed, "attention dynamic")
+                rows["attention_dynamic"]["masks"] = [p["mask"] for p in mixed]
+                att = serve_kernels_attention(eng, dyn, dev)
+                kernel_rows["window_score"] = {**att["attention"],
+                                               "dynamic": att["attention_dynamic"]}
+                del dyn
+            emit({"phase": f"serve_{app}_batching", "card": card, **rows[app]["batching"],
+                  **({"dynamic": rows["attention_dynamic"]} if app == "attention" else {})})
+            del eng
+            engines.clear()
+            torch.cuda.empty_cache()
+    emit({"phase": "serve", "card": card, "seconds": time.perf_counter() - t0})
+    return {"runs": rows, "kernels": kernel_rows}
+
+
+
 def profile_banked_attention(calls: int = 20) -> int:
     """``python3 chip_smoke.py --profile-banked-attention``: the banked
     bigbird attention call at 2**16 tokens (``BANKED``, its selected
@@ -6262,6 +6588,8 @@ def main() -> int:
         return gat_grad_drift(seeds or list(GAT_DRIFT["seeds"]))
     if "--profile-banked-attention" in sys.argv:
         return profile_banked_attention()
+    if "--serve" in sys.argv:
+        return serve_only()
     info = phase_device()
     dev = torch.device("cuda")
     phase_build()
@@ -6319,6 +6647,8 @@ def drive(info: dict, dev, ref: HostReference) -> int:
     phase_programs(programs, card)
     dyn: dict = {}
     phase_dynstruct(dev, dyn, card)
+    serve: dict = {}
+    served = phase_serve(dev, serve, card)
     # Last: its GAT checks wait for the host float64 references, which the
     # phases above overlap.
     training: dict = {}
@@ -6326,7 +6656,7 @@ def drive(info: dict, dev, ref: HostReference) -> int:
     del uniform
     for key, n in (*ring.items(), *apps.items(), *strategies.items(), *training.items(),
                    *apps_strategies.items(), *plans.items(), *host.items(), *obs.items(),
-                   *runstore.items(), *programs.items(), *dyn.items()):
+                   *runstore.items(), *programs.items(), *dyn.items(), *serve.items()):
         launches[key] = launches.get(key, 0) + n
 
     kernels = []
@@ -6349,6 +6679,7 @@ def drive(info: dict, dev, ref: HostReference) -> int:
             "runstore_launches": runstore.get((op, prec), 0),
             "programs_launches": programs.get((op, prec), 0),
             "dynstruct_launches": dyn.get((op, prec), 0),
+            "serve_launches": serve.get((op, prec), 0),
             "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
             "max_rel_err": max(r["max_rel_err"] for r in shapes.values()),
             "tol": main_["tol"],
@@ -6369,9 +6700,43 @@ def drive(info: dict, dev, ref: HostReference) -> int:
                 "bound_gather_ms", "library_ms", "max_abs_err")}
                 for label, row in shapes.items() if label.endswith("_full") and "R" in row},
         })
+    kernels += serve_kernel_lines(served["kernels"], serve)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})
+    return 0
+
+
+def serve_kernel_lines(rows: dict, launches: dict) -> list:
+    """The kernels line's rows of the serve kernels: their launches in
+    phase serve's ``bench serve`` runs, their numbers at the ALS cell
+    (window_score: the attention cell)."""
+    out = []
+    for name in ("fold_in_solve", "score_rows", "window_score"):
+        n = launches.get((name, "f32"), 0)
+        require(n > 0, f"{name} never launched on the main path")
+        row = rows[name]
+        out.append({
+            "name": f"{name}[f32]", "route": "cuda", "source": SERVE_SOURCE,
+            "replaces": SERVE_REPLACES[name], "launches": n, "serve_launches": n,
+            **{k: row[k] for k in ("max_abs_err", "max_rel_err", "tol", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms", "torch_ms")},
+            "at": "serve", **{k: v for k, v in row.items() if isinstance(v, dict)}})
+    return out
+
+
+def serve_only() -> int:
+    """``python3 chip_smoke.py --serve``: phase serve alone, after the
+    build (its kernels' rows of the kernels line, no last line)."""
+    info = phase_device()
+    dev = torch.device("cuda")
+    phase_build()
+    os.environ[obs_store.RUNSTORE_ENV] = "0"
+    os.environ[programs_store.PROGRAMS_ENV] = "0"
+    programs_store.disable()
+    serve: dict = {}
+    served = phase_serve(dev, serve, info["nvidia_smi"])
+    emit({"kernels": serve_kernel_lines(served["kernels"], serve)})
     return 0
 
 

@@ -33,6 +33,16 @@ Subcommands:
   write a self-contained HTML report (``obs/report.py``); a run is a run
   id, a unique prefix, ``latest`` or ``latest~N``, and ``--store DIR``
   names the store;
+* ``serve``    -- the online serving load test (``serve/``): ``--app als``
+  (user fold-in and top-k), ``gat`` (node scoring) or ``attention`` (token
+  scoring over the ``--mask`` context) on the R-mat of ``--log-m`` and
+  ``--edge-factor``, a warm engine on the planned strategy, open-loop
+  Poisson arrivals at ``--rate`` for ``--duration`` seconds, every
+  ``--oracle-every``-th reply against the float64 oracle; exit 0 clean, 1
+  on an oracle mismatch, 2 on an SLO violation (``--slo``); the record
+  goes to the run store as ``app=serve-<app>``. The JAX subcommand's
+  ``--telemetry``, ``--telemetry-interval``, ``--admin-port``,
+  ``--serve-http`` and ``--tuner`` are not defined (argparse exits 2);
 * ``report-trace``, ``trace-merge``, ``trace-export`` -- a trace's
   per-phase table (``tools/tracereport.py``), the merge of per-process
   shards into one trace (``obs/tracemerge.py``) and its Chrome export
@@ -59,8 +69,8 @@ payloads to bf16 on the wire (``parallel/wire.py``); the record's
 supersede ``--wire`` and the positional c, and ``--kernel`` names the
 kernel family (the precision) the plan may use.
 
-Faults and in-run observability (``er``, ``file``, ``heatmap``), as in the
-JAX CLI: ``--faults SPEC`` installs a fault plan (``resilience/faults.py``;
+Faults and in-run observability (``er``, ``file``, ``heatmap``,
+``serve``), as in the JAX CLI: ``--faults SPEC`` installs a fault plan (``resilience/faults.py``;
 the record lists ``faults_fired``), ``--trace [PATH]`` writes a JSONL trace
 and its manifest (default ``artifacts/traces_torch/<run_id>.jsonl``),
 ``--profile DIR`` a ``torch.profiler`` Chrome trace of the whole run,
@@ -72,9 +82,10 @@ instead of the whole run. Each has its ``SDDMM_TORCH_*`` environment
 knob (``FAULTS``, ``TRACE``, ``PROFILE``, ``WATCHDOG``, ``FLIGHTREC``).
 What a command turned on is turned off again when it returns.
 
-Every record of ``er``, ``file`` and ``heatmap`` is persisted as one run
-document into the run store (default ``artifacts/runstore_torch/``;
-process 0 only), after the timed loop and after ``-o``.
+Every record of ``er``, ``file``, ``heatmap`` and ``serve`` is persisted
+as one run document into the run store (default
+``artifacts/runstore_torch/``; process 0 only), after the timed loop and
+after ``-o``.
 ``SDDMM_TORCH_RUNSTORE`` relocates the store (a path) or vetoes it
 (``0``/``off``), and ``--no-runstore`` beats the environment.
 
@@ -85,8 +96,8 @@ comes from the environment (``parallel/comm.world_from_env``):
 ``cpu``), otherwise ``SDDMM_TORCH_LOCAL_RANKS=P`` runs P logical ranks in
 this process (default 1). Each run prints one JSON summary line and
 appends its full record to ``-o`` (process 0 only). The subcommands that
-are not ported (``overlap``, ``serve``, ``fleet``, ``tune``, ``top``,
-``lint``, ``env``) are not defined, so argparse refuses them.
+are not ported (``overlap``, ``fleet``, ``tune``, ``top``, ``lint``,
+``env``) are not defined, so argparse refuses them.
 """
 
 from __future__ import annotations
@@ -101,13 +112,14 @@ import torch.distributed as dist
 
 from distributed_sddmm_tpu_torch import masks
 from distributed_sddmm_tpu_torch.autotune import Problem, get_plan
+from distributed_sddmm_tpu_torch.bench import harness
 from distributed_sddmm_tpu_torch.bench import kernels as kernel_bench
 from distributed_sddmm_tpu_torch.bench.baseline import run_baseline
 from distributed_sddmm_tpu_torch.bench.harness import (
     ALGORITHM_FACTORIES, APPS, benchmark_algorithm,
 )
 from distributed_sddmm_tpu_torch.codegen import make_banked_kernel
-from distributed_sddmm_tpu_torch.device import resolve_device
+from distributed_sddmm_tpu_torch.device import device_label, resolve_device
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
 from distributed_sddmm_tpu_torch.ops.kernels import TorchKernel
 from distributed_sddmm_tpu_torch.parallel.comm import world_from_env
@@ -257,6 +269,62 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("-o", "--output-file", default=None, help="append JSON records here")
 
 
+def _add_serve(sub) -> None:
+    """``serve``: the JAX subcommand's flags but ``--telemetry``,
+    ``--telemetry-interval``, ``--admin-port``, ``--serve-http`` and
+    ``--tuner`` (live telemetry, the admin server and the tuner are not
+    ported), so argparse refuses those with exit 2."""
+    sv = sub.add_parser(
+        "serve",
+        help="online serving load test: a warm engine on the planned strategy, "
+        "dynamic micro-batching, open-loop Poisson arrivals, an SLO-gated latency "
+        "report (serve/); the record goes to the run store as app=serve-<app>")
+    sv.add_argument("--app", default="als", choices=["als", "gat", "attention"])
+    sv.add_argument(
+        "--mask", default="window:16", metavar="SPEC",
+        help="with --app attention: the mask of the warm context, window:<w>, "
+        "bigbird:w=..,g=..,r=.. or graph (the R-mat's own pattern)")
+    sv.add_argument("--window", type=int, default=None, metavar="W",
+                    help="with --app attention: the per-request window half-width "
+                    "(default SDDMM_TORCH_ATTN_SERVE_WINDOW, else 16)")
+    sv.add_argument("--log-m", type=int, default=8, help="log2 matrix side")
+    sv.add_argument("--edge-factor", type=int, default=8)
+    sv.add_argument("--R", type=int, default=16)
+    sv.add_argument("--duration", type=float, default=10.0, metavar="SECONDS",
+                    help="load-generation window")
+    sv.add_argument("--rate", type=float, default=30.0, metavar="HZ",
+                    help="offered Poisson arrival rate (requests/s)")
+    sv.add_argument("--max-batch", type=int, default=8)
+    sv.add_argument("--max-depth", type=int, default=64,
+                    help="admission bound; beyond it requests shed")
+    sv.add_argument("--max-wait-ms", type=float, default=5.0,
+                    help="micro-batch linger after the first arrival")
+    sv.add_argument("--k", type=int, default=10, help="ALS top-k size")
+    sv.add_argument("--train-steps", type=int, default=2,
+                    help="ALS warm-model alternating steps before serving")
+    sv.add_argument("--seed", type=int, default=0)
+    sv.add_argument("--oracle-every", type=int, default=8,
+                    help="check every Nth request against the float64 oracle (0: none)")
+    sv.add_argument("--slo", default=None, metavar="SPEC",
+                    help="SLO spec 'p99_ms=250,err_rate=0.01' (default SDDMM_TORCH_SLO); "
+                    "violations exit 2")
+    sv.add_argument("--plan-mode", default="model", choices=["model", "auto", "measure"])
+    sv.add_argument("--tenants", default=None, metavar="SPEC",
+                    help="tenant classes 'name[:weight[:slo]];...': weighted-fair dequeue, "
+                    "per-tenant shed counters and burn-rate axes (default "
+                    "SDDMM_TORCH_TENANTS)")
+    sv.add_argument("--faults", default=None, metavar="SPEC",
+                    help="fault plan (see er); the engine must shed or degrade, never "
+                    "crash")
+    sv.add_argument("--trace", nargs="?", const="1", default=None, metavar="PATH")
+    sv.add_argument("--profile", default=None, metavar="LOGDIR")
+    sv.add_argument("--watchdog", default=None, choices=["warn", "strict"])
+    sv.add_argument("--flightrec", nargs="?", const="1", default=None, metavar="DIR")
+    sv.add_argument("--no-runstore", action="store_true")
+    _add_device(sv)
+    sv.add_argument("-o", "--output-file", default=None, help="append the JSON record here")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="distributed_sddmm_tpu_torch.bench",
                                  description=__doc__,
@@ -311,6 +379,8 @@ def build_parser() -> argparse.ArgumentParser:
     vf.add_argument("--alg", default="all")
     vf.add_argument("--kernel", default="cuda-f32", choices=KERNELS)
     _add_device(vf)
+
+    _add_serve(sub)
 
     bl = sub.add_parser("baseline", help="external host-CPU SpMM baseline (no card)")
     bl.add_argument("log_m", type=int)
@@ -580,6 +650,121 @@ def _observed(args):
         yield
 
 
+def _dispatch_serve(args) -> int:
+    """``serve``: build a warm engine, drive it open-loop, print and persist
+    the serving record. Exit 0 on a clean run, 1 on any reply that fails
+    its float64 oracle, 2 on an SLO violation; faults and shedding are
+    operating conditions, not failures."""
+    from distributed_sddmm_tpu_torch.obs import metrics as obs_metrics
+    from distributed_sddmm_tpu_torch.obs import store as obs_store
+    from distributed_sddmm_tpu_torch.obs import trace as obs_trace
+    from distributed_sddmm_tpu_torch.obs import watchdog as obs_watchdog
+    from distributed_sddmm_tpu_torch.parallel.base import realized_kernel_variant
+    from distributed_sddmm_tpu_torch.resilience import faults
+    from distributed_sddmm_tpu_torch.serve import (
+        SLOSpec, build_als_engine, build_attention_engine, build_gat_engine, parse_tenants,
+        run_load, tenants_from_env,
+    )
+
+    device = resolve_device(args.device)
+    slo = SLOSpec.parse(args.slo) if args.slo else SLOSpec.from_env()
+    tenants = parse_tenants(args.tenants) if args.tenants else tenants_from_env()
+    engine_kw = dict(max_batch=args.max_batch, max_depth=args.max_depth,
+                     max_wait_ms=args.max_wait_ms, tenants=tenants)
+    with _world(device) as world:
+        S = _maybe_mask(HostCOO.rmat(args.log_m, args.edge_factor, seed=0, device=device),
+                        args)
+        print(f"[serve] building warm {args.app} engine (2^{args.log_m} matrix, R={args.R})",
+              file=sys.stderr)
+        counters_before = {k: obs_metrics.GLOBAL.get(k) for k in harness.PROGRAM_STORE_COUNTERS}
+        build = {"als": build_als_engine, "gat": build_gat_engine,
+                 "attention": build_attention_engine}[args.app]
+        extra = ({"train_steps": args.train_steps, "k": args.k} if args.app == "als" else
+                 {"window": args.window, "seed": args.seed} if args.app == "attention" else {})
+        eng = build(S, R=args.R, plan_mode=args.plan_mode, world=world, device=device,
+                    **extra, **engine_kw)
+        d_ops = eng.workload.model.d_ops
+        plan = getattr(eng.workload.model, "plan", None)
+        # The record carries the faults and anomalies of the serving window,
+        # not the build's.
+        fault_plan = faults.active()
+        events_before = len(fault_plan.events) if fault_plan is not None else 0
+        watchdog = obs_watchdog.active()
+        anomalies_before = len(watchdog.events) if watchdog is not None else 0
+        d_ops.reset_performance_timers()
+        try:
+            eng.start()  # builds and runs the whole bucket ladder first
+            summary = run_load(eng, duration_s=args.duration, rate_hz=args.rate,
+                               seed=args.seed, oracle_every=args.oracle_every, slo=slo,
+                               tenants=tenants)
+        finally:
+            eng.stop()
+        record = {
+            "app": f"serve-{args.app}",
+            "algorithm": plan.algorithm if plan else d_ops.algorithm_name,
+            "mask": args.mask if args.app == "attention" else None,
+            "R": args.R,
+            "c": plan.c if plan else d_ops.c,
+            "fused": True,
+            "kernel": getattr(d_ops.kernel, "name", type(d_ops.kernel).__name__),
+            "kernel_variant": realized_kernel_variant(d_ops),
+            "wire": d_ops.wire.label,
+            "device": device_label(device),
+            "num_processes": world.num_processes,
+            "process_index": world.process_index,
+            "num_trials": summary["completed"],
+            "elapsed": summary["duration_s"],
+            "overall_throughput": None,
+            "alg_info": d_ops.json_algorithm_info(),
+            "metrics": d_ops.metrics.to_dict(),
+            "engine": eng.stats(),
+            "program_store": {k: obs_metrics.GLOBAL.get(k) - counters_before[k]
+                              for k in harness.PROGRAM_STORE_COUNTERS},
+            "serve_config": {
+                "rate_hz": args.rate, "duration_s": args.duration,
+                "max_batch": args.max_batch, "max_depth": args.max_depth,
+                "max_wait_ms": args.max_wait_ms,
+                "batch_buckets": list(eng.batch_buckets),
+                "inner_buckets": list(eng.workload.inner_buckets),
+                "tenants": args.tenants or os.environ.get("SDDMM_TORCH_TENANTS"),
+            },
+            **summary,
+        }
+        if plan is not None:
+            record["plan"] = plan.to_dict()
+        if obs_trace.enabled():
+            from distributed_sddmm_tpu_torch.obs import manifest as obs_manifest
+
+            record["run_id"] = obs_trace.run_id()
+            record["trace_path"] = obs_trace.trace_path()
+            obs_manifest.write_for_trace(obs_trace.tracer(), device=device, world=world)
+        if fault_plan is not None:
+            record["faults_fired"] = [{"site": s, "kind": k, "call": n}
+                                      for s, k, n in fault_plan.events[events_before:]]
+        if watchdog is not None:
+            record["anomalies"] = watchdog.summary(since=anomalies_before)
+    print(json.dumps({k: record.get(k) for k in (
+        "app", "algorithm", "requests", "completed", "throughput_rps", "latency_ms",
+        "batch_occupancy", "shed_count", "degraded_count", "errors", "oracle_checked",
+        "oracle_failures", "slo_violations", "burn_rate", "latency_hist_ms", "tenant")}),
+        flush=True)
+    if args.output_file:
+        with open(args.output_file, "a") as f:
+            f.write(json.dumps(record) + "\n")
+    run_store = obs_store.active()
+    if run_store is not None:
+        try:  # best-effort: never fail the run
+            doc = run_store.ingest_record(record, source="serve")
+            print(f"[serve] runstore doc {doc['run_id']}", file=sys.stderr)
+        except Exception as e:  # noqa: BLE001
+            print(f"[serve] runstore ingest failed: {e}", file=sys.stderr)
+    if summary["oracle_failures"]:
+        return 1
+    if summary["slo_violations"]:
+        return 2
+    return 0
+
+
 def _run_store(args):
     from distributed_sddmm_tpu_torch.obs import store as obs_store
 
@@ -705,6 +890,9 @@ def main(argv=None) -> int:
     if args.cmd in ("er", "file", "heatmap"):
         with _observed(args):
             return _benchmark(args)
+    if args.cmd == "serve":
+        with _observed(args):
+            return _dispatch_serve(args)
     if args.cmd == "verify":
         return _verify(args)
     if args.cmd == "permute":

@@ -25,5 +25,7 @@ Across runs:
 * :mod:`.traceexport` -- a trace as Chrome trace-event JSON.
 
 ``tools/tracereport.py`` reads and aggregates traces, ``tools/charts.py``
-draws records. Telemetry and its HTTP export come with serving.
+draws records. :mod:`.telemetry` holds the mergeable latency histogram of
+the serving records (``serve/slo.py``); the telemetry sampler and its HTTP
+export are not ported.
 """

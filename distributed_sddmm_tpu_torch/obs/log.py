@@ -4,10 +4,11 @@ One line a record: ``[component] message key=value ...`` on stderr, with
 a level gate (``SDDMM_TORCH_LOG`` = ``debug`` | ``info`` | ``warn`` |
 ``error``, default ``info``) and, while tracing, a mirrored ``log`` event
 in the trace, so a diagnostic lands beside the spans it explains. The
-fault hooks, the watchdog, the flight recorder and the profiler log here;
-the apps and the checkpoint store keep their Python ``logging`` loggers
-(``als``, ``guards``, ``checkpoint``, ``autotune.measure``). A CLI's
-output (JSON lines, tables) is not logging and stays on stdout.
+fault hooks, the watchdog, the flight recorder, the profiler and the
+serving layer log here; the apps and the checkpoint store keep their
+Python ``logging`` loggers (``als``, ``guards``, ``checkpoint``,
+``autotune.measure``). A CLI's output (JSON lines, tables) is not
+logging and stays on stdout.
 """
 
 from __future__ import annotations
@@ -50,3 +51,7 @@ def info(component: str, msg: str, **fields) -> None:
 def warn(component: str, msg: str, **fields) -> None:
     log("warn", component, msg, **fields)
 
+
+
+def error(component: str, msg: str, **fields) -> None:
+    log("error", component, msg, **fields)

@@ -67,9 +67,9 @@ _MANIFEST_FIELDS = ("torch_version", "cuda_version", "backend", "device_name",
                     "git_dirty", "env")
 
 #: Index-row fields lifted out of each document (``bench history`` shows
-#: them without opening the documents). The serving, program-store and
-#: dynamic-structure fields are None on every port document until those
-#: layers are ported: "not measured", never a verdict.
+#: them without opening the documents). A field a record does not carry
+#: (the serving fields of a benchmark record, say) is None: "not
+#: measured", never a verdict.
 _INDEX_FIELDS = (
     "run_id", "created_epoch", "key", "backend", "code_hash",
     "algorithm", "app", "R", "c", "fused", "kernel", "kernel_variant",

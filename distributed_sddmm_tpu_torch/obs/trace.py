@@ -386,6 +386,15 @@ def trace_path() -> Optional[str]:
     return str(tr.path) if tr is not None and tr.path is not None else None
 
 
+def rel_time(t_perf: float) -> Optional[float]:
+    """A ``clock.now()`` stamp as trace-relative time (the unit of span
+    ``t0``/``t1`` and event ``t``), or None when not tracing: an emitter
+    embeds a stamp it took earlier, where the event's own ``t`` would lag
+    it by a scheduling delay (the serving reply events)."""
+    tr = tracer()
+    return round(t_perf - tr.t0, 9) if tr else None
+
+
 def span(name: str, **attrs):
     """A context manager timing a nested region; the shared no-op when
     tracing is off."""

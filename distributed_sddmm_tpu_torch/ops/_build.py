@@ -1,4 +1,4 @@
-"""Build the hand-written CUDA tile kernels at first use.
+"""Build the hand-written CUDA kernels at first use.
 
 ``nvcc`` compiles each ``ops/csrc/*.cu`` to an object, one process per
 source, all started together, and links them into one shared library with
@@ -30,6 +30,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 #: argtypes of every C entry point in ``ops/csrc/``.
 SIGNATURES = {
     # tile_kernels.cu (row_ids null: every tile row; else a band's rows)
@@ -47,6 +48,10 @@ SIGNATURES = {
     "split_reduce": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "attn_stats_split": [_P, _P, _P, _P, _P, _P, _I, _P],
     "attn_stats_merge": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # serve_kernels.cu
+    "fold_in_solve": [_P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I, _I, _P],
+    "score_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "window_score": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
 }
 
 

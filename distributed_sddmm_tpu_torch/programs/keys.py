@@ -167,8 +167,9 @@ def serve_program_key(
     r<R>:<backend>:<serve_code_hash>``, with optional trailing segments:
     ``p<params>`` (workload constants that change the program without
     changing an argument's shape), ``s<sig>`` (the arguments' signature),
-    ``v<variant>`` (the codegen kernel variant), ``w<wire>`` (the wire
-    policy; None and "f32" append nothing), ``c<cap>`` (the capacity
+    ``v<variant>`` (the codegen kernel variant), ``w<wire>`` (the warm
+    strategy's wire-policy label, ``WirePolicy.label``, which keeps role
+    overrides apart; None and "f32" append nothing), ``c<cap>`` (the capacity
     rungs of a dynamic-structure workload; static workloads append
     nothing, so a capacity key never aliases an exact one) and the
     :func:`dist_segment` of the writing process."""

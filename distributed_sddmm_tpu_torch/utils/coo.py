@@ -221,11 +221,38 @@ class HostCOO:
         else:
             cols, vals = np.empty(0, dtype=np.int64), np.empty(0, dtype=np.float64)
         block, report = sanitize_coo(rows, cols, vals, first + k, self.N, mode=mode)
-        self.rows = np.concatenate([self.rows, block.rows])
-        self.cols = np.concatenate([self.cols, block.cols])
-        self.vals = np.concatenate([self.vals, block.vals])
+        self.rows = self._grown("rows", block.rows)
+        self.cols = self._grown("cols", block.cols)
+        self.vals = self._grown("vals", block.vals)
         self.M = first + k
         return first, report
+
+    def reserve(self, n: int) -> None:
+        """Room for ``n`` more triplets, so the appends that fill it copy
+        only their own rows: a serving engine reserves at build, off the
+        request path."""
+        for name in ("rows", "cols", "vals"):
+            cur = getattr(self, name)
+            setattr(self, name, self._grown(name, cur[:0], capacity=cur.size + n))
+
+    def _grown(self, name: str, extra: np.ndarray, capacity: int = 0) -> np.ndarray:
+        """``getattr(self, name)`` with ``extra`` appended, as a view of a
+        buffer of this matrix's own that at least doubles when it fills:
+        a serving engine appends a row a request, and a copy of every
+        triplet an append (800 MB at 2^20 rows of 32) would cost more than
+        the request. Views taken earlier keep their contents: only the
+        buffer's tail past them is written."""
+        cur = getattr(self, name)
+        bufs = self.__dict__.setdefault("_append_bufs", {})
+        buf = bufs.get(name)
+        n, m = cur.size, cur.size + extra.size
+        if (buf is None or cur.base is not buf or cur.ctypes.data != buf.ctypes.data
+                or max(m, capacity) > buf.size):
+            buf = np.empty(max(2 * m, capacity, 1024), dtype=cur.dtype)
+            buf[:n] = cur
+            bufs[name] = buf
+        buf[n:m] = extra
+        return buf[:m]
 
     # ------------------------------------------------------------ conversions
 

@@ -463,7 +463,7 @@ def test_kernels_and_baseline_records_have_the_jax_keys(tmp_path, capsys):
         assert rec[key] == want[key], key
 
 
-UNPORTED_COMMANDS = ("overlap", "serve", "fleet", "tune", "top", "lint", "env")
+UNPORTED_COMMANDS = ("overlap", "fleet", "tune", "top", "lint", "env")
 
 
 @pytest.mark.parametrize("base", [["er", "5", "4", "15d_fusion2", "4", "1"],

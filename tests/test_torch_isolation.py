@@ -24,6 +24,7 @@ from distributed_sddmm_tpu_torch.codegen import BankedCudaKernel
 from distributed_sddmm_tpu_torch.models.als import DistributedALS
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
 from distributed_sddmm_tpu_torch.parallel.dense_shift_15d import DenseShift15D
+from distributed_sddmm_tpu_torch.serve import AttentionTokenScore, build_als_engine
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 from distributed_sddmm_tpu_torch.utils.interop import state_from_reference
 from distributed_sddmm_tpu_torch.utils.verify import verify_algorithms
@@ -78,7 +79,9 @@ def test_port_and_chip_smoke_import_no_jax_in_subprocess():
                 "resilience.faults", "obs.store", "obs.regress", "obs.report",
                 "obs.tracemerge", "obs.traceexport", "tools.tracereport", "tools.charts",
                 "utils.buckets", "programs", "programs.keys", "programs.store",
-                "dynstruct", "dynstruct.capacity", "dynstruct.rebind"):
+                "dynstruct", "dynstruct.capacity", "dynstruct.rebind", "serve",
+                "serve.queue", "serve.slo", "serve.workloads", "serve.engine",
+                "obs.telemetry", "ops.serve_kernels"):
         assert f"distributed_sddmm_tpu_torch.{mod}" in mods
 
 
@@ -102,7 +105,8 @@ def test_ast_scan_finds_no_forbidden_import():
     allowed = {"torch", "numpy", "scipy", "distributed_sddmm_tpu_torch",
                "__future__", "abc", "argparse", "base64", "collections", "contextlib",
                "ctypes", "dataclasses", "enum", "errno", "fcntl", "fnmatch", "functools",
-               "hashlib", "html", "importlib", "inspect", "io", "json", "logging", "math",
+               "hashlib", "html", "importlib", "inspect", "io", "itertools", "json", "logging",
+               "math",
                "multiprocessing", "os", "pathlib", "random", "re", "shutil", "statistics",
                "subprocess", "sys", "tempfile", "threading", "time", "typing", "zipfile"}
     used = set().union(*(_guarded_roots(f, keep=False) for f in files))
@@ -157,6 +161,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: cli.main(["er", "4", "2", "auto", "4", "1", "--plan-mode", "model"]),
         lambda: get_plan(Problem.from_coo(S, 4), mode="model"),
         lambda: DistributedALS.from_plan(S, 4),
+        lambda: cli.main(["serve"]),
+        lambda: build_als_engine(S, R=4),
+        lambda: AttentionTokenScore(np.zeros((4, 4), np.float32)),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()

@@ -37,7 +37,7 @@ from distributed_sddmm_tpu.ops.blocked import CHUNK, build_blocked
 from distributed_sddmm_tpu.ops.pallas_kernels import BlockedTile, PallasKernel
 
 from distributed_sddmm_tpu_torch.codegen import banded
-from distributed_sddmm_tpu_torch.ops import _build, cuda_kernels
+from distributed_sddmm_tpu_torch.ops import _build, cuda_kernels, serve_kernels
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import (
     CudaTileKernel, fused_tile_plain, spmm_rows_plain, spmm_split_plain,
     spmm_tile_plain, sddmm_tile_plain, split_reduce_plain,
@@ -329,10 +329,11 @@ def test_build_key_tracks_sources_and_flags(monkeypatch, tmp_path):
     assert path.name.startswith("tile_kernels-") and path.suffix == ".so"
     assert [s.name for s in _build._sources()] == ["attn_kernels.cu",
                                                    "banked_kernels.cu",
+                                                   "serve_kernels.cu",
                                                    "tile_kernels.cu"]
     # Every C entry point has a counted wrapper (the row-list launches
     # share the tile kernels' entry points under counters of their own).
-    assert set(_build.SIGNATURES) <= set(cuda_kernels.LAUNCHES)
+    assert set(_build.SIGNATURES) <= set(cuda_kernels.LAUNCHES) | set(serve_kernels.LAUNCHES)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     # An edit to the shared header names another library.
     for src in _build.CSRC.iterdir():
@@ -360,11 +361,12 @@ def _extern_c_definitions() -> list:
 
 def _ctype(param: str):
     """The ctypes type a C parameter binds with: a pointer (the stream
-    too) as ``c_void_p``, an ``int`` as ``c_int``."""
+    too) as ``c_void_p``, an ``int`` as ``c_int``, a ``float`` as
+    ``c_float``."""
     if "*" in param:
         return ctypes.c_void_p
-    assert param.split()[0] == "int", param
-    return ctypes.c_int
+    assert param.split()[0] in ("int", "float"), param
+    return ctypes.c_int if param.split()[0] == "int" else ctypes.c_float
 
 
 @pytest.mark.parametrize("name", sorted(_build.SIGNATURES) + ["tile_error_string"])
