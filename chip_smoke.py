@@ -318,12 +318,19 @@ last line is printed):
    in batches of 8, in reverse order and padded into the largest inner
    bucket, and pass the float64 oracle. Then each serve kernel against its
    plain version at the phase's shapes (a batch of 8 at the largest inner
-   bucket): x and the scores within 1e-4 of the plain version's max abs
-   value, the top-k ids equal wherever the plain scores' gap at k exceeds
-   that, attention within 1e-5, two launches bit-equal; each timed with
-   CUDA events beside its bound and the torch composition it replaces
+   bucket): x and the scores bit-equal to the plain version's (the ALS
+   scores and the GAT head; their 1e-4 tolerance is printed beside), the
+   top-k ids equal wherever the plain scores' gap at k exceeds 1e-4,
+   attention within 1e-5, two launches bit-equal; each timed with CUDA
+   events beside its bound and the torch composition it replaces
    (``torch.linalg.cholesky`` with ``cholesky_solve``; ``x @ B.T`` with
-   ``topk``), which the port never calls.
+   ``topk``), which the port never calls. A line before them gives
+   ptxas's registers, shared memory and spills of ``fold_in_solve`` and
+   ``score_rows``, and each kernel's line its launch shape. Last, every
+   instance of those two kernels that their entry points can launch
+   (``SERVE_BUILDS``: R chunk, 16- or 4-byte copies, queries a group,
+   rows a lane) at a small shape that selects it, bit-equal to its plain
+   version.
 21. kernels line -- ``{"kernels": [...]}``, the three serve kernels after
    the tile kernels.
 22. last line -- ``{"ok": true, "device": {...}}``.
@@ -371,7 +378,7 @@ from distributed_sddmm_tpu_torch.autotune.fingerprint import Problem
 from distributed_sddmm_tpu_torch.bench import cli, harness
 from distributed_sddmm_tpu_torch.bench import kernels as kernel_bench
 from distributed_sddmm_tpu_torch.bench.harness import make_algorithm
-from distributed_sddmm_tpu_torch.bench.kernel_ab import band_coo
+from distributed_sddmm_tpu_torch.bench.kernel_ab import band_coo, fold_in_torch, serve_bound
 from distributed_sddmm_tpu_torch.codegen import (
     BankedCudaKernel, banded, build_banded, select_variant,
 )
@@ -6221,8 +6228,33 @@ SERVE_KERNELS = {"als": ("fold_in_solve", "score_rows"), "gat": ("score_rows",),
 #: version's max abs value (f32: a fold-in Gram with the 0.1 ridge can
 #: amplify a last-bit difference a few hundred times; the scores follow
 #: x; the attention replies within 1e-5, the parity tests' tolerance).
+#: The kernels of SERVE_EXACT are held to their plain versions bit for bit
+#: (max abs error 0.0: the same order and roundings, and IEEE division and
+#: square root on both sides); their tolerance is printed beside it.
 SERVE = {"min_checked": 32, "samples": 16, "batch": 8, "reps": 20, "plain_reps": 1,
          "tol": {"fold_in_solve": 1e-4, "score_rows": 1e-4, "window_score": 1e-5}}
+SERVE_EXACT = ("fold_in_solve", "score_rows")
+#: The kernels (mangled-name fragments) whose ptxas report phase serve prints.
+SERVE_PTXAS = ("fold_in_solve_kernel", "score_rows_kernel")
+#: Phase serve's check of every kernel instance of SERVE_EXACT at a small
+#: shape that selects it: ``score_rows`` (n_i, n_j, R, T's offset in
+#: floats, gathered through ``tidx``, ``out``'s ld past n_j) and
+#: ``fold_in_solve`` (b, L, R, B's offset). An offset of 1 float or an R
+#: that 4 does not divide takes 4-byte copies; more than 4 x 132 item tiles
+#: of 32 take R chunks of 32, fewer 128; R > 128 takes 8 rows a lane in the
+#: fold-in's substitutions. ``expect``: the instances, all of which must be
+#: reached.
+SERVE_BUILDS = {
+    "score_rows": ((8, 4097, 128, 0, False, 0), (3, 4097, 130, 0, False, 1),
+                   (1, 4097, 130, 0, True, 0), (1, 700, 128, 0, True, 0),
+                   (8, 20000, 130, 0, False, 0), (1, 20000, 128, 1, False, 0),
+                   (2, 20000, 128, 0, False, 1), (1, 20000, 128, 0, True, 0),
+                   (5, 20000, 20, 1, False, 0)),
+    "fold_in_solve": ((3, 40, 128, 0), (3, 40, 128, 1), (3, 40, 144, 0), (3, 40, 130, 0)),
+    "expect": tuple(f"score_rows<{rc},{v},{g}>" for rc in (32, 128) for v in ("16B", "4B")
+                    for g in (1, 8))
+    + tuple(f"fold_in_solve<{k},{v}>" for k in (4, 8) for v in ("16B", "4B")),
+}
 
 
 def reply_bytes(reply: dict) -> dict:
@@ -6259,25 +6291,116 @@ def serve_batching(eng, payloads: list, tag: str) -> dict:
 
 
 def serve_entry(name: str, label: str, got, again, want, tol: float, kern, plain,
-                bnd: dict, lib, torch_ms=None, **extra) -> dict:
+                bnd: dict, lib, torch_ms=None, launch=None, **extra) -> dict:
     """One serve kernel against its plain version (of the plain version's
-    max abs value), two launches bit-equal, both timed."""
+    max abs value; bit for bit for SERVE_EXACT), two launches bit-equal,
+    both timed. Its line carries ``launch``, the launch shape; the row it
+    returns does not (a computed shape, not a reading)."""
     abs_err, rel = rel_err(got, want)
     require(rel <= tol, f"{name} at {label}: error {rel:.3e} > {tol}")
+    require(name not in SERVE_EXACT or abs_err == 0.0,
+            f"{name} at {label}: max abs error {abs_err:.3e}, not bit-equal to its plain version")
     require(torch.equal(got, again), f"{name} at {label}: two launches differ")
     row = {"max_abs_err": abs_err, "max_rel_err": rel, "tol": tol,
            "ms": time_ms(kern, SERVE["reps"]), "plain_ms": time_ms(plain, SERVE["plain_reps"]),
            "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"], "library_ms": lib,
            "torch_ms": torch_ms, **extra}
-    emit({"phase": f"serve_kernel_{label}", "kernel": name, **row})
+    emit({"phase": f"serve_kernel_{label}", "kernel": name, **row, "launch": launch})
     return row
 
 
-def serve_bound(moved: float, ops: float) -> dict:
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOP_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+def serve_launch(n_i: int, n_j: int, R: int, dev) -> dict:
+    """score_rows's launch shape on this card (the wrapper's)."""
+    from distributed_sddmm_tpu_torch.ops import serve_kernels
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return serve_kernels.score_launch(n_i, n_j, R, sms)
+
+
+def score_build(n_i: int, n_j: int, R: int, T, dev) -> str:
+    """The ``score_rows_kernel`` instance that ``score_rows`` launches for
+    these arguments (its entry point's choice: R chunk, 16- or 4-byte
+    copies, queries a group)."""
+    vec = R % 4 == 0 and T.data_ptr() % 16 == 0
+    return (f"score_rows<{serve_launch(n_i, n_j, R, dev)['rchunk']},"
+            f"{'16B' if vec else '4B'},{1 if n_i == 1 else 8}>")
+
+
+def fold_build(R: int, B) -> str:
+    """The same for ``fold_in_solve``: rows a lane in the substitutions,
+    16- or 4-byte row gathers."""
+    vec = R % 4 == 0 and B.data_ptr() % 16 == 0
+    return f"fold_in_solve<{4 if R <= 128 else 8},{'16B' if vec else '4B'}>"
+
+
+def floats_at(gen, n: int, R: int, offset: int, dev):
+    """[n, R] standard-normal floats, contiguous, starting ``offset``
+    floats into their allocation (1: not 16-byte aligned)."""
+    buf = torch.randn(n * R + offset, generator=gen, device=dev)
+    return buf[offset:].view(n, R)
+
+
+def serve_builds(dev, card: str) -> None:
+    """Every instance of ``score_rows_kernel`` and ``fold_in_solve_kernel``
+    that the entry points can launch, each at a small shape
+    (SERVE_BUILDS) that selects it, against its plain version bit for bit
+    (max abs error 0.0; NaN never equal), two launches equal. Fails unless
+    the shapes reach all of SERVE_BUILDS["expect"]."""
+    from distributed_sddmm_tpu_torch.ops import serve_kernels
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows, seen = [], set()
+
+    def held(build: str, got, again, want, **shape) -> None:
+        err = float((got - want).abs().max())
+        require(torch.equal(got, want) and err == 0.0,
+                f"{build} at {shape}: max abs error {err:.3e}, not bit-equal to its plain version")
+        require(torch.equal(got, again), f"{build} at {shape}: two launches differ")
+        seen.add(build)
+        rows.append({"build": build, **shape, "max_abs_err": err})
+
+    for n_i, n_j, R, offset, gather, ld_extra in SERVE_BUILDS["score_rows"]:
+        n_t = 2 * n_j if gather else n_j
+        T = floats_at(gen, n_t, R, offset, dev)
+        Q = torch.randn(n_i, R, generator=gen, device=dev)
+        tidx = (torch.randint(0, n_t, (n_j,), generator=gen, device=dev, dtype=torch.int32)
+                if gather else None)
+        out = torch.full((n_i, n_j + ld_extra), float("nan"), device=dev)
+        got = serve_kernels.score_rows(Q, T, tidx, out=out).clone()
+        require(bool(torch.isnan(out[:, n_j:]).all()), f"score_rows wrote past n_j = {n_j}")
+        again = serve_kernels.score_rows(Q, T, tidx)
+        held(score_build(n_i, n_j, R, T, dev), got, again,
+             serve_kernels.score_rows_plain(Q, T, tidx), n_i=n_i, n_j=n_j, R=R,
+             offset=offset, gather=gather, ld=n_j + ld_extra)
+    for b, L, R, offset in SERVE_BUILDS["fold_in_solve"]:
+        n_t = 4096
+        B = floats_at(gen, n_t, R, offset, dev)
+        idx = torch.randint(0, n_t, (b, L), generator=gen, device=dev, dtype=torch.int32)
+        rt = torch.randn(b, L, generator=gen, device=dev)
+        # Request 0 rates half its slots, request 1 none (all padding), the
+        # rest every slot.
+        mk = torch.ones(b, L, device=dev)
+        mk[0, L // 2:] = 0.0
+        mk[1] = 0.0
+        lam = 0.1
+        got = serve_kernels.fold_in_solve(B, idx, rt, mk, lam)
+        again = serve_kernels.fold_in_solve(B, idx, rt, mk, lam)
+        held(fold_build(R, B), got, again,
+             serve_kernels.fold_in_solve_plain(B, idx, rt, mk, lam), b=b, L=L, R=R,
+             offset=offset)
+    missing = set(SERVE_BUILDS["expect"]) - seen
+    require(not missing, f"serve builds never checked: {sorted(missing)}")
+    emit({"phase": "serve_builds", "card": card, "checked": rows})
+
+
+def serve_ptxas() -> dict:
+    """ptxas's report (registers, static shared memory, spills) of the
+    SERVE_PTXAS kernels, by mangled name."""
+    report = _build.ptxas_report(_build.build()["log"])
+    found = {name: r for name, r in report.items() if any(k in name for k in SERVE_PTXAS)}
+    for kernel in SERVE_PTXAS:
+        require(any(kernel in name for name in found), f"ptxas reported no {kernel}")
+    return found
 
 
 def serve_kernels_als(eng, dev) -> dict:
@@ -6286,8 +6409,10 @@ def serve_kernels_als(eng, dev) -> dict:
     launches equal, the top-k ids equal wherever the plain scores' gap at
     k exceeds the tolerance; each timed beside its bound and the torch
     composition it replaces (``cholesky`` + ``cholesky_solve``; ``x @ B.T``
-    + ``topk``), which the port never calls."""
+    + ``topk``), which the port never calls; and the ALS reply's device
+    program against its sort."""
     from distributed_sddmm_tpu_torch.ops import serve_kernels
+    from distributed_sddmm_tpu_torch.serve.workloads import top_k
 
     wl = eng.workload
     rng = np.random.default_rng(11)
@@ -6298,12 +6423,7 @@ def serve_kernels_als(eng, dev) -> dict:
     lam, (N, R), k = wl.ridge_lambda, B.shape, wl.k
     fold = lambda: serve_kernels.fold_in_solve(B, idx, rt, mk, lam)  # noqa: E731
     fold_plain = lambda: serve_kernels.fold_in_solve_plain(B, idx, rt, mk, lam)  # noqa: E731
-
-    def fold_torch():
-        rows = B[idx.long()] * mk[..., None]
-        gram = rows.transpose(1, 2) @ rows + lam * torch.eye(R, device=dev)
-        rhs = (rows * (rt * mk)[..., None]).sum(1)
-        return torch.cholesky_solve(rhs[..., None], torch.linalg.cholesky(gram))[..., 0]
+    fold_torch = lambda: fold_in_torch(B, idx, rt, mk, lam)  # noqa: E731
 
     x, x2, x_plain = fold(), fold(), fold_plain()
     real = int(mk.sum())
@@ -6312,7 +6432,8 @@ def serve_kernels_als(eng, dev) -> dict:
         serve_bound(real * R * 4 + b * L * 12 + b * R * 4,
                     real * R * (R + 1) + 2 * real * R + b * (R ** 3 / 3 + 2 * R * R)),
         None, time_ms(fold_torch, SERVE["reps"]), b=b, L=L, R=R, rated=real,
-        torch_rel_err=rel_err(fold_torch(), x_plain)[1])}
+        torch_rel_err=rel_err(fold_torch(), x_plain)[1],
+        launch={"blocks": b, **serve_kernels.fold_in_launch(L, R)})}
 
     def scored(scores):
         ext = torch.full((b, N + 1), 0.0, device=dev)
@@ -6330,12 +6451,21 @@ def serve_kernels_als(eng, dev) -> dict:
     sure = gap > tol * float(s_plain.abs().max())
     require(bool(torch.equal(ids[sure, :k], ids_p[sure, :k])),
             f"score_rows: top-{k} ids differ from the plain scores' where the gap exceeds {tol}")
+    # The ALS reply's split: the whole device program of this batch (the
+    # payload copies, the fold-in, the scores, the -inf scatter, the sort)
+    # and its sort of b x N scores alone.
+    program = wl.build_program(b, L)
+    scores = torch.empty(b, N + 1, device=dev)
+    serve_kernels.score_rows(x, B, out=scores)
+    split = {"program_ms": time_ms(lambda: program(B, *host), SERVE["reps"]),
+             "sort_ms": time_ms(lambda: top_k(scores[:, :N], k), SERVE["reps"])}
     out["score_rows"] = serve_entry(
         "score_rows", "als", s, s2, s_plain, tol, score, score_plain,
         serve_bound(N * R * 4 + b * R * 4 + b * N * 4, 2 * b * N * R),
         time_ms(lambda: x_plain @ B.T, SERVE["reps"]),
         time_ms(lambda: torch.topk(x_plain @ B.T, k), SERVE["reps"]), n_i=b, n_j=N, R=R,
-        topk_rows_checked=int(sure.sum()))
+        topk_rows_checked=int(sure.sum()), launch=serve_launch(b, N, R, dev),
+        reply_split=split)
     return out
 
 
@@ -6356,7 +6486,7 @@ def serve_kernels_gat(eng, dev) -> dict:
                        SERVE["tol"]["score_rows"], score, score_plain,
                        serve_bound(b * L * F * 4 + F * 4 + b * L * 4, 2 * b * L * F),
                        time_ms(lambda: X[tidx.long()] @ w[0], SERVE["reps"]), n_i=1,
-                       n_j=b * L, R=F)
+                       n_j=b * L, R=F, launch=serve_launch(1, b * L, F, dev))
 
 
 def serve_kernels_attention(eng, dyn, dev) -> dict:
@@ -6411,6 +6541,7 @@ def phase_serve(dev, launches: dict, card: str) -> dict:
     rows: dict = {}
     kernel_rows: dict = {}
     engines: dict = {}
+    emit({"phase": "serve_ptxas", "card": card, "ptxas": serve_ptxas()})
 
     def capture(app, build):
         def built(*a, **kw):
@@ -6489,6 +6620,7 @@ def phase_serve(dev, launches: dict, card: str) -> dict:
             del eng
             engines.clear()
             torch.cuda.empty_cache()
+        serve_builds(dev, card)
     emit({"phase": "serve", "card": card, "seconds": time.perf_counter() - t0})
     return {"runs": rows, "kernels": kernel_rows}
 

@@ -1,9 +1,9 @@
-"""Time the SDDMM, fused and SpMM tile kernels, the attention stats kernel
-and the heavy rows' second pass of several source trees on the same
-inputs, on one card, in turns.
+"""Time the SDDMM, fused and SpMM tile kernels, the attention stats kernel,
+the heavy rows' second pass and the serve kernels of several source trees
+on the same inputs, on one card, in turns.
 
     python3 -m distributed_sddmm_tpu_torch.bench.kernel_ab LABEL=TREE ... [-o FILE]
-        [--only-pass2] [--chunks C,...]
+        [--only-pass2 | --only-serve] [--chunks C,...]
 
 A TREE is a directory that holds ``distributed_sddmm_tpu_torch/ops/`` (its
 ``_build.py`` and ``csrc/``): this checkout (``new=.``), or an older
@@ -50,7 +50,34 @@ R=128 unless named, standard-normal operands, f32 and bf16:
   replayed (no host time between launches). With ``--chunks``, the trees
   of the current entry points are timed again with the unit table built
   at each of those chunk sizes (``codegen/banded.py::REDUCE_CHUNK``).
-  They carry ``plain_ms`` too, this checkout's plain version.
+  They carry ``plain_ms`` too, this checkout's plain version;
+* the serve kernels (``ops/csrc/serve_kernels.cu``), f32, standard-normal
+  operands: ``score_rows`` at the ALS scores (8 queries x 2**20 items,
+  R = 128, into an ``out`` of ld N + 1 as ``serve/workloads.py`` makes it;
+  again at 2 and 1 queries, ``als_b2`` and ``als_b1``, the batches that a
+  100 Hz stream mostly makes) and at the GAT head (1 query x 512 nodes
+  gathered through ``tidx`` from 2**20 rows of 512 features), and
+  ``fold_in_solve`` at 8 requests, L = 64, R = 128, on the ALS factor,
+  each request's rated slots drawn as the ALS workload draws a payload
+  (1 + Poisson(4)), and at the first 2 and 1 of them (``fold_in_b2``,
+  ``fold_in_b1``). Each tree gets the
+  arguments of its own entry point, shaped by its own
+  ``ops/serve_kernels.py`` (``score_launch`` and ``fold_in_launch``; the
+  parent's ``score_rows`` takes its shared memory alone, and its
+  ``fold_in_solve`` a thread a row). Besides the trees' readings these
+  lines carry ``max_abs_diff_vs_plain`` (each tree against
+  this checkout's plain version: 0.0 is bit-equal),
+  ``two_launches_equal``, ``bound_ms`` and ``bound_by`` (the bytes the
+  call needs over the HBM rate, or its operations over the f32 rate),
+  ``library_ms`` (``x @ B.T``; ``X[nodes] @ w``: yardsticks the port never
+  calls) and for ``fold_in_solve`` ``torch_ms`` (the torch composition:
+  ``bmm`` Gram, ``cholesky``, ``cholesky_solve``) and ``latency_floor_ms``:
+  the kernel's chain of 3R dependent steps, R Cholesky columns each
+  ending in ``__fsqrt_rn`` and R steps of each substitution each an
+  ``__fdiv_rn``, every step behind at least one ``__fadd_rn``: R (t_sqrt +
+  t_add) + 2R (t_div + t_add), with each t the time of one dependent step
+  of a chain of ``LATENCY_STEPS`` in one thread (``step_ns``: the kernel of
+  ``bench/csrc/step_latency.cu``, built beside the kernels).
 
 Each case runs the trees in the order given, then in reverse (A B B A),
 each reading CUDA events around ``REPS`` calls after a warmup call. It
@@ -61,7 +88,7 @@ the largest magnitude (``rel_diff_vs_first``); for the stats also
 whether ``m`` equals the first tree's and the largest relative difference
 of each ``d`` (``d_rel_diff_vs_first``). The first line names the card
 and its power limit; the second gives each tree's build time and the
-ptxas report (registers, spills) of its walk and pass-2 kernels. With
+ptxas report (registers, spills) of its walk, pass-2 and serve kernels. With
 ``-o`` the lines are also appended to FILE.
 """
 
@@ -83,7 +110,7 @@ from distributed_sddmm_tpu_torch import masks
 from distributed_sddmm_tpu_torch.autotune.fingerprint import Problem
 from distributed_sddmm_tpu_torch.bench.harness import make_algorithm
 from distributed_sddmm_tpu_torch.codegen import BankedCudaKernel, banded, select_variant
-from distributed_sddmm_tpu_torch.ops import _build, cuda_kernels
+from distributed_sddmm_tpu_torch.ops import _build, cuda_kernels, serve_kernels
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 
@@ -106,6 +133,17 @@ R_MAIN = 128
 R_SWEEP = (32, 64, 256, 512)
 GRAPH500 = {"a": 0.57, "b": 0.19, "c": 0.19, "d": 0.05}
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+#: f32 rate of one H100 SXM outside the tensor cores (NVIDIA data sheet).
+F32_FLOP_PER_S = 67e12
+#: Serve cases: the ALS scores (queries, items, R), the GAT head (queries,
+#: nodes, rows, features), the fold-in on the ALS factor (requests, L).
+SERVE_ALS = (8, 1 << 20, 128)
+SERVE_GAT = (1, 512, 1 << 20, 512)
+#: Batch sizes of the ALS scores and the fold-in: the full batch, and the
+#: one or two requests that most batches of a 100 Hz stream hold.
+SERVE_ALS_BATCHES = (8, 2, 1)
+SERVE_FOLD = (8, 64)
+LATENCY_STEPS = 1 << 20
 
 
 def load_tree(root: str) -> dict:
@@ -123,9 +161,15 @@ def load_tree(root: str) -> dict:
         fn.restype = ctypes.c_int
     lib.tile_error_string.argtypes = [ctypes.c_int]
     lib.tile_error_string.restype = ctypes.c_char_p
+    # The tree's serve wrappers, for their launch shapes alone.
+    path = path.with_name("serve_kernels.py")
+    spec = importlib.util.spec_from_file_location(f"_tree_serve_{abs(hash(str(path)))}", path)
+    serve = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(serve)
     walks = {k: v for k, v in _build.ptxas_report(info["log"]).items()
-             if any(n in k for n in ("walk_kernel", "split_reduce", "attn_merge"))}
-    return {"lib": lib, "sigs": mod.SIGNATURES, "build_seconds": info["seconds"],
+             if any(n in k for n in ("walk_kernel", "split_reduce", "attn_merge",
+                                     "fold_in_solve", "score_rows"))}
+    return {"lib": lib, "sigs": mod.SIGNATURES, "serve": serve, "build_seconds": info["seconds"],
             "cached": info["cached"], "walk_ptxas": walks}
 
 
@@ -501,6 +545,8 @@ def run_cases(trees: dict, dev, emit, chunks=(), pass2_only: bool = False) -> No
     if not pass2_only:
         walk_cases(trees, dev, emit)
     banked_cases(trees, dev, emit, chunks, pass2_only)
+    if not pass2_only:
+        serve_cases(trees, dev, emit)
 
 
 def walk_cases(trees: dict, dev, emit) -> None:
@@ -567,6 +613,173 @@ def banked_cases(trees: dict, dev, emit, chunks, pass2_only: bool) -> None:
         del alg, tile, S, hb, inp
 
 
+def score_args(tree: dict, Q, T, tidx, out, sms: int) -> tuple:
+    """The C arguments but the stream of one ``score_rows`` call by
+    ``tree``'s entry point, shaped by the tree's own wrapper module (the
+    parent's takes its shared memory alone)."""
+    n_i, R = Q.shape
+    n_j = T.shape[0] if tidx is None else tidx.numel()
+    head = (_p(Q), _p(T), _p(tidx), _p(out), n_i, n_j, R, out.shape[1], T.shape[0])
+    serve = tree["serve"]
+    if not hasattr(serve, "score_launch"):
+        return (*head, serve.score_smem_bytes(n_i, R))
+    shape = serve.score_launch(n_i, n_j, R, sms)
+    return (*head, shape["blocks"], shape["threads"], shape["rchunk"], shape["smem"])
+
+
+def fold_args(tree: dict, B, idx, rt, mk, lam: float, x) -> tuple:
+    """The same for ``fold_in_solve`` (the parent's: a thread a row)."""
+    b, L = idx.shape
+    N, R = B.shape
+    serve = tree["serve"]
+    shape = serve.fold_in_launch(L, R) if hasattr(serve, "fold_in_launch") else {
+        "threads": min(1024, max(32, -(-R // 32) * 32)), "smem": serve.fold_in_smem_bytes(L, R)}
+    return (_p(B), _p(idx), _p(rt), _p(mk), lam, _p(x), b, L, R, N, shape["threads"],
+            shape["smem"])
+
+
+def serve_bound(moved: float, ops: float) -> dict:
+    """``bound_ms`` and ``bound_by`` of a serve kernel that moves ``moved``
+    bytes and does ``ops`` f32 operations."""
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def fold_in_torch(B, idx, ratings, mask, lam: float):
+    """The fold-in as a torch composition (``bmm`` Gram, ``cholesky``,
+    ``cholesky_solve``): a yardstick for ``fold_in_solve`` that the port
+    never calls."""
+    rows = B[idx.long()] * mask[..., None]
+    eye = torch.eye(B.shape[1], device=B.device)
+    gram = rows.transpose(1, 2) @ rows + lam * eye
+    rhs = (rows * (ratings * mask)[..., None]).sum(1)
+    return torch.cholesky_solve(rhs[..., None], torch.linalg.cholesky(gram))[..., 0]
+
+
+def step_latency_lib() -> ctypes.CDLL:
+    """``bench/csrc/step_latency.cu``, built beside the kernels' library."""
+    src = pathlib.Path(__file__).resolve().parent / "csrc" / "step_latency.cu"
+    lib = ctypes.CDLL(str(_build.build_source(src)))
+    lib.step_latency.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                 ctypes.c_float, ctypes.c_void_p]
+    lib.step_latency.restype = ctypes.c_int
+    return lib
+
+
+def step_ns(dev) -> dict:
+    """ns of one dependent ``__fadd_rn``, ``__fdiv_rn`` and ``__fsqrt_rn``
+    step: a chain of LATENCY_STEPS in one thread, CUDA events around the
+    launch."""
+    lib = step_latency_lib()
+    out = torch.zeros(1, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ns = {}
+    for op, (name, a, b) in enumerate((("fadd", 1.0, 1e-7), ("fdiv", 1.5, 1.0000001),
+                                        ("fsqrt", 2.0, 0.0))):
+        ns[name] = time_ms(lambda: _call(lib, "step_latency", _p(out), LATENCY_STEPS, op, a, b,
+                                         stream), 3) * 1e6 / LATENCY_STEPS
+    return ns
+
+
+def compare_serve(trees: dict, case: str, op: str, args_of, outputs, plain, emit,
+                  **extra) -> None:
+    """Every tree on one serve case, in turns; one JSON line. ``args_of(tree)``
+    gives the C arguments but the stream, ``outputs`` the tensors they
+    write, ``plain()`` this checkout's plain version of them. A timed call
+    is the C call alone; ``graph_ms`` is each tree's device time a launch,
+    ``REPS`` launches in one CUDA graph."""
+    want = (plain(),)
+    args = {label: args_of(t) for label, t in trees.items()}
+    got, equal_runs = {}, {}
+    for label, t in trees.items():
+        runs = []
+        for _ in range(2):
+            for o in outputs:
+                o.fill_(float("nan"))
+            _call(t["lib"], op, *args[label], torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            runs.append(tuple(o.clone() for o in outputs))
+        equal_runs[label] = all(torch.equal(x, y) for x, y in zip(*runs))
+        got[label] = runs[0]
+    first = next(iter(got.values()))
+
+    def maker(label):
+        fn = getattr(trees[label]["lib"], op)
+
+        def make():
+            bound = (*args[label], torch.cuda.current_stream().cuda_stream)
+            return lambda: fn(*bound)
+        return make
+
+    ms = {label: [] for label in trees}
+    for label in [*trees, *reversed(trees)]:
+        ms[label].append(time_ms(maker(label)()))
+    emit({"case": case, "op": op, "precision": "f32", "ms": ms,
+          "graph_ms": {label: graph_ms(maker(label))[0] for label in trees},
+          "max_abs_diff_vs_first": {label: abs_diff(g, first) for label, g in got.items()},
+          "max_abs_diff_vs_plain": {label: abs_diff(g, want) for label, g in got.items()},
+          "two_launches_equal": equal_runs, **extra})
+
+
+def serve_cases(trees: dict, dev, emit) -> None:
+    """The serve kernels at the serving shapes (the module docstring)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(5)
+    _, N, R = SERVE_ALS
+    T = torch.randn(N, R, generator=gen, device=dev)
+    for n_i in SERVE_ALS_BATCHES:
+        Q = torch.randn(n_i, R, generator=gen, device=dev)
+        out = torch.empty(n_i, N + 1, device=dev)
+        compare_serve(trees, "als" if n_i == SERVE_ALS[0] else f"als_b{n_i}", "score_rows",
+                      lambda t: score_args(t, Q, T, None, out, sms), [out[:, :N]],
+                      lambda: serve_kernels.score_rows_plain(Q, T), emit,
+                      n_i=n_i, n_j=N, R=R, ld_out=N + 1,
+                      launch=serve_kernels.score_launch(n_i, N, R, sms),
+                      **serve_bound(N * R * 4 + n_i * R * 4 + n_i * N * 4, 2 * n_i * N * R),
+                      library_ms=time_ms(lambda: Q @ T.T))
+    b_max, L = SERVE_FOLD
+    rng = np.random.default_rng(11)
+    idx = np.zeros((b_max, L), np.int32)
+    rt = np.zeros((b_max, L), np.float32)
+    mk = np.zeros((b_max, L), np.float32)
+    for i in range(b_max):
+        n = int(min(1 + rng.poisson(4), L))
+        idx[i, :n] = rng.choice(N, size=n, replace=False)
+        rt[i, :n] = rng.standard_normal(n)
+        mk[i, :n] = 1.0
+    lam = 0.1
+    ns = step_ns(dev)
+    floor = (R * (ns["fsqrt"] + ns["fadd"]) + 2 * R * (ns["fdiv"] + ns["fadd"])) * 1e-6
+    for b in SERVE_ALS_BATCHES:
+        # The first b requests of the batch of SERVE_FOLD[0].
+        fi, frt, fmk = (torch.from_numpy(a[:b]).to(dev) for a in (idx, rt, mk))
+        x = torch.empty(b, R, device=dev)
+        real = int(fmk.sum())
+        compare_serve(trees, "fold_in" if b == b_max else f"fold_in_b{b}", "fold_in_solve",
+                      lambda t: fold_args(t, T, fi, frt, fmk, lam, x), [x],
+                      lambda: serve_kernels.fold_in_solve_plain(T, fi, frt, fmk, lam), emit,
+                      b=b, L=L, R=R, rated=real,
+                      **serve_bound(real * R * 4 + b * L * 12 + b * R * 4,
+                                    real * R * (R + 1) + 2 * real * R
+                                    + b * (R ** 3 / 3 + 2 * R * R)),
+                      library_ms=None,
+                      torch_ms=time_ms(lambda: fold_in_torch(T, fi, frt, fmk, lam)),
+                      step_ns=ns, latency_floor_ms=floor)
+    del T
+    n_i, n_j, n_t, F = SERVE_GAT
+    X = torch.randn(n_t, F, generator=gen, device=dev)
+    w = torch.randn(n_i, F, generator=gen, device=dev)
+    tidx = torch.randint(0, n_t, (n_j,), generator=gen, device=dev, dtype=torch.int32)
+    s = torch.empty(n_i, n_j, device=dev)
+    compare_serve(trees, "gat", "score_rows", lambda t: score_args(t, w, X, tidx, s, sms),
+                  [s], lambda: serve_kernels.score_rows_plain(w, X, tidx), emit,
+                  n_i=n_i, n_j=n_j, R=F, launch=serve_kernels.score_launch(n_i, n_j, F, sms),
+                  **serve_bound(n_j * F * 4 + F * 4 + n_j * 4, 2 * n_j * F),
+                  library_ms=time_ms(lambda: X[tidx.long()] @ w[0]))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="+", help="LABEL=DIR, e.g. new=. parent=.chip_archive/parent")
@@ -575,6 +788,8 @@ def main(argv=None) -> int:
                     help="comma-separated pass-2 chunk sizes to time besides the default")
     ap.add_argument("--only-pass2", action="store_true",
                     help="run the pass-2 cases alone (Graph500 and bigbird)")
+    ap.add_argument("--only-serve", action="store_true",
+                    help="run the serve kernels' cases alone")
     args = ap.parse_args(argv)
     chunks = tuple(int(c) for c in args.chunks.split(",") if c)
     if not torch.cuda.is_available():
@@ -598,11 +813,14 @@ def main(argv=None) -> int:
     for spec in args.trees:
         label, _, root = spec.partition("=")
         trees[label] = load_tree(root)
-    emit({"builds": {label: {k: v for k, v in t.items() if k not in ("lib", "sigs")}
+    emit({"builds": {label: {k: v for k, v in t.items() if k not in ("lib", "sigs", "serve")}
                      for label, t in trees.items()}})
 
     t0 = time.perf_counter()
-    run_cases(trees, dev, emit, chunks, args.only_pass2)
+    if args.only_serve:
+        serve_cases(trees, dev, emit)
+    else:
+        run_cases(trees, dev, emit, chunks, args.only_pass2)
     emit({"done": True, "seconds": time.perf_counter() - t0})
     if out_file:
         out_file.close()

@@ -50,7 +50,7 @@ SIGNATURES = {
     "attn_stats_merge": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # serve_kernels.cu
     "fold_in_solve": [_P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I, _I, _P],
-    "score_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "score_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "window_score": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
 }
 
@@ -123,10 +123,30 @@ def build() -> dict:
             "cached": False, "log": log}
 
 
+def build_source(src: pathlib.Path) -> pathlib.Path:
+    """Build one more source alone into a shared library of its own under
+    BUILD_DIR, named by a hash of the source and the flags, through a
+    temporary file as :func:`build` does; a library that exists is
+    reused. Returns its path."""
+    flags = (*ARCH, "-O3", "-shared", "-Xcompiler", "-fPIC")
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(src.read_bytes())
+    out = BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        tmp = pathlib.Path(tmpdir) / out.name
+        _run_all([[find_nvcc(), *flags, "-o", str(tmp), str(src)]])
+        os.replace(tmp, out)
+    return out
+
+
 def ptxas_report(log: str) -> dict:
     """Per function of ``log`` (``nvcc -Xptxas -v``), by mangled name:
-    ``{"registers", "stack", "spill_stores", "spill_loads"}`` (the keys
-    ptxas printed for it)."""
+    ``{"registers", "smem", "stack", "spill_stores", "spill_loads"}`` (the
+    keys ptxas printed for it; ``smem`` is the static shared memory, which
+    ptxas names only where there is some)."""
     report: dict = {}
     name = None
     for line in log.splitlines():
@@ -145,6 +165,9 @@ def ptxas_report(log: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and name is not None:
             report[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                report[name]["smem"] = int(m.group(1))
     return report
 
 

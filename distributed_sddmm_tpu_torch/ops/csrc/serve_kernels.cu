@@ -25,21 +25,53 @@
 // (ascending r, l, k or neighbour), each product and each sum rounded
 // apart (__fmul_rn, __fadd_rn: no contraction into fma), which is the
 // order and rounding of the plain versions in ops/serve_kernels.py. The
-// code path depends on R, L and the window alone, never on the batch
-// size, a request's slot in the batch or a pointer's alignment, so a
-// request's reply bits do not depend on what else was batched or padded.
-//   fold_in_solve: one block a request. The masked rows, the Gram (rows
-//     padded to R + 1 floats against bank conflicts), rhs and the
-//     diagonal sit in shared memory (99,840 bytes at R = 128, L = 64; the
-//     wrapper raises when they do not fit). Left-looking Cholesky in
-//     place: at column j each thread owns rows i >= j and computes the
-//     diagonal itself (the same sum, the same bits), so one barrier a
-//     column; forward and back substitution column by column, a barrier a
-//     step.
-//   score_rows: a block of kItems outputs j; the block stages its T rows
-//     through shared memory (coalesced loads, rows padded to R + 1) and
-//     keeps the n_i query rows in shared memory, so each T row is read
-//     once a call; a thread keeps up to kQ accumulators, one an output.
+// tiling, the grid and the load path may follow the shapes (and the
+// alignment of T), but no output's chain does: it depends on R, L and
+// the window alone, never on the batch size, a request's slot in the
+// batch or padding, so a request's reply bits do not depend on what else
+// was batched or padded.
+//   fold_in_solve: one block a request (fold_in_launch in
+//     ops/serve_kernels.py). The masked rows, the Gram (rows of an odd
+//     count of 16-byte words against bank conflicts), rhs and L's diagonal
+//     sit in shared memory (102,656 bytes at R = 128, L = 64; the wrapper
+//     raises when they do not fit).
+//     - The rows come in 16-byte loads, all of a thread's at once; the
+//       Gram in 4 x 4 register tiles of the lower triangle, over 16 warps:
+//       each loaded row value feeds four products, each entry is still one
+//       accumulator over ascending l.
+//     - Left-looking Cholesky in place, by the warps of the R row owners
+//       and one helper warp after them (the other warps leave), on a
+//       barrier of their own, one a column. The owner of row i is fixed
+//       across columns: it keeps s_i = sum_{k<i} L[i][k]^2 in a register,
+//       adding L[i][k]^2 (ascending k) as it writes L[i][k], and publishes
+//       it; at column j the helper turns s_j into diag[j] = sqrt(G[j][j] -
+//       s_j), once, while the owners of rows i > j run their dots, which
+//       then wait for it (a flag: diag starts at kUnset).
+//     - The dots sum_{k<j} L[i][k] L[j][k] read 16 bytes at a time, the
+//       next eight terms loaded before this eight's adds, so only the
+//       __fadd_rn latency is on the chain.
+//     - The helper warp runs the forward substitution L y = rhs one column
+//       behind the factor and then the back substitution L^T x = y: lane l
+//       keeps rows l, l + 32, ... of v (then y, then x) in registers, the
+//       owner of row j divides and __shfl_sync broadcasts y_j (x_j); row j
+//       - 1 is loaded a step ahead in the back substitution.
+//   score_rows: a persistent grid of warps (score_launch in
+//     ops/serve_kernels.py picks the shape from n_i, n_j and R). A warp
+//     takes tiles of kScoreItems outputs j, one a lane, and walks each in
+//     R chunks of RC features, ascending, through a ring of kScoreStages
+//     shared-memory stages of its own: 16-byte cp.async copies of the T
+//     rows (gathered through tidx) of the chunks ahead are in flight while
+//     this chunk is summed, and a lane's accumulators stay in registers
+//     from chunk to chunk. Stage rows are padded to RC + 4 floats (an odd
+//     number of 16-byte words), so a lane's 16-byte reads of its own row
+//     hit distinct banks. The queries are staged once a block, interleaved
+//     as [group][r][kQ], so two broadcast 16-byte reads give a lane the
+//     kQ queries of feature r (one query alone is a group of 1, so that
+//     the GAT head does no padded work); more than kQ queries take groups,
+//     one after another (each group re-reads the tile's rows). Shared
+//     memory no longer grows with R but for the queries: at the GAT head
+//     (R = 512) many warps run at once, and a small n_j gets wide chunks
+//     and one-warp blocks so that more SMs share it.
 //   window_score: a warp a (request, token); lane o takes neighbours o,
 //     o + 32, ...; the topk threshold is found by counting (a value is
 //     kept when fewer than p values exceed it: every tie at the threshold
@@ -47,138 +79,415 @@
 //     exact in any order; lane 0 sums the denominator and the weighted
 //     values in neighbour order.
 //
-// Bound on this card. fold_in_solve is a chain of R dependent steps
-// (R barriers for the factor, 2R for the substitutions) over data that
-// fits in shared memory: latency, not bytes or flops, bounds it (its
-// bytes, L rows a request, and its ~R^3/3 flops take well under a
-// microsecond). score_rows moves T once (N * R * 4 bytes: 512 MiB at the
-// full ALS cell) at 2 flops a T element a query: bytes. window_score
-// gathers (2w + 2) rows of K a token: bytes, and tiny.
+// Bound on this card. fold_in_solve is a chain of about 3R dependent
+// steps (R Cholesky columns, each ending in __fdiv_rn and __fsqrt_rn, and
+// R steps of each substitution, each an __fdiv_rn) over data that fits in
+// shared memory: latency, not bytes or flops, bounds it (its bytes, L rows
+// a request, and its ~R^3/3 flops take well under a microsecond;
+// bench/csrc/step_latency.cu times those steps). score_rows moves T once
+// (N * R * 4 bytes: 512 MiB at the full ALS cell) at 2 flops a T element
+// a query: bytes. window_score gathers (2w + 2) rows of K a token: bytes,
+// and tiny.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kItems = 64;      // score_rows: outputs a block
-constexpr int kQ = 8;           // score_rows: accumulators a thread
-constexpr int kWinWarps = 4;    // window_score: tokens a block
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kFoldThreads = 512;  // fold_in_solve: threads a block
+constexpr int kScoreItems = 32;    // score_rows: outputs a warp tile, one a lane
+constexpr int kQ = 8;              // score_rows: queries a group (a lone query: 1)
+constexpr int kScoreStages = 3;    // score_rows: ring stages a warp
+constexpr int kWinWarps = 4;       // window_score: tokens a block
 constexpr float kAttnNeg = -1e30f;  // ops/kernels.py ATTN_NEG
 
-__global__ void fold_in_solve_kernel(const float* __restrict__ B,
-                                     const int* __restrict__ idx,
-                                     const float* __restrict__ ratings,
-                                     const float* __restrict__ mask, float lam,
-                                     float* __restrict__ x, int L, int R, int n_b) {
-  extern __shared__ float smem[];
-  const int ld = R + 1;
-  float* G = smem;              // [R][ld]: the Gram, then L below the diagonal
-  float* rows = G + R * ld;     // [L][R]: the masked rows, then y
-  float* diag = rows + L * R;   // [R]: L's diagonal
-  float* v = diag + R;          // [R]: rhs, then forward substitution's carry
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const size_t req = blockIdx.x;
-  const int* id = idx + req * L;
-  const float* rt = ratings + req * L;
-  const float* mk = mask + req * L;
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
 
-  for (int e = tid; e < L * R; e += nt) {
-    const int l = e / R, r = e - l * R;
-    const int row = min(max(id[l], 0), n_b - 1);  // a gather clamps, as XLA's does
-    rows[e] = __fmul_rn(B[static_cast<size_t>(row) * R + r], mk[l]);
-  }
-  __syncthreads();
-  // Lower triangle (with the diagonal) of rows^T rows + lam I, and rhs.
-  for (int e = tid; e < R * R; e += nt) {
-    const int i = e / R, j = e - i * R;
-    if (j > i) continue;
-    float acc = 0.f;
-    for (int l = 0; l < L; ++l)
-      acc = __fadd_rn(acc, __fmul_rn(rows[l * R + i], rows[l * R + j]));
-    G[i * ld + j] = i == j ? __fadd_rn(acc, lam) : acc;
-  }
-  for (int i = tid; i < R; i += nt) {
-    float acc = 0.f;
-    for (int l = 0; l < L; ++l)
-      acc = __fadd_rn(acc, __fmul_rn(rows[l * R + i], __fmul_rn(rt[l], mk[l])));
-    v[i] = acc;
-  }
-  __syncthreads();
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
 
-  // Cholesky, left-looking: column j reads only columns < j (final) and
-  // the Gram's diagonal, which stays untouched (L's is in diag).
-  for (int j = 0; j < R; ++j) {
-    for (int i = j + tid; i < R; i += nt) {
-      float s = 0.f;
-      for (int k = 0; k < j; ++k)
-        s = __fadd_rn(s, __fmul_rn(G[j * ld + k], G[j * ld + k]));
-      const float d = __fsqrt_rn(__fsub_rn(G[j * ld + j], s));
-      if (i == j) {
-        diag[j] = d;
-        continue;
-      }
-      float t = 0.f;
-      for (int k = 0; k < j; ++k)
-        t = __fadd_rn(t, __fmul_rn(G[i * ld + k], G[j * ld + k]));
-      G[i * ld + j] = __fdiv_rn(__fsub_rn(G[i * ld + j], t), d);
-    }
-    __syncthreads();
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A barrier of the block's first n threads (n a multiple of 32), on
+// barrier 1: __syncthreads is barrier 0.
+__device__ __forceinline__ void sync_first(int n) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
+}
+
+// sum_{k<n} a[k] * b[k] in ascending k, one accumulator, over 16-byte
+// aligned rows: 16-byte loads, those of the next eight terms issued
+// before this eight's adds, so that only the __fadd_rn latency is on the
+// chain. The loads may read up to eight floats past a[n] and b[n]
+// (fold_in_solve's rows are padded, and its shared memory runs on).
+__device__ __forceinline__ float chain_dot(const float* a, const float* b, int n) {
+  const float4* a4 = reinterpret_cast<const float4*>(a);
+  const float4* b4 = reinterpret_cast<const float4*>(b);
+  float t = 0.f;
+  float4 a0 = a4[0], a1 = a4[1], b0 = b4[0], b1 = b4[1];
+  int k = 0;
+  for (; k + 8 <= n; k += 8) {
+    const float4 na0 = a4[k / 4 + 2], na1 = a4[k / 4 + 3];
+    const float4 nb0 = b4[k / 4 + 2], nb1 = b4[k / 4 + 3];
+    t = __fadd_rn(t, __fmul_rn(a0.x, b0.x));
+    t = __fadd_rn(t, __fmul_rn(a0.y, b0.y));
+    t = __fadd_rn(t, __fmul_rn(a0.z, b0.z));
+    t = __fadd_rn(t, __fmul_rn(a0.w, b0.w));
+    t = __fadd_rn(t, __fmul_rn(a1.x, b1.x));
+    t = __fadd_rn(t, __fmul_rn(a1.y, b1.y));
+    t = __fadd_rn(t, __fmul_rn(a1.z, b1.z));
+    t = __fadd_rn(t, __fmul_rn(a1.w, b1.w));
+    a0 = na0, a1 = na1, b0 = nb0, b1 = nb1;
   }
-  // Forward substitution L y = rhs, column by column: y_j is final once
-  // every column k < j has been subtracted from v[j].
-  float* y = rows;
-  for (int j = 0; j < R; ++j) {
-    const float yj = __fdiv_rn(v[j], diag[j]);
-    for (int i = j + 1 + tid; i < R; i += nt)
-      v[i] = __fsub_rn(v[i], __fmul_rn(G[i * ld + j], yj));
-    if (tid == 0) y[j] = yj;
-    __syncthreads();
+  const float pa[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+  const float pb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+    if (k + u < n) t = __fadd_rn(t, __fmul_rn(pa[u], pb[u]));
+  return t;
+}
+
+// One step of the forward substitution in a warp, lane l holding rows l +
+// 32 m of v in vr[m]: y_j = v_j / d_j (its owner divides, __shfl_sync
+// broadcasts it, and it takes row j's place in vr), then column j of L
+// (final) off every row below j.
+template <int kRows>
+__device__ __forceinline__ void forward_step(float (&vr)[kRows], const float* G, int ld,
+                                             float dj, int j, int R, int lane) {
+  const int mj = j / kWarp, owner = j - mj * kWarp;
+  float vj = vr[0];
+#pragma unroll
+  for (int m = 1; m < kRows; ++m)
+    if (m == mj) vj = vr[m];
+  float col[kRows];
+#pragma unroll
+  for (int m = 0; m < kRows; ++m) {
+    const int r = lane + kWarp * m;
+    col[m] = r > j && r < R ? G[r * ld + j] : 0.f;
   }
-  // Back substitution L^T x = y, columns in descending order.
-  for (int j = R - 1; j >= 0; --j) {
-    const float xj = __fdiv_rn(y[j], diag[j]);
-    for (int i = tid; i < j; i += nt)
-      y[i] = __fsub_rn(y[i], __fmul_rn(G[j * ld + i], xj));
-    if (tid == 0) x[req * R + j] = xj;
-    __syncthreads();
+  const float yj = __shfl_sync(kFull, __fdiv_rn(vj, dj), owner);
+#pragma unroll
+  for (int m = 0; m < kRows; ++m) {
+    const int r = lane + kWarp * m;
+    if (r == j) vr[m] = yj;
+    if (r > j && r < R) vr[m] = __fsub_rn(vr[m], __fmul_rn(col[m], yj));
   }
 }
 
-__global__ void __launch_bounds__(kItems)
-score_rows_kernel(const float* __restrict__ Q, const float* __restrict__ T,
-                  const int* __restrict__ tidx, float* __restrict__ out,
-                  int n_i, int n_j, int R, int ld_out, int n_t) {
+// The value of diag[j] before the helper warp has published it (a square
+// root is never negative but for -0).
+constexpr float kUnset = -1.f;
+
+template <int kRows>
+__global__ void __launch_bounds__(kFoldThreads)
+fold_in_solve_kernel(const float* __restrict__ B, const int* __restrict__ idx,
+                     const float* __restrict__ ratings, const float* __restrict__ mask,
+                     float lam, float* __restrict__ x, int L, int R, int n_b, bool vec) {
   extern __shared__ float smem[];
-  const int ldt = R + 1;
-  float* tile = smem;                // [kItems][ldt]
-  float* q = tile + kItems * ldt;    // [n_i][R]
-  const int tid = threadIdx.x;
-  const int j0 = blockIdx.x * kItems;
-  const int n_here = min(kItems, n_j - j0);
-  for (int e = tid; e < n_i * R; e += kItems) q[e] = Q[e];
-  for (int e = tid; e < n_here * R; e += kItems) {
-    const int it = e / R, r = e - it * R;
-    const int t = tidx ? min(max(tidx[j0 + it], 0), n_t - 1) : j0 + it;
-    tile[it * ldt + r] = T[static_cast<size_t>(t) * R + r];
+  // The layout of ops/serve_kernels.py::fold_in_smem_bytes.
+  const int ld = (R + 7) / 8 * 8 + 4;           // G's row: an odd count of 16-byte words
+  const int ldr = (R + 3) / 4 * 4, r4 = ldr, l4 = (L + 3) / 4 * 4;
+  float* G = smem;                              // [R][ld]: the Gram, then L below the diagonal
+  float* rows = G + R * ld;                     // [L][ldr]: the masked rows
+  float* diag = rows + L * ldr;                 // [R]: L's diagonal
+  float* v = diag + r4;                         // [R]: rhs
+  float* sd = v + r4;                           // [R]: s_i, as its row's owner last wrote it
+  float* mk = sd + r4;                          // [L]: the mask
+  float* wt = mk + l4;                          // [L]: ratings * mask
+  int* id = reinterpret_cast<int*>(wt + l4);    // [L]: the clamped row ids
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid / kWarp, lane = tid % kWarp;
+  const int helper = (R + kWarp - 1) / kWarp;   // the warp after the rows' owners
+  const size_t req = blockIdx.x;
+
+  for (int l = tid; l < L; l += nt) {
+    const float m = mask[req * L + l];
+    mk[l] = m;
+    wt[l] = __fmul_rn(ratings[req * L + l], m);
+    id[l] = min(max(idx[req * L + l], 0), n_b - 1);  // a gather clamps, as XLA's does
+  }
+  for (int r = tid; r < R; r += nt) diag[r] = kUnset;
+  __syncthreads();
+  if (vec) {
+    const int q = R / 4;
+#pragma unroll 8
+    for (int e = tid; e < L * q; e += nt) {
+      const int l = e / q, c = 4 * (e - l * q);
+      const float4 b = *reinterpret_cast<const float4*>(B + static_cast<size_t>(id[l]) * R + c);
+      const float m = mk[l];
+      *reinterpret_cast<float4*>(rows + l * ldr + c) =
+          make_float4(__fmul_rn(b.x, m), __fmul_rn(b.y, m), __fmul_rn(b.z, m), __fmul_rn(b.w, m));
+    }
+  } else {
+#pragma unroll 8
+    for (int e = tid; e < L * R; e += nt) {
+      const int l = e / R, c = e - l * R;
+      rows[l * ldr + c] = __fmul_rn(B[static_cast<size_t>(id[l]) * R + c], mk[l]);
+    }
   }
   __syncthreads();
-  if (tid >= n_here) return;
-  const float* row = tile + tid * ldt;
-  for (int i0 = 0; i0 < n_i; i0 += kQ) {
-    const int nq = min(kQ, n_i - i0);
-    float acc[kQ];
+  // Lower triangle (with the diagonal) of rows^T rows + lam I in 4 x 4
+  // tiles (bi >= bj, tile t = bi (bi + 1) / 2 + bj), and rhs.
+  const int nb = (R + 3) / 4;
+  for (int t = tid; t < nb * (nb + 1) / 2; t += nt) {
+    int bi = static_cast<int>((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
+    while (bi * (bi + 1) / 2 > t) --bi;
+    while ((bi + 1) * (bi + 2) / 2 <= t) ++bi;
+    const int i0 = 4 * bi, j0 = 4 * (t - bi * (bi + 1) / 2);
+    float acc[4][4];
 #pragma unroll
-    for (int a = 0; a < kQ; ++a) acc[a] = 0.f;
-    for (int r = 0; r < R; ++r) {
-      const float tv = row[r];
+    for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int a = 0; a < kQ; ++a)
-        if (a < nq) acc[a] = __fadd_rn(acc[a], __fmul_rn(q[(i0 + a) * R + r], tv));
+      for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
+#pragma unroll 4
+    for (int l = 0; l < L; ++l) {
+      const float4 fi = *reinterpret_cast<const float4*>(rows + l * ldr + i0);
+      const float4 fj = *reinterpret_cast<const float4*>(rows + l * ldr + j0);
+      const float ri[4] = {fi.x, fi.y, fi.z, fi.w}, rj[4] = {fj.x, fj.y, fj.z, fj.w};
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[a][c] = __fadd_rn(acc[a][c], __fmul_rn(ri[a], rj[c]));
     }
-    for (int a = 0; a < nq; ++a)
-      out[static_cast<size_t>(i0 + a) * ld_out + j0 + tid] = acc[a];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = i0 + a, j = j0 + c;
+        if (i < R && j <= i) G[i * ld + j] = i == j ? __fadd_rn(acc[a][c], lam) : acc[a][c];
+      }
   }
+  for (int i = tid; i < R; i += nt) {
+    float acc = 0.f;
+#pragma unroll 4
+    for (int l = 0; l < L; ++l) acc = __fadd_rn(acc, __fmul_rn(rows[l * ldr + i], wt[l]));
+    v[i] = acc;
+  }
+  __syncthreads();
+  // The factor needs the rows' owners and the helper warp alone: the other
+  // warps leave, and the rest synchronise on a barrier of their own.
+  if (warp > helper) return;
+  const int n_sync = (helper + 1) * kWarp;
+
+  // Cholesky, left-looking: column j reads only columns < j (final), and
+  // the Gram's diagonal stays untouched (L's is in diag). Thread i < R
+  // owns row i; the helper warp publishes each diagonal and runs the
+  // forward substitution L y = rhs one column behind, lane l holding rows
+  // l + 32 m of v (then y) in vr[m].
+  const int i = tid;
+  float s = 0.f;  // sum_{k<i} L[i][k]^2 so far, ascending k
+  float vr[kRows];
+  if (warp == helper) {
+#pragma unroll
+    for (int m = 0; m < kRows; ++m) vr[m] = lane + kWarp * m < R ? v[lane + kWarp * m] : 0.f;
+    if (lane == 0) diag[0] = __fsqrt_rn(__fsub_rn(G[0], 0.f));
+  }
+  sync_first(n_sync);
+  for (int j = 0; j < R; ++j) {
+    if (i > j && i < R) {
+      const float gij = G[i * ld + j];
+      const float t = chain_dot(G + i * ld, G + j * ld, j);
+      float dj;
+      while ((dj = *static_cast<volatile float*>(diag + j)) == kUnset) {
+      }
+      const float lij = __fdiv_rn(__fsub_rn(gij, t), dj);
+      G[i * ld + j] = lij;
+      s = __fadd_rn(s, __fmul_rn(lij, lij));
+      sd[i] = s;
+    } else if (warp == helper && j > 0) {
+      // diag[j]: s_j is final since column j - 1; then y_{j-1}, and column
+      // j - 1 off the rows below it (ascending columns).
+      if (lane == 0) diag[j] = __fsqrt_rn(__fsub_rn(G[j * ld + j], sd[j]));
+      forward_step<kRows>(vr, G, ld, diag[j - 1], j - 1, R, lane);
+    }
+    sync_first(n_sync);
+  }
+  if (warp != helper) return;
+  forward_step<kRows>(vr, G, ld, diag[R - 1], R - 1, R, lane);
+
+  // Back substitution L^T x = y, columns in descending order: x_j is final
+  // once every row k > j has been subtracted from y[j]. Row j's entries
+  // and diag[j] are loaded a step ahead.
+  float g[kRows];
+  auto load_row = [&](int j) {
+#pragma unroll
+    for (int m = 0; m < kRows; ++m)
+      g[m] = j >= 0 && lane + kWarp * m < R ? G[j * ld + lane + kWarp * m] : 0.f;
+    return j >= 0 ? diag[j] : 1.f;
+  };
+  float dj = load_row(R - 1);
+#pragma unroll
+  for (int m = kRows - 1; m >= 0; --m) {
+    for (int jj = min(kWarp, R - kWarp * m) - 1; jj >= 0; --jj) {
+      const int j = kWarp * m + jj;
+      float gj[kRows];
+#pragma unroll
+      for (int m2 = 0; m2 < kRows; ++m2) gj[m2] = g[m2];
+      const float d = dj;
+      dj = load_row(j - 1);
+      const float xj = __shfl_sync(kFull, __fdiv_rn(vr[m], d), jj);
+      if (lane == jj) vr[m] = xj;
+#pragma unroll
+      for (int m2 = 0; m2 <= m; ++m2)
+        if (lane + kWarp * m2 < j) vr[m2] = __fsub_rn(vr[m2], __fmul_rn(gj[m2], xj));
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kRows; ++m)
+    if (lane + kWarp * m < R) x[req * R + lane + kWarp * m] = vr[m];
+}
+
+// acc[a] += q[rr][a] * t[rr] for the first n (<= 4) features rr of a
+// 16-byte word t of a stage row, in ascending rr: q holds kG queries a
+// feature.
+template <int kG>
+__device__ __forceinline__ void score_quad(float (&acc)[kG], const float* t, const float* q,
+                                           int n) {
+  const float4 tv = *reinterpret_cast<const float4*>(t);
+  const float t4[4] = {tv.x, tv.y, tv.z, tv.w};
+#pragma unroll
+  for (int rr = 0; rr < 4; ++rr) {
+    if (rr < n) {
+      float qv[kG];
+      if constexpr (kG == 1) {
+        qv[0] = q[rr];
+      } else {
+#pragma unroll
+        for (int a = 0; a < kG; a += 4) {
+          const float4 q4 = *reinterpret_cast<const float4*>(q + rr * kG + a);
+          qv[a] = q4.x, qv[a + 1] = q4.y, qv[a + 2] = q4.z, qv[a + 3] = q4.w;
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < kG; ++a) acc[a] = __fadd_rn(acc[a], __fmul_rn(qv[a], t4[rr]));
+    }
+  }
+}
+
+// One warp-tile unit of score_rows: tile k of the warp, query group g, R
+// chunk c, in that order of nesting.
+struct ScoreUnit {
+  int tile, g, c;
+};
+
+template <int RC, bool Vec, int kG>
+__global__ void score_rows_kernel(const float* __restrict__ Q, const float* __restrict__ T,
+                                  const int* __restrict__ tidx, float* __restrict__ out,
+                                  int n_i, int n_j, int R, int ld_out, int n_t) {
+  extern __shared__ __align__(16) float score_smem[];
+  constexpr int kLd = RC + 4;                  // a stage row: an odd count of 16-byte words
+  constexpr int kStage = kScoreItems * kLd;    // floats a stage
+  constexpr int kPer = Vec ? RC / 4 : RC;      // copies a row chunk
+  static_assert((kLd / 4) % 2 == 1, "stage rows must be an odd number of 16-byte words");
+  const int n_groups = (n_i + kG - 1) / kG;
+  float* qs = score_smem;                      // [group][R][kG], zero past n_i
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  float* ring = score_smem + (n_groups * R * kG + 3) / 4 * 4 + warp * kScoreStages * kStage;
+
+  // Q[q][r] to qs[q / kG][r][q % kG], the loads of a thread all issued
+  // before its stores; the padded queries are 0.
+#pragma unroll 8
+  for (int e = threadIdx.x; e < n_i * R; e += blockDim.x) {
+    const int q = e / R, r = e - q * R;
+    qs[((q / kG) * R + r) * kG + q % kG] = Q[e];
+  }
+  for (int e = n_i * R + threadIdx.x; e < n_groups * kG * R; e += blockDim.x) {
+    const int q = e / R, r = e - q * R;
+    qs[((q / kG) * R + r) * kG + q % kG] = 0.f;
+  }
+  __syncthreads();
+
+  const int n_warps = gridDim.x * (blockDim.x / kWarp);
+  const int gw = blockIdx.x * (blockDim.x / kWarp) + warp;
+  const int n_tiles = (n_j + kScoreItems - 1) / kScoreItems;
+  const int n_chunks = (R + RC - 1) / RC;
+  const int per_tile = n_groups * n_chunks;
+  const int my_tiles = gw < n_tiles ? (n_tiles - gw + n_warps - 1) / n_warps : 0;
+  const int n_units = my_tiles * per_tile;
+  auto unit = [&](int u) {
+    const int k = u / per_tile, rem = u - k * per_tile;
+    return ScoreUnit{gw + k * n_warps, rem / n_chunks, rem - (rem / n_chunks) * n_chunks};
+  };
+  // Copy unit u's T rows into its stage; commit a group (empty past the
+  // last unit), so that group u is unit u's.
+  auto load = [&](int u) {
+    if (u < n_units) {
+      const ScoreUnit w = unit(u);
+      const int j0 = w.tile * kScoreItems, c0 = w.c * RC, rc = min(RC, R - c0);
+      const int jl = j0 + lane;
+      const int tl = jl < n_j ? (tidx ? min(max(tidx[jl], 0), n_t - 1) : jl) : 0;
+      float* st = ring + (u % kScoreStages) * kStage;
+#pragma unroll 4
+      for (int e = lane; e < kScoreItems * kPer; e += kWarp) {
+        const int it = e / kPer, q = e - it * kPer;
+        const int t = __shfl_sync(kFull, tl, it);
+        const int off = Vec ? 4 * q : q;
+        if (j0 + it < n_j && off < rc) {
+          const float* src = T + static_cast<size_t>(t) * R + c0 + off;
+          if (Vec)
+            cp_async16(st + it * kLd + off, src);
+          else
+            cp_async4(st + it * kLd + off, src);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int u = 0; u < kScoreStages - 1; ++u) load(u);
+  float acc[kG] = {};
+  for (int u = 0; u < n_units; ++u) {
+    cp_async_wait<kScoreStages - 2>();
+    __syncwarp();  // every lane's copies of unit u landed; unit u - 1 is read
+    load(u + kScoreStages - 1);
+    const ScoreUnit w = unit(u);
+    const int c0 = w.c * RC, rc = min(RC, R - c0);
+    if (w.c == 0) {
+#pragma unroll
+      for (int a = 0; a < kG; ++a) acc[a] = 0.f;
+    }
+    const float* row = ring + (u % kScoreStages) * kStage + lane * kLd;
+    const float* q = qs + (static_cast<size_t>(w.g) * R + c0) * kG;
+    if (rc == RC) {
+#pragma unroll
+      for (int r = 0; r < RC; r += 4) score_quad(acc, row + r, q + r * kG, 4);
+    } else {
+      for (int r = 0; r < rc; r += 4) score_quad(acc, row + r, q + r * kG, rc - r);
+    }
+    if (w.c == n_chunks - 1) {
+      const int j = w.tile * kScoreItems + lane;
+      if (j < n_j) {
+#pragma unroll
+        for (int a = 0; a < kG; ++a) {
+          const int i = w.g * kG + a;
+          if (i < n_i) out[static_cast<size_t>(i) * ld_out + j] = acc[a];
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
 }
 
 __global__ void __launch_bounds__(kWinWarps * kWarp)
@@ -256,24 +565,63 @@ window_score_kernel(const float* __restrict__ K, const float* __restrict__ head,
 extern "C" int fold_in_solve(const float* B, const int* idx, const float* ratings,
                              const float* mask, float lam, float* x, int b, int L,
                              int R, int n_b, int threads, int smem_bytes, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fold_in_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  // Rows a lane in the substitutions: R <= 128 takes 4, R <= 256 8.
+  const int rows = R <= 4 * kWarp ? 4 : 8;
+  if (R > 8 * kWarp || threads < ((R + kWarp - 1) / kWarp + 1) * kWarp || threads % kWarp != 0 ||
+      threads > kFoldThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = rows == 4 ? fold_in_solve_kernel<4> : fold_in_solve_kernel<8>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fold_in_solve_kernel<<<b, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      B, idx, ratings, mask, lam, x, L, R, n_b);
+  const bool vec = R % 4 == 0 && reinterpret_cast<uintptr_t>(B) % 16 == 0;
+  kernel<<<b, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(B, idx, ratings, mask,
+                                                                       lam, x, L, R, n_b, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int score_rows(const float* Q, const float* T, const int* tidx, float* out,
-                          int n_i, int n_j, int R, int ld_out, int n_t, int smem_bytes,
-                          void* stream) {
+namespace {
+
+template <int RC, bool Vec, int kG>
+int launch_score(const float* Q, const float* T, const int* tidx, float* out, int n_i,
+                 int n_j, int R, int ld_out, int n_t, int blocks, int threads,
+                 int smem_bytes, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      score_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      score_rows_kernel<RC, Vec, kG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n_j + kItems - 1) / kItems;
-  score_rows_kernel<<<blocks, kItems, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+  score_rows_kernel<RC, Vec, kG><<<blocks, threads, smem_bytes, stream>>>(
       Q, T, tidx, out, n_i, n_j, R, ld_out, n_t);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// blocks, threads, rchunk (32 or 128) and smem_bytes: the launch shape of
+// ops/serve_kernels.py::score_launch. T's rows come in 16-byte copies
+// where R % 4 == 0 and T is 16-byte aligned, else in 4-byte copies.
+extern "C" int score_rows(const float* Q, const float* T, const int* tidx, float* out,
+                          int n_i, int n_j, int R, int ld_out, int n_t, int blocks,
+                          int threads, int rchunk, int smem_bytes, void* stream) {
+  if (blocks < 1 || threads < kWarp || threads % kWarp != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = R % 4 == 0 && reinterpret_cast<uintptr_t>(T) % 16 == 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto args = [&](auto launch) {
+    return launch(Q, T, tidx, out, n_i, n_j, R, ld_out, n_t, blocks, threads, smem_bytes, s);
+  };
+  // One query (the GAT head, a batch of one) takes groups of 1, else kQ.
+  if (n_i == 1) {
+    if (rchunk == 32)
+      return vec ? args(launch_score<32, true, 1>) : args(launch_score<32, false, 1>);
+    if (rchunk == 128)
+      return vec ? args(launch_score<128, true, 1>) : args(launch_score<128, false, 1>);
+  } else {
+    if (rchunk == 32)
+      return vec ? args(launch_score<32, true, kQ>) : args(launch_score<32, false, kQ>);
+    if (rchunk == 128)
+      return vec ? args(launch_score<128, true, kQ>) : args(launch_score<128, false, kQ>);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int window_score(const float* K, const float* head, const int* tokens,

@@ -22,10 +22,13 @@ in a micro-batch (the serving determinism contract):
 
 Each kernel keeps one accumulator an output and sums in a fixed order with
 every product and sum rounded apart, and the plain versions here sum in
-that order with the same roundings; so on the card a kernel and its plain
-version differ at most where ``sqrt``, ``exp`` or a division round apart,
-and on either device a reply does not depend on the batch size, its slot
-or padding. The plain versions loop in Python over the summed axis, which
+that order with the same roundings; so on the card ``fold_in_solve`` and
+``score_rows`` give their plain versions' bits (division and square root
+are IEEE's on both sides), ``window_score`` may differ where ``exp``
+rounds apart, and on either device a reply does not depend on the batch
+size, its slot or padding. The kernels' tiling and launch shapes
+(:func:`score_launch`, :func:`fold_in_launch`) never change an output's
+order. The plain versions loop in Python over the summed axis, which
 makes them slow and exact; nothing on the main path calls them when a
 card is present.
 
@@ -37,6 +40,7 @@ range, as an XLA gather clamps them.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -47,11 +51,21 @@ from distributed_sddmm_tpu_torch.ops.kernels import ATTN_NEG
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
 LAUNCHES = {"fold_in_solve": 0, "score_rows": 0, "window_score": 0}
 
-#: Outputs a ``score_rows`` block stages through shared memory
-#: (``kItems`` in the source).
-SCORE_ITEMS = 64
-#: The most shared memory a block can opt into on an H100 (227 KB).
+#: ``score_rows``: outputs a warp tile, one a lane (``kScoreItems`` in the
+#: source); queries a group, the accumulators a lane (``kQ``); ring
+#: stages a warp (``kScoreStages``).
+SCORE_ITEMS = 32
+SCORE_QUERIES = 8
+SCORE_STAGES = 3
+#: The most shared memory a block can opt into on an H100 (227 KB), an
+#: SM's shared memory (228 KB) and what the card reserves of it a block.
 SMEM_OPTIN = 232448
+SMEM_SM = 233472
+SMEM_RESERVED = 1024
+#: SMs of an H100 SXM: the launch shape's default where no card is asked.
+SM_COUNT = 132
+#: Threads of a ``fold_in_solve`` block (``kFoldThreads`` in the source).
+FOLD_THREADS = 512
 
 
 def launch_counts() -> dict:
@@ -64,15 +78,49 @@ def reset_launch_counts() -> None:
 
 
 def fold_in_smem_bytes(L: int, R: int) -> int:
-    """Shared memory of one fold-in block: the Gram (rows padded to R + 1
-    floats), the masked rows, L's diagonal and the right-hand side."""
-    return 4 * (R * (R + 1) + L * R + 2 * R)
+    """Shared memory of one fold-in block: the Gram (rows of ``ceil8(R) +
+    4`` floats, an odd count of 16-byte words), the masked rows (``ceil4(R)``
+    floats), L's diagonal, rhs and the running sums of squares of L's
+    rows, and the mask, the weights and the row ids of the L slots."""
+    ld, r4, l4 = -(-R // 8) * 8 + 4, -(-R // 4) * 4, -(-L // 4) * 4
+    return 4 * (R * ld + L * r4 + 3 * r4 + 3 * l4)
 
 
-def score_smem_bytes(n_i: int, R: int) -> int:
-    """Shared memory of one ``score_rows`` block: its staged T rows and
-    the n_i query rows."""
-    return 4 * (SCORE_ITEMS * (R + 1) + n_i * R)
+def fold_in_launch(L: int, R: int) -> dict:
+    """Launch shape of ``fold_in_solve`` (a block a request):
+    ``{"threads", "smem"}``. FOLD_THREADS: the Gram's tiles get four warps
+    a scheduler; a thread owns a row of the factor, and the warp after the
+    rows' runs the substitutions (R <= 256, so at most nine warps)."""
+    return {"threads": FOLD_THREADS, "smem": fold_in_smem_bytes(L, R)}
+
+
+def score_launch(n_i: int, n_j: int, R: int, sms: int = SM_COUNT) -> dict:
+    """Launch shape of ``score_rows``: ``{"blocks", "threads", "items",
+    "rchunk", "smem"}``. A warp walks tiles of ``items`` outputs in R
+    chunks of ``rchunk`` features, through SCORE_STAGES shared-memory
+    stages of its own; a block stages the queries once, SCORE_QUERIES to a
+    group (a single query alone). Many tiles (the ALS scores): chunks of 32 features and four
+    warps a block, as many blocks as fit on ``sms`` SMs at once; few (the
+    GAT head): chunks of 128 and one-warp blocks, so that the tiles spread
+    over more SMs, each with more bytes in flight."""
+    tiles = -(-n_j // SCORE_ITEMS)
+    group = 1 if n_i == 1 else SCORE_QUERIES
+    q_bytes = 16 * -(-group * -(-n_i // group) * R // 4)
+    rchunk, warps = (32, 4) if tiles >= 4 * sms else (128, 1)
+    if R <= 32:
+        rchunk = 32
+
+    def smem(rc: int, w: int) -> int:
+        return q_bytes + 4 * SCORE_STAGES * w * SCORE_ITEMS * (rc + 4)
+
+    while warps > 1 and smem(rchunk, warps) > SMEM_OPTIN:
+        warps //= 2
+    if smem(rchunk, warps) > SMEM_OPTIN:
+        rchunk = 32
+    size = smem(rchunk, warps)
+    per_sm = max(1, min(SMEM_SM // (size + SMEM_RESERVED), 2048 // (32 * warps), 32))
+    return {"blocks": max(1, min(-(-tiles // warps), per_sm * sms)), "threads": 32 * warps,
+            "items": SCORE_ITEMS, "rchunk": rchunk, "smem": size}
 
 
 # ------------------------------------------------------------------ #
@@ -205,6 +253,16 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+#: The wrapper's launch shapes, worked out once a shape (a request batch's
+#: host time is part of its latency).
+_score_shape = functools.lru_cache(maxsize=1024)(score_launch)
+
+
 def fold_in_solve(B, idx, ratings, mask, lam: float):
     """``x [b, R]`` float32 for ``B [N, R]`` float32 and ``idx`` (int32),
     ``ratings`` and ``mask`` (float32), each ``[b, L]``."""
@@ -220,18 +278,18 @@ def fold_in_solve(B, idx, ratings, mask, lam: float):
     N, R = B.shape
     if min(N, R, L) < 1:
         raise ValueError("fold_in_solve needs N, R and L >= 1")
-    smem = fold_in_smem_bytes(L, R)
-    if smem > SMEM_OPTIN:
+    shape = fold_in_launch(L, R)
+    if shape["smem"] > SMEM_OPTIN:
         raise ValueError(
-            f"fold_in_solve at R={R}, L={L} needs {smem} bytes of shared memory a "
-            f"block, past the card's {SMEM_OPTIN}; there is no other path")
+            f"fold_in_solve at R={R}, L={L} needs {shape['smem']} bytes of shared memory "
+            f"a block, past the card's {SMEM_OPTIN}; there is no other path")
     lib = _build.load()
     x = torch.empty(b, R, dtype=torch.float32, device=dev)
     if b:
-        threads = min(1024, max(32, -(-R // 32) * 32))
         _launch("fold_in_solve", lib, lib.fold_in_solve(
             B.data_ptr(), idx.data_ptr(), ratings.data_ptr(), mask.data_ptr(),
-            float(lam), x.data_ptr(), b, L, R, N, threads, smem, _stream(dev)))
+            float(lam), x.data_ptr(), b, L, R, N, shape["threads"], shape["smem"],
+            _stream(dev)))
     return x
 
 
@@ -256,15 +314,16 @@ def score_rows(Q, T, tidx=None, out=None):
         out = torch.empty(n_i, n_j, dtype=torch.float32, device=dev)
     elif out.dim() != 2 or out.shape[0] != n_i or out.shape[1] < n_j:
         raise ValueError(f"out must be [{n_i}, >= {n_j}]")
-    smem = score_smem_bytes(n_i, R)
-    if smem > SMEM_OPTIN:
-        raise ValueError(f"score_rows at R={R} with {n_i} queries needs {smem} bytes of "
-                         f"shared memory a block, past the card's {SMEM_OPTIN}")
+    shape = _score_shape(n_i, n_j, R, _sm_count(dev.index))
+    if shape["smem"] > SMEM_OPTIN:
+        raise ValueError(f"score_rows at R={R} with {n_i} queries needs {shape['smem']} bytes "
+                         f"of shared memory a block, past the card's {SMEM_OPTIN}")
     lib = _build.load()
     if n_i and n_j:
         _launch("score_rows", lib, lib.score_rows(
             Q.data_ptr(), T.data_ptr(), tidx.data_ptr() if tidx is not None else None,
-            out.data_ptr(), n_i, n_j, R, out.shape[1], T.shape[0], smem, _stream(dev)))
+            out.data_ptr(), n_i, n_j, R, out.shape[1], T.shape[0], shape["blocks"],
+            shape["threads"], shape["rchunk"], shape["smem"], _stream(dev)))
     return out[:, :n_j]
 
 

@@ -25,6 +25,7 @@ definition in ``ops/csrc/*.cu`` against ``_build.SIGNATURES``.
 """
 
 import ctypes
+import pathlib
 import re
 
 import numpy as np
@@ -343,6 +344,34 @@ def test_build_key_tracks_sources_and_flags(monkeypatch, tmp_path):
     with open(tmp_path / "tile_common.cuh", "a") as f:
         f.write("\n")
     assert _build.library_path() != path
+
+
+def test_build_source_writes_through_a_temporary_file(monkeypatch, tmp_path):
+    """``build_source``: one library a source and flags, moved into place
+    whole, reused while the source is unchanged."""
+    src = tmp_path / "extra.cu"
+    src.write_text("// one\n")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "nvcc")
+    calls = []
+
+    def fake_run_all(cmds):
+        (cmd,) = cmds
+        out = pathlib.Path(cmd[cmd.index("-o") + 1])
+        assert out.parent != _build.BUILD_DIR      # never the final name
+        out.write_bytes(b"lib")
+        calls.append(cmd)
+        return ""
+
+    monkeypatch.setattr(_build, "_run_all", fake_run_all)
+    path = _build.build_source(src)
+    assert path.parent == _build.BUILD_DIR and path.name.startswith("extra-")
+    assert path.suffix == ".so" and path.read_bytes() == b"lib"
+    assert _build.build_source(src) == path and len(calls) == 1
+    src.write_text("// two\n")
+    assert _build.build_source(src) != path and len(calls) == 2
+    assert sorted(p.name for p in _build.BUILD_DIR.iterdir()) == sorted(
+        [path.name, _build.build_source(src).name])
 
 
 _EXTERN_C = re.compile(r'extern "C"\s+[\w\s\*]*?\b(\w+)\s*\(([^)]*)\)\s*\{')

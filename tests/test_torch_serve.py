@@ -921,7 +921,7 @@ def test_wrappers_run_plain_on_cpu_and_refuse_other_devices():
                  lambda: serve_kernels.window_score(Bm, Bm[0], im, om, 10, 2)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
-    assert serve_kernels.fold_in_smem_bytes(64, 128) == 99840
+    assert serve_kernels.fold_in_smem_bytes(64, 128) == 102656
 
 
 # --------------------------------------------------------------------- #
