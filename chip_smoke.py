@@ -324,13 +324,14 @@ last line is printed):
    attention within 1e-5, two launches bit-equal; each timed with CUDA
    events beside its bound and the torch composition it replaces
    (``torch.linalg.cholesky`` with ``cholesky_solve``; ``x @ B.T`` with
-   ``topk``), which the port never calls. A line before them gives
-   ptxas's registers, shared memory and spills of ``fold_in_solve`` and
-   ``score_rows``, and each kernel's line its launch shape. Last, every
-   instance of those two kernels that their entry points can launch
-   (``SERVE_BUILDS``: R chunk, 16- or 4-byte copies, queries a group,
-   rows a lane) at a small shape that selects it, bit-equal to its plain
-   version.
+   ``topk``), which the port never calls; ``window_score`` also in a CUDA
+   graph (``graph_ms``) beside the launch floors. A line before them gives
+   ptxas's registers, shared memory and spills of the three kernels, and
+   each kernel's line its launch shape. Last, every instance of the three
+   kernels that their entry points can launch (``SERVE_BUILDS``: R chunk,
+   16- or 4-byte copies, queries a group, rows a lane) at a small shape
+   that selects it, ``fold_in_solve`` and ``score_rows`` bit-equal to
+   their plain versions, ``window_score`` within 1e-5 of its own.
 21. kernels line -- ``{"kernels": [...]}``, the three serve kernels after
    the tile kernels.
 22. last line -- ``{"ok": true, "device": {...}}``.
@@ -6235,15 +6236,20 @@ SERVE = {"min_checked": 32, "samples": 16, "batch": 8, "reps": 20, "plain_reps":
          "tol": {"fold_in_solve": 1e-4, "score_rows": 1e-4, "window_score": 1e-5}}
 SERVE_EXACT = ("fold_in_solve", "score_rows")
 #: The kernels (mangled-name fragments) whose ptxas report phase serve prints.
-SERVE_PTXAS = ("fold_in_solve_kernel", "score_rows_kernel")
-#: Phase serve's check of every kernel instance of SERVE_EXACT at a small
-#: shape that selects it: ``score_rows`` (n_i, n_j, R, T's offset in
-#: floats, gathered through ``tidx``, ``out``'s ld past n_j) and
-#: ``fold_in_solve`` (b, L, R, B's offset). An offset of 1 float or an R
-#: that 4 does not divide takes 4-byte copies; more than 4 x 132 item tiles
-#: of 32 take R chunks of 32, fewer 128; R > 128 takes 8 rows a lane in the
-#: fold-in's substitutions. ``expect``: the instances, all of which must be
-#: reached.
+SERVE_PTXAS = ("fold_in_solve_kernel", "score_rows_kernel", "window_score_kernel")
+#: Phase serve's check of every kernel instance of the serve kernels at a
+#: small shape that selects it: ``score_rows`` (n_i, n_j, R, T's offset in
+#: floats, gathered through ``tidx``, ``out``'s ld past n_j),
+#: ``fold_in_solve`` (b, L, R, B's offset) and ``window_score`` (b, L, R,
+#: w, K's and head's offsets, dynamic). An offset of 1 float or an R that 4
+#: does not divide takes 4-byte copies; more than 4 x 132 item tiles of 32
+#: take R chunks of 32, fewer 128; R > 128 takes 8 rows a lane in the
+#: fold-in's substitutions; the window scorer takes R chunks of 32 where R
+#: <= 32 or chunks of 64 do not fit (w 142 and 256), of 4 where 32 do not
+#: (w 600 and 1815, the widest a warp a token fit), several chains a thread
+#: past 2W = 1024 (w 256 and up), and above 48 KB of shared memory (w 64,
+#: 142, 256, 600 and 1815) its entry point opts in. ``expect``: the
+#: instances, all of which must be reached.
 SERVE_BUILDS = {
     "score_rows": ((8, 4097, 128, 0, False, 0), (3, 4097, 130, 0, False, 1),
                    (1, 4097, 130, 0, True, 0), (1, 700, 128, 0, True, 0),
@@ -6251,9 +6257,16 @@ SERVE_BUILDS = {
                    (2, 20000, 128, 0, False, 1), (1, 20000, 128, 0, True, 0),
                    (5, 20000, 20, 1, False, 0)),
     "fold_in_solve": ((3, 40, 128, 0), (3, 40, 128, 1), (3, 40, 144, 0), (3, 40, 130, 0)),
+    "window_score": ((2, 4, 128, 16, 0, 0, True), (2, 4, 130, 16, 0, 0, False),
+                     (2, 4, 128, 16, 1, 0, True), (2, 4, 128, 16, 0, 1, False),
+                     (3, 4, 20, 4, 0, 0, True), (3, 4, 30, 4, 0, 0, True),
+                     (1, 3, 128, 142, 0, 0, True), (1, 4, 512, 64, 0, 0, True),
+                     (2, 3, 128, 256, 0, 0, True), (1, 3, 128, 1815, 0, 0, False),
+                     (2, 3, 130, 600, 0, 0, True)),
     "expect": tuple(f"score_rows<{rc},{v},{g}>" for rc in (32, 128) for v in ("16B", "4B")
                     for g in (1, 8))
-    + tuple(f"fold_in_solve<{k},{v}>" for k in (4, 8) for v in ("16B", "4B")),
+    + tuple(f"fold_in_solve<{k},{v}>" for k in (4, 8) for v in ("16B", "4B"))
+    + tuple(f"window_score<{rc},{v}>" for rc in (4, 32, 64) for v in ("16B", "4B")),
 }
 
 
@@ -6333,6 +6346,15 @@ def fold_build(R: int, B) -> str:
     return f"fold_in_solve<{4 if R <= 128 else 8},{'16B' if vec else '4B'}>"
 
 
+def window_build(W: int, R: int, K, head) -> str:
+    """The same for ``window_score``: R chunk, 16- or 4-byte copies."""
+    from distributed_sddmm_tpu_torch.ops import serve_kernels
+
+    vec = R % 4 == 0 and K.data_ptr() % 16 == 0 and head.data_ptr() % 16 == 0
+    return (f"window_score<{serve_kernels.window_launch(1, W, R)['rchunk']},"
+            f"{'16B' if vec else '4B'}>")
+
+
 def floats_at(gen, n: int, R: int, offset: int, dev):
     """[n, R] standard-normal floats, contiguous, starting ``offset``
     floats into their allocation (1: not 16-byte aligned)."""
@@ -6341,23 +6363,30 @@ def floats_at(gen, n: int, R: int, offset: int, dev):
 
 
 def serve_builds(dev, card: str) -> None:
-    """Every instance of ``score_rows_kernel`` and ``fold_in_solve_kernel``
-    that the entry points can launch, each at a small shape
-    (SERVE_BUILDS) that selects it, against its plain version bit for bit
-    (max abs error 0.0; NaN never equal), two launches equal. Fails unless
-    the shapes reach all of SERVE_BUILDS["expect"]."""
+    """Every instance of ``score_rows_kernel``, ``fold_in_solve_kernel`` and
+    ``window_score_kernel`` that the entry points can launch, each at a
+    small shape (SERVE_BUILDS) that selects it, against its plain version
+    (bit for bit, max abs error 0.0, for SERVE_EXACT; the window scorer
+    within its tolerance of the plain version's max abs value; NaN never
+    equal), two launches equal. Fails unless the shapes reach all of
+    SERVE_BUILDS["expect"]."""
     from distributed_sddmm_tpu_torch.ops import serve_kernels
 
     gen = torch.Generator(device=dev).manual_seed(13)
     rows, seen = [], set()
 
-    def held(build: str, got, again, want, **shape) -> None:
-        err = float((got - want).abs().max())
-        require(torch.equal(got, want) and err == 0.0,
-                f"{build} at {shape}: max abs error {err:.3e}, not bit-equal to its plain version")
+    def held(build: str, got, again, want, tol=None, **shape) -> None:
+        err, rel = rel_err(got, want)
+        if tol is None:
+            require(torch.equal(got, want) and err == 0.0,
+                    f"{build} at {shape}: max abs error {err:.3e}, not bit-equal to its plain "
+                    "version")
+        else:
+            require(bool(torch.isfinite(got).all()) and rel <= tol,
+                    f"{build} at {shape}: error {rel:.3e} of the plain version's > {tol}")
         require(torch.equal(got, again), f"{build} at {shape}: two launches differ")
         seen.add(build)
-        rows.append({"build": build, **shape, "max_abs_err": err})
+        rows.append({"build": build, **shape, "max_abs_err": err, "max_rel_err": rel})
 
     for n_i, n_j, R, offset, gather, ld_extra in SERVE_BUILDS["score_rows"]:
         n_t = 2 * n_j if gather else n_j
@@ -6388,6 +6417,30 @@ def serve_builds(dev, card: str) -> None:
         held(fold_build(R, B), got, again,
              serve_kernels.fold_in_solve_plain(B, idx, rt, mk, lam), b=b, L=L, R=R,
              offset=offset)
+    for b, L, R, w, k_off, h_off, dyn in SERVE_BUILDS["window_score"]:
+        W = 2 * w + 1
+        n_ctx = max(600, 2 * W)
+        K = floats_at(gen, n_ctx, R, k_off, dev).div_(math.sqrt(R))
+        K[1::3] = K[0::3][:K[1::3].shape[0]].clone()  # repeated rows: tied logits for topk
+        head = floats_at(gen, 1, R, h_off, dev).view(R)
+        n_valid = n_ctx - 10 if dyn else n_ctx
+        tokens = torch.randint(0, n_valid, (b, L), generator=gen, device=dev,
+                               dtype=torch.int32)
+        tokens[0, 0], tokens[0, 1] = 0, n_valid - 1
+        mk = torch.ones(b, L, device=dev)
+        mk[-1, L // 2:] = 0.0  # padded slots
+        kind = param = None
+        if dyn:
+            kind = (torch.arange(b, device=dev) % 2).to(torch.int32)
+            param = torch.tensor([(5 * i + 3) % (W + 1) for i in range(b)], device=dev,
+                                 dtype=torch.int32)
+        call = lambda: serve_kernels.window_score(  # noqa: E731
+            K, head, tokens, mk, n_valid, w, kind, param)
+        got = call()
+        held(window_build(W, R, K, head), got, call(),
+             serve_kernels.window_score_plain(K, head, tokens, mk, n_valid, w, kind, param),
+             tol=SERVE["tol"]["window_score"], b=b, L=L, R=R, window=w, k_offset=k_off,
+             head_offset=h_off, dynamic=dyn)
     missing = set(SERVE_BUILDS["expect"]) - seen
     require(not missing, f"serve builds never checked: {sorted(missing)}")
     emit({"phase": "serve_builds", "card": card, "checked": rows})
@@ -6492,10 +6545,13 @@ def serve_kernels_gat(eng, dev) -> dict:
 def serve_kernels_attention(eng, dyn, dev) -> dict:
     """window_score at the attention cell's shapes (a batch of 8 at the
     largest token bucket, w = 16), static and with a mix of window: and
-    topk: masks, against its plain version (within 1e-5)."""
+    topk: masks, against its plain version (within 1e-5); besides its
+    eager time, ``graph_ms`` (SERVE["reps"] calls in one CUDA graph: the
+    device's time without the host's) and the launch floors."""
     from distributed_sddmm_tpu_torch.ops import serve_kernels
 
     out = {}
+    floors = launch_floors(dev)
     for tag, e in (("attention", eng), ("attention_dynamic", dyn)):
         wl = e.workload
         rng = np.random.default_rng(13)
@@ -6518,7 +6574,8 @@ def serve_kernels_attention(eng, dyn, dev) -> dict:
         out[tag] = serve_entry(
             "window_score", tag, got, again, want, SERVE["tol"]["window_score"], call, plain,
             serve_bound(t * (W + 1) * R * 4 + R * 4 + b * L * 12, t * W * (4 * R + 6)), None,
-            b=b, L=L, R=R, window=wl.window, tokens=t)
+            b=b, L=L, R=R, window=wl.window, tokens=t, graph_ms=graph_ms(call, SERVE["reps"]),
+            **floors, launch=serve_kernels.window_launch(b * L, W, R))
     return out
 
 
@@ -6853,6 +6910,8 @@ def serve_kernel_lines(rows: dict, launches: dict) -> list:
             "replaces": SERVE_REPLACES[name], "launches": n, "serve_launches": n,
             **{k: row[k] for k in ("max_abs_err", "max_rel_err", "tol", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms", "torch_ms")},
+            **{k: row[k] for k in ("graph_ms", "launch_floor_ms", "graph_launch_floor_ms")
+               if k in row},
             "at": "serve", **{k: v for k, v in row.items() if isinstance(v, dict)}})
     return out
 

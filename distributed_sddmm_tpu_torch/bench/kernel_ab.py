@@ -77,7 +77,20 @@ R=128 unless named, standard-normal operands, f32 and bf16:
   ``__fdiv_rn``, every step behind at least one ``__fadd_rn``: R (t_sqrt +
   t_add) + 2R (t_div + t_add), with each t the time of one dependent step
   of a chain of ``LATENCY_STEPS`` in one thread (``step_ns``: the kernel of
-  ``bench/csrc/step_latency.cu``, built beside the kernels).
+  ``bench/csrc/step_latency.cu``, built beside the kernels). Last,
+  ``window_score`` on the attention serve context (``SERVE_WINDOW``:
+  2**16 tokens, R = 128, w = 16, an ``AttentionTokenScore`` over
+  N(0, 1/R) rows), static and dynamic (each request's mask drawn by the
+  dynamic workload's ``sample_payload``: none, ``window:p`` or
+  ``topk:p``), at 8 x 64 token slots (the full bucket) and 2 x 4 (the
+  batch a 100 Hz stream mostly makes; payloads cut to 4 tokens): each
+  tree through its own entry point (the parent's takes no launch shape),
+  ``torch_ms`` (the JAX program as torch ops, sort-and-threshold for
+  ``topk``: a yardstick), ``latency_floor_ms`` ((R + W) t_add + t_div: the
+  dot chain, then the W-step final sum and the division) and the launch
+  floors of the pass-2 lines; then static at 2 x 4 slots with the wide
+  windows of ``SERVE_WINDOW_WIDE`` (w 256 and 1815: several chains a
+  thread, R chunks of 32 and 4).
 
 Each case runs the trees in the order given, then in reverse (A B B A),
 each reading CUDA events around ``REPS`` calls after a warmup call. It
@@ -112,6 +125,7 @@ from distributed_sddmm_tpu_torch.bench.harness import make_algorithm
 from distributed_sddmm_tpu_torch.codegen import BankedCudaKernel, banded, select_variant
 from distributed_sddmm_tpu_torch.ops import _build, cuda_kernels, serve_kernels
 from distributed_sddmm_tpu_torch.ops.cuda_kernels import CudaTileKernel
+from distributed_sddmm_tpu_torch.ops.kernels import ATTN_NEG
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
 
 REPS = 20
@@ -143,6 +157,13 @@ SERVE_GAT = (1, 512, 1 << 20, 512)
 #: one or two requests that most batches of a 100 Hz stream hold.
 SERVE_ALS_BATCHES = (8, 2, 1)
 SERVE_FOLD = (8, 64)
+#: The window scorer: context tokens, R, w, and the (requests, token slots)
+#: of each case.
+SERVE_WINDOW = (1 << 16, 128, 16)
+SERVE_WINDOW_BATCHES = ((8, 64), (2, 4))
+#: Wide static windows on the same context at 2 x 4 slots: Longformer's w
+#: 256, and the widest a warp a token fit (64 W bytes of shared memory).
+SERVE_WINDOW_WIDE = (256, 1815)
 LATENCY_STEPS = 1 << 20
 
 
@@ -168,7 +189,7 @@ def load_tree(root: str) -> dict:
     spec.loader.exec_module(serve)
     walks = {k: v for k, v in _build.ptxas_report(info["log"]).items()
              if any(n in k for n in ("walk_kernel", "split_reduce", "attn_merge",
-                                     "fold_in_solve", "score_rows"))}
+                                     "fold_in_solve", "score_rows", "window_score"))}
     return {"lib": lib, "sigs": mod.SIGNATURES, "serve": serve, "build_seconds": info["seconds"],
             "cached": info["cached"], "walk_ptxas": walks}
 
@@ -638,6 +659,20 @@ def fold_args(tree: dict, B, idx, rt, mk, lam: float, x) -> tuple:
             shape["smem"])
 
 
+def window_args(tree: dict, K, head, tokens, mask, n_valid: int, w: int, kind, param,
+                out) -> tuple:
+    """The same for ``window_score`` (the parent's takes no launch shape)."""
+    b, L = tokens.shape
+    R = K.shape[1]
+    args = (_p(K), _p(head), _p(tokens), _p(mask), _p(kind), _p(param), _p(out), b * L, L, R,
+            w, n_valid, K.shape[0], 1.0 / float(np.sqrt(R)))
+    serve = tree["serve"]
+    if not hasattr(serve, "window_launch"):
+        return args
+    shape = serve.window_launch(b * L, 2 * w + 1, R)
+    return (*args, shape["threads"], shape["rchunk"], shape["smem"])
+
+
 def serve_bound(moved: float, ops: float) -> dict:
     """``bound_ms`` and ``bound_by`` of a serve kernel that moves ``moved``
     bytes and does ``ops`` f32 operations."""
@@ -656,6 +691,32 @@ def fold_in_torch(B, idx, ratings, mask, lam: float):
     gram = rows.transpose(1, 2) @ rows + lam * eye
     rhs = (rows * (ratings * mask)[..., None]).sum(1)
     return torch.cholesky_solve(rhs[..., None], torch.linalg.cholesky(gram))[..., 0]
+
+
+def window_score_torch(K, head, tokens, mask, n_valid: int, w: int, kind=None, param=None):
+    """The JAX window program (``serve/workloads.py``) as torch ops: the
+    gather, ``(q * kn).sum(-1)``, ``where``, ``amax``, ``exp`` and the sums;
+    for ``topk:p`` a descending sort and its p-th value as the threshold. A
+    yardstick for ``window_score`` that the port never calls."""
+    cap, R = K.shape
+    W = 2 * w + 1
+    offs = torch.arange(-w, w + 1, device=K.device)
+    nb = tokens.long()[..., None] + offs
+    valid = (nb >= 0) & (nb < n_valid)
+    q = K[tokens.long().clamp(0, cap - 1)]
+    kn = K[nb.clamp(0, cap - 1)]
+    z = torch.where(valid, (q[..., None, :] * kn).sum(-1) / float(np.sqrt(R)), ATTN_NEG)
+    if kind is not None:
+        p = param.long()[:, None, None]
+        thr = z.sort(-1, descending=True).values.gather(
+            -1, (p.clamp(1, W) - 1).expand(*z.shape[:-1], 1))
+        keep = torch.where(kind.long()[:, None, None] == 1, z >= thr, offs.abs() <= p)
+        valid = valid & keep
+        z = torch.where(valid, z, ATTN_NEG)
+    e = torch.where(valid, torch.exp(z - z.amax(-1, keepdim=True)), 0.0)
+    d = e.sum(-1)
+    num = (e * (kn * head).sum(-1)).sum(-1)
+    return num / torch.where(d > 0, d, 1.0) * mask
 
 
 def step_latency_lib() -> ctypes.CDLL:
@@ -726,6 +787,7 @@ def compare_serve(trees: dict, case: str, op: str, args_of, outputs, plain, emit
 def serve_cases(trees: dict, dev, emit) -> None:
     """The serve kernels at the serving shapes (the module docstring)."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ns = step_ns(dev)
     gen = torch.Generator(device=dev).manual_seed(5)
     _, N, R = SERVE_ALS
     T = torch.randn(N, R, generator=gen, device=dev)
@@ -750,7 +812,6 @@ def serve_cases(trees: dict, dev, emit) -> None:
         rt[i, :n] = rng.standard_normal(n)
         mk[i, :n] = 1.0
     lam = 0.1
-    ns = step_ns(dev)
     floor = (R * (ns["fsqrt"] + ns["fadd"]) + 2 * R * (ns["fdiv"] + ns["fadd"])) * 1e-6
     for b in SERVE_ALS_BATCHES:
         # The first b requests of the batch of SERVE_FOLD[0].
@@ -778,6 +839,57 @@ def serve_cases(trees: dict, dev, emit) -> None:
                   n_i=n_i, n_j=n_j, R=F, launch=serve_kernels.score_launch(n_i, n_j, F, sms),
                   **serve_bound(n_j * F * 4 + F * 4 + n_j * 4, 2 * n_j * F),
                   library_ms=time_ms(lambda: X[tidx.long()] @ w[0]))
+    del X
+    window_cases(trees, dev, emit, ns)
+
+
+def window_cases(trees: dict, dev, emit, ns: dict) -> None:
+    """``window_score`` at SERVE_WINDOW, static and dynamic, at each of
+    SERVE_WINDOW_BATCHES, then static at each of SERVE_WINDOW_WIDE (the
+    module docstring)."""
+    from distributed_sddmm_tpu_torch.serve.workloads import AttentionTokenScore
+
+    n_ctx, R, w0 = SERVE_WINDOW
+    context = (np.random.default_rng(21).standard_normal((n_ctx, R))
+               / np.sqrt(R)).astype(np.float32)
+    floor = torch.zeros(1, device=dev)
+    cases = [(w0, False, SERVE_WINDOW_BATCHES), (w0, True, SERVE_WINDOW_BATCHES),
+             *((w, False, ((2, 4),)) for w in SERVE_WINDOW_WIDE)]
+    for w, dynamic, batches in cases:
+        W = 2 * w + 1
+        wl = AttentionTokenScore(context, window=w, dynamic=dynamic, device=dev)
+        for b, L in batches:
+            rng = np.random.default_rng(13)
+            payloads = [wl.sample_payload(rng) for _ in range(b)]
+            for p in payloads:
+                p["tokens"] = p["tokens"][:L]
+            args = wl.pad_batch(payloads, b, L)
+            if dynamic:
+                K, n_valid, head, *host = args
+                tokens, mask, kind, param = (torch.from_numpy(a).to(dev) for a in host)
+            else:
+                K, head, *host = args
+                n_valid, kind, param = wl.n_ctx, None, None
+                tokens, mask = (torch.from_numpy(a).to(dev) for a in host)
+            out = torch.empty(b, L, device=dev)
+            t = int(mask.sum())
+            name = "window" + ("_dyn" if dynamic else "") + ("" if w == w0 else f"_w{w}")
+            compare_serve(
+                trees, f"{name}_{b}x{L}", "window_score",
+                lambda tr: window_args(tr, K, head, tokens, mask, n_valid, w, kind, param, out),
+                [out], lambda: serve_kernels.window_score_plain(
+                    K, head, tokens, mask, n_valid, w, kind, param), emit,
+                b=b, L=L, R=R, window=w, tokens=t, ctx_cap=K.shape[0],
+                masks=[p.get("mask") for p in payloads],
+                launch=serve_kernels.window_launch(b * L, W, R),
+                **serve_bound(t * (W + 1) * R * 4 + R * 4 + b * L * 12, t * W * (4 * R + 6)),
+                library_ms=None,
+                torch_ms=time_ms(lambda: window_score_torch(K, head, tokens, mask, n_valid, w,
+                                                            kind, param)),
+                step_ns=ns, latency_floor_ms=((R + W) * ns["fadd"] + ns["fdiv"]) * 1e-6,
+                launch_floor_ms=[time_ms(floor.zero_), time_ms(floor.zero_)],
+                graph_launch_floor_ms=graph_ms(lambda: floor.zero_)[0])
+        del wl
 
 
 def main(argv=None) -> int:

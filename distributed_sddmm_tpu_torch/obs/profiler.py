@@ -72,10 +72,18 @@ def annotate(name: str):
     return torch.profiler.record_function(name)
 
 
-def _device_event_count(path: str) -> int:
+def device_time(path: str, name: Optional[str] = None) -> tuple[float, int]:
+    """The card's busy ms and its event count in a Chrome trace: every
+    DEVICE_CATEGORIES event, or those whose name holds ``name``."""
     with open(path) as fh:
         events = json.load(fh).get("traceEvents", [])
-    return sum(1 for e in events if e.get("cat") in DEVICE_CATEGORIES)
+    dev = [e for e in events if e.get("cat") in DEVICE_CATEGORIES
+           and (name is None or name in e.get("name", ""))]
+    return sum(e.get("dur", 0) for e in dev) / 1e3, len(dev)
+
+
+def _device_event_count(path: str) -> int:
+    return device_time(path)[1]
 
 
 @contextlib.contextmanager

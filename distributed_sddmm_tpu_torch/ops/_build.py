@@ -51,7 +51,8 @@ SIGNATURES = {
     # serve_kernels.cu
     "fold_in_solve": [_P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I, _I, _P],
     "score_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "window_score": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "window_score": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+                     _P],
 }
 
 

@@ -72,12 +72,30 @@
 //     memory no longer grows with R but for the queries: at the GAT head
 //     (R = 512) many warps run at once, and a small n_j gets wide chunks
 //     and one-warp blocks so that more SMs share it.
-//   window_score: a warp a (request, token); lane o takes neighbours o,
-//     o + 32, ...; the topk threshold is found by counting (a value is
-//     kept when fewer than p values exceed it: every tie at the threshold
-//     is kept, as the JAX sort-and-threshold rule keeps it); the max is
-//     exact in any order; lane 0 sums the denominator and the weighted
-//     values in neighbour order.
+//   window_score: a block a token slot (window_launch in
+//     ops/serve_kernels.py: round32(2W) threads, at most 1024, W = 2w + 1),
+//     padded slots too. The neighbour rows, clamped into the context, are
+//     one range of K's rows that holds the query row too: each distinct
+//     row of it comes into shared memory once (a slot at the context's
+//     edge, as every padded slot is, needs fewer), with the head, in R
+//     chunks of RC features (64; 32 where R <= 32 or 64 does not fit; 4
+//     for the widest windows), through a ring of kWinStages stages:
+//     16-byte cp.async copies through L1 (4-byte where R % 4 or the
+//     alignment of K or head forbid), consecutive threads on consecutive
+//     words of a row, the chunks ahead in flight while this one is summed.
+//     Stage rows are padded to an odd count of 16-byte words, so the chain
+//     threads' 16-byte reads of their own rows hit distinct banks. The 2W
+//     chains run on their own threads where 2W <= 1024 (else a thread
+//     takes chains tid, tid + 1024, ...): chain o < W sums dot_o = sum_r
+//     q[r] kn_o[r], chain W + o hv_o = sum_r kn_o[r] head[r], each in
+//     ascending r, its sum kept between chunks. Then a thread a neighbour
+//     keeps it or not (topk:p by counting: a value is kept when fewer than
+//     p values exceed it, so every tie at the threshold is kept, as the JAX
+//     sort-and-threshold rule keeps it), the block takes the max of the
+//     kept logits (exact in any order), and each neighbour's e_o =
+//     exp(z_o - m) and e_o hv_o; thread 0 sums the denominator and thread
+//     1 the weighted values, each in neighbour order, and thread 0 divides
+//     and masks.
 //
 // Bound on this card. fold_in_solve is a chain of about 3R dependent
 // steps (R Cholesky columns, each ending in __fdiv_rn and __fsqrt_rn, and
@@ -86,8 +104,13 @@
 // a request, and its ~R^3/3 flops take well under a microsecond;
 // bench/csrc/step_latency.cu times those steps). score_rows moves T once
 // (N * R * 4 bytes: 512 MiB at the full ALS cell) at 2 flops a T element
-// a query: bytes. window_score gathers (2w + 2) rows of K a token: bytes,
-// and tiny.
+// a query: bytes. window_score gathers at most 2w + 1 rows of K and the
+// head a token, a few microseconds of bytes even for a full batch; at the
+// batches a 100 Hz stream makes (a few tokens) its time is one block's
+// chain: the token id, one copy round trip, R dependent adds, then W
+// steps each of the keep count, the max and the final sums
+// (bench/kernel_ab.py's latency floor counts the R + W adds and the
+// division).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -102,7 +125,8 @@ constexpr int kFoldThreads = 512;  // fold_in_solve: threads a block
 constexpr int kScoreItems = 32;    // score_rows: outputs a warp tile, one a lane
 constexpr int kQ = 8;              // score_rows: queries a group (a lone query: 1)
 constexpr int kScoreStages = 3;    // score_rows: ring stages a warp
-constexpr int kWinWarps = 4;       // window_score: tokens a block
+constexpr int kWinStages = 3;      // window_score: ring stages
+constexpr int kWinMaxThreads = 1024;  // window_score: threads a block, at most
 constexpr float kAttnNeg = -1e30f;  // ops/kernels.py ATTN_NEG
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -111,6 +135,15 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// The same through L1 (.ca): rows that many blocks of an SM read (the
+// window scorer's head, the rows around a padded slot's token 0) are
+// fetched from L2 once.
+__device__ __forceinline__ void cp_async16_ca(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
                "l"(src)
                : "memory");
 }
@@ -490,69 +523,148 @@ __global__ void score_rows_kernel(const float* __restrict__ Q, const float* __re
   cp_async_wait<0>();
 }
 
-__global__ void __launch_bounds__(kWinWarps * kWarp)
+// acc += a[r] * b[r] for the first n (<= 4) features r of a 16-byte
+// word of two stage rows, in ascending r.
+__device__ __forceinline__ float window_quad(float acc, const float* a, const float* b, int n) {
+  const float4 av = *reinterpret_cast<const float4*>(a);
+  const float4 bv = *reinterpret_cast<const float4*>(b);
+  const float a4[4] = {av.x, av.y, av.z, av.w}, b4[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    if (u < n) acc = __fadd_rn(acc, __fmul_rn(a4[u], b4[u]));
+  return acc;
+}
+
+// One token slot a block (the design above). A stage holds W + 1 rows of
+// kLd floats: rows 0 .. hi - lo K's rows lo .. hi (neighbour o's row is
+// clamp(tok + o - w) - lo, the query's clamp(tok) - lo), row W the head.
+template <int RC, bool Vec>
+__global__ void __launch_bounds__(kWinMaxThreads)
 window_score_kernel(const float* __restrict__ K, const float* __restrict__ head,
                     const int* __restrict__ tokens, const float* __restrict__ mask,
                     const int* __restrict__ kind, const int* __restrict__ param,
-                    float* __restrict__ out, int n_tokens, int L, int R, int w,
-                    int n_valid, int ctx_cap, float inv_sqrt_r) {
-  extern __shared__ float smem[];
-  const int W = 2 * w + 1;
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  float* z = smem + warp * 4 * W;   // logits (ATTN_NEG where not valid)
-  float* val = z + W;               // <kn, head>
-  float* keep = val + W;            // 1 where the mask keeps the neighbour
-  float* e = keep + W;              // masked exp
-  const int g = blockIdx.x * kWinWarps + warp;
-  if (g >= n_tokens) return;
-  const int b = g / L;
+                    float* __restrict__ out, int L, int R, int w, int n_valid, int ctx_cap,
+                    float inv_sqrt_r) {
+  extern __shared__ __align__(16) float win_smem[];
+  // A stage row: an odd count of 16-byte words (one at RC 4).
+  constexpr int kLd = RC == 4 ? 4 : RC + 4;
+  constexpr int kPer = Vec ? RC / 4 : RC;  // copies a row chunk
+  static_assert((kLd / 4) % 2 == 1, "stage rows must be an odd number of 16-byte words");
+  // The layout of ops/serve_kernels.py::window_smem_bytes.
+  const int W = 2 * w + 1, stage = (W + 1) * kLd;
+  float* z = win_smem + kWinStages * stage;  // [W] dot_o, then the logits, then e_o
+  float* val = z + W;                        // [W] hv_o, then e_o hv_o
+  float* red = val + W;                      // [32] the warps' maxima, then the final sums
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int g = blockIdx.x, b = g / L;
+  // The slot's scalars first: every copy address waits on tok.
   const int tok = tokens[g];
   // kind 0: window:p keeps |offset| <= p; kind 1: topk:p; no kind: the
   // static window, every offset.
   const int kd = kind ? kind[b] : 0;
   const int p = param ? param[b] : w;
-  const float* qr = K + static_cast<size_t>(min(max(tok, 0), ctx_cap - 1)) * R;
-  for (int o = lane; o < W; o += kWarp) {
-    const int n = tok + o - w;
-    const bool ok = n >= 0 && n < n_valid;
-    const int nc = min(max(n, 0), ctx_cap - 1);
-    const float* kr = K + static_cast<size_t>(nc) * R;
-    float dot = 0.f, hv = 0.f;
-    for (int r = 0; r < R; ++r) {
-      dot = __fadd_rn(dot, __fmul_rn(qr[r], kr[r]));
-      hv = __fadd_rn(hv, __fmul_rn(kr[r], head[r]));
+  const float mk = mask[g];
+  const int n_chunks = (R + RC - 1) / RC;
+  auto clamp_row = [&](int n) { return min(max(n, 0), ctx_cap - 1); };
+  const int lo = clamp_row(tok - w), n_rows = clamp_row(tok + w) - lo + 1;
+  const int sq = clamp_row(tok) - lo;
+
+  // Copy chunk c of the n_rows rows and the head into its stage; commit a
+  // group (empty past the last chunk), so that group c is chunk c's.
+  auto load = [&](int c) {
+    if (c < n_chunks) {
+      const int c0 = c * RC, rc = min(RC, R - c0);
+      float* st = win_smem + (c % kWinStages) * stage;
+      for (int i = tid; i < (n_rows + 1) * kPer; i += nt) {
+        const int s = i / kPer, q = i - s * kPer;
+        const int off = Vec ? 4 * q : q;
+        if (off < rc) {
+          const bool kr = s < n_rows;
+          const float* src = (kr ? K + static_cast<size_t>(lo + s) * R : head) + c0 + off;
+          float* dst = st + (kr ? s : W) * kLd + off;
+          if (Vec)
+            cp_async16_ca(dst, src);
+          else
+            cp_async4(dst, src);
+        }
+      }
     }
-    z[o] = ok ? __fmul_rn(dot, inv_sqrt_r) : kAttnNeg;
-    val[o] = hv;
+    cp_async_commit();
+  };
+
+  // Chain j < W: dot_j = sum_r q[r] kn_j[r] into z[j]; chain W + o: hv_o =
+  // sum_r kn_o[r] head[r] into val[o] (each product's operands in that
+  // order). Thread tid takes chains tid, tid + nt, ...; a chain's sum
+  // stays in its shared-memory slot between chunks.
+#pragma unroll
+  for (int c = 0; c < kWinStages - 1; ++c) load(c);
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<kWinStages - 2>();
+    __syncthreads();  // every thread's copies of chunk c landed; chunk c - 1 is read
+    load(c + kWinStages - 1);
+    const float* st = win_smem + (c % kWinStages) * stage;
+    const int rc = min(RC, R - c * RC);
+    for (int j = tid; j < 2 * W; j += nt) {
+      const int o = j < W ? j : j - W;
+      const int sn = clamp_row(tok + o - w) - lo;
+      const float* a = st + (j < W ? sq : sn) * kLd;
+      const float* bb = st + (j < W ? sn : W) * kLd;
+      float acc = c == 0 ? 0.f : z[j];
+      if (rc == RC) {
+#pragma unroll
+        for (int r = 0; r < RC; r += 4) acc = window_quad(acc, a + r, bb + r, 4);
+      } else {
+        for (int r = 0; r < rc; r += 4) acc = window_quad(acc, a + r, bb + r, rc - r);
+      }
+      z[j] = acc;
+    }
   }
-  __syncwarp();
-  const int pk = min(max(p, 1), W);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  auto valid = [&](int o) { return tok + o - w >= 0 && tok + o - w < n_valid; };
+  for (int o = tid; o < W; o += nt) z[o] = valid(o) ? __fmul_rn(z[o], inv_sqrt_r) : kAttnNeg;
+  __syncthreads();
+  // Bit k of kept: this thread's k-th neighbour (o = tid + k nt) is kept.
+  unsigned kept = 0;
   float m = kAttnNeg;
-  for (int o = lane; o < W; o += kWarp) {
-    const int n = tok + o - w;
-    bool ok = n >= 0 && n < n_valid;
+  for (int o = tid, k = 0; o < W; o += nt, ++k) {
+    const float zo = z[o];
+    bool keep;
     if (kd == 1) {
+      const int pk = min(max(p, 1), W);
       int gt = 0;
-      for (int u = 0; u < W; ++u) gt += z[u] > z[o];
-      ok = ok && gt < pk;
+      for (int u = 0; u < W; ++u) gt += z[u] > zo;
+      keep = valid(o) && gt < pk;
     } else {
-      ok = ok && abs(o - w) <= p;
+      keep = valid(o) && abs(o - w) <= p;
     }
-    keep[o] = ok ? 1.f : 0.f;
-    m = fmaxf(m, ok ? z[o] : kAttnNeg);
+    kept |= static_cast<unsigned>(keep) << k;
+    m = fmaxf(m, keep ? zo : kAttnNeg);
   }
 #pragma unroll
   for (int s = kWarp / 2; s > 0; s /= 2) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, s));
-  for (int o = lane; o < W; o += kWarp)
-    e[o] = keep[o] != 0.f ? expf(__fsub_rn(z[o], m)) : 0.f;
-  __syncwarp();
-  if (lane == 0) {
-    float d = 0.f, num = 0.f;
-    for (int o = 0; o < W; ++o) {
-      d = __fadd_rn(d, e[o]);
-      num = __fadd_rn(num, __fmul_rn(e[o], val[o]));
-    }
-    out[g] = __fmul_rn(__fdiv_rn(num, d > 0.f ? d : 1.f), mask[g]);
+  if (tid % kWarp == 0) red[tid / kWarp] = m;
+  __syncthreads();
+  m = kAttnNeg;
+  for (int u = 0; u < nt / kWarp; ++u) m = fmaxf(m, red[u]);
+  for (int o = tid, k = 0; o < W; o += nt, ++k) {
+    const float eo = (kept >> k & 1u) ? expf(__fsub_rn(z[o], m)) : 0.f;
+    z[o] = eo;
+    val[o] = __fmul_rn(eo, val[o]);
+  }
+  __syncthreads();
+  if (tid < 2) {
+    // Thread 0: d = sum_o e_o; thread 1: num = sum_o e_o hv_o.
+    const float* t = tid == 0 ? z : val;
+    float sum = 0.f;
+    for (int u = 0; u < W; ++u) sum = __fadd_rn(sum, t[u]);
+    red[tid] = sum;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    const float d = red[0];
+    out[g] = __fmul_rn(__fdiv_rn(red[1], d > 0.f ? d : 1.f), mk);
   }
 }
 
@@ -624,18 +736,55 @@ extern "C" int score_rows(const float* Q, const float* T, const int* tidx, float
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+namespace {
+
+constexpr int kSmemDefault = 48 * 1024;  // dynamic shared memory a launch takes unasked
+
+template <int RC, bool Vec>
+int launch_window(const float* K, const float* head, const int* tokens, const float* mask,
+                  const int* kind, const int* param, float* out, int n_tokens, int L, int R,
+                  int w, int n_valid, int ctx_cap, float inv_sqrt_r, int threads,
+                  int smem_bytes, cudaStream_t stream) {
+  const auto kernel = window_score_kernel<RC, Vec>;
+  if (smem_bytes > kSmemDefault) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<n_tokens, threads, smem_bytes, stream>>>(K, head, tokens, mask, kind, param, out, L,
+                                                    R, w, n_valid, ctx_cap, inv_sqrt_r);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// threads, rchunk (64, 32 or 4) and smem_bytes: the launch shape of
+// ops/serve_kernels.py::window_launch, a block a token slot. The rows come
+// in 16-byte copies where R % 4 == 0 and K and head are 16-byte aligned,
+// else in 4-byte copies.
 extern "C" int window_score(const float* K, const float* head, const int* tokens,
                             const float* mask, const int* kind, const int* param,
                             float* out, int n_tokens, int L, int R, int w, int n_valid,
-                            int ctx_cap, float inv_sqrt_r, void* stream) {
-  const int blocks = (n_tokens + kWinWarps - 1) / kWinWarps;
-  const int smem = kWinWarps * 4 * (2 * w + 1) * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      window_score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  window_score_kernel<<<blocks, kWinWarps * kWarp, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      K, head, tokens, mask, kind, param, out, n_tokens, L, R, w, n_valid, ctx_cap,
-      inv_sqrt_r);
-  return static_cast<int>(cudaGetLastError());
+                            int ctx_cap, float inv_sqrt_r, int threads, int rchunk,
+                            int smem_bytes, void* stream) {
+  const int W = 2 * w + 1;
+  // A thread takes chains tid, tid + threads, ... and at most 32 neighbours
+  // (a bit each of the keep mask).
+  if (n_tokens < 1 || w < 0 || threads < (2 * W < kWinMaxThreads ? 2 * W : kWinMaxThreads) ||
+      threads % kWarp != 0 || threads > kWinMaxThreads || W > kWarp * threads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = R % 4 == 0 && reinterpret_cast<uintptr_t>(K) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(head) % 16 == 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto args = [&](auto launch) {
+    return launch(K, head, tokens, mask, kind, param, out, n_tokens, L, R, w, n_valid, ctx_cap,
+                  inv_sqrt_r, threads, smem_bytes, s);
+  };
+  if (rchunk == 64)
+    return vec ? args(launch_window<64, true>) : args(launch_window<64, false>);
+  if (rchunk == 32)
+    return vec ? args(launch_window<32, true>) : args(launch_window<32, false>);
+  if (rchunk == 4)
+    return vec ? args(launch_window<4, true>) : args(launch_window<4, false>);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

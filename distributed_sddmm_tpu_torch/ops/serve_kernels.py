@@ -27,8 +27,8 @@ that order with the same roundings; so on the card ``fold_in_solve`` and
 are IEEE's on both sides), ``window_score`` may differ where ``exp``
 rounds apart, and on either device a reply does not depend on the batch
 size, its slot or padding. The kernels' tiling and launch shapes
-(:func:`score_launch`, :func:`fold_in_launch`) never change an output's
-order. The plain versions loop in Python over the summed axis, which
+(:func:`score_launch`, :func:`fold_in_launch`, :func:`window_launch`)
+never change an output's order. The plain versions loop in Python over the summed axis, which
 makes them slow and exact; nothing on the main path calls them when a
 card is present.
 
@@ -66,6 +66,10 @@ SMEM_RESERVED = 1024
 SM_COUNT = 132
 #: Threads of a ``fold_in_solve`` block (``kFoldThreads`` in the source).
 FOLD_THREADS = 512
+#: ``window_score``: ring stages (``kWinStages``) and the most threads a
+#: block (``kWinMaxThreads``).
+WINDOW_STAGES = 3
+WINDOW_MAX_THREADS = 1024
 
 
 def launch_counts() -> dict:
@@ -92,6 +96,35 @@ def fold_in_launch(L: int, R: int) -> dict:
     a scheduler; a thread owns a row of the factor, and the warp after the
     rows' runs the substitutions (R <= 256, so at most nine warps)."""
     return {"threads": FOLD_THREADS, "smem": fold_in_smem_bytes(L, R)}
+
+
+def window_smem_bytes(W: int, rchunk: int) -> int:
+    """Shared memory of one ``window_score`` block: WINDOW_STAGES stages of
+    the W rows around a token (the query among them) and the head (rows
+    of ``rchunk + 4`` floats, an odd count of 16-byte words; 4 floats at
+    ``rchunk`` 4), then the W sums of each chain kind and 32 floats for
+    the warps' maxima and the final sums."""
+    ld = 4 if rchunk == 4 else rchunk + 4
+    return 4 * (WINDOW_STAGES * (W + 1) * ld + 2 * W + 32)
+
+
+def window_launch(n_tokens: int, W: int, R: int) -> dict:
+    """Launch shape of ``window_score`` for W = 2w + 1 neighbours: ``{"blocks",
+    "threads", "rchunk", "smem"}``. A block a token slot, a thread a chain
+    (2W of them) rounded up to whole warps, at most WINDOW_MAX_THREADS (a
+    thread then takes several chains); R chunks of 64 features, or 32
+    where R <= 32 or 64 does not fit, or 4 where 32 does not, which fits
+    up to W 4147 (w 2073). Raises ValueError past that; the wrapper has no
+    other path."""
+    threads = min(-(-2 * W // 32) * 32, WINDOW_MAX_THREADS)
+    fits = [rc for rc in (64, 32, 4) if window_smem_bytes(W, rc) <= SMEM_OPTIN
+            and not (rc == 64 and R <= 32)]
+    if not fits:
+        raise ValueError(
+            f"window_score at W={W} needs {window_smem_bytes(W, 4)} bytes of shared memory a "
+            f"block, past the card's {SMEM_OPTIN}; there is no other path")
+    return {"blocks": n_tokens, "threads": threads, "rchunk": fits[0],
+            "smem": window_smem_bytes(W, fits[0])}
 
 
 def score_launch(n_i: int, n_j: int, R: int, sms: int = SM_COUNT) -> dict:
@@ -261,6 +294,7 @@ def _sm_count(index: int) -> int:
 #: The wrapper's launch shapes, worked out once a shape (a request batch's
 #: host time is part of its latency).
 _score_shape = functools.lru_cache(maxsize=1024)(score_launch)
+_window_shape = functools.lru_cache(maxsize=1024)(window_launch)
 
 
 def fold_in_solve(B, idx, ratings, mask, lam: float):
@@ -348,6 +382,7 @@ def window_score(K, head, tokens, mask, n_valid: int, window: int, kind=None, pa
         raise ValueError(f"window {window} / n_valid {n_valid} out of range")
     b, L = tokens.shape
     R = K.shape[1]
+    shape = _window_shape(b * L, 2 * window + 1, R)
     out = torch.empty(b, L, dtype=torch.float32, device=dev)
     lib = _build.load()
     if b * L:
@@ -355,5 +390,6 @@ def window_score(K, head, tokens, mask, n_valid: int, window: int, kind=None, pa
             K.data_ptr(), head.data_ptr(), tokens.data_ptr(), mask.data_ptr(),
             kind.data_ptr() if kind is not None else None,
             param.data_ptr() if param is not None else None, out.data_ptr(), b * L, L, R,
-            window, n_valid, K.shape[0], 1.0 / float(math.sqrt(R)), _stream(dev)))
+            window, n_valid, K.shape[0], 1.0 / float(math.sqrt(R)), shape["threads"],
+            shape["rchunk"], shape["smem"], _stream(dev)))
     return out
