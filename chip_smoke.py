@@ -307,7 +307,7 @@ last line is printed):
    (R-mat log_m=20, edge_factor=32, R=128; ALS with 2 training steps),
    ``--app attention --mask window:16`` at 2**16 tokens (a request's work
    is a +-w gather that does not grow with the context: a cut of depth),
-   10 s of Poisson arrivals at 100 Hz, micro-batches of up to 8, every
+   8 s of Poisson arrivals at 100 Hz, micro-batches of up to 8, every
    16th reply against the float64 oracle. Each run: exit 0, no oracle
    failure with at least 32 replies checked, no error, no degraded batch,
    p50 / p99 and throughput in its record, one run-store document, its
@@ -331,7 +331,27 @@ last line is printed):
    kernels that their entry points can launch (``SERVE_BUILDS``: R chunk,
    16- or 4-byte copies, queries a group, rows a lane) at a small shape
    that selects it, ``fold_in_solve`` and ``score_rows`` bit-equal to
-   their plain versions, ``window_score`` within 1e-5 of its own.
+   their plain versions, ``window_score`` within 1e-5 of its own. Then
+   three legs of the control plane (``serve_admin``, ``serve_tuner``,
+   ``serve_tune``). admin: the attention run as a ``serve --serve-http
+   --telemetry`` replica in a process of its own; an in-process engine
+   built the same way reads ``/readyz`` 503 before its warm-up and 200
+   after; the replica's port from its ``[admin]`` line, ``/readyz`` 200,
+   64 sampled payloads over ``POST /submit``, each reply the in-process
+   engine's bytes; ``/metrics``, ``/snapshot``, ``/healthz`` and
+   ``/debug/requests`` 200 and counting the replies; ``top --admin-port``;
+   SIGTERM: exit 0, the drained record counting 64 replies; ``top`` on the
+   replica's stream; the replica's execute p50 printed (not gated).
+   tuner: ALS on Graph500 R-mat 2**16 (R 128) seeded with the generic
+   plan in a plan cache of its own, an open-loop load at 100 Hz (4 s, then
+   probes until a promotion or 20 s) with ``BackgroundTuner`` and
+   ``wall`` trials: a promotion, a finite ``time_to_adapt_s``, no cell
+   built after warm-up, 16 probes' replies the same bytes before and after
+   the swap, the banked plan in the cache under the seeded key; then a
+   fresh generic engine's shadow session with a NaN at
+   ``output:tunerShadow``: a mismatch, no swap, a flight record. tune:
+   ``bench tune 16 32 128`` into a plan cache of its own, then
+   ``--dry-run``: exit 0 both, the cache's bytes unchanged.
 21. kernels line -- ``{"kernels": [...]}``, the three serve kernels after
    the tile kernels.
 22. last line -- ``{"ok": true, "device": {...}}``.
@@ -628,8 +648,9 @@ RMAT_PINS = {"full": {"log_m": 20, "init": None, "nnz": 33553906,
              "graph500_16": {"log_m": 16, "init": "graph500", "nnz": 1819750,
                              "digest": "90503317e193c923"}}
 #: ``file`` runs the pairs of phase full (3 warmup, 20 timed); ``kernels``
-#: and ``heatmap`` their own defaults (5 trials after a warmup).
-HOST_CLI = {"warmup": 3, "trials": 20, "kernel_trials": 5, "heatmap_trials": 5}
+#: ``kernel_trials`` after a warmup (its default is 5: fewer keep the smoke
+#: inside its time limit); ``heatmap`` its default (5 trials after a warmup).
+HOST_CLI = {"warmup": 3, "trials": 20, "kernel_trials": 3, "heatmap_trials": 5}
 #: Where host_cli writes the whole ``kernels`` sweep (too long to print).
 SWEEP_OUT = _build.BUILD_DIR / "host_cli_kernels_sweep.jsonl"
 PLAIN = {
@@ -643,8 +664,16 @@ class SmokeFailure(RuntimeError):
     pass
 
 
+#: Every printed line again, whole, for a runner that keeps only the end
+#: of a long output (the build directory, gitignored).
+LOG = _build.BUILD_DIR / "chip_smoke.jsonl"
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    with open(LOG, "a") as fh:
+        fh.write(line + "\n")
 
 
 def require(cond: bool, what: str) -> None:
@@ -787,6 +816,8 @@ def phase_device() -> dict:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    LOG.parent.mkdir(parents=True, exist_ok=True)
+    LOG.unlink(missing_ok=True)
     info = {"name": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "nvidia_smi": smi,
             "torch": torch.__version__, "cuda": torch.version.cuda}
@@ -5161,10 +5192,11 @@ def host_cli_kernels(entries: dict, head_nnz: int, dev, launches: dict, card: st
     full cell with the two CUDA kernels: every record to ``SWEEP_OUT``;
     the headline records beside table rows 1-3 (phase kernels_headline)."""
     path = _build.BUILD_DIR / "host_cli_kernels.jsonl"
-    runs = (["kernels", "--kernels", *cli.KERNELS],
+    trials = ["--trials", str(HOST_CLI["kernel_trials"])]
+    runs = (["kernels", "--kernels", *cli.KERNELS, *trials],
             ["kernels", "--log-m", str(FULL["log_m"]), "--nnz-per-row",
              str(FULL["edge_factor"]), "--r-values", str(FULL["R"]), "--kernels",
-             "cuda-f32", "cuda-bf16"])
+             "cuda-f32", "cuda-bf16", *trials])
     recs, seconds = [], {}
     for argv in runs:
         t = time.perf_counter()
@@ -6214,8 +6246,8 @@ SERVE_REPLACES = {"fold_in_solve": f"{SERVE_PY}:317", "score_rows": f"{SERVE_PY}
 #: Phase serve: ``bench serve`` at the ALS full cell (ALS and GAT) and at
 #: the attention headline (a request's work, a +-w gather, does not grow
 #: with the context, so 2**16 tokens only shortens the build: a cut of
-#: depth), 10 s of Poisson arrivals at 100 Hz each.
-SERVE_LOAD = ["--duration", "10", "--rate", "100", "--max-batch", "8", "--oracle-every", "16"]
+#: depth), 8 s of Poisson arrivals at 100 Hz each.
+SERVE_LOAD = ["--duration", "8", "--rate", "100", "--max-batch", "8", "--oracle-every", "16"]
 SERVE_RUNS = {
     "als": ["--log-m", "20", "--edge-factor", "32", "--R", "128", "--train-steps", "2"],
     "gat": ["--log-m", "20", "--edge-factor", "32", "--R", "128"],
@@ -6579,6 +6611,354 @@ def serve_kernels_attention(eng, dyn, dev) -> dict:
     return out
 
 
+#: Phase serve's admin leg: a ``bench serve --serve-http`` replica of the
+#: attention run in a process of its own (the sampler and the admin server
+#: on), ``ADMIN["posts"]`` sampled payloads over ``POST /submit``, each
+#: reply's bytes against an in-process engine on the same context.
+ADMIN = {"argv": ["serve", "--serve-http", "--app", "attention", "--log-m", "16", "--mask",
+                  "window:16", "--R", "128", "--telemetry-interval", "0.25"],
+         "posts": 64, "timeout_s": 180}
+#: Phase serve's tuner leg (the JAX ``scripts/tune_smoke.py`` at full
+#: width): ALS on Graph500 R-mat 2**16 (edge factor 32, R 128) seeded with
+#: the generic plan, an open-loop load of at most ``load_s`` at 100 Hz with
+#: the tuner's ``wall`` trials, probes before and after the swap; no
+#: promotion within ``max_s`` of the load's start fails the leg (the tuner
+#: adapted in about 1 s on an H100).
+TUNER = {"log_m": 16, "R": 128, "train_steps": 1, "load_s": 4.0, "max_s": 8.0, "rate": 100,
+         "probes": 16, "interval_s": 0.25, "shadow_samples": 4, "trial": "wall"}
+#: Phase serve's tune leg: ``bench tune`` on the headline cell, then its
+#: ``--dry-run``.
+TUNE = ["tune", "16", "32", "128", "--trials", "3", "--json"]
+
+
+def http_status(port: int, path: str) -> tuple:
+    """``(status, body)`` of a GET on the loopback."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def answered(eng, payloads: list) -> list:
+    """``reply_bytes`` of each payload, answered in-process in batches of
+    the engine's largest batch bucket."""
+    b = max(eng.batch_buckets)
+    return [reply_bytes(r) for i in range(0, len(payloads), b)
+            for r in eng.execute_now(payloads[i:i + b])]
+
+
+def wait_until(cond, timeout_s: float, what: str, poll_s: float = 0.05):
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout_s:
+        got = cond()
+        if got:
+            return got
+        time.sleep(poll_s)
+    raise SmokeFailure(f"timed out waiting for {what}")
+
+
+def start_replica(tmp: pathlib.Path) -> dict:
+    """The admin leg's replica (``ADMIN["argv"]`` with a telemetry stream),
+    started at the top of phase serve so that its start and warm-up
+    overlap the phase's runs; it idles until the admin leg posts to it."""
+    tel = tmp / "telemetry"
+    err = tmp / "admin_err.txt"
+    env = {**os.environ, "PYTHONPATH": str(pathlib.Path(__file__).resolve().parent),
+           obs_store.RUNSTORE_ENV: "0", programs_store.PROGRAMS_ENV: "0"}
+    argv = [*ADMIN["argv"], "--telemetry", str(tel)]
+    with open(err, "w") as fh:
+        proc = subprocess.Popen([sys.executable, "-m", "distributed_sddmm_tpu_torch.bench", *argv],
+                                env=env, stdout=subprocess.PIPE, stderr=fh, text=True)
+    return {"proc": proc, "argv": argv, "err": err, "t0": time.perf_counter()}
+
+
+def stop_replica(replica: dict) -> None:
+    """Kill the replica if it still runs (a phase that failed before the
+    admin leg drained it)."""
+    proc = replica["proc"]
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+def serve_admin(replica: dict, ref, readyz: list, launches: dict, card: str) -> dict:
+    """The admin leg: the replica on the card (:func:`start_replica`), its
+    port from its ``[admin]`` line, ``/readyz`` 200 once warm; phase
+    serve's attention engine, built by the same command, answers the same
+    payloads in-process, and the replica's replies must be those bytes
+    (``readyz``: the in-process server's ``/readyz`` before and after the
+    dynamic engine's warm-up, read in phase serve). Then ``/metrics``,
+    ``/snapshot``, ``/healthz`` and ``/debug/requests``, ``bench top
+    --admin-port``, SIGTERM (exit 0, the drained record counting every
+    reply) and ``bench top`` on the replica's telemetry stream. Prints the
+    replica's execute p50 with the sampler and the server on."""
+    import re
+    import signal
+
+    from distributed_sddmm_tpu_torch.obs import httpexp
+    from distributed_sddmm_tpu_torch.ops import serve_kernels
+
+    t0 = time.perf_counter()
+    proc, argv, err = replica["proc"], replica["argv"], replica["err"]
+    try:
+        def port_line():
+            m = re.search(r"\[admin\] serving http://127\.0\.0\.1:(\d+) \(", err.read_text())
+            require(m is not None or proc.poll() is None,
+                    f"admin replica exited {proc.returncode}: {err.read_text()[-2000:]}")
+            return int(m.group(1)) if m else None
+
+        port = wait_until(port_line, ADMIN["timeout_s"], "the replica's [admin] line")
+        first_ready = http_status(port, "/readyz")[0]
+        wait_until(lambda: http_status(port, "/readyz")[0] == 200, ADMIN["timeout_s"],
+                   "the replica's /readyz 200")
+        rng = np.random.default_rng(9)
+        payloads = [ref.workload.sample_payload(rng) for _ in range(ADMIN["posts"])]
+        serve_kernels.reset_launch_counts()
+        want = answered(ref, payloads)
+        add_launches(launches, serve_kernels.launch_counts(), "f32")
+        diff, t_post = [], time.perf_counter()
+        for i, (p, w) in enumerate(zip(payloads, want)):
+            status, body, _ = httpexp.post_json("127.0.0.1", port, "/submit", {"payload": p})
+            got = ({k: (w[k][0], np.asarray(v, dtype=np.dtype(w[k][0])).shape,
+                        np.asarray(v, dtype=np.dtype(w[k][0])).tobytes())
+                    for k, v in body["reply"].items()} if status == 200 else None)
+            if got != w:
+                diff.append((i, status))
+        post_s = time.perf_counter() - t_post
+        require(not diff, f"admin: replies {diff[:8]} differ from the in-process bytes")
+        routes = {path: http_status(port, path) for path in
+                  ("/metrics", "/snapshot", "/healthz", "/debug/requests")}
+        require(all(code == 200 for code, _ in routes.values()),
+                f"admin routes: { {k: v[0] for k, v in routes.items()} }")
+        metrics_text = routes["/metrics"][1]
+        snap = json.loads(routes["/snapshot"][1])
+        chains = json.loads(routes["/debug/requests"][1])
+        require(f"dsddmm_requests_completed_total {ADMIN['posts']}" in metrics_text
+                and "dsddmm_request_latency_ms_bucket" in metrics_text
+                and snap["completed"] == ADMIN["posts"] and chains["complete"] > 0,
+                f"admin: scrape completed {snap.get('completed')}, chains {chains['complete']}")
+        top_rc, top_out = tool(["top", "--admin-port", port])
+        require(top_rc == 0 and f"completed {ADMIN['posts']}" in top_out,
+                f"admin: bench top --admin-port rc {top_rc}: {top_out[-400:]}")
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            out, _ = proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+    require(proc.returncode == 0, f"admin replica exit {proc.returncode}: "
+            f"{err.read_text()[-2000:]}")
+    rec = json.loads(out.strip().splitlines()[-1])
+    require(rec["completed"] == ADMIN["posts"] and rec["errors"] == 0
+            and rec["serve_config"]["serve_http"] and rec["admin_port"] == port,
+            f"admin: drained record completed {rec['completed']}, errors {rec['errors']}")
+    stream = pathlib.Path(rec["telemetry_path"])
+    top_file_rc, top_file = tool(["top", stream])
+    require(top_file_rc == 0 and f"completed {ADMIN['posts']}" in top_file,
+            f"admin: bench top on {stream} rc {top_file_rc}")
+    row = {"argv": argv, "port_first_readyz": first_ready, "in_process_readyz": readyz,
+           "posts": ADMIN["posts"], "post_seconds": post_s, "bit_equal": True,
+           "execute_ms": rec["execute_ms"], "latency_ms": rec["latency_ms"],
+           "queue_ms": rec["queue_ms"], "admin_scrapes": rec["admin_scrapes"],
+           "telemetry_samples": len(stream.read_text().splitlines()),
+           "metrics_families": metrics_text.count("# TYPE "),
+           "debug_requests_complete": chains["complete"], "seconds": time.perf_counter() - t0,
+           "replica_seconds": time.perf_counter() - replica["t0"]}
+    emit({"phase": "serve_admin", "card": card, **row})
+    return row
+
+
+def tuner_engine(S: HostCOO, dev):
+    """A warm ALS fold-in engine on ``S`` whose plan comes from the plan
+    cache (seeded with the generic plan), its ratings matrix pinned (no
+    ingest: a growing matrix would move the fingerprint)."""
+    from distributed_sddmm_tpu_torch.serve import ALSFoldInTopK, ServingEngine
+
+    model = als_mod.DistributedALS.from_plan(S, TUNER["R"], device=dev, plan_mode="model")
+    model.run_cg(TUNER["train_steps"], cg_iters=5)
+    return ServingEngine(ALSFoldInTopK(model, k=10, ingest_rows=False), max_batch=8)
+
+
+def serve_tuner(dev, launches: dict, card: str, tmp: pathlib.Path) -> dict:
+    """The tuner leg: the generic plan of Graph500 2**16 seeded as the
+    incumbent in a plan cache of its own; the engine serves an open-loop
+    load with ``BackgroundTuner(TunerConfig(trial="wall"))``. Gates: a
+    promotion, a finite ``time_to_adapt_s``, no cell built after warm-up,
+    the probes' replies equal bytes before and after the swap, the cache
+    holding the banked plan. Then the generic and the promoted candidates'
+    wall trials on the quiet card, every pair printed in order. Then, on a
+    new engine, a shadow session with
+    a NaN at ``output:tunerShadow``: no promotion, the ladder untouched, a
+    flight record."""
+    from distributed_sddmm_tpu_torch.autotune import get_plan
+    from distributed_sddmm_tpu_torch.autotune.cache import PlanCache
+    from distributed_sddmm_tpu_torch.obs import flightrec
+    from distributed_sddmm_tpu_torch.ops import serve_kernels
+    from distributed_sddmm_tpu_torch.resilience import FaultPlan, fault_plan
+    from distributed_sddmm_tpu_torch.serve import ShedError, run_load
+    from distributed_sddmm_tpu_torch.autotune.plan import Plan
+    from distributed_sddmm_tpu_torch.tuner import BackgroundTuner, ShadowSession, TunerConfig
+    from distributed_sddmm_tpu_torch.tuner.loop import TRIAL_PAIRS
+    from distributed_sddmm_tpu_torch.tuner.signals import realized_info
+
+    t0 = time.perf_counter()
+    S = HostCOO.rmat(TUNER["log_m"], BANKED["edge_factor"], **GRAPH500, device=dev)
+    problem = Problem.from_coo(S, TUNER["R"])
+    cache = PlanCache(tmp / "tuner_plans")
+    with environ(plan_cache.PLAN_CACHE_ENV, str(cache.root)):
+        model_plan = get_plan(problem, LocalWorld(1), device=dev, mode="model")
+        seeded = dataclasses.replace(model_plan, variant=None, source="seed")
+        cache.store(seeded.fingerprint_key, seeded.to_dict())
+
+        def run(fn):
+            serve_kernels.reset_launch_counts()
+            out, counts = counted_by_type(fn)
+            add_by_type(launches, counts)
+            add_launches(launches, serve_kernels.launch_counts(), "f32")
+            return out
+
+        eng = run(lambda: tuner_engine(S, dev))
+        require(eng.workload.model.plan.variant is None and eng.workload.kernel_variant is None,
+                f"tuner: the incumbent is not generic ({eng.workload.model.plan})")
+        gauge = realized_info(eng)["walk_idle_frac"]
+        tuner = BackgroundTuner(eng, plan_cache=cache, config=TunerConfig(
+            interval_s=TUNER["interval_s"], shadow_samples=TUNER["shadow_samples"],
+            cooldown_s=600.0, trial=TUNER["trial"]))
+        rng = np.random.default_rng(7)
+        probes = [eng.workload.sample_payload(rng) for _ in range(TUNER["probes"])]
+
+        def adapt():
+            eng.start()
+            warm_stats = eng.stats()
+            before = answered(eng, probes)
+            tuner.start()
+            t_load = time.perf_counter()
+            try:
+                summary = run_load(eng, duration_s=TUNER["load_s"], rate_hz=TUNER["rate"],
+                                   seed=3, oracle_every=16)
+                while not tuner.promotions and time.perf_counter() - t_load < TUNER["max_s"]:
+                    for p in probes:
+                        with contextlib.suppress(ShedError):
+                            eng.submit(p)
+                    time.sleep(0.1)
+            finally:
+                tuner.stop()
+                eng.stop()
+            after = answered(eng, probes)
+            return warm_stats, before, after, summary, time.perf_counter() - t_load
+
+        warm_stats, before, after, summary, load_s = run(adapt)
+        end_stats = eng.stats()
+        promo = tuner.promotions[0] if tuner.promotions else {}
+        # The trial statistic on a quiet card: the incumbent's and the
+        # promoted candidates' wall trials with no load, every pair in order
+        # (the fastest pair under load should be the kernel's steady time,
+        # not a pair that escaped a one-off cost of the first pairs).
+        quiet = {}
+        if promo:
+            for tag, plan in (("generic", seeded), ("banked", Plan.from_dict(promo["plan"]))):
+                rec = run(lambda plan=plan: plan_measure.default_trial(
+                    S, problem, plan.candidate(), TRIAL_PAIRS, 1, device=dev))
+                quiet[tag] = {"variant": plan.variant, "pairs_ms": rec["pairs_ms"]}
+        key = promo.get("plan", {}).get("fingerprint_key") or seeded.fingerprint_key
+        cached = cache.load(key) or {}
+        tta = tuner.time_to_adapt_s
+        row = {"problem": {"nnz": problem.nnz, "row_max": problem.row_max, "R": problem.R},
+               "walk_idle_frac": gauge, "seeded_key": seeded.fingerprint_key,
+               "promotions": len(tuner.promotions), "time_to_adapt_s": tta,
+               "variant": eng.workload.kernel_variant, "cached_variant": cached.get("variant"),
+               "cached_source": cached.get("source"),
+               "request_path_builds": end_stats["live_compiles"] - warm_stats["live_compiles"],
+               "ladder_swaps": end_stats["ladder_swaps"], "bit_equal": before == after,
+               "rejects": tuner.rejects, "signals": tuner.last_signals,
+               "measure_spent_s": tuner.measure_spent_s, "trials": tuner.last_trials,
+               "quiet_trials": quiet,
+               "shadow": promo.get("shadow"), "completed": summary["completed"],
+               "oracle_failures": summary["oracle_failures"], "errors": summary["errors"],
+               "execute_ms": summary.get("execute_ms"), "load_seconds": load_s}
+        emit({"phase": "serve_tuner", "card": card, **row})
+        require(len(tuner.promotions) >= 1 and tta is not None and math.isfinite(tta)
+                and row["request_path_builds"] == 0 and before == after
+                and row["variant"] is not None and cached.get("variant") == row["variant"]
+                and key == seeded.fingerprint_key
+                and summary["oracle_failures"] == 0 and summary["errors"] == 0,
+                f"tuner: promotions {len(tuner.promotions)}, tta {tta}, builds "
+                f"{row['request_path_builds']}, bit-equal {before == after}, variant "
+                f"{row['variant']}, cached {cached.get('variant')}, rejects {tuner.rejects}")
+        vid = row["variant"]
+        del tuner, eng
+        torch.cuda.empty_cache()
+
+        # The mismatch run: a fresh generic engine, its shadow replay corrupted.
+        cache.store(seeded.fingerprint_key, seeded.to_dict())  # the promotion replaced it
+        eng = run(lambda: tuner_engine(S, dev))
+        eng.warmup()
+        fr = flightrec.enable(tmp / "flightrec")
+        try:
+            shadow = ShadowSession(eng, vid)
+            shadow.warm()
+            eng.attach_mirror(shadow.offer)
+            group = probes[:4]
+            shadow.offer(group, eng.execute_now(group), 4, max(eng.workload.inner_buckets))
+            with fault_plan(FaultPlan.from_spec(
+                    '[{"site": "output:tunerShadow", "kind": "nan", "prob": 1.0}]')):
+                shadow.drain()
+            mismatch = {"mismatches": shadow.mismatches, "clean": shadow.clean(1),
+                        "flight_records": list(fr.paths),
+                        "ladder_swaps": eng.stats()["ladder_swaps"],
+                        "variant": eng.workload.kernel_variant,
+                        "detail": shadow.mismatch_detail}
+        finally:
+            eng.detach_mirror()
+            flightrec.disable()
+    emit({"phase": "serve_tuner_mismatch", "card": card, **mismatch,
+          "tuner_leg_seconds": time.perf_counter() - t0})
+    require(mismatch["mismatches"] >= 1 and not mismatch["clean"]
+            and len(mismatch["flight_records"]) >= 1 and mismatch["ladder_swaps"] == 0
+            and mismatch["variant"] is None,
+            f"tuner mismatch: {mismatch}")
+    del eng
+    torch.cuda.empty_cache()
+    row["mismatch"] = mismatch
+    row["seconds"] = time.perf_counter() - t0
+    return row
+
+
+def serve_tune(launches: dict, card: str, tmp: pathlib.Path) -> dict:
+    """The tune leg: ``bench tune`` on the headline cell (``wall`` trials on
+    the card) into a plan cache of its own, then ``--dry-run``: exit 0
+    both, the cache's bytes unchanged by the dry run."""
+    t0 = time.perf_counter()
+    root = tmp / "tune_plans"
+    with environ(plan_cache.PLAN_CACHE_ENV, str(root)):
+        (rc, out), counts = counted_by_type(lambda: tool(TUNE))
+        add_by_type(launches, counts)
+        report = json.loads(out[out.index("{"):])
+        before = {f.name: f.read_bytes() for f in root.iterdir()}
+        (dry_rc, dry_out), dry_counts = counted_by_type(lambda: tool([*TUNE, "--dry-run"]))
+        add_by_type(launches, dry_counts)
+        after = {f.name: f.read_bytes() for f in root.iterdir()}
+    dry = json.loads(dry_out[dry_out.index("{"):])
+    row = {"rc": rc, "dry_rc": dry_rc, "incumbent": report["incumbent"],
+           "challenger": report["challenger"], "promoted": report["promoted"],
+           "trials": report["trials"], "dry_run_challenger": dry["challenger"],
+           "dry_run_trials": dry["trials"], "cache_files": sorted(before),
+           "cache_unchanged": before == after,
+           "launches": {t: {k: n for k, n in c.items() if n} for t, c in counts.items()},
+           "dry_launches": {t: {k: n for k, n in c.items() if n} for t, c in dry_counts.items()},
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "serve_tune", "card": card, **row})
+    require(rc == 0 and dry_rc == 0 and before and before == after and dry["dry_run"],
+            f"tune: rc {rc}, dry-run rc {dry_rc}, cache unchanged {before == after}")
+    return row
+
+
 def phase_serve(dev, launches: dict, card: str) -> dict:
     """``bench serve --app als|gat|attention`` through ``cli.main`` on the
     card (SERVE_RUNS), each with its run store and plan cache in a
@@ -6589,16 +6969,46 @@ def phase_serve(dev, launches: dict, card: str) -> dict:
     the same context with a mix of window: and topk: requests: 16 sampled
     payloads give equal bytes one at a time, in batches of 8, in reverse
     order and padded into the largest inner bucket. Then each serve kernel
-    against its plain version at the phase's shapes."""
-    from distributed_sddmm_tpu_torch import serve as serve_mod
-    from distributed_sddmm_tpu_torch.ops import serve_kernels
-    from distributed_sddmm_tpu_torch.serve import AttentionTokenScore, ServingEngine
-
+    against its plain version at the phase's shapes. Then the admin, tuner
+    and tune legs."""
     t0 = time.perf_counter()
     rows: dict = {}
     kernel_rows: dict = {}
-    engines: dict = {}
     emit({"phase": "serve_ptxas", "card": card, "ptxas": serve_ptxas()})
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp, \
+            environ(obs_store.RUNSTORE_ENV, str(pathlib.Path(tmp) / "runstore")), \
+            environ(plan_cache.PLAN_CACHE_ENV, str(pathlib.Path(tmp) / "plans")):
+        tmp_path = pathlib.Path(tmp)
+        replica = start_replica(tmp_path)  # its start overlaps the runs
+        try:
+            ref, readyz = serve_runs(dev, launches, card, tmp_path, rows, kernel_rows)
+            serve_builds(dev, card)
+            rows["admin"] = serve_admin(replica, ref, readyz, launches, card)
+        finally:
+            stop_replica(replica)
+        del ref
+        torch.cuda.empty_cache()
+        rows["tuner"] = serve_tuner(dev, launches, card, tmp_path)
+        rows["tune"] = serve_tune(launches, card, tmp_path)
+    emit({"phase": "serve", "card": card, "seconds": time.perf_counter() - t0})
+    return {"runs": rows, "kernels": kernel_rows}
+
+
+def serve_runs(dev, launches: dict, card: str, tmp: pathlib.Path, rows: dict,
+               kernel_rows: dict) -> tuple:
+    """Phase serve's ``bench serve`` runs, their batching checks and their
+    kernels against the plain versions, into ``rows`` and ``kernel_rows``.
+    Returns the attention run's engine (the admin leg's in-process
+    reference: the replica runs the same command) and ``/readyz`` of an
+    admin server in front of the dynamic attention engine before and after
+    its warm-up."""
+    from distributed_sddmm_tpu_torch import serve as serve_mod
+    from distributed_sddmm_tpu_torch.obs import httpexp
+    from distributed_sddmm_tpu_torch.ops import serve_kernels
+    from distributed_sddmm_tpu_torch.serve import AttentionTokenScore, ServingEngine
+
+    engines: dict = {}
+    attention_ref, readyz = None, None
 
     def capture(app, build):
         def built(*a, **kw):
@@ -6606,80 +7016,86 @@ def phase_serve(dev, launches: dict, card: str) -> dict:
             return engines[app]
         return built
 
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp, \
-            environ(obs_store.RUNSTORE_ENV, str(pathlib.Path(tmp) / "runstore")), \
-            environ(plan_cache.PLAN_CACHE_ENV, str(pathlib.Path(tmp) / "plans")):
-        for app, extra in SERVE_RUNS.items():
-            argv = ["serve", "--app", app, *extra, *SERVE_LOAD]
-            path = pathlib.Path(tmp) / f"serve_{app}.jsonl"
-            builder = f"build_{app}_engine"
-            t = time.perf_counter()
-            with swapped(serve_mod, builder, capture(app, getattr(serve_mod, builder))):
-                serve_kernels.reset_launch_counts()
-                out = io.StringIO()
-                with contextlib.redirect_stdout(out):
-                    rc, counts = counted_by_type(lambda: cli.main([*argv, "-o", str(path)]))
-            seconds = time.perf_counter() - t
-            served = serve_kernels.launch_counts()
-            rec = json.loads(path.read_text().splitlines()[-1])
-            docs = [r for r in obs_store.RunStore(pathlib.Path(tmp) / "runstore").index()
-                    if r.get("app") == f"serve-{app}"]
-            lat = rec["latency_ms"]
-            row = {"app": app, "argv": argv, "rc": rc, "seconds": seconds,
-                   **{key: rec[key] for key in (
-                       "algorithm", "kernel", "c", "requests", "completed", "throughput_rps",
-                       "latency_ms", "queue_ms", "execute_ms", "batch_occupancy",
-                       "shed_count", "errors", "degraded_count", "oracle_checked",
-                       "oracle_failures", "engine")},
-                   "run_store_docs": len(docs), "launches": counts, "serve_launches": served}
-            emit({"phase": f"serve_{app}", "card": card, **row})
-            require(rc == 0 and rec["oracle_failures"] == 0
-                    and rec["oracle_checked"] >= SERVE["min_checked"] and rec["errors"] == 0
-                    and rec["degraded_count"] == 0 and rec["engine"]["error_batches"] == 0
-                    and all(f"p{q}" in lat for q in (50, 99)) and rec["throughput_rps"] > 0,
-                    f"serve {app}: rc {rc}, oracle {rec['oracle_failures']} of "
-                    f"{rec['oracle_checked']}, errors {rec['errors']}, degraded "
-                    f"{rec['degraded_count']}, latency {lat}")
-            require(len(docs) == 1, f"serve {app}: {len(docs)} run-store documents")
-            require(all(served[name] > 0 for name in SERVE_KERNELS[app]),
-                    f"serve {app}: serve kernels launched {served}")
-            add_by_type(launches, counts)
-            add_launches(launches, served, "f32")
-            rows[app] = row
-            eng = engines[app]
-            rng = np.random.default_rng(7)
-            payloads = [eng.workload.sample_payload(rng) for _ in range(SERVE["samples"])]
-            rows[app]["batching"] = serve_batching(eng, payloads, app)
-            if app == "als":
-                kernel_rows.update(serve_kernels_als(eng, dev))
-            elif app == "gat":
-                kernel_rows["score_rows"]["gat"] = serve_kernels_gat(eng, dev)
-            else:
-                wl = eng.workload
-                dyn = ServingEngine(AttentionTokenScore(wl._K_host, d_ops=wl.d_ops,
-                                                        window=wl.window, dynamic=True),
-                                    max_batch=SERVE["batch"])
-                dyn.warmup()
-                rng = np.random.default_rng(8)
-                mixed = [dyn.workload.sample_payload(rng) for _ in range(SERVE["samples"])]
-                W = 2 * wl.window + 1
-                for i, p in enumerate(mixed):
-                    p["mask"] = (f"window:{i % (wl.window + 1)}" if i % 2
-                                 else f"topk:{1 + (5 * i) % W}")
-                rows["attention_dynamic"] = serve_batching(dyn, mixed, "attention dynamic")
-                rows["attention_dynamic"]["masks"] = [p["mask"] for p in mixed]
-                att = serve_kernels_attention(eng, dyn, dev)
-                kernel_rows["window_score"] = {**att["attention"],
-                                               "dynamic": att["attention_dynamic"]}
-                del dyn
-            emit({"phase": f"serve_{app}_batching", "card": card, **rows[app]["batching"],
-                  **({"dynamic": rows["attention_dynamic"]} if app == "attention" else {})})
-            del eng
-            engines.clear()
-            torch.cuda.empty_cache()
-        serve_builds(dev, card)
-    emit({"phase": "serve", "card": card, "seconds": time.perf_counter() - t0})
-    return {"runs": rows, "kernels": kernel_rows}
+    for app, extra in SERVE_RUNS.items():
+        argv = ["serve", "--app", app, *extra, *SERVE_LOAD]
+        path = pathlib.Path(tmp) / f"serve_{app}.jsonl"
+        builder = f"build_{app}_engine"
+        t = time.perf_counter()
+        with swapped(serve_mod, builder, capture(app, getattr(serve_mod, builder))):
+            serve_kernels.reset_launch_counts()
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc, counts = counted_by_type(lambda: cli.main([*argv, "-o", str(path)]))
+        seconds = time.perf_counter() - t
+        served = serve_kernels.launch_counts()
+        rec = json.loads(path.read_text().splitlines()[-1])
+        docs = [r for r in obs_store.RunStore(pathlib.Path(tmp) / "runstore").index()
+                if r.get("app") == f"serve-{app}"]
+        lat = rec["latency_ms"]
+        row = {"app": app, "argv": argv, "rc": rc, "seconds": seconds,
+               **{key: rec[key] for key in (
+                   "algorithm", "kernel", "c", "requests", "completed", "throughput_rps",
+                   "latency_ms", "queue_ms", "execute_ms", "batch_occupancy",
+                   "shed_count", "errors", "degraded_count", "oracle_checked",
+                   "oracle_failures", "engine")},
+               "run_store_docs": len(docs), "launches": counts, "serve_launches": served}
+        emit({"phase": f"serve_{app}", "card": card, **row})
+        require(rc == 0 and rec["oracle_failures"] == 0
+                and rec["oracle_checked"] >= SERVE["min_checked"] and rec["errors"] == 0
+                and rec["degraded_count"] == 0 and rec["engine"]["error_batches"] == 0
+                and all(f"p{q}" in lat for q in (50, 99)) and rec["throughput_rps"] > 0,
+                f"serve {app}: rc {rc}, oracle {rec['oracle_failures']} of "
+                f"{rec['oracle_checked']}, errors {rec['errors']}, degraded "
+                f"{rec['degraded_count']}, latency {lat}")
+        require(len(docs) == 1, f"serve {app}: {len(docs)} run-store documents")
+        require(all(served[name] > 0 for name in SERVE_KERNELS[app]),
+                f"serve {app}: serve kernels launched {served}")
+        add_by_type(launches, counts)
+        add_launches(launches, served, "f32")
+        rows[app] = row
+        eng = engines[app]
+        rng = np.random.default_rng(7)
+        payloads = [eng.workload.sample_payload(rng) for _ in range(SERVE["samples"])]
+        rows[app]["batching"] = serve_batching(eng, payloads, app)
+        if app == "als":
+            kernel_rows.update(serve_kernels_als(eng, dev))
+        elif app == "gat":
+            kernel_rows["score_rows"]["gat"] = serve_kernels_gat(eng, dev)
+        else:
+            wl = eng.workload
+            dyn = ServingEngine(AttentionTokenScore(wl._K_host, d_ops=wl.d_ops,
+                                                    window=wl.window, dynamic=True),
+                                max_batch=SERVE["batch"])
+            # /readyz of an admin server in front of it: 503 before its
+            # warm-up, 200 once warm with its runner up.
+            with httpexp.AdminServer(engine=dyn) as admin:
+                cold = http_status(admin.port, "/readyz")[0]
+                dyn.start()  # the warm-up, then the runner
+                warm = http_status(admin.port, "/readyz")[0]
+                dyn.stop()
+            readyz = [cold, warm]
+            require(cold == 503 and warm == 200,
+                    f"admin: in-process /readyz {cold} before warm-up, {warm} after")
+            rng = np.random.default_rng(8)
+            mixed = [dyn.workload.sample_payload(rng) for _ in range(SERVE["samples"])]
+            W = 2 * wl.window + 1
+            for i, p in enumerate(mixed):
+                p["mask"] = (f"window:{i % (wl.window + 1)}" if i % 2
+                             else f"topk:{1 + (5 * i) % W}")
+            rows["attention_dynamic"] = serve_batching(dyn, mixed, "attention dynamic")
+            rows["attention_dynamic"]["masks"] = [p["mask"] for p in mixed]
+            att = serve_kernels_attention(eng, dyn, dev)
+            kernel_rows["window_score"] = {**att["attention"],
+                                           "dynamic": att["attention_dynamic"]}
+            del dyn
+        emit({"phase": f"serve_{app}_batching", "card": card, **rows[app]["batching"],
+              **({"dynamic": rows["attention_dynamic"]} if app == "attention" else {})})
+        if app == "attention":
+            attention_ref = eng
+        del eng
+        engines.clear()
+        torch.cuda.empty_cache()
+    return attention_ref, readyz
 
 
 

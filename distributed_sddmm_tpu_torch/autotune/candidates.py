@@ -246,3 +246,37 @@ def variant_cost_factor_of(problem: Problem, cand: Candidate) -> float:
     """The variant factor :func:`model_cost` charges a candidate (1.0
     without a variant)."""
     return variant_cost_factor(problem, cand.variant) if cand.variant else 1.0
+
+
+def rank_candidates_realized(problem: Problem, cands: list[Candidate], p: int,
+                             machine: costmodel.Machine | None = None,
+                             realized: dict | None = None) -> list[tuple]:
+    """:func:`rank_candidates` with the incumbent's realized data folded
+    in: the closed-loop tuner's order (``tuner/retune.py``).
+
+    ``realized`` says what ran: ``{"variant": <id or None>,
+    "walk_idle_frac": <the counted gauge>}``. When the incumbent ran the
+    generic walk and its gauge is known, every CUDA-family candidate (the
+    walks; the ``torch`` family has none) is charged an absolute ``(1 +
+    idle)`` instead of the model's factor: the counted gauge for a generic
+    candidate, the model's banked estimate for a banked one, whose own
+    number is unknown until measured. Banked variants then lead exactly
+    when their estimate undercuts the idle share the replica pays, the
+    condition that started the re-tune. It orders what to measure first;
+    the trials decide."""
+    from distributed_sddmm_tpu_torch.codegen.variants import estimated_pad_frac
+
+    scored = rank_candidates(problem, cands, p, machine)
+    realized = realized or {}
+    frac = realized.get("walk_idle_frac")
+    if frac is None or realized.get("variant") is not None:
+        # No gauge, or a banked incumbent: nothing to re-anchor against.
+        return scored
+    out = []
+    for cand, t in scored:
+        if cand.kernel.startswith("cuda"):
+            idle = estimated_pad_frac(problem, banked=True) if cand.variant else float(frac)
+            t = t / variant_cost_factor_of(problem, cand) * (1.0 + idle)
+        out.append((cand, t))
+    out.sort(key=lambda cs: cs[1])
+    return out

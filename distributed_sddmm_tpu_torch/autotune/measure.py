@@ -2,8 +2,8 @@
 (counterpart of ``autotune/measure.py``).
 
 The analytic models are first-order; when the device is healthy, a few
-short trials through the harness's own timing path (``bench/harness.py``)
-beat any model. Every trial runs under a per-trial timeout
+short trials of the candidate's own strategy (fused pairs, each timed
+alone, the fastest counted: :func:`default_trial`) beat any model. Every trial runs under a per-trial timeout
 (``resilience.retry.call_with_timeout``) with retries and jittered
 exponential backoff under an elapsed cap; a candidate whose attempts all
 fail is dropped, and when every candidate drops the caller
@@ -18,8 +18,9 @@ thread has queued: they run on and would be timed into the next trial.
 So on a CUDA device (``stop_on_timeout``, the default there) a timeout
 drops its candidate, retries nothing and ends the measuring: the plan
 comes from the trials that finished before it, else from the model. The
-trial itself sets its thread's device explicitly, and the harness's timed
-loop synchronises the device before its clock starts.
+trial itself sets its thread's device explicitly, and times each pair
+between CUDA events on its thread's current stream, so work queued before
+its start event is not counted.
 """
 
 from __future__ import annotations
@@ -64,20 +65,48 @@ def _build_kernel(cand: Candidate, device=None):
 
 def default_trial(S, problem: Problem, cand: Candidate, trials: int, warmup: int,
                   device=None, world=None) -> dict:
-    """One short run through the harness's timing path (fused pairs);
-    returns its record (``overall_throughput`` in GFLOP/s)."""
+    """The measured (``wall``) trial: the candidate's strategy (its kernel
+    through :func:`_build_kernel`), ``warmup`` then ``trials`` fused pairs
+    on dummy operands, each between CUDA events on the calling thread's
+    current stream (the host clock on the CPU), so a trial never
+    synchronises the device and can run beside a live runner on a stream
+    of its own. The fastest pair counts: a pair that the host held up (a
+    live replica's runner and load share it) says nothing of the
+    candidate. Returns a harness-shaped record (``overall_throughput`` in
+    GFLOP/s) with every pair's ms in order. A kernel that does not build
+    raises: the candidate is dropped, never answered by another."""
     import torch
 
-    from distributed_sddmm_tpu_torch.bench.harness import benchmark_algorithm
+    from distributed_sddmm_tpu_torch.bench import harness
+    from distributed_sddmm_tpu_torch.common import MatMode
 
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         torch.cuda.set_device(torch.cuda.current_device() if dev.index is None else dev)
-    return benchmark_algorithm(
-        S, cand.algorithm, None, fused=True, R=problem.R, c=cand.c,
-        trials=trials, warmup=warmup, kernel=_build_kernel(cand, dev),
-        device=dev, world=world, wire=cand.wire,
-    )
+    alg = harness.make_algorithm(cand.algorithm, S, problem.R, c=cand.c,
+                                 kernel=_build_kernel(cand, dev), device=dev, world=world,
+                                 wire=cand.wire)
+    A, B = alg.dummy_initialize(MatMode.A), alg.dummy_initialize(MatMode.B)
+    s_vals = alg.like_s_values(1.0)
+    for _ in range(warmup):
+        alg.fused_spmm(A, B, s_vals, MatMode.A)
+    pairs = []
+    for _ in range(max(int(trials), 1)):
+        if dev.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            alg.fused_spmm(A, B, s_vals, MatMode.A)
+            end.record()
+            end.synchronize()
+            pairs.append(start.elapsed_time(end) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            alg.fused_spmm(A, B, s_vals, MatMode.A)
+            pairs.append(time.perf_counter() - t0)
+    seconds = min(pairs)
+    return {"overall_throughput": 4.0 * S.nnz * alg.R / seconds / 1e9,
+            "ms_per_pair": seconds * 1e3, "pairs_ms": [t * 1e3 for t in pairs],
+            "trial": "wall"}
 
 
 def measure_candidates(

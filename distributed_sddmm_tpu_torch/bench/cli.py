@@ -40,9 +40,26 @@ Subcommands:
   Poisson arrivals at ``--rate`` for ``--duration`` seconds, every
   ``--oracle-every``-th reply against the float64 oracle; exit 0 clean, 1
   on an oracle mismatch, 2 on an SLO violation (``--slo``); the record
-  goes to the run store as ``app=serve-<app>``. The JAX subcommand's
-  ``--telemetry``, ``--telemetry-interval``, ``--admin-port``,
-  ``--serve-http`` and ``--tuner`` are not defined (argparse exits 2);
+  goes to the run store as ``app=serve-<app>``. ``--telemetry [DIR]``
+  samples the engine every ``--telemetry-interval`` seconds to
+  ``artifacts/telemetry_torch/<run_id>.jsonl`` (``obs/telemetry.py``),
+  ``--admin-port PORT`` serves ``/metrics``, ``/healthz``, ``/readyz``,
+  ``/debug/requests`` and ``/snapshot`` (``obs/httpexp.py``; 0: an
+  ephemeral port, printed as ``[admin] serving http://127.0.0.1:<port>``
+  on stderr), ``--serve-http`` is replica mode (no load generator:
+  ``POST /submit`` and ``POST /chaos`` until SIGTERM or SIGINT, then a
+  drain, the whole record as the last stdout line, exit 0), and
+  ``--tuner`` runs the closed-loop tuner against the live engine
+  (``tuner/``);
+* ``top``      -- the live view of a serving engine: the newest stream
+  under ``artifacts/telemetry_torch/`` (or a named file), or the
+  ``/snapshot`` of ``--admin-port``; ``--watch N`` refreshes, ``--serve
+  PORT`` re-exports a stream as ``/metrics``;
+* ``tune``     -- one offline re-tune of an R-mat problem: the incumbent
+  plan, the run store's realized history mined, the whole candidate space
+  re-ranked and measured (``--trial wall`` on the card, ``counted``
+  elsewhere), a winner stored in the plan cache (``--dry-run`` writes
+  nothing);
 * ``report-trace``, ``trace-merge``, ``trace-export`` -- a trace's
   per-phase table (``tools/tracereport.py``), the merge of per-process
   shards into one trace (``obs/tracemerge.py``) and its Chrome export
@@ -96,8 +113,8 @@ comes from the environment (``parallel/comm.world_from_env``):
 ``cpu``), otherwise ``SDDMM_TORCH_LOCAL_RANKS=P`` runs P logical ranks in
 this process (default 1). Each run prints one JSON summary line and
 appends its full record to ``-o`` (process 0 only). The subcommands that
-are not ported (``overlap``, ``fleet``, ``tune``, ``top``, ``lint``,
-``env``) are not defined, so argparse refuses them.
+are not ported (``overlap``, ``fleet``, ``lint``, ``env``) are not
+defined, so argparse refuses them.
 """
 
 from __future__ import annotations
@@ -270,10 +287,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
 
 
 def _add_serve(sub) -> None:
-    """``serve``: the JAX subcommand's flags but ``--telemetry``,
-    ``--telemetry-interval``, ``--admin-port``, ``--serve-http`` and
-    ``--tuner`` (live telemetry, the admin server and the tuner are not
-    ported), so argparse refuses those with exit 2."""
+    """``serve``: the JAX subcommand's flags."""
     sv = sub.add_parser(
         "serve",
         help="online serving load test: a warm engine on the planned strategy, "
@@ -320,9 +334,78 @@ def _add_serve(sub) -> None:
     sv.add_argument("--profile", default=None, metavar="LOGDIR")
     sv.add_argument("--watchdog", default=None, choices=["warn", "strict"])
     sv.add_argument("--flightrec", nargs="?", const="1", default=None, metavar="DIR")
+    sv.add_argument(
+        "--telemetry", nargs="?", const="1", default=None, metavar="DIR",
+        help="sample live telemetry (queue depth, latency histogram, shed/degrade, cell "
+        "counters, SLO burn rate) to artifacts/telemetry_torch/<run_id>.jsonl every "
+        "--telemetry-interval seconds; DIR relocates (SDDMM_TORCH_TELEMETRY); watch it "
+        "with `bench top`")
+    sv.add_argument("--telemetry-interval", type=float, default=0.5, metavar="SECONDS")
+    sv.add_argument(
+        "--admin-port", type=int, default=None, metavar="PORT",
+        help="serve the admin surface on 127.0.0.1:PORT (0: ephemeral): /metrics, "
+        "/healthz, /readyz, /debug/requests, /snapshot (obs/httpexp.py); the record "
+        "gains admin_port")
+    sv.add_argument(
+        "--serve-http", action="store_true",
+        help="replica mode: no load generator; accept POST /submit until SIGTERM or "
+        "SIGINT, then drain and print the whole record as the last stdout line "
+        "(implies --admin-port 0 when unset)")
+    sv.add_argument(
+        "--tuner", action="store_true",
+        help="run the closed-loop tuner against the live engine (tuner/): mine the "
+        "walk_idle_frac gauge, re-measure off the request path, shadow-validate and "
+        "hot-swap a kernel variant; the record gains tuner and time_to_adapt_s "
+        "(SDDMM_TORCH_TUNER; SDDMM_TORCH_TUNER_* pace it)")
     sv.add_argument("--no-runstore", action="store_true")
     _add_device(sv)
     sv.add_argument("-o", "--output-file", default=None, help="append the JSON record here")
+
+
+def _add_top_tune(sub) -> None:
+    """``top`` and ``tune``: the JAX subcommands' flags (``tune`` adds
+    ``--device``)."""
+    tp = sub.add_parser(
+        "top",
+        help="live serving telemetry: queue depth, latency percentiles, shed/degrade, cell "
+        "counters, SLO burn rate, the tuner's state, over a `bench serve --telemetry` "
+        "stream or a `bench serve --admin-port` endpoint")
+    tp.add_argument("path", nargs="?", default=None,
+                    help="a telemetry .jsonl stream (default: the newest under "
+                    "artifacts/telemetry_torch/ or SDDMM_TORCH_TELEMETRY); a missing "
+                    "explicit path exits 2")
+    tp.add_argument("--watch", type=float, default=0.0, metavar="SECONDS",
+                    help="refresh every N seconds until interrupted (0: once)")
+    tp.add_argument("--admin-port", type=int, default=None, metavar="PORT",
+                    help="read the live /snapshot of a `bench serve --admin-port` engine; "
+                    "falls back to the stream when it does not answer")
+    tp.add_argument("--admin-host", default="127.0.0.1", metavar="HOST")
+    tp.add_argument("--serve", type=int, default=None, metavar="PORT", dest="serve_port",
+                    help="exporter: serve /metrics, /snapshot, /healthz, /readyz rendered "
+                    "from the stream on 127.0.0.1:PORT (0: ephemeral) until interrupted")
+
+    tn = sub.add_parser(
+        "tune",
+        help="offline re-tune of one R-mat problem: mine the run store's history for its "
+        "fingerprint, re-rank and re-measure the whole candidate space (algorithm and c "
+        "included) and store the winner in the plan cache (tuner/retune.py)")
+    tn.add_argument("log_m", type=int, help="log2 of matrix side")
+    tn.add_argument("edge_factor", type=int, help="average nnz per row")
+    tn.add_argument("R", type=int)
+    tn.add_argument("--trial", default="auto", choices=["auto", "counted", "wall"],
+                    help="wall: fused pairs timed by CUDA events; counted: the model "
+                    "charged the counted walk idle share; auto: wall on cuda, else counted")
+    tn.add_argument("--trials", type=int, default=1)
+    tn.add_argument("--timeout", type=float, default=60.0, help="seconds a trial")
+    tn.add_argument("--budget", type=float, default=120.0, help="seconds the re-tune")
+    tn.add_argument("--top-k", type=int, default=3)
+    tn.add_argument("--dry-run", action="store_true",
+                    help="report the challenger and leave the plan cache as it is")
+    tn.add_argument("--json", action="store_true")
+    tn.add_argument("--store", default=None, metavar="DIR",
+                    help="the run store mined (default artifacts/runstore_torch, or "
+                    "SDDMM_TORCH_RUNSTORE)")
+    _add_device(tn)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -381,6 +464,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(vf)
 
     _add_serve(sub)
+    _add_top_tune(sub)
 
     bl = sub.add_parser("baseline", help="external host-CPU SpMM baseline (no card)")
     bl.add_argument("log_m", type=int)
@@ -651,24 +735,31 @@ def _observed(args):
 
 
 def _dispatch_serve(args) -> int:
-    """``serve``: build a warm engine, drive it open-loop, print and persist
-    the serving record. Exit 0 on a clean run, 1 on any reply that fails
-    its float64 oracle, 2 on an SLO violation; faults and shedding are
-    operating conditions, not failures."""
+    """``serve``: build a warm engine, drive it open-loop (or, with
+    ``--serve-http``, over ``POST /submit`` until a signal), print and
+    persist the serving record. Exit 0 on a clean run, 1 on any reply that
+    fails its float64 oracle, 2 on an SLO violation; faults and shedding
+    are operating conditions, not failures. A replica exits 0 after its
+    drain: its record carries any violation."""
+    from distributed_sddmm_tpu_torch.obs import flightrec as obs_flightrec
     from distributed_sddmm_tpu_torch.obs import metrics as obs_metrics
     from distributed_sddmm_tpu_torch.obs import store as obs_store
+    from distributed_sddmm_tpu_torch.obs import telemetry as obs_telemetry
     from distributed_sddmm_tpu_torch.obs import trace as obs_trace
     from distributed_sddmm_tpu_torch.obs import watchdog as obs_watchdog
-    from distributed_sddmm_tpu_torch.parallel.base import realized_kernel_variant
     from distributed_sddmm_tpu_torch.resilience import faults
     from distributed_sddmm_tpu_torch.serve import (
         SLOSpec, build_als_engine, build_attention_engine, build_gat_engine, parse_tenants,
         run_load, tenants_from_env,
     )
+    from distributed_sddmm_tpu_torch.tuner.loop import TUNER_ENV
 
     device = resolve_device(args.device)
     slo = SLOSpec.parse(args.slo) if args.slo else SLOSpec.from_env()
     tenants = parse_tenants(args.tenants) if args.tenants else tenants_from_env()
+    serve_http = bool(args.serve_http)
+    if serve_http and args.admin_port is None:
+        args.admin_port = 0  # a replica needs its ingestion surface
     engine_kw = dict(max_batch=args.max_batch, max_depth=args.max_depth,
                      max_wait_ms=args.max_wait_ms, tenants=tenants)
     with _world(device) as world:
@@ -692,13 +783,57 @@ def _dispatch_serve(args) -> int:
         watchdog = obs_watchdog.active()
         anomalies_before = len(watchdog.events) if watchdog is not None else 0
         d_ops.reset_performance_timers()
+
+        sampler = None
+        tel_enabled, tel_root = obs_telemetry.parse_env_spec(
+            args.telemetry or os.environ.get(obs_telemetry.TELEMETRY_ENV))
+        if tel_enabled:
+            sampler = obs_telemetry.TelemetrySampler(eng, interval_s=args.telemetry_interval,
+                                                     out_dir=tel_root, slo=slo)
+        # Up before warm-up, so that /readyz reports the warm-up as not ready.
+        admin = None
+        if args.admin_port is not None:
+            from distributed_sddmm_tpu_torch.obs import httpexp
+
+            admin = httpexp.AdminServer(
+                engine=eng, op_metrics=d_ops.metrics, slo=slo, port=args.admin_port,
+                submit_fn=_http_submit(eng) if serve_http else None,
+                chaos_fn=httpexp.arm_faults if serve_http else None)
+            admin.start()
+            print(f"[admin] serving http://127.0.0.1:{admin.port} (/metrics /healthz /readyz "
+                  "/debug/requests /snapshot" + (" POST:/submit" if serve_http else "") + ")",
+                  file=sys.stderr, flush=True)
+        # An anomaly's flight record carries the engine's state of its moment.
+        fr = obs_flightrec.active()
+        if fr is not None:
+            fr.register_source("engine", lambda: obs_telemetry.engine_snapshot(eng, slo=slo))
+        tuner = None
         try:
             eng.start()  # builds and runs the whole bucket ladder first
-            summary = run_load(eng, duration_s=args.duration, rate_hz=args.rate,
-                               seed=args.seed, oracle_every=args.oracle_every, slo=slo,
-                               tenants=tenants)
+            if args.tuner or os.environ.get(TUNER_ENV, "").lower() in ("1", "on", "true",
+                                                                        "yes"):
+                from distributed_sddmm_tpu_torch.tuner import BackgroundTuner
+
+                tuner = BackgroundTuner(eng).start()
+                print(f"[tuner] background tuner armed (interval {tuner.config.interval_s}s)",
+                      file=sys.stderr)
+            if sampler is not None:
+                sampler.start()
+                print(f"[telemetry] sampling to {sampler.path}", file=sys.stderr)
+            if serve_http:
+                summary = _serve_until_signal(eng, slo, tenants)
+            else:
+                summary = run_load(eng, duration_s=args.duration, rate_hz=args.rate,
+                                   seed=args.seed, oracle_every=args.oracle_every, slo=slo,
+                                   tenants=tenants)
         finally:
+            if tuner is not None:
+                tuner.stop()
+            if sampler is not None:
+                sampler.stop()
             eng.stop()
+            if admin is not None:
+                admin.stop()
         record = {
             "app": f"serve-{args.app}",
             "algorithm": plan.algorithm if plan else d_ops.algorithm_name,
@@ -707,7 +842,8 @@ def _dispatch_serve(args) -> int:
             "c": plan.c if plan else d_ops.c,
             "fused": True,
             "kernel": getattr(d_ops.kernel, "name", type(d_ops.kernel).__name__),
-            "kernel_variant": realized_kernel_variant(d_ops),
+            # What serves: a tuner promotion restamps the workload's variant.
+            "kernel_variant": eng.workload.kernel_variant,
             "wire": d_ops.wire.label,
             "device": device_label(device),
             "num_processes": world.num_processes,
@@ -727,11 +863,22 @@ def _dispatch_serve(args) -> int:
                 "batch_buckets": list(eng.batch_buckets),
                 "inner_buckets": list(eng.workload.inner_buckets),
                 "tenants": args.tenants or os.environ.get("SDDMM_TORCH_TENANTS"),
+                "serve_http": serve_http,
             },
             **summary,
         }
         if plan is not None:
             record["plan"] = plan.to_dict()
+        if tuner is not None:
+            record["tuner"] = tuner.summary()
+            record["time_to_adapt_s"] = tuner.time_to_adapt_s
+        if sampler is not None:
+            record["telemetry_path"] = str(sampler.path)
+        if admin is not None:
+            record["admin_port"] = admin.port
+            record["admin_scrapes"] = admin.scrapes
+        if fr is not None:
+            record["flightrec_dir"] = str(fr.out_dir)
         if obs_trace.enabled():
             from distributed_sddmm_tpu_torch.obs import manifest as obs_manifest
 
@@ -743,14 +890,18 @@ def _dispatch_serve(args) -> int:
                                       for s, k, n in fault_plan.events[events_before:]]
         if watchdog is not None:
             record["anomalies"] = watchdog.summary(since=anomalies_before)
-    print(json.dumps({k: record.get(k) for k in (
-        "app", "algorithm", "requests", "completed", "throughput_rps", "latency_ms",
-        "batch_occupancy", "shed_count", "degraded_count", "errors", "oracle_checked",
-        "oracle_failures", "slo_violations", "burn_rate", "latency_hist_ms", "tenant")}),
-        flush=True)
+    if serve_http:
+        # The replica's contract: the whole record is the last stdout line.
+        print(json.dumps(record, default=str), flush=True)
+    else:
+        print(json.dumps({k: record.get(k) for k in (
+            "app", "algorithm", "requests", "completed", "throughput_rps", "latency_ms",
+            "batch_occupancy", "shed_count", "degraded_count", "errors", "oracle_checked",
+            "oracle_failures", "slo_violations", "burn_rate", "latency_hist_ms", "tenant")}),
+            flush=True)
     if args.output_file:
         with open(args.output_file, "a") as f:
-            f.write(json.dumps(record) + "\n")
+            f.write(json.dumps(record, default=str) + "\n")
     run_store = obs_store.active()
     if run_store is not None:
         try:  # best-effort: never fail the run
@@ -758,10 +909,237 @@ def _dispatch_serve(args) -> int:
             print(f"[serve] runstore doc {doc['run_id']}", file=sys.stderr)
         except Exception as e:  # noqa: BLE001
             print(f"[serve] runstore ingest failed: {e}", file=sys.stderr)
+    if serve_http:
+        return 0
     if summary["oracle_failures"]:
         return 1
     if summary["slo_violations"]:
         return 2
+    return 0
+
+
+def _http_submit(eng):
+    """The replica's ``POST /submit``: the payload through the engine's own
+    ``submit`` (the workload's ``clamp`` turns the JSON lists back into its
+    arrays, so the reply is the in-process one's bits), the reply counted
+    in the recorder as the load generator counts an in-process one.
+
+    ``serial`` asks for the workload's host float32 rung, which only an
+    engine on the CPU has: a replica on the card refuses it (400) rather
+    than answer from the host."""
+
+    def submit(payload, tenant="default", serial=False, timeout_s=30.0):
+        if serial:
+            if eng.device.type != "cpu":
+                raise ValueError(f"serial: an engine on {eng.device.type} has no host rung")
+            return eng.workload.serial(eng.workload.clamp(payload))
+        req = eng.submit(payload, tenant=tenant)
+        try:
+            reply = req.result(timeout_s=timeout_s)
+        except Exception:
+            eng.recorder.record_error(tenant)
+            raise
+        eng.recorder.record_reply(req)
+        return reply
+
+    return submit
+
+
+def _serve_until_signal(eng, slo, tenants) -> dict:
+    """Replica mode: park until SIGTERM or SIGINT, then drain and
+    summarize from the recorder (requests came over ``POST /submit``)."""
+    import signal
+    import threading
+
+    from distributed_sddmm_tpu_torch.obs import clock
+    from distributed_sddmm_tpu_torch.serve.slo import attach_tenant_slo
+
+    done = threading.Event()
+
+    def on_signal(signum, frame):  # noqa: ARG001 -- the signal API
+        done.set()
+
+    # Handlers run on the main thread whichever thread the signal lands on;
+    # the wait polls so that it never blocks one out.
+    old_term = signal.signal(signal.SIGTERM, on_signal)
+    old_int = signal.signal(signal.SIGINT, on_signal)
+    print("[serve] replica mode: accepting POST /submit until SIGTERM", file=sys.stderr,
+          flush=True)
+    t0 = clock.now()
+    try:
+        while not done.wait(0.2):
+            pass
+    finally:
+        signal.signal(signal.SIGTERM, old_term)
+        signal.signal(signal.SIGINT, old_int)
+    eng.stop(drain=True)  # admission closes; the queued requests finish
+    elapsed = clock.now() - t0
+    summary = eng.recorder.summary()
+    summary.update({
+        "duration_s": round(elapsed, 3),
+        "offered": eng.queue.submitted_count + summary["shed_count"],
+        "submitted": eng.queue.submitted_count,
+        "throughput_rps": round(summary["completed"] / elapsed, 3) if elapsed > 0 else 0.0,
+        "oracle_checked": 0,
+        "oracle_failures": 0,
+    })
+    summary["slo"] = slo.to_dict()
+    summary["slo_violations"] = slo.check(summary)
+    summary["burn_rate"] = slo.burn_rate(summary)
+    attach_tenant_slo(summary, tenants)
+    return summary
+
+
+def _top_source(args):
+    """``bench top``'s source: ``(read_fn, label)``, ``read_fn()`` giving
+    the snapshots to draw. An explicit stream that does not exist exits 2;
+    no stream at all exits 1 (a line on stderr, no traceback)."""
+    from distributed_sddmm_tpu_torch.obs import telemetry
+
+    if args.admin_port is not None:
+        from distributed_sddmm_tpu_torch.obs import httpexp
+
+        def read_live():
+            snap = httpexp.fetch_json(args.admin_host, args.admin_port, "/snapshot")
+            return [snap] if snap else []
+
+        try:
+            read_live()  # probe once; no answer: the stream instead
+            return read_live, f"admin {args.admin_host}:{args.admin_port}"
+        except (OSError, ValueError) as e:
+            print(f"[top] admin endpoint {args.admin_host}:{args.admin_port} unreachable "
+                  f"({e}); falling back to the telemetry stream", file=sys.stderr)
+    path = args.path
+    if path is not None:
+        if not os.path.exists(path):
+            print(f"bench top: no telemetry file at {path}", file=sys.stderr)
+            raise SystemExit(2)
+    else:
+        _, root = telemetry.parse_env_spec(os.environ.get(telemetry.TELEMETRY_ENV))
+        path = telemetry.newest_stream(root)
+        if path is None:
+            print("no telemetry streams found (run `bench serve --telemetry` first)",
+                  file=sys.stderr)
+            raise SystemExit(1)
+    return (lambda: telemetry.read_snapshots(path)), str(path)
+
+
+def _dispatch_top(args) -> int:
+    """``top``: draw the newest snapshot of a stream or a live endpoint;
+    ``--watch`` redraws until interrupted; ``--serve`` exports the stream
+    as ``/metrics``."""
+    import time
+
+    from distributed_sddmm_tpu_torch.obs import telemetry
+
+    try:
+        read_fn, label = _top_source(args)
+    except SystemExit as e:
+        return int(e.code or 0)
+    if args.serve_port is not None:
+        from distributed_sddmm_tpu_torch.obs import httpexp
+
+        def latest():
+            snaps = read_fn()
+            return snaps[-1] if snaps else None
+
+        server = httpexp.AdminServer(snapshot_fn=latest, port=args.serve_port).start()
+        print(f"[top] exporting {label} on http://127.0.0.1:{server.port}/metrics",
+              file=sys.stderr, flush=True)
+        try:
+            while True:
+                time.sleep(1.0)
+        except KeyboardInterrupt:
+            return 0
+        finally:
+            server.stop()
+    while True:
+        try:
+            snaps = read_fn()
+        except (OSError, ValueError) as e:
+            # A live source can vanish mid-watch: one line, never a traceback.
+            print(f"bench top: snapshot source unavailable ({e})", file=sys.stderr)
+            if not args.watch:
+                return 1
+            snaps = []
+        if args.watch:
+            print("\x1b[2J\x1b[H", end="")  # clear the screen between frames
+        print(telemetry.render_top(snaps), flush=True)
+        if not args.watch:
+            return 0
+        try:
+            time.sleep(args.watch)
+        except KeyboardInterrupt:
+            return 0
+
+
+def _dispatch_tune(args) -> int:
+    """``tune``: one offline re-tune of the R-mat problem. The incumbent is
+    the plan a warm-up would take (a cache hit, else the model's); the run
+    store's history for its fingerprint is mined; the whole candidate
+    space is re-ranked and measured; a challenger that wins is stored in
+    the plan cache. With ``--dry-run`` the cache stays byte for byte as it
+    was. Exit 0 whether or not the incumbent stands."""
+    import tempfile
+
+    from distributed_sddmm_tpu_torch.autotune.cache import PlanCache
+    from distributed_sddmm_tpu_torch.autotune.fingerprint import (
+        machine_signature, make_fingerprint,
+    )
+    from distributed_sddmm_tpu_torch.autotune.plan import Plan
+    from distributed_sddmm_tpu_torch.tuner import TunerConfig
+    import distributed_sddmm_tpu_torch.tuner.retune as tuner_retune
+    import distributed_sddmm_tpu_torch.tuner.signals as tuner_signals
+
+    device = resolve_device(args.device)
+    with _world(device) as world:
+        S = HostCOO.rmat(args.log_m, args.edge_factor, seed=0, device=device)
+        problem = Problem.from_coo(S, args.R)
+        if args.dry_run:
+            # get_plan stores its selection on a miss: answer from a real
+            # hit, else select against a throwaway cache.
+            p, backend, kernels = machine_signature(world, device)
+            hit = PlanCache().load(make_fingerprint(problem, p, backend, kernels).key)
+            if hit is not None:
+                incumbent = Plan.from_dict(hit)
+            else:
+                with tempfile.TemporaryDirectory() as td:
+                    incumbent = get_plan(problem, world, device=device, mode="model",
+                                         cache=PlanCache(td))
+        else:
+            incumbent = get_plan(problem, world, device=device, mode="model")
+        signals = tuner_signals.mine_runstore(_run_store(args), incumbent.fingerprint_key,
+                                              problem, incumbent.predicted_ms)
+        measured: list = []
+        challenger = tuner_retune.retune(
+            problem, incumbent, S, top_k=args.top_k, trials=args.trials,
+            timeout_s=args.timeout, max_elapsed_s=args.budget,
+            trial_fn=TunerConfig(trial=args.trial).trial_fn(device, world),
+            world=world, device=device, measured_out=measured)
+    promoted = challenger is not None and not args.dry_run
+    if promoted:
+        PlanCache().store(challenger.fingerprint_key, challenger.to_dict())
+    report = {"fingerprint_key": incumbent.fingerprint_key,
+              "signals": [s.to_dict() for s in signals], "incumbent": incumbent.to_dict(),
+              "challenger": challenger.to_dict() if challenger else None,
+              "trials": [{"algorithm": c.algorithm, "c": c.c, "kernel": c.kernel,
+                          "variant": c.variant, "wire": c.wire,
+                          "gflops": rec.get("overall_throughput"),
+                          "pairs_ms": rec.get("pairs_ms")} for c, rec in measured],
+              "promoted": promoted, "dry_run": bool(args.dry_run)}
+    if args.json:
+        print(json.dumps(report, indent=1))
+    else:
+        inc, ch = incumbent, challenger
+        print(f"incumbent  {inc.algorithm} c={inc.c} kernel={inc.kernel}"
+              + (f" variant={inc.variant}" if inc.variant else "") + f" [{inc.source}]")
+        if ch is None:
+            print("challenger none: the incumbent stands")
+        else:
+            print(f"challenger {ch.algorithm} c={ch.c} kernel={ch.kernel}"
+                  + (f" variant={ch.variant}" if ch.variant else "")
+                  + f" measured={ch.measured_gflops:.3f} GFLOP/s"
+                  + (" -> plan cache" if promoted else " (dry run)"))
     return 0
 
 
@@ -893,6 +1271,10 @@ def main(argv=None) -> int:
     if args.cmd == "serve":
         with _observed(args):
             return _dispatch_serve(args)
+    if args.cmd == "top":
+        return _dispatch_top(args)
+    if args.cmd == "tune":
+        return _dispatch_tune(args)
     if args.cmd == "verify":
         return _verify(args)
     if args.cmd == "permute":

@@ -155,7 +155,7 @@ def heaviest_row(problem) -> float:
     return lam + math.sqrt(2.0 * lam * math.log(max(problem.M, 2)))
 
 
-def estimated_pad_frac(problem, banked: bool) -> float:
+def estimated_pad_frac(problem, banked: bool, variant=None) -> float:
     """The idle share of a tile walk on the card, against the nonzeros'
     work: no pad lanes exist in the port's CSR walks, so what a variant
     saves or costs is imbalance and extra passes. The generic walk gives
@@ -166,7 +166,8 @@ def estimated_pad_frac(problem, banked: bool) -> float:
     ``8 * thr``), so its longest walk is ``min(h, max(8 * thr, SPLIT))``;
     it pays a wave's ramp at the mean for each launch past the first, and
     the heavy band's split workspace (written by pass 1 and read back by
-    the second pass, about two slots' work a segment)."""
+    the second pass, about two slots' work a segment). ``variant``: the
+    banked variant charged (default: the problem's own)."""
     from distributed_sddmm_tpu_torch.codegen.banded import SPLIT
 
     nnz = max(problem.nnz, 1)
@@ -174,12 +175,33 @@ def estimated_pad_frac(problem, banked: bool) -> float:
     h = heaviest_row(problem)
     if not banked:
         return RESIDENT_WARPS * max(h - lam, 0.0) / nnz
-    v = select_variant(problem)
+    v = variant if variant is not None else select_variant(problem)
     thr = v.bands[0].npr_max or 0
     walk = min(h, max(8 * thr, SPLIT)) if thr else min(h, SPLIT)
     ramps = (len(v.bands) - 1) * RESIDENT_WARPS * lam
     workspace = 2.0 * math.ceil(h / SPLIT) if h > 8 * thr else 0.0
     return (RESIDENT_WARPS * max(walk - lam, 0.0) + ramps + workspace) / nnz
+
+
+def walk_idle_frac(row_ptr) -> float:
+    """The counted :func:`estimated_pad_frac` of the generic walk over real
+    tiles: ``row_ptr`` is a ``(..., n_rows + 1)`` stack of tile CSR row
+    pointers, and each tile is charged ``RESIDENT_WARPS * (h - mean)`` idle
+    slots at its own heaviest row ``h`` and mean row ``mean``, summed over
+    the tiles against their nonzeros. The port's walks have no pad lanes,
+    so this gauge stands where the JAX package notes its chunk encoding's
+    ``padded_lane_frac`` (the tuner's trigger, ``tuner/signals.py``). Not
+    bounded by 1: 1.0 means a wave idles as long as the nonzeros work.
+    One host copy of the per-tile maxima: called at tile build."""
+    import torch
+
+    ptr = row_ptr.reshape(-1, row_ptr.shape[-1]).to(torch.int64)
+    n_rows = max(ptr.shape[-1] - 1, 1)
+    nnz = (ptr[:, -1] - ptr[:, 0]).to(torch.float64)
+    heaviest = torch.diff(ptr, dim=-1).amax(dim=-1).to(torch.float64)
+    idle = RESIDENT_WARPS * torch.clamp(heaviest - nnz / n_rows, min=0.0)
+    stats = torch.stack([idle.sum(), nnz.sum()]).cpu().tolist()
+    return stats[0] / stats[1] if stats[1] else 0.0
 
 
 def variant_cost_factor(problem, variant_id: str) -> float:

@@ -11,7 +11,9 @@ recorder is armed, the ring and the global counters (and, with
 The dump's path rides the anomaly's trace event and the bench record's
 ``anomalies`` summary (``snapshot_path``). A dump never fails the run (a
 failed one returns None and gives its budget slot back), ``max_dumps``
-caps the files a process writes, and the ring caps memory.
+caps the files a process writes, and the ring caps memory. Sources
+registered with :meth:`FlightRecorder.register_source` (``bench serve``:
+the engine's telemetry snapshot) land in the dump's ``sources``.
 
 Activation: ``SDDMM_TORCH_FLIGHTREC`` (``1``/``on`` -> the default
 directory, ``0``/``off`` -> off, anything else -> a directory), the CLI's
@@ -56,6 +58,17 @@ class FlightRecorder:
         self.dumps = 0
         #: File-name sequence: never refunded, unlike the budget.
         self._seq = 0
+        #: Paths written, in firing order.
+        self.paths: list[str] = []
+        #: Named snapshot callables merged into every dump (``bench serve``
+        #: registers the engine's telemetry snapshot).
+        self._sources: dict = {}
+
+    def register_source(self, name: str, fn) -> None:
+        """Attach a snapshot source, called at each dump; what it raises is
+        recorded as its value, never raised."""
+        with self._lock:
+            self._sources[name] = fn
 
     def dump(self, kind: str, op: str, attrs: dict) -> Optional[str]:
         """Write one flight record; its path, or None (budget spent or the
@@ -76,6 +89,7 @@ class FlightRecorder:
             self.dumps += 1
             seq = self._seq
             self._seq += 1
+            sources = dict(self._sources)
         path = self.out_dir / f"{seq:03d}-{kind}.json"
         record = {
             "schema": SCHEMA_VERSION,
@@ -87,6 +101,11 @@ class FlightRecorder:
             "ring_seen": self.ring.appended,
             "metrics": {"global": obs_metrics.GLOBAL.snapshot()},
         }
+        for name, fn in sources.items():
+            try:
+                record.setdefault("sources", {})[name] = fn()
+            except Exception as e:  # noqa: BLE001 -- recorded, not raised
+                record.setdefault("sources", {})[name] = {"error": f"{type(e).__name__}: {e}"}
         if self.profile_window_s > 0:
             from distributed_sddmm_tpu_torch.obs import profiler
 
@@ -97,6 +116,8 @@ class FlightRecorder:
         from distributed_sddmm_tpu_torch.utils.atomic import atomic_write_json
 
         atomic_write_json(path, record, default=str)
+        with self._lock:
+            self.paths.append(str(path))
         obs_metrics.GLOBAL.add("flightrec_dumps")
         obs_log.warn("flightrec", "anomaly snapshot written", kind=kind, op=op, path=str(path))
         return str(path)

@@ -72,6 +72,9 @@ class OpMetrics(collections.abc.Mapping):
         self._ops: dict[str, dict] = {}
         #: Per-op gauges (set, not summed), kept across :meth:`clear`.
         self._gauges: dict[str, dict] = {}
+        #: Per-op gauges of the tile structure (:meth:`note_structure`):
+        #: scraped and read by the tuner, kept out of :meth:`to_dict`.
+        self._structure: dict[str, dict] = {}
 
     def note(self, op: str, **gauges) -> None:
         """Set per-op gauges (last write wins); they join the op's dict in
@@ -83,6 +86,17 @@ class OpMetrics(collections.abc.Mapping):
         """Every noted gauge, ops that never ran included."""
         with self._lock:
             return {op: dict(g) for op, g in self._gauges.items()}
+
+    def note_structure(self, op: str, **gauges) -> None:
+        """Set per-op gauges of the tile structure (last write wins). They
+        stay out of :meth:`to_dict`, so a record keeps the JAX package's
+        fields; ``/metrics`` and the tuner read :meth:`structure_gauges`."""
+        with self._lock:
+            self._structure.setdefault(op, {}).update(gauges)
+
+    def structure_gauges(self) -> dict:
+        with self._lock:
+            return {op: dict(g) for op, g in self._structure.items()}
 
     def record(self, op: str, kernel_s: float, overhead_s: float = 0.0,
                retries: int = 0, comm_words: float = 0.0, comm_bytes: float = 0.0,

@@ -483,6 +483,26 @@ class DistributedSparse(abc.ABC):
         return (getattr(self.S_tiles, "blk_variant", None)
                 or getattr(self.ST_tiles, "blk_variant", None))
 
+    #: The ops each tile set runs (the JAX package's noting of its gauge).
+    _GAUGE_OPS = (("S_tiles", ("sddmmA", "spmmA", "fusedSpMM", "cgStep", "gatLayer")),
+                  ("ST_tiles", ("sddmmB", "spmmB")))
+
+    def _note_tile_metrics(self) -> None:
+        """Note each tile set's counted generic-walk idle share
+        (``codegen/variants.py::walk_idle_frac``) as the ``walk_idle_frac``
+        structure gauge of the ops it runs: what the banked variants cut,
+        scraped by ``/metrics`` and mined by the tuner. Strategy
+        constructors call it once their tiles exist, a fit rebind again."""
+        from distributed_sddmm_tpu_torch.codegen.variants import walk_idle_frac
+
+        for name, ops in self._GAUGE_OPS:
+            tiles = getattr(self, name, None)
+            if tiles is None or getattr(tiles, "row_ptr", None) is None:
+                continue
+            frac = round(walk_idle_frac(tiles.row_ptr), 6)
+            for op in ops:
+                self.metrics.note_structure(op, walk_idle_frac=frac)
+
     # ----------------------------- program store ---------------------------- #
     # The port compiles no program: what a process rebuilds is the host
     # set-up of the constructor, the tile sets (CSR, band tables, host
@@ -533,6 +553,7 @@ class DistributedSparse(abc.ABC):
                 buf.copy_(packed_structure(tiles.tile(h, 0)))
         self._bands.clear()
         self._op_cost_cache.clear()
+        self._note_tile_metrics()
 
     @classmethod
     def from_setup(cls, build, setup: dict, device):

@@ -98,6 +98,7 @@ class CannonDense25D(DistributedSparse):
             S.transpose(), BlockCyclic25D(self.N_pad, self.M_pad, n, c),
             tile_rows=self.localBrows * c, tile_cols=self.localArows, device=self.device,
             variant=variant, devs=self.blocks, swap=True)
+        self._note_tile_metrics()
 
     def set_r_value(self, R: int) -> None:
         if R % self.sqrtpc != 0:

@@ -82,6 +82,7 @@ class CannonSparse25D(DistributedSparse):
             S.transpose(), Floor2D(self.N_pad, self.M_pad, n), c,
             tile_rows=self.localBrows, tile_cols=self.localArows, device=self.device,
             variant=variant, devs=self.blocks)
+        self._note_tile_metrics()
 
     def set_r_value(self, R: int) -> None:
         if R % (self.sqrtpc * self.c) != 0:

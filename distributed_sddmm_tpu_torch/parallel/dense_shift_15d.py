@@ -90,6 +90,7 @@ class DenseShift15D(DistributedSparse):
             tile_rows=self.localBrows * c, tile_cols=self.localArows,
             device=self.device, variant=variant, devs=self.blocks,
         )
+        self._note_tile_metrics()
 
     def comm_profile(self, op: str, pairs: float = 1.0) -> list[dict]:
         """Per-collective word and byte volumes of one op from the layout

@@ -77,6 +77,7 @@ class SparseShift15D(DistributedSparse):
             S.transpose(), ShardedBlockRow(self.N_pad, self.M_pad, p, c),
             tile_rows=self.blockBwidth, tile_cols=self.M_pad, device=self.device,
             variant=variant, devs=self.blocks)
+        self._note_tile_metrics()
 
     def set_r_value(self, R: int) -> None:
         if R % self.nr != 0:

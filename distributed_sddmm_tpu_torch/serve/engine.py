@@ -37,9 +37,14 @@ model. The execution contract:
 * **Observability**: ``serve:batch`` spans and per-request reply events
   through ``obs.trace``, queue depth and occupancy into the
   :class:`~distributed_sddmm_tpu_torch.serve.slo.LatencyRecorder`, and the
-  watchdog's ``queue_runaway`` hook on every admission.
-
-The tuner's hooks (``attach_mirror``, ``swap_ladder``) are not ported.
+  watchdog's ``queue_runaway`` hook on every admission. The telemetry
+  sampler and the admin server read the engine through
+  ``obs/telemetry.py::engine_snapshot`` (host state only).
+* **The tuner's hooks** (``tuner/``): :meth:`attach_mirror` hands every
+  answered group to a shadow session after its replies are out, and
+  :meth:`swap_ladder` swaps the whole ladder for cells the tuner built and
+  ran off the request path. ``live_compiles`` counts the cells built in
+  :meth:`_program`: after warm-up it stays put, swap or none.
 """
 
 from __future__ import annotations
@@ -118,8 +123,18 @@ class ServingEngine:
         #: Batches that failed past every rung on the card (their requests
         #: got a RequestError).
         self.error_batches = 0
-        #: True once :meth:`warmup` has built and run the whole ladder.
+        #: True once :meth:`warmup` has built and run the whole ladder (the
+        #: admin server's ``/readyz``).
         self.warmed = False
+        #: True once :meth:`start` ran: ``/healthz`` tells "not started yet"
+        #: (alive, warming) from "the runner died".
+        self.ever_started = False
+        #: The mirror hook (:meth:`attach_mirror`); None: no shadow session.
+        self._mirror = None
+        #: Ladders swapped in (tuner promotions).
+        self.ladder_swaps = 0
+        #: Set by an attached ``tuner.BackgroundTuner`` (the snapshot reads it).
+        self.tuner = None
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
         #: Structure changes bound into this engine (:meth:`rebind_structure`).
@@ -129,16 +144,23 @@ class ServingEngine:
     # The program ladder
     # ------------------------------------------------------------------ #
 
-    def program_key(self, batch_bucket: int, inner_bucket: int, sig: str | None = None) -> str:
+    #: ``program_key``'s default variant: the workload's current one (an
+    #: explicit None is the generic key).
+    _WORKLOAD_VARIANT = object()
+
+    def program_key(self, batch_bucket: int, inner_bucket: int, sig: str | None = None,
+                    variant=_WORKLOAD_VARIANT) -> str:
         """The ladder cell's key: the JAX package's grammar, the device
-        type for the backend."""
+        type for the backend. ``variant`` overrides the workload's: the
+        tuner keys a challenger's cells so."""
         from distributed_sddmm_tpu_torch.programs import keys as program_keys
 
+        if variant is ServingEngine._WORKLOAD_VARIANT:
+            variant = getattr(self.workload, "kernel_variant", None)
         r = getattr(self.workload, "R", getattr(self.workload, "_F", 0))
         return program_keys.serve_program_key(
             self.workload.name, batch_bucket, inner_bucket, r, self.device.type,
-            params=self.workload.program_params(), sig=sig,
-            variant=getattr(self.workload, "kernel_variant", None),
+            params=self.workload.program_params(), sig=sig, variant=variant,
             wire=getattr(self.workload, "wire", None),
             cap=getattr(self.workload, "capacity_segment", None),
             dist=program_keys.dist_segment())
@@ -197,8 +219,17 @@ class ServingEngine:
         self._stop.clear()
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name=f"serve-{self.workload.name}")
+        # Set once the runner exists: the admin server is up through warm-up,
+        # and /healthz reads that window as alive.
+        self.ever_started = True
         self._thread.start()
         return self
+
+    def runner_alive(self) -> bool:
+        """``/healthz``: the runner exists and runs (False before
+        :meth:`start`, after :meth:`stop`, and after the runner's death)."""
+        t = self._thread
+        return t is not None and t.is_alive()
 
     def stop(self, drain: bool = True, timeout_s: float = 30.0) -> None:
         """Close admission; drain the queued requests (unless ``drain`` is
@@ -329,6 +360,15 @@ class ServingEngine:
                         t_reply=obs_trace.rel_time(req.t_reply),
                         **{k: round(v, 6) for k, v in req.stage_latencies_s().items()})
             self.served += len(group)
+            mirror = self._mirror
+            if mirror is not None and not degraded and all(
+                    r is not None and not isinstance(r, BaseException) for r in replies):
+                # After the replies are out; a degraded group's replies are
+                # not the cells' bits, so they are not offered.
+                try:
+                    mirror(group, replies, bb, ib)
+                except Exception as e:  # noqa: BLE001 -- a best-effort tap
+                    obs_log.warn("serve", "mirror hook failed", error=f"{type(e).__name__}: {e}")
             if wd is not None:
                 try:
                     wd.observe(f"serve:{self.workload.name}", clock.now() - t0)
@@ -428,6 +468,51 @@ class ServingEngine:
         return replies
 
     # ------------------------------------------------------------------ #
+    # The tuner's hooks (tuner/)
+    # ------------------------------------------------------------------ #
+
+    def attach_mirror(self, mirror) -> None:
+        """Arm the request mirror: the runner calls ``mirror(payloads,
+        replies, batch_bucket, inner_bucket)`` for every answered group
+        that did not degrade (a shadow session's ``offer``). One at a time;
+        a second replaces the first."""
+        self._mirror = mirror
+
+    def detach_mirror(self) -> None:
+        self._mirror = None
+
+    def swap_ladder(self, cell_programs: dict, variant) -> None:
+        """Swap the ladder for the tuner's challenger cells, its promotion.
+
+        Under the cache lock: a dispatch in flight finishes on the cell it
+        resolved, the next lookup takes the challenger's. ``cell_programs``
+        must cover every cell and have run once already (the shadow session
+        builds and runs them off the request path): a ladder missing a
+        cell is refused, since the request path would build it. The
+        workload's ``kernel_variant`` takes the challenger's id, so the
+        record and the keys name what serves."""
+        cells = {(bb, ib) for bb in self.batch_buckets for ib in self.workload.inner_buckets}
+        missing = cells - set(cell_programs)
+        if missing:
+            raise ValueError(f"challenger ladder is missing cells {sorted(missing)}; "
+                             "promoting it would build on the request path")
+        if variant is not None:
+            from distributed_sddmm_tpu_torch.codegen.variants import variant_from_id
+
+            variant_from_id(variant)  # a stale id raises here too
+        keyed = {self.program_key(bb, ib, variant=variant): prog
+                 for (bb, ib), prog in cell_programs.items()}
+        with self._cache_lock:
+            self._cell_programs = {cell: cell_programs[cell] for cell in cells}
+            self._programs = keyed
+            self.workload.kernel_variant = variant
+            self.ladder_swaps += 1
+        obs_trace.event("serve_ladder_swap", workload=self.workload.name, variant=variant,
+                        cells=len(cells))
+        obs_log.info("serve", "bucket ladder hot-swapped", variant=variant, cells=len(cells),
+                     swaps=self.ladder_swaps)
+
+    # ------------------------------------------------------------------ #
 
     def rebind_structure(self, *args, **kw) -> dict:
         """Bind a mutated structure into the live ladder through the
@@ -462,6 +547,7 @@ class ServingEngine:
                 "served": self.served,
                 "degraded_batches": self.degraded_batches,
                 "error_batches": self.error_batches,
+                "ladder_swaps": self.ladder_swaps,
                 "structure_rebinds": self.structure_rebinds,
                 "queue_shed": self.queue.shed_count,
             }

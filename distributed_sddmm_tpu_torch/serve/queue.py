@@ -323,6 +323,11 @@ class RequestQueue:
         with self._lock:
             return self._depth
 
+    def tenant_depths(self) -> dict[str, int]:
+        """The live backlog of each tenant class (a telemetry field)."""
+        with self._lock:
+            return {name: len(q) for name, q in self._queues.items()}
+
     # ------------------------------------------------------------------ #
     # Engine side
     # ------------------------------------------------------------------ #

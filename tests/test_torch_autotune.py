@@ -363,8 +363,9 @@ def test_a_timeout_on_the_card_ends_measuring():
 
 
 def test_default_trial_measures_through_the_harness(plan_cache):
-    """``mode="measure"`` without an injected trial: real short runs of the
-    harness on the CPU (the plain versions), the winner measured."""
+    """``mode="measure"`` without an injected trial: real short runs of each
+    candidate's strategy on the CPU (the plain versions), the winner
+    measured."""
     S = HostCOO.rmat(6, 4, seed=0)
     plan = get_plan(Problem.from_coo(S, 16), LocalWorld(4), S=S, device="cpu",
                     mode="measure", cache=plan_cache, top_k=2, trials=1, warmup=0)

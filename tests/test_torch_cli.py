@@ -463,7 +463,7 @@ def test_kernels_and_baseline_records_have_the_jax_keys(tmp_path, capsys):
         assert rec[key] == want[key], key
 
 
-UNPORTED_COMMANDS = ("overlap", "fleet", "tune", "top", "lint", "env")
+UNPORTED_COMMANDS = ("overlap", "fleet", "lint", "env")
 
 
 @pytest.mark.parametrize("base", [["er", "5", "4", "15d_fusion2", "4", "1"],
@@ -564,7 +564,8 @@ def test_card_subcommands_default_to_cuda():
     and ``baseline`` takes no device (it runs on the host by design)."""
     parser = cli.build_parser()
     for argv in (["er", "5", "4", "a", "4", "1"], ["file", "m.mtx", "a", "4", "1"],
-                 ["heatmap", "5", "4", "1"], ["kernels"], ["verify"]):
+                 ["heatmap", "5", "4", "1"], ["kernels"], ["verify"], ["serve"],
+                 ["tune", "5", "4", "8"]):
         assert parser.parse_args(argv).device == "cuda", argv[0]
     assert not hasattr(parser.parse_args(["baseline", "5", "4", "8"]), "device")
     assert parser.parse_args(["kernels"]).kernels == ["torch", "cuda-bf16"]
@@ -645,3 +646,107 @@ def test_store_and_trace_subcommands_exit_like_the_jax_cli(cmd, tmp_path, capsys
             assert ours.out == theirs.out, argv
     if cmd == "backfill":
         assert "backfilled" in ours.out and "backfill-bench_r05" in ours.out
+
+
+# ------------------------------------------------ telemetry, admin, tuner
+
+
+def _serve_cli(*extra) -> list:
+    return ["serve", "--app", "als", "--log-m", "6", "--edge-factor", "6", "--R", "8",
+            "--train-steps", "1", "--max-batch", "4", "--device", "cpu", "--no-runstore",
+            *extra]
+
+
+def test_serve_telemetry_admin_and_tuner_run_and_top_reads_them(tmp_path, monkeypatch,
+                                                                capsys):
+    """``serve --telemetry DIR --telemetry-interval --admin-port 0 --tuner``
+    exits 0 with the record's ``telemetry_path``, ``admin_port`` and
+    ``tuner``; ``top`` draws the stream (the newest under
+    ``SDDMM_TORCH_TELEMETRY`` or a named file), falls back to it from an
+    endpoint that does not answer, exits 2 on a missing file and 1 with no
+    stream at all."""
+    monkeypatch.setenv("SDDMM_TORCH_PLAN_CACHE", str(tmp_path / "plans"))
+    monkeypatch.setenv("SDDMM_TORCH_TUNER_INTERVAL", "0.2")
+    out = tmp_path / "rec.jsonl"
+    argv = _serve_cli("--duration", "1.5", "--rate", "30", "--telemetry", str(tmp_path / "tel"),
+                      "--telemetry-interval", "0.2", "--admin-port", "0", "--tuner",
+                      "-o", str(out))
+    assert cli.main(argv) == 0
+    rec = json.loads(out.read_text().splitlines()[-1])
+    assert rec["admin_port"] > 0 and rec["serve_config"]["serve_http"] is False
+    assert rec["tuner"]["enabled"] and rec["tuner"]["scans"] >= 1
+    assert "time_to_adapt_s" in rec and rec["engine"]["ladder_swaps"] >= 0
+    stream = pathlib.Path(rec["telemetry_path"])
+    assert stream.parent == tmp_path / "tel" and len(stream.read_text().splitlines()) >= 2
+    capsys.readouterr()
+    monkeypatch.setenv("SDDMM_TORCH_TELEMETRY", str(tmp_path / "tel"))
+    assert cli.main(["top"]) == 0
+    screen = capsys.readouterr().out
+    assert screen.startswith(f"run {stream.stem}") and "tuner" in screen
+    assert cli.main(["top", str(stream), "--admin-port", str(rec["admin_port"])]) == 0
+    captured = capsys.readouterr()
+    assert "unreachable" in captured.err and captured.out == screen
+    assert cli.main(["top", str(tmp_path / "missing.jsonl")]) == 2
+    monkeypatch.setenv("SDDMM_TORCH_TELEMETRY", str(tmp_path / "empty"))
+    assert cli.main(["top"]) == 1
+
+
+def _wait_for(pattern: str, path: pathlib.Path, proc, timeout_s: float = 90.0) -> str:
+    import re
+    import time
+
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout_s:
+        m = re.search(pattern, path.read_text())
+        if m:
+            return m.group(1)
+        assert proc.poll() is None, path.read_text()
+        time.sleep(0.1)
+    raise AssertionError(f"no {pattern!r} in {path.read_text()}")
+
+
+def test_serve_http_replica_answers_then_drains_on_sigterm(tmp_path, capsys):
+    """``serve --serve-http`` in a process of its own on the CPU: the port
+    from its ``[admin]`` line, ``/readyz`` 200 once warm, ``POST /submit``
+    answered, ``top --admin-port`` drawing it, then SIGTERM: exit 0, the
+    whole record as the last stdout line, the replies counted."""
+    import signal
+    import time
+    import urllib.request
+
+    from distributed_sddmm_tpu_torch.obs import httpexp
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
+    env.update(PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="",
+               SDDMM_TORCH_PLAN_CACHE=str(tmp_path / "plans"))
+    err = tmp_path / "err.txt"
+    with open(err, "w") as fh:
+        proc = subprocess.Popen([sys.executable, "-m", "distributed_sddmm_tpu_torch.bench",
+                                 *_serve_cli("--serve-http")], cwd=ROOT, env=env,
+                                stdout=subprocess.PIPE, stderr=fh, text=True)
+    try:
+        port = int(_wait_for(r"\[admin\] serving http://127\.0\.0\.1:(\d+) \(", err, proc))
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < 90:
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/readyz", timeout=5) as r:
+                    if r.status == 200:
+                        break
+            except urllib.error.HTTPError as e:
+                assert e.code == 503
+            time.sleep(0.1)
+        payloads = [{"items": [1, 5, 9], "ratings": [1.0, -0.5, 2.0]},
+                    {"items": [3], "ratings": [0.25]},
+                    {"items": [0, 63], "ratings": [2.0, 1.0]}]
+        for p in payloads:
+            status, body, _ = httpexp.post_json("127.0.0.1", port, "/submit", {"payload": p})
+            assert status == 200 and len(body["reply"]["items"]) == 10
+        assert cli.main(["top", "--admin-port", str(port)]) == 0
+        assert "completed 3" in capsys.readouterr().out
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=120)
+    assert proc.returncode == 0, err.read_text()
+    rec = json.loads(out.strip().splitlines()[-1])
+    assert rec["completed"] == 3 and rec["serve_config"]["serve_http"] is True
+    assert rec["admin_port"] == port and rec["errors"] == 0

@@ -81,7 +81,8 @@ def test_port_and_chip_smoke_import_no_jax_in_subprocess():
                 "utils.buckets", "programs", "programs.keys", "programs.store",
                 "dynstruct", "dynstruct.capacity", "dynstruct.rebind", "serve",
                 "serve.queue", "serve.slo", "serve.workloads", "serve.engine",
-                "obs.telemetry", "ops.serve_kernels"):
+                "obs.telemetry", "ops.serve_kernels", "obs.httpexp", "tuner", "tuner.signals",
+                "tuner.retune", "tuner.shadow", "tuner.loop"):
         assert f"distributed_sddmm_tpu_torch.{mod}" in mods
 
 
@@ -105,10 +106,11 @@ def test_ast_scan_finds_no_forbidden_import():
     allowed = {"torch", "numpy", "scipy", "distributed_sddmm_tpu_torch",
                "__future__", "abc", "argparse", "base64", "collections", "contextlib",
                "ctypes", "dataclasses", "enum", "errno", "fcntl", "fnmatch", "functools",
-               "hashlib", "html", "importlib", "inspect", "io", "itertools", "json", "logging",
-               "math",
-               "multiprocessing", "os", "pathlib", "random", "re", "shutil", "statistics",
-               "subprocess", "sys", "tempfile", "threading", "time", "typing", "zipfile"}
+               "hashlib", "html", "http", "importlib", "inspect", "io", "itertools", "json",
+               "logging", "math",
+               "multiprocessing", "os", "pathlib", "random", "re", "shutil", "signal",
+               "statistics", "subprocess", "sys", "tempfile", "threading", "time", "typing",
+               "urllib", "zipfile"}
     used = set().union(*(_guarded_roots(f, keep=False) for f in files))
     assert used <= allowed, used - allowed
     # The card's machine has no matplotlib: the charts import it only under a
