@@ -352,8 +352,34 @@ last line is printed):
    ``output:tunerShadow``: a mismatch, no swap, a flight record. tune:
    ``bench tune 16 32 128`` into a plan cache of its own, then
    ``--dry-run``: exit 0 both, the cache's bytes unchanged.
+20b. dist -- the multi-process layer (``dist/``, ``phase_dist``). runner:
+   in a process of its own (``--dist-runner``), ``dist.run.main`` (what
+   ``python -m distributed_sddmm_tpu_torch.dist.run`` calls) with
+   ``--coordinator 127.0.0.1:<free port> --num-processes 1
+   --process-id 0 er 20 32 15d_fusion2 128 1`` over NCCL, traced to a
+   file: exit 0, the record's ``num_processes`` 1, ``process_index`` 0
+   and the coordinator, every configuration field equal to a plain
+   ``bench er`` run's, spans in the trace, the group closed, the fused
+   kernel launched; its ms a pair beside phase full's. ingest:
+   ``rmat_partitioned`` at the full cell drawn on the card at p = 1 and
+   p = 4: the four shards, regrouped, equal p = 1 bit for bit, each
+   shard's ``peak_bytes`` within the bound (kept triplets x3 at 1/p, a
+   chunk in flight, the two permutations); the headline R-mat's ``.mtx``
+   at p = 4, strict and repair, a process a shard: equal to
+   ``HostCOO.load_mtx`` + ``sanitize_coo`` bit for bit; seconds and peak
+   bytes a shard. elastic: the JAX package's kill-and-recover drill
+   (``tests/test_dist_elastic.py``) as two worker processes
+   (``--dist-worker``) on the card: the headline R-mat in two shards by
+   ``rmat_partitioned``, each step ``x <- 0.5 x + S_s B`` through the SpMM
+   tile kernel, a checkpoint a step; a ``kill`` fells worker 1 after step
+   3's compute, ``on_loss`` tears its pointer, generation 1 at p = 1
+   resumes both shards and finishes: exactly one loss, each shard's rows
+   bit-equal to an uninterrupted run in this process, both workers'
+   spans in the merged trace, scan-back to step 2, no JAX in a worker;
+   the seconds from the kill to the recovered finish.
 21. kernels line -- ``{"kernels": [...]}``, the three serve kernels after
-   the tile kernels.
+   the tile kernels; each tile kernel's launches by phase, ``dist``
+   included.
 22. last line -- ``{"ok": true, "device": {...}}``.
 
 Phase training (13) runs after phases dynstruct and serve: its GAT checks
@@ -365,11 +391,13 @@ phases run, and the phases before it cover that wait.
 ``python3 chip_smoke.py --profile-banked-attention`` is a third
 (``profile_banked_attention``): a ``torch.profiler`` look at the banked
 bigbird attention call's host time. ``python3 chip_smoke.py --serve`` runs
-phase serve alone (``serve_only``).
+phase serve alone (``serve_only``), ``--dist`` phase dist alone
+(``dist_only``); ``--dist-worker SPEC`` is the elastic drill's worker.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import hashlib
@@ -423,7 +451,7 @@ from distributed_sddmm_tpu_torch.parallel.mesh import make_grid
 from distributed_sddmm_tpu_torch.parallel.sharding import BankedTileView, TileView
 from distributed_sddmm_tpu_torch.parallel.wire import wire_policy
 from distributed_sddmm_tpu_torch.programs import store as programs_store
-from distributed_sddmm_tpu_torch.resilience import CheckpointStore, NumericalFault
+from distributed_sddmm_tpu_torch.resilience import CheckpointStore, NumericalFault, faults
 from distributed_sddmm_tpu_torch.tools import costmodel, tracereport
 from distributed_sddmm_tpu_torch.utils import oracle, verify
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
@@ -7187,7 +7215,451 @@ def gat_grad_drift(seeds: list) -> int:
     return 0
 
 
+# --------------------------------------------------------------------- dist
+
+DIST_DIR = _build.BUILD_DIR / "dist"
+#: Phase dist: the pod runner at the full cell over NCCL at world size 1,
+#: partitioned ingest, and the elastic drill in two worker processes.
+DIST = {"runner": ["er", str(FULL["log_m"]), str(FULL["edge_factor"]), "15d_fusion2",
+                   str(FULL["R"]), "1"],
+        # The record fields a run's configuration is (the runner's must
+        # equal a plain ``bench er`` run's).
+        "config_fields": ("algorithm", "app", "R", "c", "fused", "fusion", "mask",
+                          "num_trials", "kernel", "kernel_variant", "wire", "device",
+                          "alg_info"),
+        "ingest_p": 4, "chunk_edges": 1 << 18, "mtx_modes": ("strict", "repair"),
+        "timeout_s": 600}
+#: The elastic drill (JAX ``tests/test_dist_elastic.py``): the headline
+#: R-mat drawn by ``rmat_partitioned`` into ``nshards`` shards, each step
+#: ``x <- 0.5 x + S_s B`` through the SpMM tile kernel; a ``kill`` fells
+#: worker 1 after step ``kill_step``'s compute, before its checkpoint.
+DRILL = {"data": "rmat", "log_m": HEADLINE["log_m"], "edge_factor": HEADLINE["edge_factor"],
+         "R": HEADLINE["R"], "b": "seed", "b_seed": 7, "nshards": 2, "steps": 6,
+         "kill_step": 3, "generation_timeout_s": 300, "grace_s": 120}
+#: Phase full's ms a pair by precision on an NVIDIA H100 80GB HBM3 at 700 W
+#: (PERF.md §5), printed beside the runner's when phase full has not run here.
+FULL_MS_REFERENCE = {"f32": 6.256, "bf16": 3.698}
+
+
+def drill_data(spec: dict, s: int):
+    """Shard ``s`` of the drill's matrix: the headline R-mat by
+    ``rmat_partitioned`` (``data`` rmat), or the JAX drill's
+    ``erdos_renyi_partitioned(96, 80, 4, seed=5)`` (``data`` er)."""
+    from distributed_sddmm_tpu_torch.dist import ingest
+
+    if spec["data"] == "rmat":
+        return ingest.rmat_partitioned(spec["log_m"], spec["edge_factor"], spec["nshards"], s,
+                                       device=spec["device"])
+    return ingest.erdos_renyi_partitioned(96, 80, 4, spec["nshards"], s, seed=5,
+                                          values="normal", chunk_edges=64)
+
+
+def drill_shard(spec: dict, s: int, store=None, span_attrs=None) -> dict:
+    """Shard ``s`` of the drill: ``x <- 0.5 x + S_s B`` for the steps not
+    yet in ``store`` (a ``CheckpointStore``: resumed from its newest
+    loadable step, each step saved after its compute, the
+    ``dist_worker:post_compute`` kill site between the two). ``S_s B`` is
+    the SpMM tile kernel's (its plain version on the CPU) on a
+    ``15d_fusion2`` strategy over the shard's global-frame COO at p = 1;
+    ``B`` is ``N(0, 1)`` from ``b_seed`` (``b`` seed) or ones. Returns the
+    shard rows' fingerprint (sum of squares in float64) and the sha256 of
+    their float32 bytes."""
+    dev = torch.device(spec["device"])
+    shard = drill_data(spec, s)
+    alg = make_algorithm("15d_fusion2", shard.coo, spec["R"], world=LocalWorld(1),
+                         kernel=CudaTileKernel("f32", device=dev), device=dev)
+    if spec["b"] == "seed":
+        host_b = torch.randn(shard.N, spec["R"], generator=torch.Generator().manual_seed(
+            spec["b_seed"]), dtype=torch.float32).numpy()
+    else:
+        host_b = np.ones((shard.N, spec["R"]), dtype=np.float32)
+    B = alg.put_b(host_b)
+    sv = alg.scatter_s_values(shard.coo.vals)
+    zero = alg.like_a_matrix(0.0)
+    rows = slice(shard.row0, shard.row1)
+    start, x = 0, alg.like_a_matrix(0.0)
+    latest = store.load_latest() if store is not None else None
+    if latest is not None:
+        step, arrays, _meta = latest
+        full = np.zeros((shard.M, spec["R"]), dtype=np.float32)
+        full[rows] = arrays["x"]
+        start, x = step + 1, alg.put_a(full)  # the checkpoint holds a finished step
+    for t in range(start, spec["steps"]):
+        with obs_trace.span("elastic:step", shard=s, step=t, **(span_attrs or {})):
+            x = 0.5 * x + alg.spmm_a(zero, B, sv)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+        if store is not None:
+            faults.maybe_kill("dist_worker:post_compute")
+            store.save(t, {"x": alg.host_a(x)[rows]})
+    local = np.ascontiguousarray(alg.host_a(x)[rows], dtype=np.float32)
+    return {"fingerprint": float(np.sum(local.astype(np.float64) ** 2)),
+            "sha256": hashlib.sha256(local.tobytes()).hexdigest(),
+            "row_range": [shard.row0, shard.row1], "nnz": shard.nnz}
+
+
+def dist_worker(spec_json: str) -> int:
+    """``python3 chip_smoke.py --dist-worker SPEC``: one worker of the
+    elastic drill, the JAX drill's worker (``tests/_mp_worker.py
+    --elastic``) without JAX. The data partition is fixed at ``nshards``;
+    this worker owns shards ``{s : s % nprocs == pid}`` and runs each
+    from its ``CheckpointStore`` under ``checkpoint_dir``. Prints one JSON
+    line: the shards' fingerprints and digests, its launch counts, whether
+    JAX was imported."""
+    spec = json.loads(spec_json)
+    faults.maybe_kill("dist_worker:start")
+    obs_trace.event("dist_worker:start", process=spec["pid"], pid_os=os.getpid(),
+                    generation=spec["generation"])
+    cuda_kernels.reset_launch_counts()
+    out = {}
+    for s in range(spec["nshards"]):
+        if s % spec["nprocs"] != spec["pid"]:
+            continue
+        store = CheckpointStore(pathlib.Path(spec["checkpoint_dir"]) / f"shard{s}")
+        out[str(s)] = drill_shard(spec, s, store, {"process": spec["pid"],
+                                                   "generation": spec["generation"]})
+    obs_trace.event("dist_worker:done", process=spec["pid"], generation=spec["generation"])
+    obs_trace.disable()  # flush the shard before the result line
+    print(json.dumps({"pid": spec["pid"], "generation": spec["generation"],
+                      "shards": {s: r["fingerprint"] for s, r in out.items()},
+                      "digests": {s: r["sha256"] for s, r in out.items()},
+                      "steps": spec["steps"], "launches": cuda_kernels.launch_counts(),
+                      "jax_loaded": "jax" in sys.modules}), flush=True)
+    return 0
+
+
+def run_drill(spec: dict, workdir: pathlib.Path, kill: bool = True, on_loss=None,
+              **sup_kw):
+    """The drill under ``dist.elastic.ElasticSupervisor``: ``nshards``
+    workers (``chip_smoke.py --dist-worker``), each tracing into
+    ``workdir/traces``; with ``kill`` a ``kill`` fault at worker 1's
+    ``dist_worker:post_compute`` site on step ``kill_step``. Returns the
+    supervisor's result."""
+    from distributed_sddmm_tpu_torch.dist.elastic import ElasticSupervisor
+
+    script = str(pathlib.Path(__file__).resolve())
+    ckpt, traces = workdir / "ckpt", workdir / "traces"
+    traces.mkdir(parents=True, exist_ok=True)
+
+    def worker_argv(generation, live_p, worker, port):
+        return [script, "--dist-worker", json.dumps({
+            **spec, "pid": worker, "nprocs": live_p, "generation": generation,
+            "checkpoint_dir": str(ckpt)})]
+
+    def worker_env(generation, live_p, worker):
+        env = {obs_trace.TRACE_ENV: str(traces)}
+        if kill and generation == 0 and worker == 1:
+            env[faults.FAULTS_ENV] = json.dumps([{"site": "dist_worker:post_compute",
+                                           "kind": "kill", "at": [spec["kill_step"]]}])
+        return env
+
+    sup = ElasticSupervisor(worker_argv, spec["nshards"], worker_env=worker_env,
+                            on_loss=on_loss, cwd=str(pathlib.Path(script).parent),
+                            **sup_kw)
+    return sup.run()
+
+
+def drill_trace_facts(traces: pathlib.Path) -> dict:
+    """What the drill's merged trace shows: the ``(generation, process)``
+    pairs with step spans, each pair's steps by shard, the checkpoint
+    loads, and the epoch at which each pair's last step span closed."""
+    from distributed_sddmm_tpu_torch.obs import tracemerge
+
+    files = sorted(traces.glob("*.jsonl"))
+    merged = tracemerge.merge(files)
+    spans = [s for s in merged["spans"] if s["name"] == "elastic:step"]
+    steps: dict = {}
+    for s in spans:
+        a = s["attrs"]
+        steps.setdefault(f"{a['generation']}:{a['process']}", []).append([a["shard"],
+                                                                          a["step"]])
+    t0 = merged["begin"]["t0_epoch"]
+    last_end = {}
+    for s in spans:
+        key = f"{s['attrs']['generation']}:{s['attrs']['process']}"
+        last_end[key] = max(last_end.get(key, 0.0), t0 + s["t1"])
+    loads = [{k: e["attrs"][k] for k in ("step", "source")}
+             for e in merged["events"] if e["name"] == "checkpoint_load"]
+    return {"shard_files": len(files), "steps": steps, "checkpoint_loads": loads,
+            "last_step_end_epoch": last_end}
+
+
+def dist_runner_child(argv_json: str) -> int:
+    """``python3 chip_smoke.py --dist-runner ARGV``: the pod runner in a
+    fresh process (``dist.run.main``, what ``python -m
+    distributed_sddmm_tpu_torch.dist.run`` calls), its launches counted.
+    Prints one JSON line: the exit code, the launches by operand type and
+    whether the process group is closed after the run."""
+    from distributed_sddmm_tpu_torch.dist import run as dist_run
+
+    cuda_kernels.reset_launch_counts()
+    rc = dist_run.main(json.loads(argv_json))
+    if torch.cuda.is_initialized():  # a run on the CPU starts no CUDA
+        torch.cuda.synchronize()
+    print(json.dumps({"rc": rc, "counts": by_type(),
+                      "group_closed": not dist.is_initialized()}), flush=True)
+    return 0
+
+
+def dist_runner(dev, launches: dict, card: str, full: dict | None) -> dict:
+    """The pod runner in a process of its own at the full cell over NCCL at
+    world size 1, ``SDDMM_TORCH_TRACE`` a file; then the same ``bench er``
+    in this process without it. The runner's record carries the pod
+    identity and the coordinator, its configuration equals the plain
+    run's, its trace holds the run's spans, the group is closed after, and
+    the fused kernel launched. ``full`` is phase full's result, when it
+    ran."""
+    from distributed_sddmm_tpu_torch.dist.elastic import free_port, last_json_line
+
+    rec_path, plain_path = DIST_DIR / "runner.jsonl", DIST_DIR / "plain.jsonl"
+    trace_path = DIST_DIR / "runner_trace.jsonl"
+    port = free_port()
+    argv = ["--coordinator", f"127.0.0.1:{port}", "--num-processes", "1", "--process-id",
+            "0", *DIST["runner"], "-o", str(rec_path)]
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(pathlib.Path(__file__).resolve()), "--dist-runner",
+         json.dumps(argv)], cwd=pathlib.Path(__file__).resolve().parent,
+        env={**os.environ, obs_trace.TRACE_ENV: str(trace_path)}, capture_output=True,
+        text=True, timeout=DIST["timeout_s"])
+    runner_s = time.perf_counter() - t
+    child = last_json_line(proc.stdout) or {}
+    require(proc.returncode == 0 and child.get("rc") == 0,
+            f"dist runner: exit {proc.returncode} / {child.get('rc')}: {proc.stderr[-3000:]}")
+    require(child["group_closed"], "dist runner: the process group was left open")
+    counts = child["counts"]
+    rec = json.loads(rec_path.read_text().splitlines()[-1])
+    rc2, counts2 = counted_by_type(lambda: cli.main([*DIST["runner"], "-o", str(plain_path)]))
+    require(rc2 == 0, f"dist runner: plain bench er exit {rc2}")
+    plain = json.loads(plain_path.read_text().splitlines()[-1])
+    trace = tracereport.load_trace(trace_path)
+    differ = [k for k in DIST["config_fields"] if rec.get(k) != plain.get(k)]
+    ms = rec["elapsed"] / rec["num_trials"] * 1e3
+    prec = rec["kernel"].removeprefix("cuda-")
+    out = {"argv": argv, "rc": child["rc"], "seconds": runner_s,
+           "identity": {k: rec.get(k) for k in ("num_processes", "process_index",
+                                                "coordinator")},
+           "plain_identity": {k: plain.get(k) for k in ("num_processes", "process_index",
+                                                        "coordinator")},
+           "config_fields_differing": differ, "ms_per_pair": ms,
+           "plain_ms_per_pair": plain["elapsed"] / plain["num_trials"] * 1e3,
+           "precision": prec,
+           "full_phase_ms_per_pair": full[prec]["ms_per_pair"] if full else None,
+           "full_ms_reference": FULL_MS_REFERENCE.get(prec),
+           "trace_spans": len(trace["spans"]), "trace_path": rec.get("trace_path"),
+           "launches": counts, "plain_launches": counts2}
+    emit({"phase": "dist_runner", "card": card, **out})
+    require(rec["num_processes"] == 1 and rec["process_index"] == 0
+            and rec.get("coordinator") == f"127.0.0.1:{port}",
+            f"dist runner: record identity {out['identity']}")
+    require("coordinator" not in plain, "dist runner: a plain record names a coordinator")
+    require(not differ, f"dist runner: configuration fields differ: {differ}")
+    require(trace["spans"] and rec.get("trace_path") == str(trace_path),
+            "dist runner: the trace holds no span of the run")
+    require(counts[prec].get("fused_tile", 0) > 0, f"dist runner: launches {counts}")
+    add_by_type(launches, counts)
+    add_by_type(launches, counts2)
+    return out
+
+
+def _mtx_shard_timed(path: str, nproc: int, proc_id: int, mode: str):
+    """One process's ``load_mtx_partitioned`` and its seconds (run in a
+    process of its own, as each host of a pod loads its shard)."""
+    from distributed_sddmm_tpu_torch.dist import ingest
+
+    t = time.perf_counter()
+    shard = ingest.load_mtx_partitioned(path, nproc, proc_id, mode=mode)
+    return shard, time.perf_counter() - t
+
+
+def canonical(coo: HostCOO) -> tuple:
+    s = coo.sorted_by_row()
+    return s.M, s.N, s.rows, s.cols, s.vals.view(np.int64)
+
+
+def same_coo(a: tuple, b: tuple) -> bool:
+    return a[:2] == b[:2] and all(np.array_equal(x, y) for x, y in zip(a[2:], b[2:]))
+
+
+def dist_ingest(dev, card: str) -> dict:
+    """Partitioned ingest. R-mat at the full cell drawn on the card at
+    p = 1 and p = 4: the four shards, regrouped, equal p = 1 bit for bit
+    (each shard's rows in p = 1's order), each shard's ``peak_bytes``
+    within the bound; then the headline R-mat's ``.mtx`` at p = 4 in
+    strict and repair modes, a process a shard: the shards assembled equal
+    ``HostCOO.load_mtx`` + ``sanitize_coo`` bit for bit."""
+    from distributed_sddmm_tpu_torch.dist import ingest
+    from distributed_sddmm_tpu_torch.utils.coo import sanitize_coo
+
+    p, chunk = DIST["ingest_p"], DIST["chunk_edges"]
+    log_m, ef = FULL["log_m"], FULL["edge_factor"]
+    out: dict = {"p": p, "chunk_edges": chunk}
+    t = time.perf_counter()
+    one = ingest.rmat_partitioned(log_m, ef, 1, 0, chunk_edges=chunk, device=dev)
+    out["rmat_p1"] = {"seconds": time.perf_counter() - t, "nnz": one.nnz,
+                      "peak_bytes": one.report["peak_bytes"]}
+    shards = []
+    for k in range(p):
+        t = time.perf_counter()
+        shards.append(ingest.rmat_partitioned(log_m, ef, p, k, chunk_edges=chunk, device=dev))
+        shards[-1].report["seconds"] = time.perf_counter() - t
+    M = 1 << log_m
+    # The bound of JAX tests/test_dist_ingest.py:321-337 at this chunk:
+    # kept triplets about 1/p (x3: the block, the concatenation, the
+    # dedup), one chunk in flight, the two O(M) permutations.
+    bound = (3 * ingest.ENTRY_BYTES * (one.nnz // p + 1) + 4 * chunk * ingest.ENTRY_BYTES
+             + 2 * 8 * M + (1 << 14))
+    # Each shard holds p = 1's entries of its rows, in p = 1's order.
+    equal = True
+    for s in shards:
+        mine = (one.coo.rows >= s.row0) & (one.coo.rows < s.row1)
+        equal &= (s.M == one.coo.M and s.N == one.coo.N
+                  and np.array_equal(s.coo.rows, one.coo.rows[mine])
+                  and np.array_equal(s.coo.cols, one.coo.cols[mine])
+                  and np.array_equal(s.coo.vals, one.coo.vals[mine]))
+    out["rmat_p4"] = {"seconds": [s.report["seconds"] for s in shards],
+                      "nnz": [s.nnz for s in shards],
+                      "peak_bytes": [s.report["peak_bytes"] for s in shards],
+                      "peak_bound": bound, "equal_p1": bool(equal)}
+    require(equal, "dist ingest: the p = 4 R-mat shards differ from p = 1")
+    require(all(s.report["peak_bytes"] <= bound for s in shards),
+            f"dist ingest: peak bytes {out['rmat_p4']['peak_bytes']} over {bound}")
+    del one, shards, mine
+
+    path = DIST_DIR / "headline.mtx"
+    t = time.perf_counter()
+    HostCOO.rmat(HEADLINE["log_m"], HEADLINE["edge_factor"], device=dev).save_mtx(path)
+    out["mtx_write_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    loaded = HostCOO.load_mtx(path)
+    out["mtx_whole_s"] = time.perf_counter() - t
+    out["mtx_bytes"] = path.stat().st_size
+    jobs = [(mode, k) for mode in DIST["mtx_modes"] for k in range(p)]
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(len(jobs), mp_context=ctx) as pool:
+        done = list(pool.map(_mtx_shard_timed, [str(path)] * len(jobs), [p] * len(jobs),
+                             [k for _, k in jobs], [m for m, _ in jobs]))
+    for mode in DIST["mtx_modes"]:
+        want, _ = sanitize_coo(loaded.rows, loaded.cols, loaded.vals, loaded.M, loaded.N,
+                               mode=mode)
+        got = [sh for (m, _), (sh, _) in zip(jobs, done) if m == mode]
+        equal = same_coo(canonical(ingest.assemble(got)), canonical(want))
+        out[f"mtx_{mode}"] = {"seconds": [s for (m, _), (_, s) in zip(jobs, done)
+                                          if m == mode],
+                              "nnz": [sh.nnz for sh in got],
+                              "peak_bytes": [sh.report["peak_bytes"] for sh in got],
+                              "equal_whole": equal}
+        require(equal, f"dist ingest: the {mode} .mtx shards differ from the whole loader")
+    emit({"phase": "dist_ingest", "card": card, **out})
+    return out
+
+
+def dist_elastic(dev, launches: dict, card: str) -> dict:
+    """The elastic drill on the card: two worker processes, worker 1 killed
+    after step 3's compute, ``on_loss`` tearing shard 1's checkpoint
+    pointer, generation 1 at p = 1 resuming both shards (shard 1 by
+    scan-back). Gates: exactly one loss; each shard's final rows bit-equal
+    to an uninterrupted run in this process with the same kernel; the
+    merged trace holds both workers' spans; the workers imported no JAX."""
+    workdir = DIST_DIR / "elastic"
+    shutil.rmtree(workdir, ignore_errors=True)
+    spec = {**DRILL, "device": "cuda"}
+    killed_at: list = []
+
+    def tear_pointer(result):
+        killed_at.append(time.time())
+        (workdir / "ckpt" / "shard1" / "latest.json").write_text("{torn")
+
+    t = time.perf_counter()
+    result = run_drill(spec, workdir, on_loss=tear_pointer,
+                       generation_timeout_s=DRILL["generation_timeout_s"],
+                       grace_s=DRILL["grace_s"])
+    finished = time.time()
+    drill_s = time.perf_counter() - t
+    gens = result.generations
+    facts = drill_trace_facts(workdir / "traces")
+    want = {str(s): drill_shard(spec, s) for s in range(DRILL["nshards"])}
+    final = gens[-1].records[0] if gens[-1].records and gens[-1].records[0] else {}
+    kill_epoch = facts["last_step_end_epoch"].get("0:1")
+    counts: dict = {}
+    for g in gens:
+        for r in g.records:
+            if r:
+                for k, n in r["launches"].items():
+                    counts[k] = counts.get(k, 0) + n
+    out = {"generations": [{"live_p": g.live_p, "returncodes": g.returncodes,
+                            "lost": g.lost, "reaped": g.reaped} for g in gens],
+           "recovered": result.recovered, "ok": result.ok, "drill_s": drill_s,
+           "kill_to_recovered_s": finished - kill_epoch if kill_epoch else None,
+           "loss_seen_to_recovered_s": finished - killed_at[0] if killed_at else None,
+           "final_digests": final.get("digests"), "want_digests": {
+               s: r["sha256"] for s, r in want.items()},
+           "fingerprints": final.get("shards"),
+           "trace": facts, "launches": counts,
+           "jax_loaded": [r.get("jax_loaded") for g in gens for r in g.records if r],
+           "stderr_tails": [e[-1500:] for g in gens for e in g.stderr if e]}
+    emit({"phase": "dist_elastic", "card": card, **out})
+    require(len(gens) == 2 and gens[0].lost == [1]
+            and gens[0].returncodes[1] == faults.KILL_EXIT_CODE
+            and gens[0].returncodes[0] == 0,
+            f"dist elastic: generation 0 {out['generations']}")
+    require(result.recovered and result.ok and gens[1].live_p == 1,
+            f"dist elastic: recovery {out['generations']}")
+    require(final.get("digests") == out["want_digests"],
+            "dist elastic: the recovered shards differ from the uninterrupted run")
+    require({"0:0", "0:1", "1:0"} <= set(facts["steps"]),
+            f"dist elastic: merged trace spans {sorted(facts['steps'])}")
+    require(max(t for _, t in facts["steps"]["0:1"]) == DRILL["kill_step"],
+            "dist elastic: worker 1 ran past its kill")
+    require({"step": DRILL["kill_step"] - 1, "source": "scan_back"}
+            in facts["checkpoint_loads"], "dist elastic: shard 1 did not scan back")
+    require(not any(out["jax_loaded"]), "dist elastic: a worker imported JAX")
+    require(counts.get("spmm_tile", 0) > 0, f"dist elastic: launches {counts}")
+    add_launches(launches, counts, "f32")
+    return out
+
+
+def phase_dist(dev, launches: dict, card: str, full: dict | None = None) -> dict:
+    """Phase dist: the pod runner, partitioned ingest, the elastic drill
+    (``full``: phase full's result, when it ran)."""
+    t0 = time.perf_counter()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    seconds = {}
+    t = time.perf_counter()
+    runner = dist_runner(dev, launches, card, full)
+    seconds["runner"] = time.perf_counter() - t
+    t = time.perf_counter()
+    ingested = dist_ingest(dev, card)
+    seconds["ingest"] = time.perf_counter() - t
+    t = time.perf_counter()
+    elastic = dist_elastic(dev, launches, card)
+    seconds["elastic"] = time.perf_counter() - t
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    out = {"seconds": seconds, "phase_s": time.perf_counter() - t0,
+           "launches": {f"{op}[{prec}]": n for (op, prec), n in launches.items()}}
+    emit({"phase": "dist", "card": card, **out})
+    return {"runner": runner, "ingest": ingested, "elastic": elastic, **out}
+
+
+def dist_only() -> int:
+    """``python3 chip_smoke.py --dist``: phase dist alone, after the build
+    (its launches on a line of their own, no last line)."""
+    info = phase_device()
+    dev = torch.device("cuda")
+    phase_build()
+    os.environ[obs_store.RUNSTORE_ENV] = "0"
+    os.environ[programs_store.PROGRAMS_ENV] = "0"
+    programs_store.disable()
+    phase_dist(dev, {}, info["nvidia_smi"])
+    return 0
+
+
 def main() -> int:
+    if "--dist-worker" in sys.argv:
+        return dist_worker(sys.argv[sys.argv.index("--dist-worker") + 1])
+    if "--dist-runner" in sys.argv:
+        return dist_runner_child(sys.argv[sys.argv.index("--dist-runner") + 1])
     if "--gat-grad-drift" in sys.argv:
         seeds = [int(a) for a in sys.argv[sys.argv.index("--gat-grad-drift") + 1:]]
         return gat_grad_drift(seeds or list(GAT_DRIFT["seeds"]))
@@ -7195,6 +7667,8 @@ def main() -> int:
         return profile_banked_attention()
     if "--serve" in sys.argv:
         return serve_only()
+    if "--dist" in sys.argv:
+        return dist_only()
     info = phase_device()
     dev = torch.device("cuda")
     phase_build()
@@ -7254,6 +7728,8 @@ def drive(info: dict, dev, ref: HostReference) -> int:
     phase_dynstruct(dev, dyn, card)
     serve: dict = {}
     served = phase_serve(dev, serve, card)
+    dist_launches: dict = {}
+    phase_dist(dev, dist_launches, card, full)
     # Last: its GAT checks wait for the host float64 references, which the
     # phases above overlap.
     training: dict = {}
@@ -7261,7 +7737,8 @@ def drive(info: dict, dev, ref: HostReference) -> int:
     del uniform
     for key, n in (*ring.items(), *apps.items(), *strategies.items(), *training.items(),
                    *apps_strategies.items(), *plans.items(), *host.items(), *obs.items(),
-                   *runstore.items(), *programs.items(), *dyn.items(), *serve.items()):
+                   *runstore.items(), *programs.items(), *dyn.items(), *serve.items(),
+                   *dist_launches.items()):
         launches[key] = launches.get(key, 0) + n
 
     kernels = []
@@ -7285,6 +7762,7 @@ def drive(info: dict, dev, ref: HostReference) -> int:
             "programs_launches": programs.get((op, prec), 0),
             "dynstruct_launches": dyn.get((op, prec), 0),
             "serve_launches": serve.get((op, prec), 0),
+            "dist_launches": dist_launches.get((op, prec), 0),
             "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
             "max_rel_err": max(r["max_rel_err"] for r in shapes.values()),
             "tol": main_["tol"],

@@ -846,8 +846,7 @@ def _dispatch_serve(args) -> int:
             "kernel_variant": eng.workload.kernel_variant,
             "wire": d_ops.wire.label,
             "device": device_label(device),
-            "num_processes": world.num_processes,
-            "process_index": world.process_index,
+            **harness.pod_record_fields(),
             "num_trials": summary["completed"],
             "elapsed": summary["duration_s"],
             "overall_throughput": None,

@@ -30,11 +30,13 @@ failed ingest logs a warning and never fails the run.
 from __future__ import annotations
 
 import json
+import os
 import time
 from typing import Optional
 
 from distributed_sddmm_tpu_torch.common import MatMode
 from distributed_sddmm_tpu_torch.device import device_label, synchronize
+from distributed_sddmm_tpu_torch.dist import init as dist_init
 from distributed_sddmm_tpu_torch.models.als import DistributedALS
 from distributed_sddmm_tpu_torch.models.gat import GAT, GATLayer
 from distributed_sddmm_tpu_torch.obs import log as obs_log
@@ -50,6 +52,7 @@ from distributed_sddmm_tpu_torch.parallel.base import (
 from distributed_sddmm_tpu_torch.parallel.cannon_dense_25d import CannonDense25D
 from distributed_sddmm_tpu_torch.parallel.cannon_sparse_25d import CannonSparse25D
 from distributed_sddmm_tpu_torch.parallel.dense_shift_15d import DenseShift15D
+from distributed_sddmm_tpu_torch.parallel.mesh import process_spans, ranks_per_host
 from distributed_sddmm_tpu_torch.parallel.sparse_shift_15d import SparseShift15D
 from distributed_sddmm_tpu_torch.resilience import CheckpointStore, faults
 from distributed_sddmm_tpu_torch.utils.coo import HostCOO
@@ -247,6 +250,25 @@ def _run_als(alg: DistributedSparse, trials: int, warmup: int, cg_iters: int = 1
     return elapsed, stats
 
 
+def pod_record_fields() -> dict:
+    """Pod identity of a bench or serve record: ``dist.init.PodContext.
+    record_fields`` of :func:`~distributed_sddmm_tpu_torch.dist.init.pod_info`
+    (the manifest resolves through the same method)."""
+    return dist_init.pod_info().record_fields()
+
+
+def pod_collectives(alg) -> dict:
+    """A multi-process record's ``pod`` section: the ranks a host holds,
+    ``parallel/mesh.py::process_spans`` of the strategy's grid (the axes
+    whose collectives cross a host), and the comm's ``axis_counts`` (calls
+    by axis and kind, and how many ran over a group spanning hosts)."""
+    return {
+        "ranks_per_host": ranks_per_host(alg.world.p),
+        "process_spans": process_spans(alg.grid),
+        "collectives": alg.comm.axis_counts,
+    }
+
+
 def benchmark_algorithm(
     S: HostCOO,
     algorithm_name: str,
@@ -345,8 +367,9 @@ def benchmark_algorithm(
         # The realized wire policy; its label keeps role overrides apart.
         "wire": alg.wire.label,
         "device": device_label(alg.device),
-        "num_processes": alg.world.num_processes,
-        "process_index": alg.world.process_index,
+        # Pod identity: the run store gates on num_processes, so a pod's
+        # record never pools into a single process's baseline.
+        **pod_record_fields(),
         "alg_info": alg.json_algorithm_info(),
         "perf_stats": perf_stats,
         "metrics": alg.metrics.to_dict(),
@@ -357,6 +380,8 @@ def benchmark_algorithm(
         **app_stats,
         **(extra_info or {}),
     }
+    if alg.world.num_processes > 1:
+        record["pod"] = pod_collectives(alg)
     if obs_trace.enabled():
         record["run_id"] = obs_trace.run_id()
         record["trace_path"] = obs_trace.trace_path()
@@ -366,7 +391,9 @@ def benchmark_algorithm(
                                   for site, kind, n in fault_plan.events[events_before:]]
     if watchdog is not None:
         record["anomalies"] = watchdog.summary(since=anomalies_before)
-    if output_file and alg.world.process_index == 0:
+    # Process 0 of a world keeps the records; a worker a pod launcher
+    # labelled keeps its own, as each host of a pod does.
+    if output_file and (alg.world.process_index == 0 or os.environ.get(dist_init.NPROCS_ENV)):
         with open(output_file, "a") as f:
             f.write(json.dumps(record) + "\n")
     run_store = obs_store.active()

@@ -6,10 +6,11 @@ Python, torch and CUDA versions, the device (on a card its name, compute
 capability and count, and the name and power limit ``nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader`` reports; on the CPU
 every device field says ``cpu``), the ``backend`` the run store keys on
-(:func:`backend_name`), the git revision, the port's
-``SDDMM_TORCH_*`` knobs and the caller's extras. Collection never starts
-CUDA: device facts are read once CUDA is up (or the caller names the
-device), and :func:`write_for_trace` refreshes the file then. Where
+(:func:`backend_name`), the pod identity (``dist/init.py``), the git
+revision, the port's ``SDDMM_TORCH_*`` knobs and the caller's extras.
+Collection never starts CUDA: device facts are read once CUDA is up (or
+the caller names the device), and :func:`write_for_trace` refreshes the
+file then. Where
 ``nvidia-smi`` cannot be run the power limit is null beside the reason;
 nothing is made up. Git provenance never raises: ``git_rev`` is
 ``"unknown"`` and ``git_dirty`` None where no revision resolves.
@@ -129,6 +130,18 @@ def backend_name(device=None, world=None) -> str:
     return f"{name}:{kind}"
 
 
+def _dist_info() -> dict:
+    """Pod identity (``num_processes``, ``process_index``, ``coordinator``
+    when there is one) through ``dist.init.pod_info``, which opens no
+    group: a pod's manifests never pool with a single process's."""
+    from distributed_sddmm_tpu_torch.dist.init import pod_info
+
+    try:
+        return pod_info().record_fields()
+    except ValueError:  # mislabelled pod: the manifest is best-effort
+        return {}
+
+
 def build(run_id: str, extra: dict | None = None, device=None, world=None) -> dict:
     m = {
         "schema": SCHEMA_VERSION,
@@ -144,6 +157,7 @@ def build(run_id: str, extra: dict | None = None, device=None, world=None) -> di
     }
     if "device" in m:
         m["backend"] = backend_name(device, world)
+    m.update(_dist_info())
     if extra:
         m["extra"] = extra
     return m

@@ -39,9 +39,16 @@ each rank this process holds, in row-major grid order (``comm.coords``,
   collectives in the same order on each. ``all_reduce("max")`` (the
   attention stats merge, which no path differentiates) refuses a grad.
 
-:func:`world_from_env` picks the world as the benchmark does: under
+:func:`world_from_env` picks the world as the benchmark does: over an
+initialised default group (the pod runner's, ``dist/run.py``) or under
 ``torchrun`` (``WORLD_SIZE`` set) a ``DistWorld``, otherwise a
 ``LocalWorld`` of ``SDDMM_TORCH_LOCAL_RANKS`` ranks (default 1).
+
+Besides ``counts`` (collective calls by kind) each comm keeps
+``axis_counts``: by axis label (``rows``, ``cols``, ``layers`` or names
+joined by ``+``) and kind, the calls and how many of them ran over a group
+whose ranks sit on more than one host (``cross_host``; hosts as
+``parallel/mesh.py::rank_hosts`` numbers them). Counting changes no result.
 """
 
 from __future__ import annotations
@@ -53,7 +60,7 @@ import torch
 import torch.distributed as dist
 
 from distributed_sddmm_tpu_torch.device import resolve_device
-from distributed_sddmm_tpu_torch.parallel.mesh import AXES, GridSpec
+from distributed_sddmm_tpu_torch.parallel.mesh import AXES, GridSpec, rank_hosts
 
 #: Environment variable: the number of ranks of a ``LocalWorld``.
 LOCAL_RANKS_ENV = "SDDMM_TORCH_LOCAL_RANKS"
@@ -72,6 +79,11 @@ def _axis_ids(axis) -> tuple:
     if unknown or not names:
         raise ValueError(f"unknown grid axis {axis!r}; expected names from {AXES}")
     return tuple(AXES.index(n) for n in names)
+
+
+def _axis_label(axis) -> str:
+    """The ``axis_counts`` key of ``axis``: its names in grid order."""
+    return "+".join(AXES[i] for i in sorted(_axis_ids(axis)))
 
 
 def _outside(coord: tuple, ids: tuple) -> tuple:
@@ -100,10 +112,25 @@ class _Comm:
         self.ranks = [grid.flat_rank(*c) for c in self.coords]
         self.counts = dict.fromkeys(
             ("ppermute", "all_gather", "reduce_scatter", "all_reduce"), 0)
+        self.axis_counts: dict = {}
 
     def reset_counts(self) -> None:
         for k in self.counts:
             self.counts[k] = 0
+        self.axis_counts.clear()
+
+    def _spans_hosts(self, axis) -> bool:
+        """Whether this process's group over ``axis`` holds ranks of more
+        than one host (never, for ranks that all live in this process)."""
+        return False
+
+    def _count(self, kind: str, axis) -> None:
+        """One collective call of ``kind`` over ``axis``."""
+        self.counts[kind] += 1
+        row = self.axis_counts.setdefault(_axis_label(axis), {}).setdefault(
+            kind, {"count": 0, "cross_host": 0})
+        row["count"] += 1
+        row["cross_host"] += self._spans_hosts(axis)
 
     def ppermute(self, xs: list, axis, perm) -> list:
         return self.ppermute_start(xs, axis, perm)()
@@ -130,7 +157,7 @@ class LocalComm(_Comm):
 
     def ppermute_start(self, xs: list, axis, perm) -> Callable:
         """A rotation of the list: no tensor is copied."""
-        self.counts["ppermute"] += 1
+        self._count("ppermute", axis)
         groups = self._groups(axis)
         ys = [None] * len(xs)
         for members in groups:
@@ -140,7 +167,7 @@ class LocalComm(_Comm):
         return lambda: ys
 
     def all_gather(self, xs: list, axis) -> list:
-        self.counts["all_gather"] += 1
+        self._count("all_gather", axis)
         groups = self._groups(axis)
         ys = [None] * len(xs)
         for members in groups:
@@ -150,7 +177,7 @@ class LocalComm(_Comm):
         return ys
 
     def reduce_scatter(self, xs: list, axis) -> list:
-        self.counts["reduce_scatter"] += 1
+        self._count("reduce_scatter", axis)
         groups = self._groups(axis)
         ys = [None] * len(xs)
         for members in groups:
@@ -163,7 +190,7 @@ class LocalComm(_Comm):
         return ys
 
     def all_reduce(self, xs: list, axis, op: str = "sum") -> list:
-        self.counts["all_reduce"] += 1
+        self._count("all_reduce", axis)
         fold = _REDUCE[op]
         groups = self._groups(axis)
         ys = [None] * len(xs)
@@ -207,6 +234,7 @@ class DistComm(_Comm):
         # ids -> (group, member ranks in axis order); every process makes
         # every group, in the same order, or the collectives hang.
         self._groups: dict = {}
+        self._hosts = rank_hosts(grid.p)
         for ids in _AXIS_SETS:
             by_key: dict = {}
             for c in grid.coords():
@@ -217,6 +245,10 @@ class DistComm(_Comm):
                 pg = dist.new_group(sorted(ranks), backend=backend)
                 if key == _outside(coord, ids):
                     self._groups[ids] = (pg, ranks)
+
+    def _spans_hosts(self, axis) -> bool:
+        _, ranks = self._groups[tuple(sorted(_axis_ids(axis)))]
+        return len({self._hosts[r] for r in ranks}) > 1
 
     def _group(self, axis) -> tuple:
         """``(group, member ranks in axis order, order)``: ``order[g]`` is
@@ -237,7 +269,7 @@ class DistComm(_Comm):
         the wait returns ``[received]``. Under grad the hop completes
         inside its autograd node before this returns, so an overlapped
         ring that asks for grads waits on each hop before the next."""
-        self.counts["ppermute"] += 1
+        self._count("ppermute", axis)
         (x,) = xs
         if _wants_grad(x):
             y = _Hop.apply(x, self, axis, tuple(perm))
@@ -266,7 +298,7 @@ class DistComm(_Comm):
         return wait
 
     def all_gather(self, xs: list, axis) -> list:
-        self.counts["all_gather"] += 1
+        self._count("all_gather", axis)
         (x,) = xs
         return [_Gather.apply(x, self, axis) if _wants_grad(x) else self._gather(x, axis)]
 
@@ -281,7 +313,7 @@ class DistComm(_Comm):
         return y
 
     def reduce_scatter(self, xs: list, axis) -> list:
-        self.counts["reduce_scatter"] += 1
+        self._count("reduce_scatter", axis)
         (x,) = xs
         return [_Scatter.apply(x, self, axis) if _wants_grad(x) else self._scatter(x, axis)]
 
@@ -294,7 +326,7 @@ class DistComm(_Comm):
         return y
 
     def all_reduce(self, xs: list, axis, op: str = "sum") -> list:
-        self.counts["all_reduce"] += 1
+        self._count("all_reduce", axis)
         (x,) = xs
         if _wants_grad(x):
             if op != "sum":
@@ -325,7 +357,7 @@ class _Hop(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        ctx.comm.counts["ppermute"] += 1
+        ctx.comm._count("ppermute", ctx.axis)
         back = tuple((d, s) for s, d in ctx.perm)
         return ctx.comm._hop(g.contiguous(), ctx.axis, back)()[0], None, None, None
 
@@ -341,7 +373,7 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        ctx.comm.counts["reduce_scatter"] += 1
+        ctx.comm._count("reduce_scatter", ctx.axis)
         return ctx.comm._scatter(g.contiguous(), ctx.axis), None, None
 
 
@@ -357,7 +389,7 @@ class _Scatter(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        ctx.comm.counts["all_gather"] += 1
+        ctx.comm._count("all_gather", ctx.axis)
         return ctx.comm._gather(g.contiguous(), ctx.axis), None, None
 
 
@@ -371,7 +403,7 @@ class _Sum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        ctx.comm.counts["all_reduce"] += 1
+        ctx.comm._count("all_reduce", ctx.axis)
         return ctx.comm._reduce(g, ctx.axis), None, None
 
 
@@ -421,12 +453,15 @@ class DistWorld:
 
 
 def world_from_env(device=None):
-    """The world the environment describes: under ``torchrun``
+    """The world the environment describes: a :class:`DistWorld` over an
+    initialised default group (whoever opened it: the pod runner's
+    ``dist.init.initialize``, or the caller); under ``torchrun``
     (``WORLD_SIZE`` set) a :class:`DistWorld`, initialising the default
     group from the environment (NCCL on ``cuda``, with this process on
-    card ``LOCAL_RANK``; gloo on ``cpu``) unless it is already; otherwise
-    a :class:`LocalWorld` of ``SDDMM_TORCH_LOCAL_RANKS`` ranks (default
-    1)."""
+    card ``LOCAL_RANK``; gloo on ``cpu``); otherwise a :class:`LocalWorld`
+    of ``SDDMM_TORCH_LOCAL_RANKS`` ranks (default 1)."""
+    if dist.is_initialized():
+        return DistWorld()
     if "WORLD_SIZE" in os.environ:
         if not dist.is_initialized():
             dev = resolve_device(device)

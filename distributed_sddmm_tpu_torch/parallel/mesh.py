@@ -9,11 +9,20 @@ ranks of one host, or of one NVLink island). :class:`GridSpec` is pure
 geometry: the ranks themselves belong to a world (``parallel/comm.py``),
 which binds a grid with :meth:`~distributed_sddmm_tpu_torch.parallel.comm.
 LocalWorld.comm`.
+
+A pod (``dist/``) numbers its ranks host-major: the ranks of host 0 first,
+then host 1's, each host holding ``LOCAL_WORLD_SIZE`` ranks (``torchrun``'s)
+or ``SDDMM_TORCH_DIST_RANKS_PER_HOST``. :func:`pod_device_order` is that
+order, :func:`make_pod_grid` a grid over it and :func:`process_spans` names
+the grid axes whose collectives cross a host boundary. ``GridSpec`` has no
+``sharding``: the JAX package's ``NamedSharding`` places arrays on a device
+mesh, and the port places a block a rank through its comm.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 ROWS, COLS, LAYERS = "rows", "cols", "layers"
 AXES = (ROWS, COLS, LAYERS)
@@ -124,3 +133,77 @@ def make_grid(nr: int, nc: int, nh: int = 1, adjacency: int = 3) -> GridSpec:
     if min(nr, nc, nh) < 1:
         raise ValueError(f"grid dims must be positive, got {nr}x{nc}x{nh}")
     return GridSpec(nr=nr, nc=nc, nh=nh, adjacency=adjacency)
+
+
+#: Environment variable: the ranks one host of a pod holds (torchrun's
+#: ``LOCAL_WORLD_SIZE`` wins where it is set).
+RANKS_PER_HOST_ENV = "SDDMM_TORCH_DIST_RANKS_PER_HOST"
+
+
+def ranks_per_host(world_size: int) -> int:
+    """The ranks a host holds: ``LOCAL_WORLD_SIZE``, else
+    ``SDDMM_TORCH_DIST_RANKS_PER_HOST``, else all ``world_size`` (one
+    host)."""
+    for name in ("LOCAL_WORLD_SIZE", RANKS_PER_HOST_ENV):
+        env = os.environ.get(name)
+        if env:
+            n = int(env)
+            if n < 1:
+                raise ValueError(f"{name}={env}: a host holds at least one rank")
+            return n
+    return max(int(world_size), 1)
+
+
+def rank_hosts(world_size: int) -> tuple:
+    """The host of each rank ``0 .. world_size - 1``: ranks are numbered
+    host-major, :func:`ranks_per_host` to a host."""
+    per = ranks_per_host(world_size)
+    return tuple(r // per for r in range(world_size))
+
+
+@dataclasses.dataclass(frozen=True)
+class PodSlot:
+    """One rank of a pod and the host it runs on."""
+
+    rank: int
+    host: int
+
+
+def pod_device_order(world_size: int | None = None) -> list:
+    """Every rank of the pod as a :class:`PodSlot`, host-major (by host,
+    then rank): the port's rank order, so a grid's fastest axis stays on
+    one host first and the host boundary falls at a fixed stride.
+    ``world_size`` defaults to the default group's, else the pod labels'
+    (``dist.init.pod_info``)."""
+    if world_size is None:
+        from distributed_sddmm_tpu_torch.dist.init import pod_info
+
+        world_size = pod_info().num_processes
+    hosts = rank_hosts(world_size)
+    return sorted((PodSlot(r, hosts[r]) for r in range(world_size)),
+                  key=lambda s: (s.host, s.rank))
+
+
+def make_pod_grid(nr: int, nc: int, nh: int = 1, adjacency: int = 3) -> GridSpec:
+    """An ``nr x nc x nh`` grid over every rank of a pod, flat rank ``k``
+    being the ``k``-th slot of :func:`pod_device_order`: the grid every
+    process of the pod builds alike. The pod order is the rank order, so
+    this is :func:`make_grid`'s grid; :func:`process_spans` reads where its
+    host boundary falls."""
+    return make_grid(nr, nc, nh, adjacency=adjacency)
+
+
+def process_spans(grid: GridSpec, hosts=None) -> dict:
+    """For each of ``rows``, ``cols`` and ``layers``: whether two ranks
+    that differ only in that coordinate sit on different hosts, i.e.
+    whether collectives over the axis cross a host boundary. ``hosts`` is
+    the host of each flat rank (default :func:`rank_hosts`)."""
+    hosts = rank_hosts(grid.p) if hosts is None else tuple(hosts)
+    spans = {}
+    for a, name in enumerate(AXES):
+        lines: dict = {}
+        for coord in grid.coords():
+            key = tuple(c for b, c in enumerate(coord) if b != a)
+            lines.setdefault(key, set()).add(hosts[grid.flat_rank(*coord)])
+        spans[name] = any(len(h) > 1 for h in lines.values())
+    return spans

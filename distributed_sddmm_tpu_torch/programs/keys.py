@@ -17,8 +17,8 @@ same inputs is the JAX package's, character for character. The bench AOT
 key of the JAX package has no port: the port's nvcc build is keyed by its
 sources already (``ops/_build.py``).
 
-Standard library only, but for :func:`dist_segment`'s look at the
-process group.
+Standard library only, but for :func:`dist_segment`'s look at the pod
+identity (``dist/init.py``).
 """
 
 from __future__ import annotations
@@ -56,23 +56,21 @@ def sig_for_args(args) -> str:
 def dist_segment(num_processes: int | None = None,
                  process_index: int | None = None, world=None) -> str:
     """The multi-process key segment: ``dN.pK`` for process ``K`` of an
-    ``N``-process world, ``""`` in one process (so single-process keys
-    have no trailing segment). A process's set-up is its own ranks', so
-    process K of an N-process world warm-starts only from entries that
-    process K of an N-process world wrote. The defaults come from
-    ``world`` (a ``LocalWorld`` or ``DistWorld`` of ``parallel/comm.py``),
-    else from the initialised default process group, the one a
-    ``DistWorld`` runs on (none: one process)."""
+    ``N``-process pod, ``""`` in one process (so single-process keys have
+    no trailing segment). A process's set-up is its own ranks', so process
+    K of an N-process pod warm-starts only from entries that process K of
+    an N-process pod wrote. The defaults come from ``world`` (a
+    ``LocalWorld`` or ``DistWorld`` of ``parallel/comm.py``) when it spans
+    processes, else from ``dist.init.pod_info`` (a live group of more
+    than one rank, else the pod launcher's labels, else one process)."""
     if num_processes is None:
-        if world is not None:
+        if world is not None and world.num_processes > 1:
             num_processes, process_index = world.num_processes, world.process_index
         else:
-            import torch.distributed as dist
+            from distributed_sddmm_tpu_torch.dist.init import pod_info
 
-            if dist.is_available() and dist.is_initialized():
-                num_processes, process_index = dist.get_world_size(), dist.get_rank()
-            else:
-                num_processes, process_index = 1, 0
+            ctx = pod_info()
+            num_processes, process_index = ctx.num_processes, ctx.process_index
     if not num_processes or int(num_processes) <= 1:
         return ""
     if process_index is None:

@@ -350,6 +350,16 @@ class HostCOO:
         mat = scipy.io.mmread(str(path))
         return cls.from_scipy(mat if sp.issparse(mat) else sp.coo_matrix(mat))
 
+    @classmethod
+    def load_mtx_partitioned(cls, path, nproc: int, proc_id: int, *,
+                             mode: str = "strict", **kw):
+        """Process ``proc_id``'s block rows of a ``.mtx`` file, streamed,
+        of ``nproc``: a ``dist.ingest.COOShard`` whose ``.coo`` holds
+        global coordinates (``dist/ingest.py``)."""
+        from distributed_sddmm_tpu_torch.dist.ingest import load_mtx_partitioned
+
+        return load_mtx_partitioned(path, nproc, proc_id, mode=mode, **kw)
+
     def save_mtx(self, path) -> None:
         """Write a ``coordinate real general`` file in this matrix's entry
         order; the values round-trip exactly."""

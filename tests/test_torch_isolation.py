@@ -82,7 +82,8 @@ def test_port_and_chip_smoke_import_no_jax_in_subprocess():
                 "dynstruct", "dynstruct.capacity", "dynstruct.rebind", "serve",
                 "serve.queue", "serve.slo", "serve.workloads", "serve.engine",
                 "obs.telemetry", "ops.serve_kernels", "obs.httpexp", "tuner", "tuner.signals",
-                "tuner.retune", "tuner.shadow", "tuner.loop"):
+                "tuner.retune", "tuner.shadow", "tuner.loop", "dist", "dist.init",
+                "dist.ingest", "dist.elastic", "dist.run"):
         assert f"distributed_sddmm_tpu_torch.{mod}" in mods
 
 
@@ -104,12 +105,14 @@ def test_ast_scan_finds_no_forbidden_import():
     # And every import the port makes is one the card's machine has
     # (matrix-market files go through ``scipy.io``).
     allowed = {"torch", "numpy", "scipy", "distributed_sddmm_tpu_torch",
-               "__future__", "abc", "argparse", "base64", "collections", "contextlib",
-               "ctypes", "dataclasses", "enum", "errno", "fcntl", "fnmatch", "functools",
+               "__future__", "abc", "argparse", "base64", "collections", "concurrent",
+               "contextlib", "ctypes", "dataclasses", "datetime", "enum", "errno", "fcntl",
+               "fnmatch", "functools",
                "hashlib", "html", "http", "importlib", "inspect", "io", "itertools", "json",
                "logging", "math",
                "multiprocessing", "os", "pathlib", "random", "re", "shutil", "signal",
-               "statistics", "subprocess", "sys", "tempfile", "threading", "time", "typing",
+               "socket", "statistics", "subprocess", "sys", "tempfile", "threading", "time",
+               "typing",
                "urllib", "zipfile"}
     used = set().union(*(_guarded_roots(f, keep=False) for f in files))
     assert used <= allowed, used - allowed
